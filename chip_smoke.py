@@ -28,8 +28,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 5. Profile: two more requests under ``torch.profiler``; the device's busy
    share of that window (the union of kernel and copy intervals) and each
    kernel's device time per request.  The trace is kept in
-   ``chiprun_out/smoke_trace.json``.
-6. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+   ``chiprun_out/smoke_trace_reduce.json``.
+6. Seal kernels: ``match_deltas`` (stride 2 and 4) and ``sort_rows``
+   against their plain versions on the card, on eight 32 MiB containers
+   (the generators of tests/test_lz4_tpu.py scaled up, the reference
+   package's source text, the unique chunks of phase 4's corpus, and
+   random bytes with sparse copies, whose match density runs the
+   grey-zone race).
+   ``sort_rows`` runs on the inputs of every call site of the match scan,
+   captured from a real scan, plus unique i32 keys, u32 keys across the
+   sign bit and a padded row that is not a power of two; keys and the
+   slots of unique keys (the live slots) must be exact.  Times on the
+   ``source`` container at stride 2: kernel median of 20 runs, plain
+   once, ``library_ms`` for ``sort_rows`` (``torch.sort`` and a
+   ``torch.gather`` per value; ``match_deltas`` has none).
+7. Seal main path: the port's worker on the card answers 8 ``compress``
+   requests of one 32 MiB container and 2 ``compress_batch`` requests of
+   4, sent by the port's WorkerClient.  Every reply must decode to its
+   payload and equal, byte for byte, a CPU ``DeviceLz4`` fed the same
+   sequence; both seal kernels' launch counts over the requests must be
+   > 0; the sparse container must emit from its device records.  Per
+   request: latency, MiB/s, compressed size, ratio against the serial
+   ``native.lz4_compress``, kept match records, and the branch taken
+   (``lz4_device`` counters).  Two more ``compress`` requests are profiled as in phase 5
+   (``chiprun_out/smoke_trace_seal.json``).
+8. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The CDC kernel pair is two launches with a wrapper and a count each:
@@ -43,6 +66,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,8 +76,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import CdcConfig
-from hdrf_tpu_torch.ops import _build, cdc_cuda, gather_cuda, sha256_cuda
+from hdrf_tpu_torch.ops import (_build, cdc_cuda, gather_cuda, lz4_device,
+                                sha256_cuda, sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
 from hdrf_tpu_torch.ops.sha256 import sha256_words
 from hdrf_tpu_torch.proto.datatransfer import DEFAULT_PACKET
@@ -75,8 +101,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SHA_OPS_PER_BLOCK = 48 * 10 + 64 * 14 + 8
 CDC_SCAN_OPS_PER_BYTE = 5
 CDC_SELECT_OPS_PER_CUT = 8
+# Match deltas per entry: the hash (IMAD + SHF), the same-hash test, the
+# gram compare with the previous occurrence, the rotate of the degenerate
+# test (SHF) and its compare, the offset (IADD3, IMAD by the stride), the
+# cap compare and the select.
+MATCH_OPS_PER_ENTRY = 10
 MIB = 1 << 20
-TRACE = Path(__file__).resolve().parent / "chiprun_out" / "smoke_trace.json"
+SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
+_I32_MIN = -(1 << 31)
+TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
+REDUCE_KERNEL_NAMES = ("cdc_scan_kernel", "cdc_select_kernel",
+                       "gather_pad_kernel", "sha256_kernel")
 
 KERNELS = {
     "cdc_scan": ("hdrf_tpu_torch/csrc/cdc.cu",
@@ -87,6 +122,10 @@ KERNELS = {
                    "hdrf_tpu/ops/gather_pallas.py:122"),
     "sha256": ("hdrf_tpu_torch/csrc/sha256.cu",
                "hdrf_tpu/ops/sha256_pallas.py:99"),
+    "match_deltas": ("hdrf_tpu_torch/csrc/sort.cu",
+                     "hdrf_tpu/ops/sort_pallas.py:273"),
+    "sort_rows": ("hdrf_tpu_torch/csrc/sort.cu",
+                  "hdrf_tpu/ops/sort_pallas.py:148"),
 }
 
 
@@ -324,29 +363,29 @@ def _union_us(spans: list, lo: float, hi: float) -> float:
     return total
 
 
-def profile_window(client, blocks, replies, cdc) -> dict:
-    """``reduce`` requests under torch.profiler: the device's busy share of
-    the window (union of kernel, copy and fill intervals) and the device
-    ms per request of each kernel.  The replies must repeat ``replies``."""
+def profile_window(tag: str, run_requests, nreq: int, names) -> dict:
+    """``nreq`` requests (``run_requests()``) under torch.profiler: the
+    device's busy share of the window (union of kernel, copy and fill
+    intervals) and the device ms per request of each kernel, by the first
+    of ``names`` (kernel name -> label) found in its name.  The trace is
+    kept in ``chiprun_out/smoke_trace_<tag>.json``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("smoke.window"):
-            again = [client.reduce_stream(packets(b), cdc) for b in blocks]
+            run_requests()
         torch.cuda.synchronize()
-    for (c0, d0), (c1, d1) in zip(replies, again):
-        check(np.array_equal(c0, c1) and np.array_equal(d0, d1),
-              "profiled request != its first reply")
-    TRACE.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(TRACE))
-    events = json.loads(TRACE.read_text())["traceEvents"]
+    trace = TRACE_DIR / f"smoke_trace_{tag}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
     win = [e for e in events if e.get("name") == "smoke.window"
            and e.get("ph") == "X"]
     dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     if not win or not any(e["cat"] == "kernel" for e in dev_ev):
-        print("PROFILE not measured: no device kernels in the trace",
+        print(f"PROFILE {tag} not measured: no device kernels in the trace",
               flush=True)
         return {"busy_share": None}
     lo = float(win[0]["ts"])
@@ -356,15 +395,14 @@ def profile_window(client, blocks, replies, cdc) -> dict:
     per_kernel: dict = {}
     for e in dev_ev:
         key = e["name"] if e["cat"] != "kernel" else next(
-            (k for k in ("cdc_scan_kernel", "cdc_select_kernel",
-                         "gather_pad_kernel", "sha256_kernel")
-             if k in e["name"]), "other kernels")
+            (label for k, label in names.items() if k in e["name"]),
+            "other kernels")
         per_kernel[key] = per_kernel.get(key, 0.0) \
-            + float(e["dur"]) / 1e3 / len(blocks)
-    out = {"requests": len(blocks), "window_ms": (hi - lo) / 1e3,
+            + float(e["dur"]) / 1e3 / nreq
+    out = {"requests": nreq, "window_ms": (hi - lo) / 1e3,
            "busy_share": _union_us(spans, lo, hi) / (hi - lo),
            "device_ms_per_request": per_kernel}
-    print("PROFILE " + json.dumps(out), flush=True)
+    print(f"PROFILE {tag} " + json.dumps(out), flush=True)
     return out
 
 
@@ -389,13 +427,21 @@ def main_path(args, dev, cdc: CdcConfig) -> dict:
         waits = {k: v - waits0.get(k, 0.0)
                  for k, v in _host_waits(ledger).items()}
         stats = client.stats()
-        prof = profile_window(client, blocks[:2], replies[:2], cdc)
+        again = []
+        prof = profile_window(
+            "reduce", lambda: again.extend(
+                client.reduce_stream(packets(b), cdc) for b in blocks[:2]),
+            2, {k: k.removesuffix("_kernel") for k in REDUCE_KERNEL_NAMES})
+        for (c0, d0), (c1, d1) in zip(replies, again):
+            check(np.array_equal(c0, c1) and np.array_equal(d0, d1),
+                  "profiled request != its first reply")
     finally:
         client.close()
         worker.stop()
     mask = gear_mask(cdc)
     b_small, _ = buckets_of(mask, cdc.max_chunk)
     all_digs, nchunks = set(), 0
+    unique, unique_n = [], 0    # the unique chunks, up to one container
     for i, (blk, (cuts, digs)) in enumerate(zip(blocks, replies)):
         block, n = cdc_cuda.padded_block(blk, dev)
         _, table, _, _ = cdc_cuda.cdc_block_plain(block, n, mask,
@@ -408,6 +454,10 @@ def main_path(args, dev, cdc: CdcConfig) -> dict:
         for c, d in zip(cuts, digs):
             check(d.tobytes() == hashlib.sha256(blk[start:c]).digest(),
                   f"request {i}: digest of chunk at {start} != hashlib")
+            if unique_n < SEAL_BYTES and d.tobytes() not in all_digs:
+                all_digs.add(d.tobytes())
+                unique.append(blk[start:c])
+                unique_n += int(c) - start
             start = int(c)
         all_digs.update(d.tobytes() for d in digs)
         nchunks += cuts.size
@@ -424,7 +474,329 @@ def main_path(args, dev, cdc: CdcConfig) -> dict:
                k: v / len(blocks) for k, v in waits.items()},
            "launches": launches, "profile": prof, "worker_stats": stats}
     print("MAIN_PATH " + json.dumps(out), flush=True)
+    return out, np.concatenate(unique)
+
+
+# ------------------------------------------------------------------- seal
+
+
+def _seal_text(rng, n: int) -> np.ndarray:
+    """tests/test_lz4_tpu.py's word soup: 500 words of 2-8 letters."""
+    vocab = [rng.integers(97, 123, size=rng.integers(2, 9),
+                          dtype=np.uint8).tobytes() for _ in range(500)]
+    out = b" ".join(vocab[i] for i in rng.integers(0, 500, size=n // 5))
+    return np.frombuffer(out[:n], np.uint8)
+
+
+def _fill(b: bytes, n: int) -> np.ndarray:
+    return np.frombuffer((b * (n // len(b) + 1))[:n], np.uint8)
+
+
+def _sparse_copies(rng, n: int) -> np.ndarray:
+    """Random bytes with copies confined to part of each 128 KiB supertile:
+    80 KiB of fresh bytes, then 48 KiB (three 16 KiB record rows) carrying
+    a copy of a 16-256-byte span up to 8 KiB back after every 128-512
+    fresh bytes (one copy in 50 is instead a 1,100-2,000-byte run of the
+    last 16-64 bytes); every 32nd supertile has no copies.  Its match density lies between the emit and flood regimes:
+    above the race threshold (one record per 2 KiB), under the flood cap,
+    and in few enough record rows that the L2 slices hold them.  A long
+    copy escapes its length and a copy-free supertile the position gap of
+    the next record, so both escape lanes carry records."""
+    out = rng.integers(0, 256, n, dtype=np.uint8)
+    span = 128 << 10
+    for base in range(0, n, span):
+        if base // span % 32 == 31:
+            continue
+        p, end = base + (80 << 10), base + span
+        while True:
+            p += int(rng.integers(128, 513))
+            long = rng.random() < 0.02
+            ln = int(rng.integers(1100, 2001) if long
+                     else rng.integers(16, 257))
+            if p + ln > end:
+                break
+            if long:    # a run: the last 16-64 bytes repeated
+                out[p:p + ln] = np.resize(out[p - int(rng.integers(16, 65)):p],
+                                          ln)
+            else:
+                src = p - int(rng.integers(ln, ln + 8193))
+                out[p:p + ln] = out[src:src + ln]
+            p += ln
     return out
+
+
+def seal_corpora(seed: int, chunks: np.ndarray) -> dict:
+    """One 32 MiB container of each kind: the generators of
+    tests/test_lz4_tpu.py scaled up, the reference package's source text
+    (structured code), the unique chunks of the reduce corpus (what a
+    dedup_lz4 container holds), and ``sparse``, whose match density lies
+    between the emit and flood regimes (the grey-zone race)."""
+    rng = np.random.default_rng(seed + 2)
+    n = SEAL_BYTES
+    root = Path(__file__).resolve().parent / "hdrf_tpu"
+    source = b"".join(p.read_bytes() for p in sorted(root.rglob("*.py")))
+    return {"text": _seal_text(rng, n),
+            "zeros": np.zeros(n, np.uint8),
+            "random": rng.integers(0, 256, n, dtype=np.uint8),
+            "rand_ascii": rng.integers(97, 123, n, dtype=np.uint8),
+            "repeat997": _fill(rng.integers(0, 256, 997,
+                                            dtype=np.uint8).tobytes(), n),
+            "source": _fill(source, n),
+            "chunks": _fill(chunks.tobytes(), n),
+            "sparse": _sparse_copies(rng, n)}
+
+
+def sort_err(got, want) -> int:
+    """Keys over every slot, values over the slots whose key is unique in
+    its row (the live slots: ties occur only among dead ones)."""
+    e = max_err(got[0], want[0])
+    k = want[0]
+    uniq = torch.ones_like(k, dtype=torch.bool)
+    tie = k[:, 1:] == k[:, :-1]
+    uniq[:, 1:] &= ~tie
+    uniq[:, :-1] &= ~tie
+    for g, w in zip(got[1:], want[1:]):
+        e = max(e, max_err(g[uniq], w[uniq]))
+    return e
+
+
+def captured_sorts(block, stride: int, p: tuple) -> tuple[list, int]:
+    """The inputs of every sort_rows call of one match scan, as the scan
+    makes them (L1, L2, L3 and the two escape lanes), and the scan's
+    count of kept records."""
+    calls = []
+    real = sort_cuda.sort_rows
+
+    def record(key, *vals, **kw):
+        calls.append((key.clone(), [v.clone() for v in vals], kw))
+        return real(key, *vals, **kw)
+
+    sort_cuda.sort_rows = record
+    try:
+        row = lz4_device.match_scan(block, stride, 4, *p)
+    finally:
+        sort_cuda.sort_rows = real
+    return calls, int(row[0])
+
+
+def synthetic_sorts(rng, dev) -> list:
+    """Unique i32 keys, u32 keys across the sign bit and a padded row that
+    is not a power of two."""
+    def keys(t, e, off):
+        k = np.stack([rng.permutation(e).astype(np.int64) + off
+                      for _ in range(t)])
+        return torch.from_numpy((k & 0xFFFFFFFF).astype(np.uint32)
+                                .view(np.int32)).to(dev)
+
+    def vals(t, e):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (t, e))
+                                .astype(np.int32)).to(dev)
+
+    return [
+        (keys(2048, 8192, -4096), [vals(2048, 8192), vals(2048, 8192)], {}),
+        (keys(128, 8192, 0x80000000 - 4096),
+         [vals(128, 8192), vals(128, 8192)], {"key_unsigned": True}),
+        (keys(1, 300_000, 0), [vals(1, 300_000)],
+         {"pad_key": 2**31 - 1, "pad_vals": (0,)}),
+    ]
+
+
+def sort_library(key, vals, kw):
+    """torch.sort + torch.gather of each value: the library yardstick."""
+    k = key ^ _I32_MIN if kw.get("key_unsigned") else key
+    sk, order = torch.sort(k, dim=1)
+    return [sk, *[torch.gather(v, 1, order) for v in vals]]
+
+
+def sort_bytes(key, vals) -> int:
+    return 2 * 4 * key.numel() * (1 + len(vals))
+
+
+def sort_ops(key) -> float:
+    """n log2 n compares per row: the fewest any comparison sort does."""
+    e = key.shape[1]
+    return key.numel() * max(math.log2(e), 1.0)
+
+
+def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
+    """match_deltas (stride 2 and 4) and sort_rows (every call site of the
+    match scan, plus synthetic rows) against their plain versions on the
+    card, on every seal corpus; timed on the source container at stride 2
+    (the main path's stride).  Returns each corpus's count of kept match
+    records at stride 2."""
+    records = {}
+    md = timing["match_deltas"] = {"ms": 0.0, "plain_ms": 0.0,
+                                   "library_ms": None}
+    sr = timing["sort_rows"] = {"ms": 0.0, "plain_ms": 0.0,
+                                "library_ms": 0.0}
+    for name, a in corpora.items():
+        block = torch.from_numpy(a.copy()).to(dev)
+        for stride in (2, 4):
+            vals, pos_bits = lz4_device.entries(block, stride)
+            k = sort_cuda.match_deltas(vals, stride, pos_bits)
+            p, p_ms = timed(lambda: sort_cuda.match_deltas_plain(
+                vals, stride, pos_bits))
+            e = max_err(k, p)
+            errs["match_deltas"] = max(errs["match_deltas"], e)
+            check(e == 0, f"seal {name} stride {stride}: match_deltas "
+                          f"kernel != plain (max err {e})")
+            timed_here = name == "source" and stride == 2
+            if timed_here:
+                md["ms"] = cuda_ms(lambda: sort_cuda.match_deltas(
+                    vals, stride, pos_bits))
+                md["plain_ms"] = p_ms
+                md["bound"] = bound(8 * vals.numel(),
+                                    MATCH_OPS_PER_ENTRY * vals.numel())
+            del vals, k, p
+            shapes = lz4_device.DeviceLz4(stride=stride,
+                                          device=dev)._shapes(block.numel())
+            calls, kept = captured_sorts(block, stride, shapes)
+            if stride == 2:
+                records[name] = kept
+            if timed_here:
+                calls += synthetic_sorts(np.random.default_rng(5), dev)
+            nbytes = ops = 0.0
+            for i, (key, vs, kw) in enumerate(calls):
+                got = sort_cuda.sort_rows(key, *vs, **kw)
+                want, w_ms = timed(lambda: sort_cuda.sort_rows_plain(
+                    key, *vs, **kw))
+                e = sort_err(got, want)
+                errs["sort_rows"] = max(errs["sort_rows"], e)
+                check(e == 0, f"seal {name} stride {stride}: sort_rows call "
+                              f"{i} {tuple(key.shape)} kernel != plain "
+                              f"(max err {e})")
+                if timed_here and i < 5:    # the scan's five call sites
+                    sr["ms"] += cuda_ms(lambda: sort_cuda.sort_rows(
+                        key, *vs, **kw))
+                    sr["plain_ms"] += w_ms
+                    sr["library_ms"] += cuda_ms(
+                        lambda: sort_library(key, vs, kw))
+                    nbytes += sort_bytes(key, vs)
+                    ops += sort_ops(key)
+            if timed_here:
+                sr["bound"] = bound(nbytes, ops)
+                sr["call_sites"] = [tuple(c[0].shape) for c in calls[:5]]
+            del calls
+        print(f"KERNELS seal {name}: {a.size} bytes, {records[name]} match "
+              f"records, match_deltas and sort_rows identical at stride 2 "
+              f"and 4", flush=True)
+        del block
+    torch.cuda.empty_cache()
+    return records
+
+
+# At 32 MiB text, rand_ascii, repeat997 and source flood the record
+# slices (native fallback); zeros, random and chunks emit from a few
+# device records, and sparse from tens of thousands, enough to run the
+# grey-zone race against the native encoder.  The order alternates floods
+# and emits, so two floods in a row never turn on the bypass and every
+# container's scan runs on the card.  A batch's reply is one frame of at
+# most 64 MiB (rpc.MAX_FRAME, the reference's wire limit), so a group
+# holds at most one incompressible container.
+SEAL_SINGLES = ("text", "zeros", "rand_ascii", "random", "repeat997",
+                "chunks", "source", "sparse")
+SEAL_BATCHES = (("text", "random", "source", "zeros"),
+                ("repeat997", "zeros", "text", "sparse"))
+SEAL_PROFILED = ("sparse", "source")
+RACE_MIN_RECORDS = (SEAL_BYTES // 2) >> 10    # DeviceLz4's grey-zone floor
+SEAL_KERNEL_NAMES = {"match_deltas_kernel": "match_deltas",
+                     "sort_tile_kernel": "sort_rows",
+                     "sort_step_kernel": "sort_rows",
+                     "cdc_scan_kernel": "cdc_scan"}
+BRANCHES = ("bypassed_scans", "native_fallbacks", "native_wins",
+            "races_skipped", "emits", "escape_rescans")
+
+
+def _branch(c0: dict, c1: dict) -> dict:
+    return {k: c1.get(k, 0) - c0.get(k, 0) for k in BRANCHES
+            if c1.get(k, 0) != c0.get(k, 0)}
+
+
+def seal_main_path(corpora: dict, records: dict) -> dict:
+    """The port's worker on the card seals 8 single containers
+    (``compress``) and 2 groups of 4 (``compress_batch``), driven by the
+    port's WorkerClient.  Every reply decodes to its payload and equals a
+    CPU DeviceLz4 fed the same sequence; the single ``sparse`` seal must
+    emit from its device records and run the grey-zone race."""
+    worker = ReductionWorker("127.0.0.1", 0, device="cuda").start()
+    client = WorkerClient(worker.addr)
+    twin = lz4_device.DeviceLz4(device="cpu")
+    reg = metrics.registry("lz4_device")
+    serial = {k: len(native.lz4_compress(a)) for k, a in corpora.items()}
+    reqs = [[k] for k in SEAL_SINGLES] + [list(b) for b in SEAL_BATCHES]
+    rows, outs = [], []
+    try:
+        sort_cuda.match_deltas_launches = sort_cuda.sort_rows_launches = 0
+        for names in reqs:
+            datas = [corpora[k] for k in names]
+            c0 = dict(reg.snapshot()["counters"])
+            t0 = time.perf_counter()
+            if len(names) == 1:
+                got = [client.compress("lz4", datas[0].tobytes())]
+            else:
+                got = client.compress_batch("lz4",
+                                            [d.tobytes() for d in datas])
+            lat = time.perf_counter() - t0
+            rows.append((names, lat, [len(g) for g in got],
+                         _branch(c0, dict(reg.snapshot()["counters"]))))
+            outs.append(got)
+        launches = {"match_deltas": sort_cuda.match_deltas_launches,
+                    "sort_rows": sort_cuda.sort_rows_launches}
+        stats = client.stats()
+        prof_outs = []
+        prof = profile_window(
+            "seal", lambda: prof_outs.extend(
+                client.compress("lz4", corpora[k].tobytes())
+                for k in SEAL_PROFILED),
+            len(SEAL_PROFILED), SEAL_KERNEL_NAMES)
+    finally:
+        client.close()
+        worker.stop()
+    for kname, cnt in launches.items():
+        check(cnt > 0, f"seal main path never launched the {kname} kernel")
+    for i, (names, got) in enumerate(zip(reqs, outs)):
+        datas = [corpora[k] for k in names]
+        want = (twin.compress_many(datas) if len(names) > 1
+                else [twin.compress(datas[0])])
+        for k, d, g, w in zip(names, datas, got, want):
+            check(native.lz4_decompress(g, d.size) == d.tobytes(),
+                  f"seal request {i} ({k}): reply does not decode")
+            check(g == w, f"seal request {i} ({k}): card stream != CPU "
+                          f"engine stream")
+        names, lat, sizes, branch = rows[i]
+        mib = sum(d.size for d in datas) / MIB
+        ratio = [sz / serial[k] for k, sz in zip(names, sizes)]
+        print(f"SEAL {i}: {'+'.join(names)} {mib:.0f} MiB "
+              f"latency_ms={lat * 1e3:.3f} MiB/s={mib / lat:.1f} "
+              f"compressed={sizes} vs_serial={[round(r, 6) for r in ratio]} "
+              f"records={[records[k] for k in names]} "
+              f"branch={json.dumps(branch)}", flush=True)
+        if names == ["sparse"]:
+            check(records["sparse"] > RACE_MIN_RECORDS
+                  and branch.get("emits") == 1
+                  and "native_fallbacks" not in branch,
+                  f"sparse seal did not emit from {records['sparse']} device "
+                  f"records in the race zone (branch {branch})")
+    for k, g in zip(SEAL_PROFILED, prof_outs):
+        check(g == twin.compress(corpora[k]),
+              f"profiled seal ({k}) != CPU engine stream")
+    out = {"requests": [
+        {"payloads": r[0], "latency_ms": r[1] * 1e3,
+         "mib_per_s": sum(corpora[k].size for k in r[0]) / MIB / r[1],
+         "compressed": r[2],
+         "vs_serial": [sz / serial[k] for k, sz in zip(r[0], r[2])],
+         "records": [records[k] for k in r[0]],
+         "branch": r[3]} for r in rows],
+        "launches": launches, "profile": prof, "worker_stats": stats}
+    print("SEAL_PATH " + json.dumps(out), flush=True)
+    return out
+
+
+def print_timing(timing: dict) -> None:
+    for kname, t in timing.items():
+        print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
+              f"plain_ms={t['plain_ms']:.2f} library_ms={t['library_ms']} "
+              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
 
 
 def run(args) -> int:
@@ -463,19 +835,24 @@ def run(args) -> int:
           flush=True)
     del zeros
     torch.cuda.empty_cache()
-    for kname, t in timing.items():
-        print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
-              f"plain_ms={t['plain_ms']:.2f} library_ms={t['library_ms']} "
-              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
+    print_timing(timing)
 
-    mp = main_path(args, dev, cdc)
+    mp, chunks = main_path(args, dev, cdc)
+    corpora = seal_corpora(args.seed, chunks)
+    del chunks
+    seal_timing: dict = {}
+    records = seal_kernel_phase(corpora, dev, errs, seal_timing)
+    print_timing(seal_timing)
+    timing.update(seal_timing)
+    sp = seal_main_path(corpora, records)
+    launches = {**mp["launches"], **sp["launches"]}
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
         t = timing[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": mp["launches"][kname],
+                        "launches": launches[kname],
                         "max_abs_err": errs[kname], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],

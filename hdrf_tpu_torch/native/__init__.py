@@ -1,12 +1,16 @@
-"""Host CRC32C for packet checksums (port of hdrf_tpu/native/__init__.py:307
-``crc32c`` over native/src/crc32c.cpp).
+"""Host native helpers: CRC32C and the LZ4 codec (port of
+hdrf_tpu/native/__init__.py:67-83, 180-263, 307 over its ``crc32c.cpp``
+and ``lz4.cpp``).
 
-The port keeps its own copy of the slice-by-8 source in ``native/src`` and
-builds it with ``g++`` into ``build/hdrf_tpu_torch/`` at the repository
-root at first use (again whenever the source is newer than the library),
-then binds it with ctypes.  Only the packet checksum crosses: the rest of
-the reference's native library (host CDC, SHA, LZ4) is either replaced by
-the device kernels or not on this slice's path.
+The port keeps its own copies of those sources in ``native/src`` and
+builds every ``src/*.cpp`` with ``g++`` into one library,
+``build/hdrf_tpu_torch/libhdrf_torch_native.so`` at the repository root,
+at first use and again whenever any source is newer than the library;
+then binds it with ctypes.  What crosses: the packet checksum and the
+host half of the LZ4 seal (the serial encoder, its tail-reporting form
+for segmented compression, the emit over device match records, the
+packed-record unpack and the decoder).  The rest of the reference's
+native library (host CDC, SHA) is replaced by the device kernels.
 """
 
 from __future__ import annotations
@@ -19,21 +23,47 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "src" / "crc32c.cpp"
+_SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hdrf_tpu_torch"
 _SO = BUILD_DIR / "libhdrf_torch_native.so"
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
+_P, _U64, _U32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+# C entry points: name -> (argtypes, restype).
+_SIGNATURES = {
+    "hdrf_crc32c": ([_U32, _P, _U64], _U32),
+    "hdrf_lz4_compress_bound": ([_U64], _U64),
+    "hdrf_lz4_compress": ([_P, _U64, _P, _U64], _U64),
+    "hdrf_lz4_compress_tail": ([_P, _U64, _P, _U64, _U64P, _U64P], _U64),
+    "hdrf_lz4_decompress": ([_P, _U64, _P, _U64], _U64),
+    # row, p3, nv, stride, esc_slots, pos_out, dl_out
+    "hdrf_lz4_unpack_records": ([_P, _U64, _U64, _U64, _U64, _P, _P], _U64),
+    # src, n, pos, dl, nrec, dst, cap
+    "hdrf_lz4_emit": ([_P, _U64, _P, _P, _U64, _P, _U64], _U64),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(_SRC_DIR.glob("*.cpp"))
+
 
 def _build() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
     subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                    "-o", str(tmp), str(_SRC)],
+                    "-o", str(tmp), *map(str, _sources())],
                    check=True, capture_output=True, text=True)
     os.replace(tmp, _SO)  # atomic: concurrent builders never see half a file
+
+
+def _stale() -> bool:
+    if not _SO.exists():
+        return True
+    built = _SO.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in _sources())
 
 
 def _load() -> ctypes.CDLL:
@@ -42,21 +72,115 @@ def _load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            if not _SO.exists() or _SRC.stat().st_mtime > _SO.stat().st_mtime:
+            if _stale():
                 _build()
             lib = ctypes.CDLL(str(_SO))
-            lib.hdrf_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_void_p,
-                                        ctypes.c_uint64]
-            lib.hdrf_crc32c.restype = ctypes.c_uint32
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _lib = lib
     return _lib
+
+
+def _as_u8(data) -> np.ndarray:
+    a = (data if isinstance(data, np.ndarray)
+         else np.frombuffer(data, dtype=np.uint8))
+    if a.dtype != np.uint8 or not a.flags.c_contiguous:
+        raise ValueError("expected C-contiguous uint8 data")
+    return a
 
 
 def crc32c(data: bytes | bytearray | memoryview | np.ndarray,
            crc: int = 0) -> int:
     """CRC32C (Castagnoli) of ``data``, chained from ``crc``."""
-    a = (data if isinstance(data, np.ndarray)
-         else np.frombuffer(data, dtype=np.uint8))
-    if a.dtype != np.uint8 or not a.flags.c_contiguous:
-        raise ValueError("expected C-contiguous uint8 data")
+    a = _as_u8(data)
     return _load().hdrf_crc32c(crc & 0xFFFFFFFF, a.ctypes.data, a.size)
+
+
+def lz4_compress(data) -> bytes:
+    """The serial hash-table LZ4 block encoder."""
+    a = _as_u8(data)
+    if a.size == 0:
+        return b""
+    lib = _load()
+    cap = lib.hdrf_lz4_compress_bound(a.size)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.hdrf_lz4_compress(a.ctypes.data, a.size, out.ctypes.data, cap)
+    if n == 0:
+        raise RuntimeError("lz4 compression failed")
+    return out[:n].tobytes()
+
+
+def lz4_compress_tail(data) -> tuple[bytes, int, int]:
+    """lz4_compress plus (tail_token_offset, tail_literal_count) of the
+    stream's final literals-only sequence — what the segmented
+    compressor's stitcher needs (ops/lz4_device.lz4_stitch)."""
+    a = _as_u8(data)
+    if a.size == 0:
+        return b"", 0, 0
+    lib = _load()
+    cap = lib.hdrf_lz4_compress_bound(a.size)
+    out = np.empty(cap, dtype=np.uint8)
+    toff, tlit = ctypes.c_uint64(), ctypes.c_uint64()
+    n = lib.hdrf_lz4_compress_tail(a.ctypes.data, a.size, out.ctypes.data,
+                                   cap, ctypes.byref(toff),
+                                   ctypes.byref(tlit))
+    if n == 0:
+        raise RuntimeError("lz4 compression failed")
+    return out[:n].tobytes(), toff.value, tlit.value
+
+
+def lz4_emit(data, positions: np.ndarray, delta_len: np.ndarray) -> bytes:
+    """Greedy parse + serialize an LZ4 block from externally discovered
+    match records (the host half of the device seal).  Records are
+    (position, (offset << 16) | est_len), sorted by position."""
+    a = _as_u8(data)
+    if a.size == 0:
+        return b""
+    ps = np.ascontiguousarray(positions, dtype=np.int32)
+    dl = np.ascontiguousarray(delta_len, dtype=np.uint32)
+    if ps.shape != dl.shape:
+        raise ValueError("positions/delta_len shape mismatch")
+    lib = _load()
+    cap = lib.hdrf_lz4_compress_bound(a.size)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.hdrf_lz4_emit(a.ctypes.data, a.size, ps.ctypes.data,
+                          dl.ctypes.data, ps.size, out.ctypes.data, cap)
+    if n == 0:
+        raise RuntimeError("lz4 emit failed")
+    return out[:n].tobytes()
+
+
+def lz4_unpack_records(row: np.ndarray, p3: int, nv: int, stride: int,
+                       esc_slots: int):
+    """Decode the packed device record row (the u32 body after its 4-word
+    header; layout in ops/lz4_device.match_scan) into the (positions,
+    (offset << 16) | len) arrays lz4_emit consumes.  Returns (pos
+    int32[nrec], dl uint32[nrec], nrec); nrec < nv means an escape lane
+    overflowed on the device and the tail was not decodable."""
+    r = np.ascontiguousarray(row, dtype=np.uint32)
+    if r.size < p3 + p3 // 4 + 2 * esc_slots:
+        raise ValueError("packed record row too short")
+    if not 0 <= nv <= p3:
+        raise ValueError("invalid record count")
+    pos = np.empty(nv, dtype=np.int32)
+    dl = np.empty(nv, dtype=np.uint32)
+    nrec = _load().hdrf_lz4_unpack_records(
+        r.ctypes.data, p3, nv, stride, esc_slots, pos.ctypes.data,
+        dl.ctypes.data)
+    return pos[:nrec], dl[:nrec], int(nrec)
+
+
+def lz4_decompress(data, decompressed_size: int) -> bytes:
+    """Decode one LZ4 block of exactly ``decompressed_size`` bytes."""
+    a = _as_u8(data)
+    if decompressed_size == 0:
+        return b""
+    out = np.empty(decompressed_size, dtype=np.uint8)
+    n = _load().hdrf_lz4_decompress(a.ctypes.data, a.size, out.ctypes.data,
+                                    decompressed_size)
+    if n != decompressed_size:
+        raise RuntimeError(f"lz4 decompression failed: got {n}, want "
+                           f"{decompressed_size}")
+    return out.tobytes()

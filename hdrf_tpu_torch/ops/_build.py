@@ -38,6 +38,12 @@ _SIGNATURES = {
     "hdrf_gather_pad": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
     # msgs, L, W, nblocks, out, stream
     "hdrf_sha256": [_P, _I64, _I32, _P, _P, _P],
+    # vals, t, e, stride, out, stream
+    "hdrf_match_deltas": [_P, _I64, _I64, _I32, _P, _P],
+    # key, v0, v1, n_val, t, e, E, unsigned, pad_key, pad_v0, pad_v1,
+    # key_out, v0_out, v1_out, stream
+    "hdrf_sort_rows": [_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _U32,
+                       _U32, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,20 +1,24 @@
 """Backend dispatch for the reduction hot ops (port of
-hdrf_tpu/ops/dispatch.py:31-83, 161-209).
+hdrf_tpu/ops/dispatch.py:31-83, 161-281).
 
 Two backends with identical outputs:
 
-- ``cuda``: the card — ops/resident.ResidentReducer over the three CUDA
-  kernels (``auto`` resolves here);
-- ``cpu``: the same pipeline with each kernel's plain PyTorch version, for
-  tests on a machine without a card.
+- ``cuda``: the card — ops/resident.ResidentReducer over the CDC, gather
+  and SHA-256 kernels, ops/lz4_device.DeviceLz4 over the match-delta and
+  row-sort kernels (``auto`` resolves here);
+- ``cpu``: the same pipelines with each kernel's plain PyTorch version,
+  for tests on a machine without a card.
 
-``chunk_and_fingerprint`` is the write path's one funnel.  A CUDA backend
-without a card raises; nothing falls back to the CPU behind the caller.
-``from_reference_cdc`` is the one function that carries state across from
-the reference package (its ``dataclasses.asdict(CdcConfig)``).
+``chunk_and_fingerprint`` is the write path's one funnel,
+``block_compress`` / ``block_compress_batch`` the container seal's.  A
+CUDA backend without a card raises; nothing falls back to the CPU behind
+the caller.  ``from_reference_cdc`` and ``from_reference_lz4`` carry state
+across from the reference package.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -108,3 +112,84 @@ def chunk_and_fingerprint(data, cdc: CdcConfig, backend: str = "auto"):
     _M.incr(f"reduce_{backend}_total")
     _M.incr(f"reduce_{backend}_bytes", nbytes)
     return ResidentReducer(cdc, device=_device_for(backend)).reduce(data)
+
+
+# ----------------------------------------------------------- entropy stage
+# (port of hdrf_tpu/ops/dispatch.py:212-281 without its mesh branch)
+
+_LZ4_FIELDS = ("stride", "min_len", "min_device", "_p1", "_p2", "_p3",
+               "_flood_streak", "_bypass_left", "BYPASS_AFTER", "BYPASS_RUN")
+_lz4_engines: dict = {}
+_lz4_lock = threading.Lock()
+
+
+def from_reference_lz4(d: dict, device="cuda"):
+    """A ``DeviceLz4`` in the state of a reference ``TpuLz4`` whose fields
+    ``stride``, ``min_len``, ``min_device``, ``_p1``, ``_p2``, ``_p3``,
+    ``_flood_streak``, ``_bypass_left``, ``BYPASS_AFTER`` and
+    ``BYPASS_RUN`` are given as plain ints: the two then emit the same
+    bytes for the same payloads in the same order."""
+    from hdrf_tpu_torch.ops.lz4_device import DeviceLz4
+
+    c = DeviceLz4(stride=int(d["stride"]), min_len=int(d["min_len"]),
+                  min_device=int(d["min_device"]), device=device)
+    for f in _LZ4_FIELDS[3:]:
+        setattr(c, f, int(d[f]))
+    return c
+
+
+def lz4_engine(backend: str = "auto"):
+    """The process's ``DeviceLz4`` for a backend (created at first use; its
+    learned slice hints and flood state persist across seals)."""
+    from hdrf_tpu_torch.ops.lz4_device import DeviceLz4
+
+    dev = _device_for(backend)
+    with _lz4_lock:
+        eng = _lz4_engines.get(dev)
+        if eng is None:
+            eng = _lz4_engines[dev] = DeviceLz4(device=dev)
+    return eng
+
+
+def block_compress(codec: str, data: bytes, backend: str = "auto") -> bytes:
+    """Codec dispatch for the entropy stage (container seal).  ``lz4``
+    finds its matches on the backend's device (ops/lz4_device.py); every
+    other codec is the host codec.  The output is a standard LZ4 block
+    either way."""
+    from hdrf_tpu_torch.utils import codec as codecs
+
+    backend = resolve_backend(backend)
+    _M.incr(f"compress_{backend}_total")
+    _M.incr(f"compress_{backend}_bytes", len(data))
+    if codec == "lz4":
+        return lz4_engine(backend).compress(data)
+    return codecs.compress(codec, data)
+
+
+def block_compress_batch(codec: str, datas: list,
+                         backend: str = "auto") -> list:
+    """Batched codec dispatch: ``lz4`` payloads go to
+    ``DeviceLz4.compress_many`` (a flood bypass covers the whole group or
+    none of it); everything else per item."""
+    backend = resolve_backend(backend)
+    if codec == "lz4":
+        _M.incr(f"compress_{backend}_total", len(datas))
+        _M.incr(f"compress_{backend}_bytes", sum(len(d) for d in datas))
+        return lz4_engine(backend).compress_many(datas)
+    return [block_compress(codec, d, backend) for d in datas]
+
+
+def block_decompress_batch(codec_names: list, blobs: list, usizes: list,
+                           backend: str = "auto") -> list:
+    """Batched decode dispatch for a read window.  LZ4 decode is byte-serial
+    in its output dependence, so it runs the host decoder on every
+    backend, as in the reference.  The worker has no decode op: this is
+    the read plane's seam, kept so the dispatch surface matches the
+    reference's."""
+    from hdrf_tpu_torch.utils import codec as codecs
+
+    backend = resolve_backend(backend)
+    _M.incr(f"decompress_{backend}_total", len(blobs))
+    _M.incr(f"decompress_{backend}_bytes", sum(usizes))
+    return [codecs.decompress(c, b, u)
+            for c, b, u in zip(codec_names, blobs, usizes)]

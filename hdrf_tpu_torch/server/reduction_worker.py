@@ -8,14 +8,21 @@ ops) a packet run, then one reply frame.  Ops:
 
 - ``reduce`` — packet stream -> ``{"cuts": int64 bytes, "digests": bytes}``
   via ops/resident.ResidentReducer (CDC, gather and SHA-256 kernels);
+- ``compress`` — packet stream -> ``{"data": bytes}``, one container
+  sealed by ops/dispatch.block_compress (``lz4``: device match scan over
+  the match-delta and row-sort kernels, native emit);
+- ``compress_batch`` — ``{"sizes": [...]}`` splits one packet stream into
+  payloads -> ``{"datas": [bytes, ...]}`` through
+  ops/dispatch.block_compress_batch (equal-length ``lz4`` payloads as one
+  device batch); a ``sizes`` sum that is not the stream's length answers
+  ``{"error": "ValueError", ...}``;
 - ``ping``, ``stats``, ``traces`` — as the reference (``traces`` carries
-  spans and device-ledger events; profiler counters are not ported);
-- ``compress`` / ``compress_batch`` — the LZ4 seal is not ported yet: the
-  packet run is drained and the reply is the reference's error frame
-  ``{"error": "NotImplementedError", "message": ...}``.
+  spans and device-ledger events; profiler counters are not ported).
 
 Requests may carry ``_trace`` (resumed as the span parent) and
-``_deadline``; the deadline budget is accepted and ignored.
+``_deadline``; the deadline budget is accepted and ignored.  The
+``compress`` payloads are collected on the host before the seal, as in
+the reference (reduction_worker.py:223).
 
 **Streaming ingest** (replaces ``_reduce_streaming_tpu``,
 reduction_worker.py:186-218): packets are copied into 4 MiB pinned host
@@ -32,15 +39,16 @@ Run standalone: ``python -m hdrf_tpu_torch.server.reduction_worker --port 0
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import socketserver
 import threading
-from typing import Any
 
 import numpy as np
 import torch
 
 from hdrf_tpu_torch.config import CdcConfig
+from hdrf_tpu_torch.ops import dispatch as ops_dispatch
 from hdrf_tpu_torch.ops.cdc_cuda import PAD_GRID
 from hdrf_tpu_torch.ops.dispatch import resolve_device
 from hdrf_tpu_torch.ops.resident import ResidentReducer
@@ -56,8 +64,6 @@ _STRIDE = 4 << 20
 _RING = 3
 # First device block size: HDFS's default dfs.blocksize (128 MiB) + pad.
 _INITIAL = (128 << 20) + PAD_GRID
-
-_UNPORTED = "lz4 seal not ported yet"
 
 
 class _DeviceIngest:
@@ -178,8 +184,10 @@ class ReductionWorker:
                     sp.annotate("backend", self.backend)
                     if op == "reduce":
                         self._op_reduce(sock, req)
+                    elif op == "compress":
+                        self._op_compress(sock, req)
                     else:
-                        self._op_unported(sock)
+                        self._op_compress_batch(sock, req)
             elif op == "ping":
                 send_frame(sock, {"ok": True, "backend": self.backend})
             elif op == "stats":
@@ -240,11 +248,43 @@ class ReductionWorker:
             r.start_sha(job)
             return r.finish(job)
 
-    def _op_unported(self, sock: socket.socket) -> None:
-        dt.collect_packets(sock)  # drain the run so the connection stays in step
-        _M.incr("unported_ops")
-        send_frame(sock, {"error": "NotImplementedError",
-                          "message": _UNPORTED})
+    def _on_stream(self):
+        """Device work of this thread on the worker's one CUDA stream."""
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _op_compress(self, sock: socket.socket, req: dict) -> None:
+        data = dt.collect_packets(sock)
+        with self._on_stream():
+            out = ops_dispatch.block_compress(req.get("codec", "lz4"), data,
+                                              self.backend)
+        with self._stats_lock:
+            self._stats["compress_jobs"] += 1
+        send_frame(sock, {"data": bytes(out)})
+        _M.incr("compress_jobs")
+
+    def _op_compress_batch(self, sock: socket.socket, req: dict) -> None:
+        """N payloads in one round trip (a DataNode sealing several
+        container lanes at once): ``req["sizes"]`` splits the one packet
+        stream; equal-size ``lz4`` payloads run as one device batch."""
+        sizes = [int(v) for v in req.get("sizes", [])]
+        blob = dt.collect_packets(sock)
+        if sum(sizes) != len(blob):
+            send_frame(sock, {"error": "ValueError",
+                              "message": f"sizes sum {sum(sizes)} != "
+                                         f"stream length {len(blob)}"})
+            return
+        datas, off = [], 0
+        for n in sizes:
+            datas.append(blob[off:off + n])
+            off += n
+        with self._on_stream():
+            outs = ops_dispatch.block_compress_batch(
+                req.get("codec", "lz4"), datas, self.backend)
+        with self._stats_lock:
+            self._stats["compress_jobs"] += len(sizes)
+        send_frame(sock, {"datas": [bytes(o) for o in outs]})
+        _M.incr("compress_jobs", len(sizes))
 
 
 # ------------------------------------------------------------------ client
@@ -255,8 +295,9 @@ class WorkerError(IOError):
 
 
 class WorkerClient:
-    """Minimal handle on a worker: ``reduce``, ``reduce_stream``, ``ping``,
-    ``stats`` over pooled connections.  (The reference client's deadline
+    """Minimal handle on a worker: ``reduce``, ``reduce_stream``,
+    ``compress``, ``compress_batch``, ``ping``, ``stats`` over pooled
+    connections.  (The reference client's deadline
     budgets and circuit breaker stay with the reference DataNode.)"""
 
     def __init__(self, addr, timeout: float = 600.0):
@@ -300,13 +341,10 @@ class WorkerClient:
         self._release(s)
         return out
 
-    def reduce_stream(self, packets, cdc: CdcConfig):
-        """Forward an iterator of byte packets; returns (cuts int64,
-        digests u8[n, 32]).  Errors the ``packets`` iterator raises
-        propagate unchanged; worker-side failures raise WorkerError."""
-        req: dict[str, Any] = {"op": "reduce", "mask_bits": cdc.mask_bits,
-                               "min_chunk": cdc.min_chunk,
-                               "max_chunk": cdc.max_chunk}
+    def _send_run(self, req: dict, packets) -> dict:
+        """One request frame, ``packets`` as one packet run, the reply.
+        Errors the ``packets`` iterator raises propagate unchanged;
+        worker-side failures raise WorkerError."""
         tr = tracing.current_context()
         if tr is not None:
             req["_trace"] = list(tr)
@@ -329,11 +367,40 @@ class WorkerClient:
             s.close()
             raise
         self._release(s)
+        return resp
+
+    def reduce_stream(self, packets, cdc: CdcConfig):
+        """Forward an iterator of byte packets; returns (cuts int64,
+        digests u8[n, 32])."""
+        resp = self._send_run({"op": "reduce", "mask_bits": cdc.mask_bits,
+                               "min_chunk": cdc.min_chunk,
+                               "max_chunk": cdc.max_chunk}, packets)
         return (np.frombuffer(resp["cuts"], np.int64),
                 np.frombuffer(resp["digests"], np.uint8).reshape(-1, 32))
 
     def reduce(self, data: bytes, cdc: CdcConfig):
         return self.reduce_stream([data], cdc)
+
+    @staticmethod
+    def _packets(datas):
+        """Seal payloads as one run of 1 MiB packets (the reference
+        client's packet size for ``compress``)."""
+        for d in datas:
+            for off in range(0, len(d), 1 << 20):
+                yield d[off:off + (1 << 20)]
+
+    def compress(self, codec: str, data: bytes) -> bytes:
+        """One payload sealed by the worker's codec path."""
+        return bytes(self._send_run({"op": "compress", "codec": codec},
+                                    self._packets([data]))["data"])
+
+    def compress_batch(self, codec: str, datas: list) -> list:
+        """Several payloads in one round trip (one device batch for
+        equal-length ``lz4`` payloads)."""
+        resp = self._send_run({"op": "compress_batch", "codec": codec,
+                               "sizes": [len(d) for d in datas]},
+                              self._packets(datas))
+        return [bytes(v) for v in resp["datas"]]
 
     def ping(self) -> dict:
         return self._call({"op": "ping"})

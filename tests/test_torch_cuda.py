@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import CdcConfig
-from hdrf_tpu_torch.ops import cdc_cuda, dispatch, gather_cuda, sha256_cuda
+from hdrf_tpu_torch.ops import (cdc_cuda, dispatch, gather_cuda, sha256_cuda,
+                                sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
+from hdrf_tpu_torch.ops.lz4_device import _INVALID, _S, DeviceLz4
 from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.ops.sha256 import sha256_words
 
@@ -120,3 +123,138 @@ def test_reducer_on_card_equals_cpu(dev):
         np.testing.assert_array_equal(gc, wc)
         np.testing.assert_array_equal(gd, wd)
     assert gear_mask(cdc) == ResidentReducer(cdc, device=dev).mask
+
+
+# ------------------------------------------------------ the LZ4 seal kernels
+
+def _grams(rng, kind, t, e, stride):
+    """(t, e) int32 4-gram entries in the match scan's row layout."""
+    n = e * stride
+    if kind == "text":
+        b = rng.integers(97, 123, size=(t, n + 4), dtype=np.uint8)
+        b[:, ::3] = 32
+    elif kind == "few":
+        b = rng.integers(0, 3, size=(t, n + 4), dtype=np.uint8)
+    elif kind == "zeros":
+        b = np.zeros((t, n + 4), np.uint8)
+    else:
+        b = rng.integers(0, 256, size=(t, n + 4), dtype=np.uint8)
+    w = ((b[:, :-3].astype(np.uint32) << 24)
+         | (b[:, 1:-2].astype(np.uint32) << 16)
+         | (b[:, 2:-1].astype(np.uint32) << 8) | b[:, 3:].astype(np.uint32))
+    if stride == 4:
+        w = w[:, :n:4]
+    else:
+        w = np.concatenate([w[:, :n:4], w[:, 2:n:4]], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32))
+
+
+@pytest.mark.parametrize("stride,t", [(2, 133), (4, 40)])
+@pytest.mark.parametrize("kind", ["text", "few", "zeros", "random"])
+def test_match_deltas_kernel_equals_plain(dev, stride, t, kind):
+    """Full rows (stride 2: 65,536 entries, stride 4: 32,768), a ragged row
+    count; integer outputs, exact."""
+    e, pos_bits = (65536, 16) if stride == 2 else (32768, 15)
+    vals = _grams(np.random.default_rng(t + stride), kind, t, e, stride)
+    n0 = sort_cuda.match_deltas_launches
+    got = sort_cuda.match_deltas(vals.to(dev), stride, pos_bits)
+    torch.cuda.synchronize()
+    assert sort_cuda.match_deltas_launches == n0 + 1
+    want = sort_cuda.match_deltas_plain(vals.to(dev), stride, pos_bits)
+    assert torch.equal(got, want)
+    if kind in ("text", "few"):
+        assert bool((got > 0).any())
+
+
+def _unique_keys(rng, t, e, unsigned):
+    key = np.stack([rng.permutation(e).astype(np.int64) for _ in range(t)])
+    if unsigned:   # across the sign bit of the u32 order
+        key = key + 0x80000000 - e // 2
+    else:
+        key = key - e // 2
+    return torch.from_numpy((key & 0xFFFFFFFF).astype(np.uint32)
+                            .view(np.int32))
+
+
+SORT_CASES = [  # (t, e, n_val, unsigned)
+    (133, 8192, 2, False),      # L1 rows, ragged row count
+    (128, 8192, 2, True),       # L2 rows, u32 keys across the sign bit
+    (1, 524288, 1, False),      # the L3 row
+    (2, 131072, 1, True),       # escape rows
+    (3, 100_000, 2, False),     # padded non-pow2 rows
+    (5, 700, 1, True),          # narrower than a tile, padded
+]
+
+
+@pytest.mark.parametrize("t,e,n_val,unsigned", SORT_CASES)
+def test_sort_rows_kernel_equals_plain(dev, t, e, n_val, unsigned):
+    rng = np.random.default_rng(e + t)
+    key = _unique_keys(rng, t, e, unsigned).to(dev)
+    vals = [torch.from_numpy(rng.integers(-2**31, 2**31, size=(t, e))
+                             .astype(np.int32)).to(dev)
+            for _ in range(n_val)]
+    pad = dict(pad_key=-1 if unsigned else 2**31 - 1,
+               pad_vals=(0,) * n_val, key_unsigned=unsigned)
+    n0 = sort_cuda.sort_rows_launches
+    got = sort_cuda.sort_rows(key, *vals, **pad)
+    torch.cuda.synchronize()
+    assert sort_cuda.sort_rows_launches == n0 + 1
+    want = sort_cuda.sort_rows_plain(key, *vals, **pad)
+    for g, w in zip(got, want):
+        assert g.shape == (t, e)
+        assert torch.equal(g, w)
+
+
+def test_sort_rows_tied_dead_slots(dev):
+    """Pack-sort keys: live slots carry their unique index, dead slots tie
+    on the row width (gpos _INVALID).  Keys and live slots are exact; the
+    dead slots hold the same multiset."""
+    rng = np.random.default_rng(12)
+    t, e = 64, 8192
+    live = rng.random((t, e)) < 0.1
+    idx = np.broadcast_to(np.arange(e, dtype=np.int32), (t, e))
+    key = torch.from_numpy(np.where(live, idx, e).astype(np.int32)).to(dev)
+    g = torch.from_numpy(np.where(live, rng.integers(0, 2**30, (t, e)),
+                                  _INVALID).astype(np.int32)).to(dev)
+    r = torch.from_numpy(rng.integers(-2**31, 2**31, (t, e))
+                         .astype(np.int32)).to(dev)
+    gk, gg, gr = sort_cuda.sort_rows(key, g, r)
+    wk, wg, wr = sort_cuda.sort_rows_plain(key, g, r)
+    assert torch.equal(gk, wk)
+    alive = wk < e
+    assert torch.equal(gg[alive], wg[alive]) and torch.equal(gr[alive],
+                                                             wr[alive])
+    assert bool((gg[~alive] == _INVALID).all())
+    assert torch.equal(torch.sort(gr[~alive]).values,
+                       torch.sort(wr[~alive]).values)
+
+
+def _seal_corpora():
+    rng = np.random.default_rng(21)
+    vocab = [rng.integers(97, 123, size=rng.integers(2, 9),
+                          dtype=np.uint8).tobytes() for _ in range(500)]
+    text = b" ".join(vocab[i] for i in rng.integers(0, 500, size=600_000))
+    return {"text": np.frombuffer(text[:3 << 20], np.uint8),
+            "repeat997": np.tile(rng.integers(0, 256, 997, dtype=np.uint8),
+                                 3 << 10)[:3 << 20],
+            "zeros": np.zeros(2 << 20, np.uint8),
+            "random": rng.integers(0, 256, 2 << 20, dtype=np.uint8),
+            "odd_tail": rng.integers(97, 100, 5 * _S + 3, dtype=np.uint8)}
+
+
+@pytest.mark.parametrize("stride", [2, 4])
+def test_device_lz4_on_card_equals_cpu(dev, stride):
+    """The seal on the card emits the CPU engine's bytes, submit for submit
+    (same history), through both kernels; compress_many too."""
+    corp = _seal_corpora()
+    card = DeviceLz4(stride=stride, device=dev)
+    cpu = DeviceLz4(stride=stride, device="cpu")
+    m0, s0 = sort_cuda.match_deltas_launches, sort_cuda.sort_rows_launches
+    for name, a in corp.items():
+        out = card.compress(a)
+        assert out == cpu.compress(a), name
+        assert native.lz4_decompress(out, a.size) == a.tobytes()
+    group = [corp["text"], corp["repeat997"][:3 << 20], corp["text"]]
+    assert card.compress_many(group) == cpu.compress_many(group)
+    assert sort_cuda.match_deltas_launches > m0
+    assert sort_cuda.sort_rows_launches > s0

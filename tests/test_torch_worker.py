@@ -12,6 +12,7 @@ import re
 import socket
 import subprocess
 import sys
+import zlib
 
 import msgpack
 import numpy as np
@@ -20,15 +21,18 @@ import torch
 
 from hdrf_tpu.config import CdcConfig as RefCdc
 from hdrf_tpu.ops import dispatch as ref_dispatch
+from hdrf_tpu.ops.lz4_tpu import TpuLz4
 from hdrf_tpu.server.reduction_worker import WorkerClient as RefClient
 from hdrf_tpu.server.reduction_worker import WorkerError
 from hdrf_tpu.testing.minicluster import MiniCluster
 from hdrf_tpu.utils import metrics, tracing
+from hdrf_tpu_torch import native
 from hdrf_tpu_torch.ops import dispatch
 from hdrf_tpu_torch.proto import datatransfer as dt
 from hdrf_tpu_torch.proto import rpc
 from hdrf_tpu_torch.server.reduction_worker import (ReductionWorker,
                                                     WorkerClient)
+from hdrf_tpu_torch.utils import metrics as port_metrics
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,29 +176,96 @@ def test_concurrent_clients_stress(worker):
     assert after - before == len(datas)
 
 
+def _ref_engine_like(port_engine):
+    """A reference TpuLz4 in the state of the port's engine, so both emit
+    the same bytes for the same payloads from here on."""
+    ref = TpuLz4()
+    for f in ("stride", "min_len", "min_device", "_p1", "_p2", "_p3",
+              "_flood_streak", "_bypass_left", "BYPASS_AFTER", "BYPASS_RUN"):
+        setattr(ref, f, getattr(port_engine, f))
+    return ref
+
+
+def _text(rng, n: int) -> bytes:
+    vocab = [rng.integers(97, 123, size=rng.integers(2, 9),
+                          dtype=np.uint8).tobytes() for _ in range(300)]
+    return b" ".join(vocab[i] for i in rng.integers(0, 300, size=n // 5))[:n]
+
+
 def test_compress_ops_reply_typed_error_frame(worker):
-    """compress / compress_batch drain their packet run and answer the
-    reference's error frame shape; the connection stays in step."""
-    s = socket.create_connection(worker.addr, timeout=30)
+    """compress / compress_batch answer with the reference TpuLz4's bytes,
+    through a raw socket and through the reference client; a bad ``sizes``
+    frame and an unknown op still answer typed error frames, and the
+    connection stays in step."""
+    rng = np.random.default_rng(5)
+    datas = [_text(rng, 300_000), _bytes(100_000),
+             _text(rng, 270_000), _text(rng, 270_000)]
+    ref = _ref_engine_like(dispatch.lz4_engine("cpu"))
+    before = WorkerClient(worker.addr).stats()["compress_jobs"]
+    s = socket.create_connection(worker.addr, timeout=120)
     try:
         rpc.send_frame(s, {"op": "compress", "codec": "lz4"})
-        dt.stream_bytes(s, _bytes(100_000))
-        assert rpc.recv_frame(s) == {"error": "NotImplementedError",
-                                     "message": "lz4 seal not ported yet"}
+        dt.stream_bytes(s, datas[0])
+        assert rpc.recv_frame(s) == {"data": ref.compress(datas[0])}
         rpc.send_frame(s, {"op": "compress_batch", "codec": "lz4",
                            "sizes": [10, 20]})
-        dt.stream_bytes(s, _bytes(30))
-        assert rpc.recv_frame(s)["error"] == "NotImplementedError"
+        dt.stream_bytes(s, _bytes(31))
+        assert rpc.recv_frame(s)["error"] == "ValueError"
+        rpc.send_frame(s, {"op": "compress_batch", "codec": "lz4",
+                           "sizes": [len(d) for d in datas[2:]]})
+        dt.stream_bytes(s, b"".join(datas[2:]))
+        assert rpc.recv_frame(s) == {"datas": ref.compress_many(datas[2:])}
         rpc.send_frame(s, {"op": "nope"})
         assert rpc.recv_frame(s)["error"] == "NoSuchOp"
         rpc.send_frame(s, {"op": "ping"})
         assert rpc.recv_frame(s)["ok"] is True
     finally:
         s.close()
-    c = RefClient(worker.addr)
-    with pytest.raises(WorkerError, match="NotImplementedError"):
-        c.compress("lz4", _bytes(1000))
+    c = RefClient(worker.addr, deadline_s=120.0)
+    assert c.compress("lz4", datas[1]) == ref.compress(datas[1])
+    assert c.compress_batch("lz4", datas[:2]) == ref.compress_many(datas[:2])
+    got = c.compress("gzip", datas[1])
+    assert zlib.decompress(got) == datas[1]
     c.close()
+    pc = WorkerClient(worker.addr)
+    assert pc.compress("lz4", datas[0]) == ref.compress(datas[0])
+    assert pc.compress_batch("lz4", datas[2:]) == ref.compress_many(datas[2:])
+    for d, out in zip(datas, pc.compress_batch("lz4", datas)):
+        assert native.lz4_decompress(out, len(d)) == d
+    assert pc.stats()["compress_jobs"] == before + 1 + 2 + 1 + 2 + 1 + 1 \
+        + 2 + 4
+    pc.close()
+
+
+def _device_scans() -> int:
+    """Seals whose records came from the port's device match scan."""
+    c = port_metrics.registry("lz4_device").snapshot()["counters"]
+    return c.get("emits", 0) + c.get("native_fallbacks", 0)
+
+
+def test_minicluster_dedup_lz4_write_through_port_worker(worker):
+    """An hdrf_tpu MiniCluster DataNode seals its dedup_lz4 containers
+    through the port's worker: containers roll over (512 KiB) and reach the
+    device path, the data reads back bit-identical, the worker counts
+    compress jobs, and the DataNode never fell back to its own encoder."""
+    dn = metrics.registry("datanode")
+    fallbacks = dn.counter("worker_fallbacks")
+    c0 = WorkerClient(worker.addr).stats()["compress_jobs"]
+    scans0 = _device_scans()
+    rng = np.random.default_rng(17)
+    data = _text(rng, 1 << 20) + _bytes(400_000) + _text(rng, 700_000)
+    with MiniCluster(n_datanodes=1, replication=1, block_size=1 << 20,
+                     container_size=1 << 19,
+                     reduction_overrides={
+                         "worker_addr": list(worker.addr),
+                         "container_codec": "lz4",
+                         "cdc": RefCdc(**dataclasses.asdict(SMALL))}) as mc:
+        with mc.client("w") as c:
+            c.write("/t/lz", data, scheme="dedup_lz4")
+            assert c.read("/t/lz") == data
+    assert WorkerClient(worker.addr).stats()["compress_jobs"] > c0
+    assert _device_scans() > scans0
+    assert dn.counter("worker_fallbacks") == fallbacks
 
 
 def test_minicluster_dedup_write_through_port_worker(worker):
