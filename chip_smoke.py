@@ -52,11 +52,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``native.lz4_compress``, kept match records, and the branch taken
    (``lz4_device`` counters).  Two more ``compress`` requests are profiled as in phase 5
    (``chiprun_out/smoke_trace_seal.json``).
-8. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+8. MESH, the sharded reduction (hdrf_tpu_torch/parallel/sharded.py) on
+   meshes of ``cuda:0`` repeated (a mesh may repeat a device: each shard
+   has its own tensors, and halos, all-gathers and psums really run):
+   (a) the shard-scan kernel against its plain version, tolerance zero,
+   words and count, for n_seq 1, 4 and 8 on the seven corpora, the
+   ``--block-mib`` random block and the zeros block, each shard with the
+   previous shard's tail as its halo; the shards' words together, cut at
+   n, must give ``native.gear_candidates`` of the whole block.  Timed on
+   the random block at n_seq 4 (shard 1): median of 20 launches, plain
+   once.  (b) ``reduce_sharded`` on ('data'=1, 'seq'=4) and (2, 2)
+   meshes and on ``launch.global_mesh()`` (1 x 1 on one card), over the
+   ``reduce`` corpus plus one 40 KB block that takes the all-gather SHA
+   route: cuts and digests equal ``native.cdc_select`` /
+   ``native.sha256_batch`` and the serial ``ResidentReducer``; per
+   request its SHA route and latency; two more 1 x 4 requests profiled
+   as in phase 5 (``chiprun_out/smoke_trace_mesh.json``).  (c)
+   ``MeshReducer.reduce_many`` with n_data 2 on the same corpus equals the
+   serial ``ResidentReducer``; after ``table.note_new`` of the first
+   group's digests a second pass votes hits equal to ``host_probe``.  (d)
+   ``lz4_compress_many_sharded`` of one 4 x 32 MiB group equals
+   ``DeviceLz4.compress_many`` fed the same sequence.
+9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The CDC kernel pair is two launches with a wrapper and a count each:
-``cdc_scan`` and ``cdc_select``.  Bounds use the card's published peaks:
+``cdc_scan`` and ``cdc_select``; ``shard_scan`` (the same source) is the
+third.  Its launch count is that of the MESH phase's ``reduce_sharded``
+requests.  Bounds use the card's published peaks:
 3.35 TB/s HBM, and 16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98
 GHz; the kernels are integer work).
 """
@@ -81,7 +104,9 @@ from hdrf_tpu_torch.config import CdcConfig
 from hdrf_tpu_torch.ops import (_build, cdc_cuda, gather_cuda, lz4_device,
                                 sha256_cuda, sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
+from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.ops.sha256 import sha256_words
+from hdrf_tpu_torch.parallel import launch, sharded
 from hdrf_tpu_torch.proto.datatransfer import DEFAULT_PACKET
 from hdrf_tpu_torch.server.reduction_worker import (ReductionWorker,
                                                     WorkerClient)
@@ -126,6 +151,8 @@ KERNELS = {
                      "hdrf_tpu/ops/sort_pallas.py:273"),
     "sort_rows": ("hdrf_tpu_torch/csrc/sort.cu",
                   "hdrf_tpu/ops/sort_pallas.py:148"),
+    "shard_scan": ("hdrf_tpu_torch/csrc/cdc.cu",
+                   "hdrf_tpu/ops/cdc_pallas.py:570"),
 }
 
 
@@ -792,6 +819,211 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- mesh
+
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_SEQS = (1, 4, 8)
+MESH_SMALL = 40_000      # shards under one gather window: all-gather SHA
+MESH_SEAL = ("sparse", "random", "chunks", "zeros")
+MESH_KERNEL_NAMES = {"cdc_shard_scan_kernel": "shard_scan",
+                     "cdc_scan_kernel": "cdc_scan",
+                     "gather_pad_kernel": "gather_pad",
+                     "sha256_kernel": "sha256"}
+
+
+def native_bits(a: np.ndarray, mask: int) -> np.ndarray:
+    """bool[n]: bit i set when pos1 = i + 1 is a native candidate."""
+    bits = np.zeros(a.size, dtype=bool)
+    bits[native.gear_candidates(a, mask).astype(np.int64) - 1] = True
+    return bits
+
+
+def shard_scan_phase(name, a, mask, dev, errs, timing=None) -> None:
+    """The shard-scan kernel against its plain version on every shard of
+    ``a`` for each n_seq, and the shards' words against the native scan."""
+    want = native_bits(a, mask)
+    for n_seq in MESH_SEQS:
+        chunk = 256 * n_seq
+        buf = np.zeros(a.size + (-a.size) % chunk, np.uint8)
+        buf[:a.size] = a
+        block = torch.from_numpy(buf).to(dev)
+        m = buf.size // n_seq
+        words = []
+        for s in range(n_seq):
+            local = block[s * m:(s + 1) * m]
+            halo = (block[s * m - 31:s * m] if s
+                    else torch.zeros(31, dtype=torch.uint8, device=dev))
+            kw, kc = cdc_cuda.shard_scan(local, halo, s * m, mask)
+            (pw, pc), p_ms = timed(lambda: cdc_cuda.shard_scan_plain(
+                local, halo, s * m, mask))
+            e = max(max_err(kw, pw), max_err(kc, pc))
+            errs["shard_scan"] = max(errs["shard_scan"], e)
+            check(e == 0, f"{name} n_seq {n_seq} shard {s}: shard scan "
+                          f"kernel != plain (max err {e})")
+            if timing is not None and n_seq == 4 and s == 1:
+                timing["shard_scan"] = {
+                    "ms": cuda_ms(lambda: cdc_cuda.shard_scan(
+                        local, halo, s * m, mask)),
+                    "plain_ms": p_ms, "library_ms": None,
+                    # shard + halo read, bitmap + count written
+                    "bound": bound(m + 31 + m // 8 + 4,
+                                   CDC_SCAN_OPS_PER_BYTE * m)}
+            words.append(kw.cpu().numpy())
+            del pw, pc
+        got = np.unpackbits(np.concatenate(words).view(np.uint8),
+                            bitorder="little")[:a.size].astype(bool)
+        check(np.array_equal(got, want), f"{name} n_seq {n_seq}: shard words "
+                                         f"!= native.gear_candidates")
+        del block
+    print(f"MESH scan {name}: {a.size} bytes, {int(want.sum())} candidates, "
+          f"shard scan identical at n_seq {MESH_SEQS}", flush=True)
+
+
+def oracle(a: np.ndarray, cdc: CdcConfig):
+    cuts = native.cdc_select(native.gear_candidates(a, gear_mask(cdc)),
+                             a.size, cdc.min_chunk, cdc.max_chunk)
+    starts = np.concatenate([[0], cuts[:-1]]).astype(np.uint64)
+    return cuts, native.sha256_batch(a, starts, cuts - starts)
+
+
+def mesh_reduce_phase(blocks, want, dev, cdc: CdcConfig) -> dict:
+    """reduce_sharded on the 1x4 and 2x2 meshes over ``dev`` repeated and
+    on the global mesh; every reply equal to ``want``."""
+    meshes = {f"{d}x{s}": sharded.make_mesh(d, s, [dev] * (d * s))
+              for d, s in MESH_SHAPES}
+    meshes["global"] = launch.global_mesh()
+    routes, real = [], (sharded._sha_chunks_halo, sharded._sha_chunks_sharded)
+
+    def spy(route, fn):
+        return lambda *a: routes.append(route) or fn(*a)
+    sharded._sha_chunks_halo = spy("halo", real[0])
+    sharded._sha_chunks_sharded = spy("all-gather", real[1])
+    rows = []
+    try:
+        cdc_cuda.shard_scan_launches = cdc_cuda.scan_launches = 0
+        gather_cuda.launches = sha256_cuda.launches = 0
+        for mname, mesh in meshes.items():
+            for i, blk in enumerate(blocks):
+                t0 = time.perf_counter()
+                cuts, digs = sharded.reduce_sharded(blk, cdc, mesh)
+                lat = time.perf_counter() - t0
+                rows.append((mname, i, routes[-1], lat, cuts, digs))
+        launches = {"shard_scan": cdc_cuda.shard_scan_launches,
+                    "cdc_scan": cdc_cuda.scan_launches,
+                    "gather_pad": gather_cuda.launches,
+                    "sha256": sha256_cuda.launches}
+    finally:
+        sharded._sha_chunks_halo, sharded._sha_chunks_sharded = real
+    out = []
+    for mname, i, route, lat, cuts, digs in rows:
+        wc, wd = want[i]
+        check(np.array_equal(cuts, wc) and np.array_equal(digs, wd),
+              f"reduce_sharded {mname} request {i}: != native oracle and "
+              f"serial ResidentReducer")
+        print(f"MESH reduce {mname} request {i}: {blocks[i].size} bytes, "
+              f"{cuts.size} chunks, sha_route={route} "
+              f"latency_ms={lat * 1e3:.3f} "
+              f"MiB/s={blocks[i].size / MIB / lat:.1f}", flush=True)
+        out.append({"mesh": mname, "request": i, "route": route,
+                    "latency_ms": lat * 1e3})
+    for kname, cnt in launches.items():
+        check(cnt > 0, f"reduce_sharded never launched the {kname} kernel")
+    check({"halo", "all-gather"} <= set(routes), f"SHA routes {set(routes)}")
+    again = []
+    prof = profile_window(
+        "mesh", lambda: again.extend(sharded.reduce_sharded(
+            b, cdc, meshes["1x4"]) for b in blocks[:2]),
+        2, MESH_KERNEL_NAMES)
+    for (c, d), (wc, wd) in zip(again, want):
+        check(np.array_equal(c, wc) and np.array_equal(d, wd),
+              "profiled reduce_sharded request != native oracle")
+    return {"requests": out, "launches": launches, "profile": prof}
+
+
+def mesh_plane_phase(blocks, want, dev, cdc: CdcConfig) -> dict:
+    """MeshReducer (n_data 2 over ``dev`` repeated) against the serial
+    results, then a second pass of the first group after note_new."""
+    r = sharded.MeshReducer(cdc, sharded.make_mesh(2, 1, [dev, dev]))
+    g = r.max_group()
+    steps = []
+    res = []
+    for at in range(0, len(blocks), g):
+        t0 = time.perf_counter()
+        res.extend(r.finish_many(r.submit_many(blocks[at:at + g])))
+        steps.append((time.perf_counter() - t0) * 1e3)
+    for i, ((c, d, probe), (wc, wd)) in enumerate(zip(res, want)):
+        check(np.array_equal(c, wc) and np.array_equal(d, wd),
+              f"MeshReducer block {i} != serial ResidentReducer")
+        check(probe == frozenset(), f"MeshReducer block {i}: hits on an "
+                                    f"empty table")
+    first = blocks[:g]
+    r.table.note_new([row.tobytes() for _, d, _ in res[:g] for row in d])
+    t0 = time.perf_counter()
+    again = r.reduce_many(first)
+    steps.append((time.perf_counter() - t0) * 1e3)
+    hits = 0
+    for i, (c, d, probe) in enumerate(again):
+        hm = r.table.host_probe(d)
+        check(probe == frozenset(d[j].tobytes() for j in np.nonzero(hm)[0]),
+              f"MeshReducer block {i}: device probe != host_probe")
+        hits += len(probe)
+    check(hits > 0, "MeshReducer second pass voted no hits")
+    out = {"steps_ms": steps, "group": g, "second_pass_hits": hits}
+    print("MESH plane " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_lz4_phase(corpora: dict, dev) -> dict:
+    datas = [corpora[k] for k in MESH_SEAL]
+    mesh = sharded.make_mesh(2, 1, [dev, dev])
+    t0 = time.perf_counter()
+    got = sharded.lz4_compress_many_sharded(lz4_device.DeviceLz4(device=dev),
+                                            datas, mesh)
+    lat = time.perf_counter() - t0
+    want = lz4_device.DeviceLz4(device=dev).compress_many(datas)
+    for k, d, g, w in zip(MESH_SEAL, datas, got, want):
+        check(g == w, f"sharded LZ4 ({k}) != DeviceLz4.compress_many")
+        check(native.lz4_decompress(g, d.size) == d.tobytes(),
+              f"sharded LZ4 ({k}) does not decode")
+    out = {"payloads": list(MESH_SEAL), "latency_ms": lat * 1e3,
+           "compressed": [len(g) for g in got]}
+    print("MESH lz4 " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_phase(args, dev, cdc: CdcConfig, corpora: dict, errs: dict,
+               timing: dict) -> dict:
+    t0 = time.perf_counter()
+    for name, a, mask, _, _ in standard_corpora():
+        shard_scan_phase(name, a, mask, dev, errs)
+    mask = gear_mask(cdc)
+    rng = np.random.default_rng(args.seed + 1)   # phase 3's random block
+    big = rng.integers(0, 256, args.block_mib * MIB, dtype=np.uint8)
+    shard_scan_phase("random-block", big, mask, dev, errs, timing)
+    del big
+    shard_scan_phase("zeros-block", np.zeros(args.block_mib * MIB, np.uint8),
+                     mask, dev, errs)
+    torch.cuda.empty_cache()
+    print_timing({"shard_scan": timing["shard_scan"]})
+    blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
+    blocks.append(np.random.default_rng(args.seed + 3).integers(
+        0, 256, MESH_SMALL, dtype=np.uint8))
+    want = [oracle(b, cdc) for b in blocks]
+    serial = ResidentReducer(cdc, device=dev).reduce_many(blocks)
+    for i, ((sc, sd), (wc, wd)) in enumerate(zip(serial, want)):
+        check(np.array_equal(sc, wc) and np.array_equal(sd, wd),
+              f"serial ResidentReducer block {i} != native oracle")
+    reduce = mesh_reduce_phase(blocks, want, dev, cdc)
+    torch.cuda.empty_cache()
+    plane = mesh_plane_phase(blocks, want, dev, cdc)
+    torch.cuda.empty_cache()
+    lz4 = mesh_lz4_phase(corpora, dev)
+    out = {"seconds": time.perf_counter() - t0, "reduce": reduce,
+           "plane": plane, "lz4": lz4}
+    print(f"MESH done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -845,7 +1077,9 @@ def run(args) -> int:
     print_timing(seal_timing)
     timing.update(seal_timing)
     sp = seal_main_path(corpora, records)
-    launches = {**mp["launches"], **sp["launches"]}
+    ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
+    launches = {**mp["launches"], **sp["launches"],
+                "shard_scan": ms["reduce"]["launches"]["shard_scan"]}
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

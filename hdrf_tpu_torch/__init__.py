@@ -2,13 +2,20 @@
 
 The JAX package ``hdrf_tpu`` is the reference; this package re-expresses
 its device half for one NVIDIA H100 and imports nothing of it (nor of JAX).
-The first slice carries the reduction worker's ``reduce`` op end to end:
+It carries the reduction worker's ``reduce``, ``compress`` and
+``compress_batch`` ops end to end, and the multi-device reduction:
 
-- ``ops/cdc_cuda.py``, ``ops/gather_cuda.py``, ``ops/sha256_cuda.py`` —
-  hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc`` for
-  ``sm_90a`` at first use) beside their plain PyTorch versions;
+- ``ops/cdc_cuda.py``, ``ops/gather_cuda.py``, ``ops/sha256_cuda.py``,
+  ``ops/sort_cuda.py`` — hand-written CUDA kernels (``csrc/*.cu``, built
+  with ``nvcc`` for ``sm_90a`` at first use) beside their plain PyTorch
+  versions;
 - ``ops/resident.py`` — ``ResidentReducer``, the block funnel;
-- ``ops/dispatch.py`` — the write path's ``chunk_and_fingerprint``;
+  ``ops/lz4_device.py`` — ``DeviceLz4``, the container seal;
+- ``ops/dispatch.py`` — the write path's ``chunk_and_fingerprint`` and
+  the seal's ``block_compress[_batch]``;
+- ``parallel/sharded.py`` — the ('data', 'seq') mesh of torch devices,
+  ``reduce_sharded`` and the mesh plane (``MeshReducer``);
+  ``parallel/launch.py`` — the multi-process launcher;
 - ``server/reduction_worker.py`` — the framed-protocol worker process.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

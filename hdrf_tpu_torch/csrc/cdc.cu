@@ -22,6 +22,20 @@
 // Bound: the scan moves the block's bytes (read once, written once as
 // words); the select is serial in the number of cuts and costs a few
 // shared-memory reads and warp ballots per cut.
+//
+// A third kernel replaces the Pallas `_scan_kernel` of the same file
+// (pallas_call at cdc_pallas.py:570, reached through
+// `local_candidate_words_pallas`), the per-shard candidate scan of the
+// sharded reduction (hdrf_tpu_torch/parallel/sharded.py):
+//
+//   cdc_shard_scan_kernel  the parallel scan above over one shard of a
+//                      block, warmed up from the 31-byte halo (the previous
+//                      shard's tail) for the shard's first run; candidate
+//                      bitmap words with no `<= n` clamp and no min-chunk
+//                      floor (only pos1 >= 32 of the whole block), plus the
+//                      candidate count: a warp reduce and one atomicAdd
+//                      per thread block.  Bound: bytes (the shard and halo
+//                      read once, the bitmap written once).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,6 +48,7 @@ constexpr int kSelThreads = 256;
 constexpr int kWin = 16384;          // bitmap words in the shared window
 constexpr int kSum = kWin / 32;      // one summary bit per window word
 constexpr int kTableHdr = 8;
+constexpr int kHalo = 31;            // WINDOW - 1 bytes of shard history
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t z) {
   z ^= z >> 16;
@@ -52,31 +67,44 @@ __device__ __forceinline__ uint32_t roll_word(uint32_t h, uint32_t w,
   return h;
 }
 
+// The Gear table in shared memory, one entry per thread (kScanThreads
+// == 256); the caller synchronises.
+__device__ __forceinline__ void load_gear_table(uint32_t *g) {
+  g[threadIdx.x] = fmix32(threadIdx.x * 0x9E3779B1u);
+}
+
+// The hash after the 32 bytes at `p` (16-byte aligned), from zero history:
+// the warm-up of a run that starts at p + 32.
+__device__ __forceinline__ uint32_t warm32(const uint8_t *p,
+                                           const uint32_t *g) {
+  const uint4 *wp = reinterpret_cast<const uint4 *>(p);
+  const uint4 v0 = wp[0], v1 = wp[1];
+  uint32_t h = 0;
+  h = roll_word(h, v0.x, g);
+  h = roll_word(h, v0.y, g);
+  h = roll_word(h, v0.z, g);
+  h = roll_word(h, v0.w, g);
+  h = roll_word(h, v1.x, g);
+  h = roll_word(h, v1.y, g);
+  h = roll_word(h, v1.z, g);
+  h = roll_word(h, v1.w, g);
+  return h;
+}
+
 __global__ void __launch_bounds__(kScanThreads)
 cdc_scan_kernel(const uint8_t *__restrict__ data, int64_t n_pad, int64_t n,
                 uint32_t mask, int64_t thr, uint32_t *__restrict__ words_be,
                 uint32_t *__restrict__ bitmap) {
   __shared__ uint32_t g[256];
-  g[threadIdx.x] = fmix32(threadIdx.x * 0x9E3779B1u);
+  load_gear_table(g);
   __syncthreads();
 
   const int64_t start =
       (static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x) * kRun;
   if (start >= n_pad) return;
 
-  uint32_t h = 0;
-  if (start >= 32) {  // warm-up: the 32 bytes before the run
-    const uint4 *wp = reinterpret_cast<const uint4 *>(data + start - 32);
-    const uint4 v0 = wp[0], v1 = wp[1];
-    h = roll_word(h, v0.x, g);
-    h = roll_word(h, v0.y, g);
-    h = roll_word(h, v0.z, g);
-    h = roll_word(h, v0.w, g);
-    h = roll_word(h, v1.x, g);
-    h = roll_word(h, v1.y, g);
-    h = roll_word(h, v1.z, g);
-    h = roll_word(h, v1.w, g);
-  }
+  // warm-up: the 32 bytes before the run
+  uint32_t h = start >= 32 ? warm32(data + start - 32, g) : 0u;
 
   const uint4 *src = reinterpret_cast<const uint4 *>(data + start);
   uint4 *dst = reinterpret_cast<uint4 *>(words_be + start / 4);
@@ -106,6 +134,62 @@ cdc_scan_kernel(const uint8_t *__restrict__ data, int64_t n_pad, int64_t n,
       bitmap[(start + i * 16 - 16) >> 5] = bits;
       bits = 0;
     }
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+cdc_shard_scan_kernel(const uint8_t *__restrict__ local,
+                      const uint8_t *__restrict__ halo, int64_t m,
+                      int64_t base, uint32_t mask,
+                      uint32_t *__restrict__ words,
+                      int32_t *__restrict__ count) {
+  __shared__ uint32_t g[256];
+  __shared__ int warp_sum[kScanThreads / 32];
+  load_gear_table(g);
+  __syncthreads();
+
+  const int64_t start =
+      (static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x) * kRun;
+  int cnt = 0;
+  if (start < m) {
+    uint32_t h = 0;
+    if (start >= 32) {
+      h = warm32(local + start - 32, g);
+    } else {  // the shard's first run: the halo is its history
+      for (int i = 0; i < kHalo; ++i) h = (h << 1) + g[halo[i]];
+    }
+    const uint4 *src = reinterpret_cast<const uint4 *>(local + start);
+    uint32_t bits = 0;
+#pragma unroll 2
+    for (int i = 0; i < kRun / 16; ++i) {
+      const uint4 v = src[i];
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          h = (h << 1) + g[(w[k] >> (8 * b)) & 0xFFu];
+          const int r = i * 16 + k * 4 + b;         // byte within the run
+          const int64_t pos1 = base + start + r + 1;  // in the whole block
+          const bool c = ((h & mask) == 0u) && pos1 >= 32;
+          bits |= static_cast<uint32_t>(c) << (r & 31);
+        }
+      }
+      if (i & 1) {  // 32 bytes done: one bitmap word
+        words[(start + i * 16 - 16) >> 5] = bits;
+        cnt += __popc(bits);
+        bits = 0;
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    cnt += __shfl_down_sync(0xFFFFFFFFu, cnt, off);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int i = 0; i < kScanThreads / 32; ++i) total += warp_sum[i];
+    if (total) atomicAdd(count, total);
   }
 }
 
@@ -247,5 +331,22 @@ extern "C" int hdrf_cdc_select(const void *bitmap, int64_t nbm, int64_t n,
       static_cast<const uint32_t *>(bitmap), nbm, n, min_chunk, max_chunk,
       b_small, static_cast<int32_t *>(table), static_cast<int32_t *>(ols),
       static_cast<int32_t *>(olb), cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard scan: shard bytes + halo -> candidate bitmap words + count.
+extern "C" int hdrf_cdc_shard_scan(const void *local, const void *halo,
+                                   int64_t m, int64_t base, uint32_t mask,
+                                   void *words, void *count, void *stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int32_t), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t threads = m / kRun;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kScanThreads - 1) / kScanThreads);
+  cdc_shard_scan_kernel<<<blocks, kScanThreads, 0, s>>>(
+      static_cast<const uint8_t *>(local), static_cast<const uint8_t *>(halo),
+      m, base, mask, static_cast<uint32_t *>(words),
+      static_cast<int32_t *>(count));
   return static_cast<int>(cudaGetLastError());
 }

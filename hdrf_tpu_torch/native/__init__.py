@@ -1,6 +1,7 @@
-"""Host native helpers: CRC32C and the LZ4 codec (port of
-hdrf_tpu/native/__init__.py:67-83, 180-263, 307 over its ``crc32c.cpp``
-and ``lz4.cpp``).
+"""Host native helpers: CRC32C, the LZ4 codec, the Gear candidate scan,
+the min/max cut select and SHA-256 of byte ranges (port of
+hdrf_tpu/native/__init__.py:123-166, 180-263, 307 over its ``crc32c.cpp``,
+``lz4.cpp``, ``cdc.cpp`` and ``sha256.cpp``).
 
 The port keeps its own copies of those sources in ``native/src`` and
 builds every ``src/*.cpp`` with ``g++`` into one library,
@@ -9,8 +10,9 @@ at first use and again whenever any source is newer than the library;
 then binds it with ctypes.  What crosses: the packet checksum and the
 host half of the LZ4 seal (the serial encoder, its tail-reporting form
 for segmented compression, the emit over device match records, the
-packed-record unpack and the decoder).  The rest of the reference's
-native library (host CDC, SHA) is replaced by the device kernels.
+packed-record unpack and the decoder), the sharded reduction's host cut
+select, and the host candidate scan and SHA-256 that ``chip_smoke.py``
+holds the kernels to.
 """
 
 from __future__ import annotations
@@ -43,6 +45,12 @@ _SIGNATURES = {
     "hdrf_lz4_unpack_records": ([_P, _U64, _U64, _U64, _U64, _P, _P], _U64),
     # src, n, pos, dl, nrec, dst, cap
     "hdrf_lz4_emit": ([_P, _U64, _P, _P, _U64, _P, _U64], _U64),
+    # data, len, mask, out_pos, cap
+    "hdrf_gear_candidates": ([_P, _U64, _U32, _P, _U64], _U64),
+    # cand, ncand, len, min, max, out_cuts, cap
+    "hdrf_cdc_select": ([_P, _U64, _U64, _U64, _U64, _P, _U64], _U64),
+    # data, offsets, lengths, n, out
+    "hdrf_sha256_batch": ([_P, _P, _P, _U64, _P], None),
 }
 
 
@@ -184,3 +192,47 @@ def lz4_decompress(data, decompressed_size: int) -> bytes:
         raise RuntimeError(f"lz4 decompression failed: got {n}, want "
                            f"{decompressed_size}")
     return out.tobytes()
+
+
+def gear_candidates(data, mask: int) -> np.ndarray:
+    """Every pos1 in [32, len] whose window-32 Gear hash has ``(h & mask)
+    == 0`` (uint64, ascending): the serial host scan."""
+    a = _as_u8(data)
+    lib = _load()
+    cap = max(a.size // 8, 1024)
+    out = np.empty(cap, dtype=np.uint64)
+    n = lib.hdrf_gear_candidates(a.ctypes.data, a.size, mask & 0xFFFFFFFF,
+                                 out.ctypes.data, cap)
+    if n > cap:  # a dense mask: retry at the exact size
+        out = np.empty(n, dtype=np.uint64)
+        n = lib.hdrf_gear_candidates(a.ctypes.data, a.size,
+                                     mask & 0xFFFFFFFF, out.ctypes.data, n)
+    return out[:n].copy()
+
+
+def cdc_select(candidates: np.ndarray, length: int, min_chunk: int,
+               max_chunk: int) -> np.ndarray:
+    """Min/max frontier cut select over sorted candidates: uint64
+    exclusive chunk ends, the last always ``length``."""
+    cand = np.ascontiguousarray(candidates, dtype=np.uint64)
+    cap = length // max(min_chunk, 1) + 2
+    out = np.empty(cap, dtype=np.uint64)
+    n = _load().hdrf_cdc_select(cand.ctypes.data, cand.size, length,
+                                min_chunk, max_chunk, out.ctypes.data, cap)
+    return out[:n].copy()
+
+
+def sha256_batch(data, offsets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """SHA-256 of the byte ranges ``[offsets[i], offsets[i] + lengths[i])``
+    of ``data``: u8[n, 32]."""
+    a = _as_u8(data)
+    offs = np.ascontiguousarray(offsets, dtype=np.uint64)
+    lens = np.ascontiguousarray(lengths, dtype=np.uint64)
+    if offs.shape != lens.shape:
+        raise ValueError("offsets/lengths shape mismatch")
+    if offs.size and int((offs + lens).max()) > a.size:
+        raise ValueError("chunk range exceeds data buffer")
+    out = np.empty((offs.size, 32), dtype=np.uint8)
+    _load().hdrf_sha256_batch(a.ctypes.data, offs.ctypes.data,
+                              lens.ctypes.data, offs.size, out.ctypes.data)
+    return out

@@ -7,7 +7,9 @@ repository root, bound with ctypes (pointers and the stream as
 ``c_void_p``).  The build runs at first use and again whenever a source is
 newer than the library; it never runs at import, so the CPU tests import
 every module without ``nvcc``.  Every C entry point enqueues on the stream
-it is given, allocates nothing, and returns ``cudaGetLastError()``.
+it is given, allocates nothing, and returns ``cudaGetLastError()``;
+``launch`` calls one with its tensors' device current, so a kernel runs
+on whichever card its inputs lie on.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ _SIGNATURES = {
     # bitmap, nbm, n, min, max, b_small, table, ols, olb, cap, stream
     "hdrf_cdc_select": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I64,
                         _P],
+    # local, halo, m, base, mask, words, count, stream
+    "hdrf_cdc_shard_scan": [_P, _P, _I64, _I64, _U32, _P, _P, _P],
     # words, nw, offs, lens, L, W, out, stream
     "hdrf_gather_pad": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
     # msgs, L, W, nblocks, out, stream
@@ -135,3 +139,14 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device, *args, what: str) -> None:
+    """Call the C entry point ``name`` with ``args`` and PyTorch's current
+    stream on ``device``, that device current (a launch goes to the
+    current device's context); raise on a CUDA error."""
+    import torch
+
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        check(fn(*args, stream_handle(device)), what)

@@ -40,6 +40,19 @@ Each launch has its own wrapper and launch counter (``cdc_scan``,
 ``cdc_select``; ``cdc_block`` runs both).  On a CPU tensor a wrapper runs
 its plain version (ops/gear.py scan, host select); on a CUDA tensor it
 launches its kernel or raises.
+
+**The shard scan** (``shard_scan``, counter ``shard_scan_launches``)
+replaces the Pallas ``_scan_kernel`` (pallas_call at cdc_pallas.py:570,
+host half ``local_candidate_words_pallas`` at :621-647): the candidate
+scan of one ``seq`` shard of a block in the sharded reduction
+(parallel/sharded.py).  Same parallel scan, but the shard's first run
+takes its history from a 31-byte halo (the previous shard's tail, zeros
+for shard 0), a candidate needs only ``pos1 >= WINDOW`` of the whole
+block (no ``<= n`` clamp and no min-chunk floor: the zero pad's
+candidates are counted, and the host drops them), and it returns packed
+bitmap words in the reference's ``pack_bitmap_words`` layout, so the TPU
+kernel's nibble stage has no counterpart, plus the candidate count.
+Bound: bytes — the shard and halo read once, the bitmap written once.
 """
 
 from __future__ import annotations
@@ -59,6 +72,7 @@ H_SURV, H_CANDS = 4, 5  # reference telemetry lanes; zero here
 # Launches of each kernel, one per wrapper call on a CUDA block.
 scan_launches = 0
 select_launches = 0
+shard_scan_launches = 0
 _launch_lock = threading.Lock()
 
 
@@ -111,11 +125,9 @@ def _check_block(block: torch.Tensor, n: int, what: str) -> None:
 def cdc_scan_plain(block: torch.Tensor, n: int, mask: int, min_chunk: int):
     """Plain version of :func:`cdc_scan`, on the block's own device."""
     cand = gear.candidate_positions(block, n, mask, max(1, int(min_chunk)))
-    bits = torch.zeros(block.numel(), dtype=torch.int64, device=block.device)
-    bits[cand - 1] = 1
-    shift = torch.arange(32, dtype=torch.int64, device=block.device)
-    bitmap = (bits.view(-1, 32) << shift).sum(dim=1)
-    return gear.be_words(block), gear.to_i32(bitmap)
+    bits = torch.zeros(block.numel(), dtype=torch.bool, device=block.device)
+    bits[cand - 1] = True
+    return gear.be_words(block), gear.pack_bits(bits)
 
 
 def cdc_scan(block: torch.Tensor, n: int, mask: int, min_chunk: int):
@@ -130,17 +142,65 @@ def cdc_scan(block: torch.Tensor, n: int, mask: int, min_chunk: int):
         return cdc_scan_plain(block, n, mask, min_chunk)
     _check_block(block, n, "cdc_scan")
     global scan_launches
-    lib = _build.library()
     n_pad = block.numel()
     words = torch.empty(n_pad // 4, dtype=torch.int32, device=block.device)
     bitmap = torch.empty(n_pad // 32, dtype=torch.int32, device=block.device)
-    _build.check(lib.hdrf_cdc_scan(
-        block.data_ptr(), n_pad, n, mask & 0xFFFFFFFF, max(1, int(min_chunk)),
-        words.data_ptr(), bitmap.data_ptr(),
-        _build.stream_handle(block.device)), "cdc scan kernel")
+    _build.launch("hdrf_cdc_scan", block.device, block.data_ptr(), n_pad, n,
+                  mask & 0xFFFFFFFF, max(1, int(min_chunk)), words.data_ptr(),
+                  bitmap.data_ptr(), what="cdc scan kernel")
     with _launch_lock:  # handler threads of the worker launch too
         scan_launches += 1
     return words, bitmap
+
+
+def shard_scan_plain(local: torch.Tensor, halo: torch.Tensor, base: int,
+                     mask: int):
+    """Plain version of :func:`shard_scan`, on the shard's own device: the
+    window hashes of ``halo ‖ local``, the position rule, the pack."""
+    m = local.numel()
+    h = gear.window_hashes(torch.cat([halo, local]))[gear.HALO:]
+    pos1 = torch.arange(base + 1, base + m + 1, dtype=torch.int64,
+                        device=local.device)
+    bits = ((h & (mask & gear.M32)) == 0) & (pos1 >= gear.MIN_CANDIDATE_POS1)
+    return gear.pack_bits(bits), bits.sum().to(torch.int32).view(1)
+
+
+def shard_scan(local: torch.Tensor, halo: torch.Tensor, base: int,
+               mask: int):
+    """Gear candidate scan of one shard of a block.
+
+    local: u8[m] (m % 256 == 0) — the shard; halo: u8[31] on the same
+    device — the previous shard's last 31 bytes, zeros for the first
+    shard; base: the shard's offset in the block.  Returns ``(words
+    int32[m/32]``, ``count int32[1])``: bit ``k`` of word ``w`` is set when
+    the window-32 hash ending at local byte ``32 w + k`` has ``(h & mask)
+    == 0`` and ``base + 32 w + k + 1 >= WINDOW``; ``count`` is the number
+    of set bits."""
+    if local.device.type == "cpu":
+        return shard_scan_plain(local, halo, base, mask)
+    if local.device.type != "cuda" or halo.device != local.device:
+        raise ValueError("shard_scan: local and halo must share a CUDA "
+                         "device")
+    m = local.numel()
+    if local.dtype != torch.uint8 or local.dim() != 1 \
+            or not local.is_contiguous() or local.data_ptr() % 16 \
+            or m == 0 or m % 256 or m >= (1 << 31):
+        raise ValueError("shard_scan: expected a contiguous, 16-byte aligned "
+                         f"1-D uint8 shard of a multiple of 256 bytes, got "
+                         f"{m}")
+    if halo.dtype != torch.uint8 or halo.shape != (gear.HALO,) \
+            or not halo.is_contiguous():
+        raise ValueError(f"shard_scan: expected a uint8[{gear.HALO}] halo")
+    global shard_scan_launches
+    words = torch.empty(m // 32, dtype=torch.int32, device=local.device)
+    count = torch.empty(1, dtype=torch.int32, device=local.device)
+    _build.launch("hdrf_cdc_shard_scan", local.device, local.data_ptr(),
+                  halo.data_ptr(), m, int(base), mask & 0xFFFFFFFF,
+                  words.data_ptr(), count.data_ptr(),
+                  what="cdc shard scan kernel")
+    with _launch_lock:
+        shard_scan_launches += 1
+    return words, count
 
 
 def cdc_select_plain(bitmap: torch.Tensor, n: int, min_chunk: int,
@@ -182,17 +242,16 @@ def cdc_select(bitmap: torch.Tensor, n: int, min_chunk: int, max_chunk: int,
         raise ValueError("cdc_select: expected a contiguous, 16-byte "
                          f"aligned int32 CUDA bitmap covering n={n}")
     global select_launches
-    lib = _build.library()
     min_chunk = max(1, int(min_chunk))
     cap = cap_for(n, min_chunk)
     dev = bitmap.device
     table = torch.empty(TABLE_HDR + cap, dtype=torch.int32, device=dev)
     ols = torch.empty((2, cap), dtype=torch.int32, device=dev)
     olb = torch.empty((2, cap), dtype=torch.int32, device=dev)
-    _build.check(lib.hdrf_cdc_select(
-        bitmap.data_ptr(), bitmap.numel(), n, min_chunk, int(max_chunk),
-        int(b_small), table.data_ptr(), ols.data_ptr(), olb.data_ptr(), cap,
-        _build.stream_handle(dev)), "cdc select kernel")
+    _build.launch("hdrf_cdc_select", dev, bitmap.data_ptr(), bitmap.numel(),
+                  n, min_chunk, int(max_chunk), int(b_small), table.data_ptr(),
+                  ols.data_ptr(), olb.data_ptr(), cap,
+                  what="cdc select kernel")
     with _launch_lock:
         select_launches += 1
     return table, ols, olb

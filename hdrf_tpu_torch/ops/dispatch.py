@@ -1,5 +1,5 @@
 """Backend dispatch for the reduction hot ops (port of
-hdrf_tpu/ops/dispatch.py:31-83, 161-281).
+hdrf_tpu/ops/dispatch.py:31-281).
 
 Two backends with identical outputs:
 
@@ -10,10 +10,14 @@ Two backends with identical outputs:
   for tests on a machine without a card.
 
 ``chunk_and_fingerprint`` is the write path's one funnel,
-``block_compress`` / ``block_compress_batch`` the container seal's.  A
-CUDA backend without a card raises; nothing falls back to the CPU behind
-the caller.  ``from_reference_cdc`` and ``from_reference_lz4`` carry state
-across from the reference package.
+``block_compress`` / ``block_compress_batch`` the container seal's.  With
+two or more cards the funnel runs the sharded pipeline
+(parallel/sharded.reduce_sharded) over a ('data'=1, 'seq'=n) mesh, and
+with the mesh plane on (``set_mesh_plane`` or ``HDRF_MESH_PLANE=1``) an
+LZ4 group spreads over a ('data'=n, 'seq'=1) mesh, as in the reference.
+A CUDA backend without a card raises; nothing falls back to the CPU
+behind the caller.  ``from_reference_cdc`` and ``from_reference_lz4``
+carry state across from the reference package.
 """
 
 from __future__ import annotations
@@ -101,9 +105,84 @@ def fingerprints(data, cuts: np.ndarray, backend: str = "auto") -> np.ndarray:
     return fingerprint_chunks(data, cuts, device=_device_for(backend))
 
 
+_resident_cache: dict = {}
+_mesh_cache: list = []
+_mesh_plane: list = []
+_mesh_plane_mesh_cache: list = []
+_mesh_reducer_cache: dict = {}
+
+
+def set_mesh_plane(flag: bool) -> None:
+    """Process-wide switch for the mesh-sharded reduction plane
+    (parallel/sharded.MeshReducer); unset, ``HDRF_MESH_PLANE=1`` turns it
+    on."""
+    _mesh_plane[:] = [bool(flag)]
+
+
+def mesh_plane_enabled() -> bool:
+    if _mesh_plane:
+        return _mesh_plane[0]
+    import os
+
+    return os.environ.get("HDRF_MESH_PLANE", "") == "1"
+
+
+def _cards() -> list[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _mesh_plane_mesh():
+    """('data'=n, 'seq'=1) mesh over every card — the block-data-parallel
+    layout of the mesh plane — or None below two cards, where the serial
+    ResidentReducer is strictly better."""
+    if not _mesh_plane_mesh_cache:
+        from hdrf_tpu_torch.parallel.sharded import make_mesh
+
+        devs = _cards()
+        _mesh_plane_mesh_cache.append(
+            make_mesh(n_data=len(devs), n_seq=1, devices=devs)
+            if len(devs) > 1 else None)
+    return _mesh_plane_mesh_cache[0]
+
+
+def mesh_reducer(cdc: CdcConfig, lanes_per_device: int = 2,
+                 bucket_slots: int = 1 << 15):
+    """The shared parallel/sharded.MeshReducer for this CDC geometry, or
+    None below two cards.  Shared, so the device bucket table sees every
+    ChunkIndex commit exactly once."""
+    mesh = _mesh_plane_mesh()
+    if mesh is None:
+        return None
+    key = (cdc.mask_bits, cdc.min_chunk, cdc.max_chunk,
+           int(lanes_per_device), int(bucket_slots))
+    r = _mesh_reducer_cache.get(key)
+    if r is None:
+        from hdrf_tpu_torch.parallel.sharded import MeshReducer
+
+        r = _mesh_reducer_cache[key] = MeshReducer(
+            cdc, mesh=mesh, lanes_per_device=lanes_per_device,
+            bucket_slots=bucket_slots)
+    return r
+
+
+def _multichip_mesh():
+    """The ('data'=1, 'seq'=n) mesh over every card, built once, or None
+    below two: the serving path's multi-device form engages by itself when
+    more than one card is present."""
+    if not _mesh_cache:
+        from hdrf_tpu_torch.parallel.sharded import make_mesh
+
+        devs = _cards()
+        _mesh_cache.append(make_mesh(n_data=1, n_seq=len(devs), devices=devs)
+                           if len(devs) > 1 else None)
+    return _mesh_cache[0]
+
+
 def chunk_and_fingerprint(data, cdc: CdcConfig, backend: str = "auto"):
     """(cuts, digests) in one call — THE entry point for the write path.
-    The block crosses to the device once (ops/resident.ResidentReducer)."""
+    The block crosses to the device once: the sharded pipeline with two or
+    more cards, else ops/resident.ResidentReducer (one per geometry and
+    device, kept)."""
     from hdrf_tpu_torch.ops.resident import ResidentReducer
 
     backend = resolve_backend(backend)
@@ -111,11 +190,22 @@ def chunk_and_fingerprint(data, cdc: CdcConfig, backend: str = "auto"):
               else data.nbytes)
     _M.incr(f"reduce_{backend}_total")
     _M.incr(f"reduce_{backend}_bytes", nbytes)
-    return ResidentReducer(cdc, device=_device_for(backend)).reduce(data)
+    if backend == "cuda":
+        mesh = _multichip_mesh()
+        if mesh is not None:
+            from hdrf_tpu_torch.parallel.sharded import reduce_sharded
+
+            return reduce_sharded(data, cdc, mesh)
+    dev = _device_for(backend)
+    key = (cdc.mask_bits, cdc.min_chunk, cdc.max_chunk, dev)
+    r = _resident_cache.get(key)
+    if r is None:
+        r = _resident_cache[key] = ResidentReducer(cdc, device=dev)
+    return r.reduce(data)
 
 
 # ----------------------------------------------------------- entropy stage
-# (port of hdrf_tpu/ops/dispatch.py:212-281 without its mesh branch)
+# (port of hdrf_tpu/ops/dispatch.py:212-281)
 
 _LZ4_FIELDS = ("stride", "min_len", "min_device", "_p1", "_p2", "_p3",
                "_flood_streak", "_bypass_left", "BYPASS_AFTER", "BYPASS_RUN")
@@ -170,11 +260,21 @@ def block_compress_batch(codec: str, datas: list,
                          backend: str = "auto") -> list:
     """Batched codec dispatch: ``lz4`` payloads go to
     ``DeviceLz4.compress_many`` (a flood bypass covers the whole group or
-    none of it); everything else per item."""
+    none of it), spread over the cards when the mesh plane is on;
+    everything else per item."""
     backend = resolve_backend(backend)
     if codec == "lz4":
         _M.incr(f"compress_{backend}_total", len(datas))
         _M.incr(f"compress_{backend}_bytes", sum(len(d) for d in datas))
+        if backend == "cuda" and mesh_plane_enabled():
+            mesh = _mesh_plane_mesh()
+            if mesh is not None:
+                from hdrf_tpu_torch.parallel.sharded import (
+                    lz4_compress_many_sharded,
+                )
+
+                return lz4_compress_many_sharded(lz4_engine(backend), datas,
+                                                 mesh)
         return lz4_engine(backend).compress_many(datas)
     return [block_compress(codec, d, backend) for d in datas]
 

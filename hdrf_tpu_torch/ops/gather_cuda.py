@@ -95,11 +95,9 @@ def gather_pad_messages(words: torch.Tensor, ol: torch.Tensor,
     if L == 0:
         return out
     global launches
-    lib = _build.library()
-    _build.check(lib.hdrf_gather_pad(
-        words.data_ptr(), words.numel(), ol[0].data_ptr(), ol[1].data_ptr(),
-        L, W, out.data_ptr(), _build.stream_handle(words.device)),
-        "gather kernel")
+    _build.launch("hdrf_gather_pad", words.device, words.data_ptr(),
+                  words.numel(), ol[0].data_ptr(), ol[1].data_ptr(), L, W,
+                  out.data_ptr(), what="gather kernel")
     with _launch_lock:  # handler threads of the worker launch too
         launches += 1
     return out

@@ -1,6 +1,7 @@
 """Gear rolling-hash CDC: constants, the Gear table and the plain candidate
-scan (port of hdrf_tpu/ops/gear.py:36-104) plus the plain host cut select
-(a copy of hdrf_tpu/native/src/cdc.cpp:74-92 ``hdrf_cdc_select``).
+scan (port of hdrf_tpu/ops/gear.py:36-104, 171-182) plus the plain host
+cut select (a copy of hdrf_tpu/native/src/cdc.cpp:74-92
+``hdrf_cdc_select``).
 
 The hash at byte ``i`` is the window-32 sum
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 WINDOW = 32  # bytes contributing to the hash: h[i] covers b[i-31..i]
+HALO = WINDOW - 1  # bytes of history a shard needs from the one before it
 
 # Window-warmup convention shared by every candidate producer: the first
 # WINDOW-1 positions hold partial-window hashes and can never be cuts.
@@ -67,6 +69,14 @@ def be_words(block: torch.Tensor) -> torch.Tensor:
     return to_i32(w)
 
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool[N] (N % 32 == 0) -> int32[N/32] bitmap words, bit ``k`` of word
+    ``w`` = ``bits[32 w + k]`` (the layout of the reference's
+    ``gear.pack_bitmap_words``)."""
+    shift = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return to_i32((bits.view(-1, 32).to(torch.int64) << shift).sum(dim=1))
+
+
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the int32 tensor with the same bits."""
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
@@ -93,6 +103,22 @@ def candidate_positions(block: torch.Tensor, n: int, mask: int,
     pos1 = torch.arange(1, n + 1, device=block.device, dtype=torch.int64)
     hit = ((h & (mask & M32)) == 0) & (pos1 >= skip_ahead_threshold(min_chunk))
     return pos1[hit]
+
+
+def words_to_positions(idx: np.ndarray, vals: np.ndarray,
+                       n: int) -> np.ndarray:
+    """Sorted uint64 pos1 of the set bits of sparse bitmap words (word
+    ``idx[i]`` holds ``vals[i]``; bit ``k`` of word ``w`` is ``pos1 = 32 w
+    + k + 1``), those ``<= n`` (a copy of the reference's
+    ``gear._words_to_positions``)."""
+    if idx.size == 0:
+        return np.empty(0, dtype=np.uint64)
+    bits = np.unpackbits(vals[:, None].astype(">u4").view(np.uint8)
+                         .reshape(-1, 4)[:, ::-1], axis=1, bitorder="little")
+    wi, bi = np.nonzero(bits)
+    pos = idx[wi].astype(np.uint64) * 32 + bi + 1
+    pos.sort()
+    return pos[pos <= n]
 
 
 def cdc_select(cand: np.ndarray, length: int, min_chunk: int,

@@ -385,10 +385,11 @@ class DeviceLz4:
         pad = (-a.size) % _S
         return np.concatenate([a, np.zeros(pad, np.uint8)]) if pad else a
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
         if not a.flags.writeable:  # torch refuses read-only buffers
             a = a.copy()
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if device is None else device)
 
     def _shapes(self, n_pad: int) -> tuple[int, int, int]:
         entries = n_pad // self.stride
@@ -408,7 +409,8 @@ class DeviceLz4:
                                              self.min_len, p1, p2, p3,
                                              packed)))
 
-    def submit(self, data) -> Lz4Job:
+    def submit(self, data, device=None) -> Lz4Job:
+        """Start one block's scan on ``device`` (default: the engine's)."""
         a = (np.frombuffer(data, dtype=np.uint8)
              if not isinstance(data, np.ndarray) else data)
         if a.size < self.min_device:
@@ -418,10 +420,10 @@ class DeviceLz4:
                 self._bypass_left -= 1
                 _M_FLOOD.incr("bypassed_scans")
                 return Lz4Job(n=a.size, host=a, block=None, recs=None)
-        return self._submit_scan(a)
+        return self._submit_scan(a, device)
 
-    def _submit_scan(self, a: np.ndarray) -> Lz4Job:
-        block = self._upload(self._pad(a))
+    def _submit_scan(self, a: np.ndarray, device=None) -> Lz4Job:
+        block = self._upload(self._pad(a), device)
         p1, p2, p3 = self._shapes(block.numel())
         ev = _ledger.dispatch("lz4.scan", h2d_bytes=block.numel())
         recs, ready = _readback(match_scan(block, self.stride, self.min_len,
@@ -564,11 +566,14 @@ class DeviceLz4:
 
     # ------------------------------------------------------------- groups
 
-    def submit_many(self, datas: list) -> list[Lz4Job]:
+    def submit_many(self, datas: list, devices=None) -> list[Lz4Job]:
         """Submit a group.  A bypass covers the whole group or none of it,
         and a group of two or more equal-length device-sized blocks is
         scanned whole even while a shorter bypass is pending (the
-        reference's batched group); otherwise per-buffer submits."""
+        reference's batched group); otherwise per-buffer submits.
+        ``devices`` places each block's scan (the sharded group of
+        parallel/sharded.lz4_submit_many_sharded); the policy and so the
+        streams do not depend on it."""
         arrs = [np.frombuffer(d, dtype=np.uint8)
                 if not isinstance(d, np.ndarray) else d for d in datas]
         with self._lock:
@@ -579,8 +584,9 @@ class DeviceLz4:
                         for a in arrs]
         whole = (len(arrs) > 1 and len({a.size for a in arrs}) == 1
                  and arrs[0].size >= self.min_device)
-        return [self._submit_scan(a) if whole else self.submit(a)
-                for a in arrs]
+        devs = devices if devices is not None else [None] * len(arrs)
+        return [self._submit_scan(a, d) if whole else self.submit(a, d)
+                for a, d in zip(arrs, devs)]
 
     def finish_many(self, jobs: list[Lz4Job]) -> list[bytes]:
         return [self.finish(j) for j in jobs]

@@ -48,6 +48,35 @@ from hdrf_tpu_torch.utils import device_ledger as _ledger
 _HDR = cdc_cuda.TABLE_HDR
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start a device->host copy of ``t`` (pinned, asynchronous on the
+    card; a CPU tensor is its own host copy)."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def record_event(device: torch.device):
+    """A CUDA event after the work enqueued so far on ``device``'s current
+    stream (None on the CPU, where everything has already run)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def digest_lanes(words: torch.Tensor, lanes: torch.Tensor,
+                 bucket: int) -> torch.Tensor:
+    """Gather + SHA kernels over one lane table (int32[2, L]: byte offsets,
+    lengths) of a BE word image: digests u8[L, 32] on the device."""
+    msgs = gather_pad_messages(words, lanes, bucket)
+    nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
+    return sha256_words_cuda(msgs, nb)
+
+
 @dataclasses.dataclass
 class _Block:
     """Per-block state between the three stages."""
@@ -90,36 +119,9 @@ class ResidentReducer:
 
     # ------------------------------------------------------------ helpers
 
-    @property
-    def _cuda(self) -> bool:
-        return self.device.type == "cuda"
-
-    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
-        """Start a device->host copy (pinned, asynchronous on the card)."""
-        if not self._cuda:
-            return t
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        return h
-
-    def _event(self):
-        if not self._cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
-
     def _small(self, lens: np.ndarray) -> np.ndarray:
         """Which chunks go to the small lane table (the two-bucket rule)."""
         return (lens + 9 + 63) // 64 <= self._b_small
-
-    def _digest_lanes(self, words: torch.Tensor, lanes: torch.Tensor,
-                      bucket: int) -> torch.Tensor:
-        """Gather + SHA kernels over one lane table; the digests' host copy
-        is started."""
-        msgs = gather_pad_messages(words, lanes, bucket)
-        nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
-        return self._to_host(sha256_words_cuda(msgs, nb))
 
     def _assemble(self, cuts: np.ndarray, digs_host: list) -> np.ndarray:
         """Digests in chunk order from the small and big lane results."""
@@ -165,8 +167,8 @@ class ResidentReducer:
                 b.words, b.table, b.ols, b.olb = cdc_cuda.cdc_block(
                     block, n, self.mask, self.cdc.min_chunk,
                     self.cdc.max_chunk, self._b_small)
-                b.hdr = self._to_host(b.table[:_HDR])
-                b.hdr_ready = self._event()
+                b.hdr = to_host(b.table[:_HDR])
+                b.hdr_ready = record_event(self.device)
             blocks.append(b)
         ev = _ledger.dispatch("resident.cdc", batch=len(blocks),
                               h2d_bytes=h2d)
@@ -186,10 +188,10 @@ class ResidentReducer:
             b.digs_host = []
             for ol, bucket, cnt in ((b.ols, self._b_small, ns),
                                     (b.olb, self._b_big, nbg)):
-                b.digs_host.append(self._digest_lanes(b.words, ol[:, :cnt],
-                                                      bucket))
-            b.cuts_host = self._to_host(b.table[_HDR:_HDR + nc])
-            b.done = self._event()
+                b.digs_host.append(to_host(
+                    digest_lanes(b.words, ol[:, :cnt], bucket)))
+            b.cuts_host = to_host(b.table[_HDR:_HDR + nc])
+            b.done = record_event(self.device)
             b.words = b.table = b.ols = b.olb = None
         _ledger.readback(bj._ev, d2h_bytes=nbytes)
         bj._ev = None
@@ -270,8 +272,8 @@ class ResidentReducer:
                                          int((lens.max() + 72) // 64)))):
             lanes = torch.as_tensor(np.stack([starts[sel], lens[sel]]).astype(
                 np.int32), device=self.device)
-            digs_host.append(self._digest_lanes(words, lanes, bucket))
-        done = self._event()
+            digs_host.append(to_host(digest_lanes(words, lanes, bucket)))
+        done = record_event(self.device)
         if done is not None:
             done.synchronize()
         return self._assemble(cuts, digs_host)

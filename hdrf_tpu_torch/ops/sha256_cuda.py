@@ -57,10 +57,9 @@ def sha256_words_cuda(words: torch.Tensor,
     if L == 0:
         return out
     global launches
-    lib = _build.library()
-    _build.check(lib.hdrf_sha256(
-        words.data_ptr(), L, words.shape[1], nblocks.data_ptr(),
-        out.data_ptr(), _build.stream_handle(words.device)), "sha256 kernel")
+    _build.launch("hdrf_sha256", words.device, words.data_ptr(), L,
+                  words.shape[1], nblocks.data_ptr(), out.data_ptr(),
+                  what="sha256 kernel")
     with _launch_lock:  # handler threads of the worker launch too
         launches += 1
     return out

@@ -133,10 +133,8 @@ def match_deltas(vals: torch.Tensor, stride: int,
     out = torch.empty_like(vals)
     if t == 0:
         return out
-    lib = _build.library()
-    _build.check(lib.hdrf_match_deltas(
-        vals.data_ptr(), t, e, stride, out.data_ptr(),
-        _build.stream_handle(vals.device)), "match deltas kernel")
+    _build.launch("hdrf_match_deltas", vals.device, vals.data_ptr(), t, e,
+                  stride, out.data_ptr(), what="match deltas kernel")
     with _launch_lock:  # handler threads of the worker launch too
         match_deltas_launches += 1
     return out
@@ -191,13 +189,11 @@ def sort_rows(key: torch.Tensor, *vals: torch.Tensor, pad_key=None,
     pv = [int(p) & M32 for p in (pad_vals or ())] + [0, 0]
     v1 = vals[1].data_ptr() if len(vals) == 2 else None
     o1 = outs[2].data_ptr() if len(vals) == 2 else None
-    lib = _build.library()
-    _build.check(lib.hdrf_sort_rows(
-        key.data_ptr(), vals[0].data_ptr(), v1, len(vals), t, e, width,
-        int(key_unsigned), _i32(pad_key or 0), pv[0], pv[1],
-        outs[0].data_ptr(),
-        outs[1].data_ptr(), o1, _build.stream_handle(key.device)),
-        "sort rows kernel")
+    _build.launch("hdrf_sort_rows", key.device, key.data_ptr(),
+                  vals[0].data_ptr(), v1, len(vals), t, e, width,
+                  int(key_unsigned), _i32(pad_key or 0), pv[0], pv[1],
+                  outs[0].data_ptr(), outs[1].data_ptr(), o1,
+                  what="sort rows kernel")
     with _launch_lock:
         sort_rows_launches += 1
     return tuple(o[:, :e] for o in outs)

@@ -92,6 +92,13 @@ def readback(tok: _Pending | None, *, d2h_bytes: int = 0) -> None:
            batch=tok.batch, nbytes=tok.h2d + d2h_bytes)
 
 
+def transfer(kind: str, op: str, nbytes: int) -> None:
+    """Record a bare transfer (kind ``h2d`` or ``d2h``) with no compute."""
+    _M.incr(f"{kind}_bytes_total", nbytes)
+    _M.incr(f"{kind}_transfer_total")
+    _event(op, kind, t0=time.time(), dur_us=0.0, batch=1, nbytes=nbytes)
+
+
 def events_snapshot(limit: int = _RING_MAX) -> list[dict[str, Any]]:
     """Newest-last copy of the event ring (msgpack/JSON-safe dicts)."""
     with _lock:

@@ -10,6 +10,10 @@ where JAX is not installed.  Outputs are integers: exact equality.
 """
 
 import hashlib
+import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -20,9 +24,11 @@ from hdrf_tpu_torch.config import CdcConfig
 from hdrf_tpu_torch.ops import (cdc_cuda, dispatch, gather_cuda, sha256_cuda,
                                 sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
+from hdrf_tpu_torch.ops.gear import words_to_positions
 from hdrf_tpu_torch.ops.lz4_device import _INVALID, _S, DeviceLz4
 from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.ops.sha256 import sha256_words
+from hdrf_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.cuda
 
@@ -258,3 +264,161 @@ def test_device_lz4_on_card_equals_cpu(dev, stride):
     assert card.compress_many(group) == cpu.compress_many(group)
     assert sort_cuda.match_deltas_launches > m0
     assert sort_cuda.sort_rows_launches > s0
+
+
+# ----------------------------------------------- the shard scan and the mesh
+
+@pytest.mark.parametrize("n_seq", [1, 4, 8])
+@pytest.mark.parametrize("seed,n,fill,mask,mn,mx", CASES)
+def test_shard_scan_kernel_equals_plain(dev, n_seq, seed, n, fill, mask, mn,
+                                        mx):
+    """Each shard with the previous shard's tail as its halo (zeros for
+    the first): words and count exact, and the shards' words together,
+    cut at n, give native.gear_candidates of the whole block."""
+    a = _data(seed, n, fill)
+    chunk = 256 * n_seq
+    buf = np.zeros(n + (-n) % chunk, np.uint8)
+    buf[:n] = a
+    block = torch.from_numpy(buf).to(dev)
+    m = buf.size // n_seq
+    words = []
+    for s in range(n_seq):
+        local = block[s * m:(s + 1) * m]
+        halo = (block[s * m - 31:s * m] if s
+                else torch.zeros(31, dtype=torch.uint8, device=dev))
+        n0 = cdc_cuda.shard_scan_launches
+        kw, kc = cdc_cuda.shard_scan(local, halo, s * m, mask)
+        torch.cuda.synchronize()
+        assert cdc_cuda.shard_scan_launches == n0 + 1
+        pw, pc = cdc_cuda.shard_scan_plain(local, halo, s * m, mask)
+        assert torch.equal(kw, pw) and torch.equal(kc, pc)
+        words.append(kw.cpu().numpy().view(np.uint32))
+    wv = np.concatenate(words)
+    (idx,) = np.nonzero(wv)
+    pos = words_to_positions(idx.astype(np.uint32), wv[idx], n)
+    np.testing.assert_array_equal(pos, native.gear_candidates(a, mask))
+
+
+def _oracle(a, cdc):
+    cuts = native.cdc_select(native.gear_candidates(a, gear_mask(cdc)),
+                             a.size, cdc.min_chunk, cdc.max_chunk)
+    starts = np.concatenate([[0], cuts[:-1]]).astype(np.uint64)
+    return cuts, native.sha256_batch(a, starts, cuts - starts)
+
+
+@pytest.mark.parametrize("n_data,n_seq,n", [(1, 4, 3 << 20), (2, 2, 3 << 20),
+                                            (1, 4, 40_000)])
+def test_reduce_sharded_on_card(dev, n_data, n_seq, n):
+    """The halo route (3 MiB) and the all-gather route (40 KB) on a mesh
+    of one card repeated: equal to the native oracle, through the shard
+    scan kernel."""
+    a = np.random.default_rng(n + n_seq).integers(0, 256, n, dtype=np.uint8)
+    cdc = CdcConfig()
+    mesh = sharded.make_mesh(n_data, n_seq, [dev] * (n_data * n_seq))
+    n0 = cdc_cuda.shard_scan_launches
+    cuts, digs = sharded.reduce_sharded(a, cdc, mesh)
+    assert cdc_cuda.shard_scan_launches == n0 + n_seq
+    wc, wd = _oracle(a, cdc)
+    np.testing.assert_array_equal(cuts, wc)
+    np.testing.assert_array_equal(digs, wd)
+
+
+def test_mesh_reducer_on_card_equals_serial(dev):
+    rng = np.random.default_rng(31)
+    group = [rng.integers(0, 256, k, np.uint8)
+             for k in (1 << 20, 300_000, 777, 1 << 19, 5000)]
+    cdc = CdcConfig(mask_bits=10, min_chunk=256, max_chunk=4096)
+    r = sharded.MeshReducer(cdc, sharded.make_mesh(2, 1, [dev, dev]))
+    got = r.reduce_many(group)
+    want = ResidentReducer(cdc, device=dev).reduce_many(group)
+    for (gc, gd, probe), (wc, wd) in zip(got, want):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gd, wd)
+        assert probe == frozenset()
+    r.table.note_new([d.tobytes() for d in want[0][1]])
+    again = r.reduce_many(group[:1])[0]
+    hm = r.table.host_probe(again[1])
+    assert again[2] == frozenset(again[1][i].tobytes()
+                                 for i in np.nonzero(hm)[0])
+    # slot collisions overwrite a few entries, so not every chunk hits
+    assert len(again[2]) > len(again[1]) // 2
+
+
+def test_lz4_sharded_on_card_equals_compress_many(dev):
+    corp = _seal_corpora()
+    group = [corp["text"], corp["random"][:3 << 20], corp["zeros"][:3 << 20],
+             corp["text"]]
+    mesh = sharded.make_mesh(2, 1, [dev, dev])
+    got = sharded.lz4_compress_many_sharded(DeviceLz4(device=dev), group,
+                                            mesh)
+    assert got == DeviceLz4(device=dev).compress_many(group)
+
+
+# ------------------------------------------------- meshes over several cards
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_sharded_across_cards(cards):
+    """Halos, ring walks and all-gathers as copies between cards; the
+    dispatch funnel takes the sharded path by itself."""
+    n = len(cards)
+    a = np.random.default_rng(77).integers(0, 256, 8 << 20, dtype=np.uint8)
+    cdc = CdcConfig()
+    want = _oracle(a, cdc)
+    shapes = [(1, n)] + ([(2, n // 2)] if n % 2 == 0 else [])
+    for n_data, n_seq in shapes:
+        mesh = sharded.make_mesh(n_data, n_seq, cards)
+        cuts, digs = sharded.reduce_sharded(a, cdc, mesh)
+        np.testing.assert_array_equal(cuts, want[0])
+        np.testing.assert_array_equal(digs, want[1])
+    n0 = cdc_cuda.shard_scan_launches
+    cuts, digs = dispatch.chunk_and_fingerprint(a, cdc, backend="cuda")
+    assert cdc_cuda.shard_scan_launches == n0 + n
+    np.testing.assert_array_equal(cuts, want[0])
+    np.testing.assert_array_equal(digs, want[1])
+    small = CdcConfig(mask_bits=10, min_chunk=256, max_chunk=4096)
+    group = [a[i << 20:(i + 1) << 20] for i in range(2 * n)]
+    r = sharded.MeshReducer(small, sharded.make_mesh(n, 1, cards))
+    serial = ResidentReducer(small, device=cards[0]).reduce_many(group)
+    for (gc, gd, _p), (wc, wd) in zip(r.reduce_many(group), serial):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gd, wd)
+    corp = _seal_corpora()
+    seal = [corp["text"], corp["random"], corp["zeros"], corp["text"]]
+    got = sharded.lz4_compress_many_sharded(
+        DeviceLz4(device=cards[0]), seal, sharded.make_mesh(n, 1, cards))
+    assert got == DeviceLz4(device=cards[0]).compress_many(seal)
+
+
+def test_launch_selftest_nccl(cards):
+    """One process per card over nccl: every rank's reduce_sharded on the
+    global mesh equals the native oracle."""
+    n = len(cards)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hdrf_tpu_torch.parallel.launch",
+         "--coordinator", f"127.0.0.1:{port}", "--nprocs", str(n),
+         "--rank", str(r), "--selftest", "8"], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo, CUDA_VISIBLE_DEVICES=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    for rc, out, err in outs:
+        assert rc == 0 and "oracle_match=True" in out, out + err[-3000:]

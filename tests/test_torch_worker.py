@@ -301,6 +301,8 @@ def test_port_imports_no_jax_and_no_reference():
             "                               'hdrf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'hdrf_tpu_torch.server.reduction_worker' in sys.modules\n"
+            "for m in ('parallel.sharded', 'parallel.launch'):\n"
+            "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu'))\n"
             "print(bad)\n"
