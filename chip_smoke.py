@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (hdrf_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--requests 8] [--block-mib 128]
+                          [--baseline DIR]
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
@@ -12,11 +13,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 3. Kernel phases: the CDC, gather and SHA-256 kernels against their plain
    PyTorch versions on the card, on the seven corpora of
    tests/test_cdc_pallas.py (rebuilt from their seed), a seeded random
-   block and an all-zeros block of ``--block-mib``.  Outputs are integers:
+   block and an all-zeros block of ``--block-mib``, and the CDC pair on a
+   low-entropy text block (bytes 97..122) and a periodic adversary of the
+   same size (a 1,531-byte random pattern repeated, holding one candidate
+   per period: under min_chunk and dividing no segment width, so the
+   select's speculative chains need not meet).  Outputs are integers:
    tolerance zero.  Times at the random block: kernel median of 20 runs
    after warm-up (CUDA events), plain version once, and ``library_ms`` —
    one PyTorch call computing the same function — for the gather (an
    advanced-indexing gather of the same bytes); CDC and SHA-256 have none.
+   The select is timed on each of the four big blocks (``TIMING
+   cdc_select`` lines).
 4. Main path: the port's ReductionWorker on 127.0.0.1:0 on the card answers
    ``--requests`` ``reduce`` requests of ``--block-mib`` each, sent by the
    port's WorkerClient in 64 KiB packets with CdcConfig() defaults.  Each
@@ -37,11 +44,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    grey-zone race).
    ``sort_rows`` runs on the inputs of every call site of the match scan,
    captured from a real scan, plus unique i32 keys, u32 keys across the
-   sign bit and a padded row that is not a power of two; keys and the
-   slots of unique keys (the live slots) must be exact.  Times on the
-   ``source`` container at stride 2: kernel median of 20 runs, plain
-   once, ``library_ms`` for ``sort_rows`` (``torch.sort`` and a
-   ``torch.gather`` per value; ``match_deltas`` has none).
+   sign bit and a padded row that is not a power of two; both sorts are
+   stable, so every slot must be exact.  Times on the ``source``
+   container at stride 2: kernel median of 20 runs, plain once,
+   ``library_ms`` for ``sort_rows`` (``torch.sort`` and a
+   ``torch.gather`` per value; ``match_deltas`` has none); ``sort_rows``
+   per call site (L1, L2, L3 and the escape lanes E1, E2: ``TIMING
+   sort_rows`` lines) and summed.
 7. Seal main path: the port's worker on the card answers 8 ``compress``
    requests of one 32 MiB container and 2 ``compress_batch`` requests of
    4, sent by the port's WorkerClient.  Every reply must decode to its
@@ -76,18 +85,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-The CDC kernel pair is two launches with a wrapper and a count each:
-``cdc_scan`` and ``cdc_select``; ``shard_scan`` (the same source) is the
-third.  Its launch count is that of the MESH phase's ``reduce_sharded``
-requests.  Bounds use the card's published peaks:
-3.35 TB/s HBM, and 16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98
-GHz; the kernels are integer work).
+With ``--baseline DIR`` (a checkout of an earlier commit, e.g. unpacked
+with ``git archive`` into a directory that .gitignore lists), the script
+also builds DIR's kernels with DIR's own build module and times its CDC
+select and row sort on the same inputs, right after this checkout's
+(``baseline_ms`` in the TIMING lines).
+
+The CDC kernel pair is two wrapper calls with a launch count each:
+``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
+launch); ``shard_scan`` (the same source) is the third.  Its launch count
+is that of the MESH phase's ``reduce_sharded`` requests.  Bounds use the
+card's published peaks: 3.35 TB/s HBM, and 16.7 T int32 ops/s (132 SMs x
+64 INT32 lanes x 1.98 GHz; the kernels are integer work).
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import math
 import statistics
@@ -135,8 +151,18 @@ MIB = 1 << 20
 SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
 _I32_MIN = -(1 << 31)
 TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
-REDUCE_KERNEL_NAMES = ("cdc_scan_kernel", "cdc_select_kernel",
-                       "gather_pad_kernel", "sha256_kernel")
+SELECT_KERNELS = ("cdc_select_",)                 # its four kernels
+SORT_KERNELS = ("sort_tile_kernel", "sort_merge_kernel")
+# the kernels a --baseline checkout launches (a one-launch select and a
+# bitonic sort)
+BASE_SELECT_KERNELS = ("cdc_select_kernel",)
+BASE_SORT_KERNELS = ("sort_tile_kernel", "sort_step_kernel")
+REDUCE_KERNEL_NAMES = {"cdc_scan_kernel": "cdc_scan",
+                       "cdc_select_": "cdc_select",   # its four kernels
+                       "gather_pad_kernel": "gather_pad",
+                       "sha256_kernel": "sha256"}
+SORT_SITES = ("L1", "L2", "L3", "E1", "E2")   # match_scan's sort call sites
+ADVERSARIAL_PERIOD = 1531   # under min_chunk, and no power of two's divisor
 
 KERNELS = {
     "cdc_scan": ("hdrf_tpu_torch/csrc/cdc.cu",
@@ -233,6 +259,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, names, reps: int = 10):
+    """Device time per call of ``fn``'s kernels — those whose name holds
+    one of ``names`` — summed from torch.profiler over ``reps`` calls
+    after one warm-up; None when the trace holds none of them.  Unlike
+    ``cuda_ms`` it leaves out the host's launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if any(n in e.key for n in names)]
+    return sum(us) / 1e3 / reps if us else None
+
+
 def timed(fn):
     """(result, wall ms) of one synchronised call — the plain versions are
     run once, their time taken on that run."""
@@ -248,9 +293,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None):
+def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None,
+                 select_ms=None, baseline=None, cdc_only=False):
     """Every kernel against its plain version on one corpus; with
-    ``timing`` (a dict), also time all of them at this corpus's shapes."""
+    ``select_ms`` (a dict), time the select here under ``name`` (and
+    ``baseline``'s select beside it); with ``timing`` (a dict, given with
+    ``select_ms``), also time every kernel at this corpus's shapes;
+    ``cdc_only`` stops after the CDC pair."""
     b_small, b_big = buckets_of(mask, mx)
     block, n = cdc_cuda.padded_block(a, dev)
     words, bitmap = cdc_cuda.cdc_scan(block, n, mask, mn)
@@ -273,6 +322,27 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None):
     check(e == 0, f"{name}: cdc select kernel != plain (max err {e})")
     cuts = k[1][8:8 + nc].cpu().numpy().astype(np.int64)
     host = a if a.size else np.empty(0, np.uint8)
+    # bitmap read, header + cuts and one lane entry per cut written
+    sel_bound = bound(bitmap.numel() * 4 + 4 * (8 + nc) + 8 * nc,
+                      CDC_SELECT_OPS_PER_CUT * nc)
+    if select_ms is not None:
+        def sel():
+            return cdc_cuda.cdc_select(bitmap, n, mn, mx, b_small)
+        row = select_ms[name] = {
+            "cuts": nc, "ms": cuda_ms(sel),
+            "device_ms": device_ms(sel, SELECT_KERNELS),
+            "bound_ms": sel_bound[0]}
+        if baseline is not None:
+            def base():
+                return baseline.select(bitmap, n, mn, mx, b_small)
+            hb = base()[0][:4]
+            check(hb.tolist() == hp[:4], f"{name}: baseline select header "
+                                         f"{hb.tolist()} != {hp[:4]}")
+            row["baseline_ms"] = cuda_ms(base)
+            row["baseline_device_ms"] = device_ms(base, BASE_SELECT_KERNELS)
+        print(f"TIMING cdc_select {name}: " + json.dumps(row), flush=True)
+    if cdc_only:
+        return nc
     if timing is not None:
         timing["cdc_scan"] = {
             "ms": cuda_ms(lambda: cdc_cuda.cdc_scan(block, n, mask, mn)),
@@ -280,13 +350,9 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None):
             # block read, word image and bitmap written
             "bound": bound(block.numel() + words.numel() * 4
                            + bitmap.numel() * 4, CDC_SCAN_OPS_PER_BYTE * n)}
-        timing["cdc_select"] = {
-            "ms": cuda_ms(lambda: cdc_cuda.cdc_select(bitmap, n, mn, mx,
-                                                      b_small)),
-            "plain_ms": sel_ms, "library_ms": None,
-            # bitmap read, header + cuts and one lane entry per cut written
-            "bound": bound(bitmap.numel() * 4 + 4 * (8 + nc) + 8 * nc,
-                           CDC_SELECT_OPS_PER_CUT * nc)}
+        timing["cdc_select"] = {"ms": select_ms[name]["ms"],
+                                "plain_ms": sel_ms, "library_ms": None,
+                                "bound": sel_bound}
         for kname in ("gather_pad", "sha256"):
             timing[kname] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                              "bytes": 0.0, "ops": 0.0}
@@ -340,6 +406,70 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None):
             check(bytes(d) == hashlib.sha256(host[o:o + ln].tobytes()).digest(),
                   f"{name}: digest at {o} != hashlib")
     return nc
+
+
+def periodic_block(seed: int, n: int, period: int, mask: int) -> np.ndarray:
+    """n bytes: one random pattern of ``period`` bytes repeated, drawn so
+    that the repetition holds exactly one candidate per period.  With a
+    period under min_chunk that divides no segment width, the select's
+    speculative chains a period apart need not meet."""
+    rng = np.random.default_rng(seed)
+    while True:
+        pat = rng.integers(0, 256, period, dtype=np.uint8)
+        c = native.gear_candidates(np.tile(pat, 3), mask)
+        if np.count_nonzero(c > period) == 2:
+            return np.resize(pat, n)
+
+
+class Baseline:
+    """The CDC select and row sort kernels of an earlier checkout
+    (``--baseline DIR``: one whose select is a single launch and whose
+    sort takes no scratch), built from its own sources by its own
+    ``_build`` module into its own build directory and called through
+    its C interface, to time them on this run's inputs."""
+
+    def __init__(self, root: str):
+        spec = importlib.util.spec_from_file_location(
+            "baseline_build", Path(root) / "hdrf_tpu_torch/ops/_build.py")
+        self.mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(self.mod)
+        sigs = self.mod._SIGNATURES
+        check(len(sigs["hdrf_cdc_select"]) == 11
+              and len(sigs["hdrf_sort_rows"]) == 15,
+              f"baseline {root}: not the expected C interface")
+        t0 = time.perf_counter()
+        self.mod.library()
+        print(f"BASELINE {root} built in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+    def select(self, bitmap, n, mn, mx, b_small):
+        cap = cdc_cuda.cap_for(n, mn)
+        dev = bitmap.device
+        table = torch.empty(8 + cap, dtype=torch.int32, device=dev)
+        ols = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        olb = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        self.mod.launch("hdrf_cdc_select", dev, bitmap.data_ptr(),
+                        bitmap.numel(), n, mn, mx, b_small, table.data_ptr(),
+                        ols.data_ptr(), olb.data_ptr(), cap,
+                        what="baseline cdc select")
+        return table, ols, olb
+
+    def sort(self, key, vals, kw):
+        t, e = key.shape
+        width = 1 << (e - 1).bit_length()
+        outs = [torch.empty((t, width), dtype=torch.int32, device=key.device)
+                for _ in range(1 + len(vals))]
+        pv = [int(p) & 0xFFFFFFFF for p in kw.get("pad_vals") or ()] + [0, 0]
+        pk = (int(kw.get("pad_key") or 0) + (1 << 31)) % (1 << 32) - (1 << 31)
+        two = len(vals) == 2
+        self.mod.launch("hdrf_sort_rows", key.device, key.data_ptr(),
+                        vals[0].data_ptr(), vals[1].data_ptr() if two else None,
+                        len(vals), t, e, width,
+                        int(kw.get("key_unsigned", False)), pk, pv[0], pv[1],
+                        outs[0].data_ptr(), outs[1].data_ptr(),
+                        outs[2].data_ptr() if two else None,
+                        what="baseline sort rows")
+        return outs
 
 
 def main_path_corpus(seed: int, nblocks: int, block_mib: int) -> list:
@@ -458,7 +588,7 @@ def main_path(args, dev, cdc: CdcConfig) -> dict:
         prof = profile_window(
             "reduce", lambda: again.extend(
                 client.reduce_stream(packets(b), cdc) for b in blocks[:2]),
-            2, {k: k.removesuffix("_kernel") for k in REDUCE_KERNEL_NAMES})
+            2, REDUCE_KERNEL_NAMES)
         for (c0, d0), (c1, d1) in zip(replies, again):
             check(np.array_equal(c0, c1) and np.array_equal(d0, d1),
                   "profiled request != its first reply")
@@ -574,17 +704,8 @@ def seal_corpora(seed: int, chunks: np.ndarray) -> dict:
 
 
 def sort_err(got, want) -> int:
-    """Keys over every slot, values over the slots whose key is unique in
-    its row (the live slots: ties occur only among dead ones)."""
-    e = max_err(got[0], want[0])
-    k = want[0]
-    uniq = torch.ones_like(k, dtype=torch.bool)
-    tie = k[:, 1:] == k[:, :-1]
-    uniq[:, 1:] &= ~tie
-    uniq[:, :-1] &= ~tie
-    for g, w in zip(got[1:], want[1:]):
-        e = max(e, max_err(g[uniq], w[uniq]))
-    return e
+    """Keys and values over every slot: both sorts are stable."""
+    return max(max_err(g, w) for g, w in zip(got, want))
 
 
 def captured_sorts(block, stride: int, p: tuple) -> tuple[list, int]:
@@ -645,17 +766,19 @@ def sort_ops(key) -> float:
     return key.numel() * max(math.log2(e), 1.0)
 
 
-def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
+def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict,
+                      baseline=None) -> dict:
     """match_deltas (stride 2 and 4) and sort_rows (every call site of the
     match scan, plus synthetic rows) against their plain versions on the
     card, on every seal corpus; timed on the source container at stride 2
-    (the main path's stride).  Returns each corpus's count of kept match
-    records at stride 2."""
+    (the main path's stride), ``sort_rows`` per call site (and
+    ``baseline``'s sort beside it).  Returns each corpus's count of kept
+    match records at stride 2."""
     records = {}
     md = timing["match_deltas"] = {"ms": 0.0, "plain_ms": 0.0,
                                    "library_ms": None}
     sr = timing["sort_rows"] = {"ms": 0.0, "plain_ms": 0.0,
-                                "library_ms": 0.0}
+                                "library_ms": 0.0, "sites": []}
     for name, a in corpora.items():
         block = torch.from_numpy(a.copy()).to(dev)
         for stride in (2, 4):
@@ -692,17 +815,34 @@ def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
                 check(e == 0, f"seal {name} stride {stride}: sort_rows call "
                               f"{i} {tuple(key.shape)} kernel != plain "
                               f"(max err {e})")
-                if timed_here and i < 5:    # the scan's five call sites
-                    sr["ms"] += cuda_ms(lambda: sort_cuda.sort_rows(
-                        key, *vs, **kw))
+                if timed_here and i < len(SORT_SITES):   # the scan's sites
+                    def srt():
+                        return sort_cuda.sort_rows(key, *vs, **kw)
+
+                    def base():
+                        return baseline.sort(key, vs, kw)
+                    site = {"site": SORT_SITES[i], "shape": list(key.shape),
+                            "ms": cuda_ms(srt),
+                            "device_ms": device_ms(srt, SORT_KERNELS),
+                            "library_ms": cuda_ms(
+                                lambda: sort_library(key, vs, kw)),
+                            "bound_ms": bound(sort_bytes(key, vs),
+                                              sort_ops(key))[0]}
+                    if baseline is not None:
+                        site["baseline_ms"] = cuda_ms(base)
+                        site["baseline_device_ms"] = device_ms(
+                            base, BASE_SORT_KERNELS)
+                        sr["baseline_ms"] = sr.get("baseline_ms", 0.0) \
+                            + site["baseline_ms"]
+                    print("TIMING sort_rows " + json.dumps(site), flush=True)
+                    sr["sites"].append(site)
+                    sr["ms"] += site["ms"]
                     sr["plain_ms"] += w_ms
-                    sr["library_ms"] += cuda_ms(
-                        lambda: sort_library(key, vs, kw))
+                    sr["library_ms"] += site["library_ms"]
                     nbytes += sort_bytes(key, vs)
                     ops += sort_ops(key)
             if timed_here:
                 sr["bound"] = bound(nbytes, ops)
-                sr["call_sites"] = [tuple(c[0].shape) for c in calls[:5]]
             del calls
         print(f"KERNELS seal {name}: {a.size} bytes, {records[name]} match "
               f"records, match_deltas and sort_rows identical at stride 2 "
@@ -728,7 +868,7 @@ SEAL_PROFILED = ("sparse", "source")
 RACE_MIN_RECORDS = (SEAL_BYTES // 2) >> 10    # DeviceLz4's grey-zone floor
 SEAL_KERNEL_NAMES = {"match_deltas_kernel": "match_deltas",
                      "sort_tile_kernel": "sort_rows",
-                     "sort_step_kernel": "sort_rows",
+                     "sort_merge_kernel": "sort_rows",
                      "cdc_scan_kernel": "cdc_scan"}
 BRANCHES = ("bypassed_scans", "native_fallbacks", "native_wins",
             "races_skipped", "emits", "escape_rescans")
@@ -1026,9 +1166,12 @@ def mesh_phase(args, dev, cdc: CdcConfig, corpora: dict, errs: dict,
 
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
+        base = (f" baseline_ms={t['baseline_ms']:.4f}"
+                if "baseline_ms" in t else "")
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
               f"plain_ms={t['plain_ms']:.2f} library_ms={t['library_ms']} "
-              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
+              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]}){base}",
+              flush=True)
 
 
 def run(args) -> int:
@@ -1045,6 +1188,7 @@ def run(args) -> int:
     print(f"BUILD {time.perf_counter() - t0:.1f}s " + " | ".join(ptxas),
           flush=True)
 
+    baseline = Baseline(args.baseline) if args.baseline else None
     errs = {k: 0 for k in KERNELS}
     for name, a, mask, mn, mx in standard_corpora():
         nc = kernel_phase(name, a, mask, mn, mx, dev, errs)
@@ -1052,28 +1196,38 @@ def run(args) -> int:
               flush=True)
     cdc = CdcConfig()
     mask = gear_mask(cdc)
-    rng = np.random.default_rng(args.seed + 1)
-    big = rng.integers(0, 256, args.block_mib * MIB, dtype=np.uint8)
+    nbig = args.block_mib * MIB
+    # the select per 128 MiB corpus: random (the full kernel phase, timed),
+    # zeros, low-entropy text and the periodic adversary (CDC pair only)
+    big = {"random-block": np.random.default_rng(args.seed + 1).integers(
+               0, 256, nbig, dtype=np.uint8),
+           "zeros-block": np.zeros(nbig, dtype=np.uint8),
+           "text-block": np.random.default_rng(args.seed + 4).integers(
+               97, 123, nbig, dtype=np.uint8),
+           "periodic-block": periodic_block(args.seed + 5, nbig,
+                                            ADVERSARIAL_PERIOD, mask)}
     timing: dict = {}
-    nc = kernel_phase("random-block", big, mask, cdc.min_chunk,
-                      cdc.max_chunk, dev, errs, timing)
-    print(f"KERNELS random-block: {big.size} bytes, {nc} chunks, identical",
-          flush=True)
-    del big
-    zeros = np.zeros(args.block_mib * MIB, dtype=np.uint8)
-    nc = kernel_phase("zeros-block", zeros, mask, cdc.min_chunk,
-                      cdc.max_chunk, dev, errs)
-    print(f"KERNELS zeros-block: {zeros.size} bytes, {nc} chunks, identical",
-          flush=True)
-    del zeros
+    select_ms: dict = {}
+    for name in list(big):
+        a = big.pop(name)
+        nc = kernel_phase(name, a, mask, cdc.min_chunk, cdc.max_chunk, dev,
+                          errs, timing if name == "random-block" else None,
+                          select_ms, baseline,
+                          cdc_only=name in ("text-block", "periodic-block"))
+        print(f"KERNELS {name}: {a.size} bytes, {nc} chunks, identical",
+              flush=True)
+        del a
     torch.cuda.empty_cache()
+    if baseline is not None:
+        timing["cdc_select"]["baseline_ms"] = \
+            select_ms["random-block"]["baseline_ms"]
     print_timing(timing)
 
     mp, chunks = main_path(args, dev, cdc)
     corpora = seal_corpora(args.seed, chunks)
     del chunks
     seal_timing: dict = {}
-    records = seal_kernel_phase(corpora, dev, errs, seal_timing)
+    records = seal_kernel_phase(corpora, dev, errs, seal_timing, baseline)
     print_timing(seal_timing)
     timing.update(seal_timing)
     sp = seal_main_path(corpora, records)
@@ -1105,6 +1259,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--block-mib", type=int, default=128)
+    p.add_argument("--baseline", metavar="DIR",
+                   help="a checkout of an earlier commit: time its CDC "
+                        "select and row sort kernels beside this one's")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",

@@ -3,25 +3,44 @@
 // Replaces the Pallas `_select_kernel` of hdrf_tpu/ops/cdc_pallas.py
 // (pallas_call at cdc_pallas.py:476).  The TPU kernel walks the block as a
 // sequential grid, carrying the hash history and the cut frontier across
-// grid steps in scratch.  Here the work is split in two launches on one
-// stream (ops/cdc_cuda.py has the design note):
+// grid steps in scratch.  Here the work is split into a scan and a select on
+// one stream (ops/cdc_cuda.py has the design note):
 //
 //   cdc_scan_kernel    one thread per 256-byte run, all runs in parallel:
 //                      Gear hash h = (h << 1) + G[b] warmed up on the 32
 //                      bytes before the run (zero history == the window-32
 //                      sum because G[0] == 0), the big-endian word image,
 //                      and a candidate bitmap (bit i <=> pos1 == i + 1).
-//   cdc_select_kernel  one thread block walks the frontier
-//                      lo = f + min, hi = min(f + max, n), cut = first
-//                      candidate in [lo, hi] else hi (the rule of
-//                      hdrf_tpu/native/src/cdc.cpp:74-92) over a shared-
-//                      memory window of the bitmap with a one-bit-per-word
-//                      summary, writing the cut table and the two binned
-//                      offset/length lane tables.
+//   cdc_select_*       the frontier lo = f + min, hi = min(f + max, n),
+//                      cut = first candidate in [lo, hi] else hi (the rule
+//                      of hdrf_tpu/native/src/cdc.cpp:74-92), as segmented
+//                      speculative walks and a stitch, four launches:
+//                      (a) spec: the block is cut into S segments of W
+//                      positions; one warp per segment walks from the
+//                      segment start as if a cut stood there, 4,096
+//                      bitmap bits a warp step, and keeps its points up
+//                      to the first cut past the segment (segment 0's
+//                      walk is exact).  (b) converge: each walker goes on
+//                      from its exit until it lands on a point of the
+//                      chain of the segment it is in — from there the two
+//                      chains agree — and records where.  At once for
+//                      zeros (cuts every min, W a multiple of min) and
+//                      candidate-free runs (W a multiple of max); within a
+//                      cut or two on random data; a walker that never
+//                      merges walks to n, so the worst case is today's
+//                      serial walk, never a wrong answer.  (c) stitch: one
+//                      block follows the merge pointers from segment 0 in
+//                      shared memory, giving each segment the index where
+//                      the true chain enters it, and scans the segments'
+//                      cut and small/big counts into output offsets.
+//                      (d) emit: every segment on the chain writes its
+//                      cuts and both lane tables in parallel, and walks
+//                      again from its exit to the merge for the rest.
 //
 // Bound: the scan moves the block's bytes (read once, written once as
-// words); the select is serial in the number of cuts and costs a few
-// shared-memory reads and warp ballots per cut.
+// words); the select reads the bitmap and writes a few words per cut.
+// The select's walks are latency-bound (one dependent L2 load a warp
+// step, a few steps a cut), so it is spread over ~n / 128 KiB warps.
 //
 // A third kernel replaces the Pallas `_scan_kernel` of the same file
 // (pallas_call at cdc_pallas.py:570, reached through
@@ -44,9 +63,10 @@ namespace {
 
 constexpr int kRun = 256;            // bytes per scan thread (multiple of 32)
 constexpr int kScanThreads = 256;    // == 256 Gear table entries
-constexpr int kSelThreads = 256;
-constexpr int kWin = 16384;          // bitmap words in the shared window
-constexpr int kSum = kWin / 32;      // one summary bit per window word
+constexpr int kWalkThreads = 128;    // select walkers: one warp a segment
+constexpr int kStitchThreads = 1024;
+constexpr int kMaxSegs = 8192;       // the stitch holds 3 x S ints shared
+constexpr int kSegArrays = 9;        // per-segment scratch arrays
 constexpr int kTableHdr = 8;
 constexpr int kHalo = 31;            // WINDOW - 1 bytes of shard history
 
@@ -193,109 +213,306 @@ cdc_shard_scan_kernel(const uint8_t *__restrict__ local,
   }
 }
 
-__global__ void __launch_bounds__(kSelThreads)
-cdc_select_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm, int64_t n,
-                  int64_t min_chunk, int64_t max_chunk, int32_t b_small,
-                  int32_t *__restrict__ table, int32_t *__restrict__ ols,
-                  int32_t *__restrict__ olb, int64_t cap) {
-  extern __shared__ uint32_t smem[];
-  uint32_t *win = smem;          // kWin bitmap words starting at word wb
-  uint32_t *sum = smem + kWin;   // sum[s] bit l <=> win[32 s + l] != 0
+// ------------------------------------------------------------ cut select
+//
+// The chain of cuts f -> next(f): lo = f + min, hi = min(f + max, n), the
+// first candidate in [lo, hi], else hi.  Segment i covers [i W, (i+1) W).
+// Per-segment scratch: the speculative chain's points (pts: the segment
+// start, then its cuts up to the first >= the next start or n) and the
+// running count of small chunks at each point (csm); per segment the
+// point count, the merge pointer of its walker (segment, index; -1 at the
+// end of the block), the count of cuts it made between its exit and the
+// merge (ny, nys of them small), the index where the true chain enters it
+// (ent, -1 when it does not) and the output offsets of its cuts and of
+// its small and big chunks.
+
+struct SelScratch {
+  int32_t *pts, *csm, *npts, *mseg, *midx, *ny, *nys, *ent, *offc, *offs,
+      *offb;
+};
+
+__device__ __forceinline__ SelScratch sel_scratch(int32_t *base, int64_t S,
+                                                  int64_t lcap) {
+  SelScratch r;
+  r.pts = base;
+  r.csm = base + S * lcap;
+  int32_t *p = base + 2 * S * lcap;
+  int32_t **seg[] = {&r.npts, &r.mseg, &r.midx, &r.ny, &r.nys,
+                     &r.ent, &r.offc, &r.offs, &r.offb};
+  for (int i = 0; i < kSegArrays; ++i) *seg[i] = p + i * S;
+  return r;
+}
+
+// First set bit in [b0, b1] (bit i <=> pos1 i + 1), or -1, by a whole
+// warp: 128 words (4,096 bits) a step, one 16-byte load per lane.
+__device__ int64_t warp_find(const uint32_t *__restrict__ bitmap,
+                             int64_t nbm, int64_t b0, int64_t b1) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const uint32_t full = 0xFFFFFFFFu;
+  const int64_t wlo = b0 >> 5, whi = b1 >> 5;
+  for (int64_t w = wlo & ~int64_t{3}; w <= whi; w += 128) {
+    const int64_t wi = w + 4 * lane;
+    uint32_t x[4];
+    if (wi + 3 < nbm) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4 *>(bitmap + wi));
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = wi + j < nbm ? bitmap[wi + j] : 0u;
+    }
+    int64_t hit = -1;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      const int64_t word = wi + j;
+      uint32_t m = word < wlo || word > whi ? 0u : x[j];
+      if (word == wlo) m &= 0xFFFFFFFFu << (b0 & 31);
+      if (word == whi) m &= 0xFFFFFFFFu >> (31 - (b1 & 31));
+      if (m) hit = (word << 5) + __ffs(m) - 1;
+    }
+    const uint32_t any = __ballot_sync(0xFFFFFFFFu, hit >= 0);
+    if (any) return __shfl_sync(0xFFFFFFFFu, hit, __ffs(any) - 1);
+  }
+  return -1;
+}
 
-  // Every warp runs the walk in lockstep on identical shared data, so the
-  // window reloads (and their __syncthreads) are block-uniform.
-  int64_t wb = -1;
-  auto load = [&](int64_t base) {  // base: a multiple of 32 words
-    __syncthreads();
-    for (int i = threadIdx.x; i < kWin / 4; i += kSelThreads) {
-      const int64_t w = base + 4 * static_cast<int64_t>(i);
-      uint4 v;
-      if (w + 4 <= nbm) {
-        v = *reinterpret_cast<const uint4 *>(bitmap + w);
-      } else {
-        v.x = w < nbm ? bitmap[w] : 0u;
-        v.y = w + 1 < nbm ? bitmap[w + 1] : 0u;
-        v.z = w + 2 < nbm ? bitmap[w + 2] : 0u;
-        v.w = w + 3 < nbm ? bitmap[w + 3] : 0u;
-      }
-      reinterpret_cast<uint4 *>(win)[i] = v;
-    }
-    __syncthreads();
-    for (int s = warp; s < kSum; s += kSelThreads / 32) {
-      const uint32_t nz = __ballot_sync(full, win[s * 32 + lane] != 0u);
-      if (lane == 0) sum[s] = nz;
-    }
-    __syncthreads();
-    wb = base;
-  };
+// The next cut after frontier f (warp-uniform).
+__device__ __forceinline__ int64_t warp_next(const uint32_t *bitmap,
+                                             int64_t nbm, int64_t n,
+                                             int64_t mn, int64_t mx,
+                                             int64_t f) {
+  const int64_t lo = f + mn;
+  const int64_t hi = f + mx < n ? f + mx : n;
+  if (lo <= hi) {
+    const int64_t b = warp_find(bitmap, nbm, lo - 1, hi - 1);
+    if (b >= 0) return b + 1;
+  }
+  return hi;
+}
 
-  // First set bit in [b0, b1] (bit i <=> pos1 i + 1), or -1.
-  auto find = [&](int64_t b0, int64_t b1) -> int64_t {
-    int64_t w = b0 >> 5;
-    const int64_t wend = b1 >> 5;
-    if (wb < 0 || w < wb || w >= wb + kWin) load(w & ~int64_t{31});
-    const uint32_t x = win[w - wb] & (full << (b0 & 31));
-    if (x) {
-      const int64_t b = (w << 5) + __ffs(x) - 1;
-      return b <= b1 ? b : -1;
-    }
-    ++w;
-    while (w <= wend) {
-      if (w >= wb + kWin) load(w & ~int64_t{31});
-      const int64_t rel = w - wb;
-      const int64_t s0 = rel >> 5;
-      const int64_t s = s0 + lane;
-      uint32_t sw = s < kSum ? sum[s] : 0u;
-      if (lane == 0) sw &= full << (rel & 31);
-      const uint32_t any = __ballot_sync(full, sw != 0u);
-      if (any) {
-        const int l = __ffs(any) - 1;
-        const uint32_t swl = __shfl_sync(full, sw, l);
-        const int64_t wi = wb + ((s0 + l) << 5) + (__ffs(swl) - 1);
-        if (wi > wend) return -1;
-        const int64_t b = (wi << 5) + __ffs(win[wi - wb]) - 1;
-        return b <= b1 ? b : -1;
-      }
-      w = wb + ((s0 + 32) << 5);
-      if (w > wb + kWin) w = wb + kWin;
-    }
-    return -1;
-  };
+__device__ __forceinline__ int small_chunk(int64_t len, int32_t b_small) {
+  return (len + 9 + 63) / 64 <= b_small;
+}
 
-  int64_t f = 0, nc = 0, ns = 0, nbg = 0;
+// (a) Speculate: one warp per segment walks from the segment start as if
+// a cut stood there, up to the first cut >= the next start (or n).
+__global__ void __launch_bounds__(kWalkThreads)
+cdc_select_spec_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
+                       int64_t n, int64_t mn, int64_t mx, int32_t b_small,
+                       int64_t W, int64_t S, int64_t lcap,
+                       int32_t *__restrict__ scratch) {
+  const int64_t seg =
+      (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
+  if (seg >= S) return;  // warp-uniform
+  const SelScratch r = sel_scratch(scratch, S, lcap);
+  const bool lead = (threadIdx.x & 31) == 0;
+  int32_t *pts = r.pts + seg * lcap, *csm = r.csm + seg * lcap;
+  const int64_t end = (seg + 1) * W;
+  int64_t f = seg * W;
+  int k = 0, ns = 0;
+  if (lead) {
+    pts[0] = static_cast<int32_t>(f);
+    csm[0] = 0;
+  }
+  do {
+    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
+    ns += small_chunk(cut - f, b_small);
+    ++k;
+    if (lead) {
+      pts[k] = static_cast<int32_t>(cut);
+      csm[k] = ns;
+    }
+    f = cut;
+  } while (f < end && f < n);
+  if (lead) r.npts[seg] = k + 1;
+}
+
+// Index of point f in a segment's sorted points, or -1.
+__device__ __forceinline__ int find_point(const int32_t *pts, int cnt,
+                                          int64_t f) {
+  int lo = 0, hi = cnt;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pts[mid] < f) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo < cnt && pts[lo] == f ? lo : -1;
+}
+
+// (b) Converge: each walker goes on from its exit until it lands on a
+// point of the chain of the segment it is in (the chains agree from
+// there on) or reaches n.  A walker that never merges walks to n: the
+// serial walk, never a wrong answer.
+__global__ void __launch_bounds__(kWalkThreads)
+cdc_select_converge_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
+                           int64_t n, int64_t mn, int64_t mx,
+                           int32_t b_small, int64_t W, int64_t S,
+                           int64_t lcap, int32_t *__restrict__ scratch) {
+  const int64_t seg =
+      (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
+  if (seg >= S) return;  // warp-uniform
+  const SelScratch r = sel_scratch(scratch, S, lcap);
+  int64_t f = r.pts[seg * lcap + r.npts[seg] - 1];
+  int32_t ms = -1, mi = 0, ny = 0, nys = 0;
   while (f < n) {
-    const int64_t lo = f + min_chunk;
-    const int64_t hi = f + max_chunk < n ? f + max_chunk : n;
-    int64_t cut = hi;
-    if (lo <= hi) {
-      const int64_t b = find(lo - 1, hi - 1);
-      if (b >= 0) cut = b + 1;
+    const int64_t k = f / W;
+    const int idx = find_point(r.pts + k * lcap, r.npts[k], f);
+    if (idx >= 0) {
+      ms = static_cast<int32_t>(k);
+      mi = idx;
+      break;
     }
-    const int64_t len = cut - f;
-    const bool small = (len + 9 + 63) / 64 <= b_small;
-    if (threadIdx.x == 0 && nc < cap) {
-      table[kTableHdr + nc] = static_cast<int32_t>(cut);
-      if (small) {
-        ols[ns] = static_cast<int32_t>(f);
-        ols[cap + ns] = static_cast<int32_t>(len);
-      } else {
-        olb[nbg] = static_cast<int32_t>(f);
-        olb[cap + nbg] = static_cast<int32_t>(len);
-      }
-    }
-    ++nc;
-    if (small) ++ns; else ++nbg;
+    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
+    nys += small_chunk(cut - f, b_small);
+    ++ny;
     f = cut;
   }
+  if ((threadIdx.x & 31) == 0) {
+    r.mseg[seg] = ms;
+    r.midx[seg] = mi;
+    r.ny[seg] = ny;
+    r.nys[seg] = nys;
+  }
+}
+
+// (c) Stitch: one block follows the merge pointers from segment 0 (in
+// shared memory), then scans the segments' counts into output offsets
+// and writes the table header.
+__global__ void __launch_bounds__(kStitchThreads)
+cdc_select_stitch_kernel(int64_t S, int64_t lcap, int32_t *__restrict__ table,
+                         int32_t *__restrict__ scratch) {
+  extern __shared__ int32_t sh[];
+  int32_t *ms = sh, *mi = sh + S, *ent = sh + 2 * S;
+  __shared__ uint64_t part[kStitchThreads / 32];
+  const SelScratch r = sel_scratch(scratch, S, lcap);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t i = threadIdx.x; i < S; i += kStitchThreads) {
+    ms[i] = r.mseg[i];
+    mi[i] = r.midx[i];
+    ent[i] = -1;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    table[0] = static_cast<int32_t>(nc);
-    table[1] = nc > cap ? 1 : 0;  // unreachable: cap is the hard bound
-    table[2] = static_cast<int32_t>(ns);
-    table[3] = static_cast<int32_t>(nbg);
-    for (int i = 4; i < kTableHdr; ++i) table[i] = 0;
+    int32_t k = 0, e = 0;
+    for (;;) {
+      ent[k] = e;
+      if (ms[k] < 0) break;
+      e = mi[k];
+      k = ms[k];
+    }
+  }
+  __syncthreads();
+  // per segment (cuts << 32 | small chunks), contiguous runs per thread
+  const int64_t per = (S + kStitchThreads - 1) / kStitchThreads;
+  const int64_t b = threadIdx.x * per;
+  auto count = [&](int64_t k) -> uint64_t {
+    const int e = ent[k];
+    if (e < 0) return 0;
+    const int last = r.npts[k] - 1;
+    const int32_t *csm = r.csm + k * lcap;
+    const uint64_t nc = static_cast<uint64_t>(last - e + r.ny[k]);
+    const uint64_t ns = static_cast<uint64_t>(csm[last] - csm[e] + r.nys[k]);
+    return nc << 32 | ns;
+  };
+  uint64_t own = 0;
+  for (int64_t i = 0; i < per; ++i)
+    if (b + i < S) own += count(b + i);
+  uint64_t x = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint64_t y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) part[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const uint64_t p = part[lane];
+    uint64_t q = p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t y = __shfl_up_sync(0xFFFFFFFFu, q, o);
+      if (lane >= o) q += y;
+    }
+    part[lane] = q - p;
+    if (lane == 31) {  // the header: totals
+      const int32_t nc = static_cast<int32_t>(q >> 32);
+      const int32_t ns = static_cast<int32_t>(q & 0xFFFFFFFFu);
+      table[0] = nc;
+      table[1] = 0;  // no overflow: the tables hold the hard cut bound
+      table[2] = ns;
+      table[3] = nc - ns;
+      for (int i = 4; i < kTableHdr; ++i) table[i] = 0;
+    }
+  }
+  __syncthreads();
+  uint64_t run = part[warp] + x - own;
+  for (int64_t i = 0; i < per; ++i) {
+    const int64_t k = b + i;
+    if (k < S) {
+      const int32_t nc = static_cast<int32_t>(run >> 32);
+      const int32_t ns = static_cast<int32_t>(run & 0xFFFFFFFFu);
+      r.ent[k] = ent[k];
+      r.offc[k] = nc;
+      r.offs[k] = ns;
+      r.offb[k] = nc - ns;
+      run += count(k);
+    }
+  }
+}
+
+// (d) Emit: one warp per segment on the true chain writes its cuts from
+// the entry on (the lanes in parallel), then walks again from its exit
+// to the merge and writes those cuts.
+__global__ void __launch_bounds__(kWalkThreads)
+cdc_select_emit_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
+                       int64_t n, int64_t mn, int64_t mx, int32_t b_small,
+                       int64_t S, int64_t lcap,
+                       int32_t *__restrict__ scratch,
+                       int32_t *__restrict__ table, int32_t *__restrict__ ols,
+                       int32_t *__restrict__ olb, int64_t cap) {
+  const int64_t seg =
+      (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
+  if (seg >= S) return;  // warp-uniform
+  const SelScratch r = sel_scratch(scratch, S, lcap);
+  const int e = r.ent[seg];
+  if (e < 0) return;
+  const int lane = threadIdx.x & 31;
+  const int32_t *pts = r.pts + seg * lcap, *csm = r.csm + seg * lcap;
+  const int last = r.npts[seg] - 1;
+  const int64_t oc = r.offc[seg], os = r.offs[seg], ob = r.offb[seg];
+  int32_t *cuts = table + kTableHdr;
+  for (int j = e + 1 + lane; j <= last; j += 32) {
+    const int32_t st = pts[j - 1], cut = pts[j];
+    const int64_t i = j - e - 1;            // index among the piece's cuts
+    const int64_t si = csm[j] - csm[e];     // small ones up to and with j
+    cuts[oc + i] = cut;
+    if (small_chunk(cut - st, b_small)) {
+      ols[os + si - 1] = st;
+      ols[cap + os + si - 1] = cut - st;
+    } else {
+      olb[ob + i - si] = st;
+      olb[cap + ob + i - si] = cut - st;
+    }
+  }
+  int64_t c = oc + last - e, s = os + csm[last] - csm[e];
+  int64_t bg = ob + (last - e) - (csm[last] - csm[e]);
+  int64_t f = pts[last];
+  for (int y = 0, ny = r.ny[seg]; y < ny; ++y) {
+    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
+    if (lane == 0) {
+      cuts[c] = static_cast<int32_t>(cut);
+      if (small_chunk(cut - f, b_small)) {
+        ols[s] = static_cast<int32_t>(f);
+        ols[cap + s] = static_cast<int32_t>(cut - f);
+      } else {
+        olb[bg] = static_cast<int32_t>(f);
+        olb[cap + bg] = static_cast<int32_t>(cut - f);
+      }
+    }
+    ++c;
+    if (small_chunk(cut - f, b_small)) ++s; else ++bg;
+    f = cut;
   }
 }
 
@@ -316,21 +533,41 @@ extern "C" int hdrf_cdc_scan(const void *data, int64_t n_pad, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The select: candidate bitmap -> cut table + the two binned lane tables.
+// The select: candidate bitmap -> cut table + the two binned lane tables,
+// in four launches on the stream; `scratch` holds
+// 2 * S * lcap + kSegArrays * S ints (S = ceil(n / W) segments of W
+// positions, lcap = min(W, n) / min + 3 points a segment).
 extern "C" int hdrf_cdc_select(const void *bitmap, int64_t nbm, int64_t n,
                                int64_t min_chunk, int64_t max_chunk,
                                int32_t b_small, void *table, void *ols,
-                               void *olb, int64_t cap, void *stream) {
-  const size_t smem = (kWin + kSum) * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      cdc_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                               void *olb, int64_t cap, int64_t W,
+                               void *scratch, void *stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t S = (n + W - 1) / W;
+  if (W <= 0 || S > kMaxSegs) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t lcap = (W < n ? W : n) / min_chunk + 3;
+  const auto bm = static_cast<const uint32_t *>(bitmap);
+  auto scr = static_cast<int32_t *>(scratch);
+  auto tab = static_cast<int32_t *>(table);
+  const unsigned walk_blocks =
+      static_cast<unsigned>((S * 32 + kWalkThreads - 1) / kWalkThreads);
+  cdc_select_spec_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
+      bm, nbm, n, min_chunk, max_chunk, b_small, W, S, lcap, scr);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  cdc_select_kernel<<<1, kSelThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t *>(bitmap), nbm, n, min_chunk, max_chunk,
-      b_small, static_cast<int32_t *>(table), static_cast<int32_t *>(ols),
-      static_cast<int32_t *>(olb), cap);
+  cdc_select_converge_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
+      bm, nbm, n, min_chunk, max_chunk, b_small, W, S, lcap, scr);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = 3 * S * sizeof(int32_t);
+  e = cudaFuncSetAttribute(cdc_select_stitch_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cdc_select_stitch_kernel<<<1, kStitchThreads, smem, s>>>(S, lcap, tab, scr);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  cdc_select_emit_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
+      bm, nbm, n, min_chunk, max_chunk, b_small, S, lcap, scr, tab,
+      static_cast<int32_t *>(ols), static_cast<int32_t *>(olb), cap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,24 +23,37 @@
 //                        Then all threads compare the grams (re-read by
 //                        position) and write the deltas.  Exactly the
 //                        sorted-neighbour relation, without a sort.
-//   sort_*_kernel        `_sort_rows_call` (pallas_call at
-//                        sort_pallas.py:148).  A bitonic network over rows
-//                        padded to a power of two with the caller's
-//                        sentinel: rows of up to kTile entries sort in one
-//                        block's shared memory (key + 2 values of 8,192
-//                        entries = 96 KiB, dynamic shared memory); longer
-//                        rows sort kTile-entry tiles in shared memory, then
-//                        merge with one global-memory launch per stage
-//                        stride >= kTile and one shared-memory launch for
-//                        the strides below it.  u32 keys are biased by
-//                        0x80000000 on load and unbiased on the final
-//                        store, so signed compares give unsigned order.
-//                        Equal keys never exchange (the network is not
-//                        stable; callers tie only on dead slots).
+//   sort_tile_kernel +   `_sort_rows_call` (pallas_call at
+//   sort_merge_kernel    sort_pallas.py:148).  A stable sort: equal keys
+//                        keep their input order, as torch.sort(stable=True)
+//                        does.  Keys are mapped to u32 order (signed keys
+//                        xor 0x80000000) on load and back on the final
+//                        store.  Rows are padded to a power of two E with
+//                        the caller's sentinel, past every live slot, so a
+//                        pad slot stays after a live key equal to it.
+//                        (1) One block per tile of min(E, 8,192) entries:
+//                        an LSD radix sort in shared memory.  A block OR
+//                        of key ^ key[0] finds the bits that vary in the
+//                        tile, and only those are sorted, in passes of at
+//                        most 8 bits (row-local indices 0..8192, the L1
+//                        and L2 pack keys: 14 bits, two 7-bit passes).  A
+//                        pass ranks each warp's entries in position order
+//                        with __match_any_sync and a per-warp digit
+//                        counter, scans the (digit, warp) counts, and
+//                        scatters key and source slot; the carried values
+//                        follow the source slots once, after the last pass.
+//                        (2) Rows longer than a tile: log2(E / 8,192)
+//                        merge passes, one launch each over all rows.  A
+//                        block makes a fixed 2,048-entry slice of output:
+//                        a merge-path search on its diagonals splits the
+//                        two input runs (ties taken from the left run:
+//                        stable), the slice is staged in shared memory and
+//                        every thread merges 8 entries.
 //
 // Bound: bytes for both — each row read once and written once — against
-// which the bitonic network re-reads its tile log2(e)^2 / 2 times in
-// shared memory and the match walk is serial in a row's positions.
+// which the radix sort moves its tile through shared memory once per
+// pass, a merge pass reads and writes the row once more, and the match
+// walk is serial in a row's positions.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,10 +61,18 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kTile = 8192;        // row entries one block sorts in shared
 constexpr int kHashes = 1 << 16;   // hash16 range: the match table's size
 constexpr int kUnroll = 16;        // match-walk steps loaded ahead
-constexpr int kStepThreads = 256;
+
+constexpr int kTile = 8192;        // row entries one block radix-sorts
+constexpr int kTileThreads = 512;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kPerThread = kTile / kTileThreads;   // 16 entries a thread
+constexpr int kRadixMax = 256;     // 8-bit digits at most
+constexpr int kCounters = (kRadixMax + 1) * kTileWarps;  // + pad bucket
+constexpr int kMergeThreads = 256;
+constexpr int kMergeItems = 8;
+constexpr int kSlice = kMergeThreads * kMergeItems;      // 2,048 entries
 
 // ------------------------------------------------------------ match deltas
 
@@ -138,145 +159,323 @@ match_deltas_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
 
 // --------------------------------------------------------------- row sort
 
-// One compare-exchange: ascending pairs take the smaller key low; equal
-// keys stay where they are.
-template <int NV>
-__device__ __forceinline__ void cx(int32_t *k, uint32_t *v0, uint32_t *v1,
-                                   int64_t i, int64_t l, bool asc) {
-  const int32_t a = k[i], b = k[l];
-  if (asc ? (a > b) : (a < b)) {
-    k[i] = b;
-    k[l] = a;
-    const uint32_t t0 = v0[i];
-    v0[i] = v0[l];
-    v0[l] = t0;
-    if constexpr (NV == 2) {
-      const uint32_t t1 = v1[i];
-      v1[i] = v1[l];
-      v1[l] = t1;
-    }
+// Exclusive scan, in place, of the first n counters, by the whole block
+// (kTileThreads threads; each sums a contiguous run, then a warp scan and
+// a scan of the warp totals).
+__device__ __forceinline__ void scan_counters(uint32_t *cnt, int n,
+                                              uint32_t *part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n + kTileThreads - 1) / kTileThreads;
+  const int b = threadIdx.x * per;
+  uint32_t own = 0;
+  for (int i = 0; i < per; ++i)
+    if (b + i < n) own += cnt[b + i];
+  uint32_t x = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
   }
-}
-
-// Bitonic stages (k, j) for k in [k0, k1], j from j0 (first k) or k / 2,
-// over one tile of `tile` entries of a padded row of width E held in
-// shared memory.  The direction of a pair follows its index in the row,
-// so tiles sorted here are the alternating runs the next merge needs.
-// With `first`, the tile loads from the caller's rows (width e, padded
-// with the sentinel past e) and biases the keys; otherwise from the
-// working rows.  With `last`, keys are unbiased on the store.
-template <int NV>
-__global__ void __launch_bounds__(kThreads)
-sort_tile_kernel(const int32_t *__restrict__ kin,
-                 const uint32_t *__restrict__ v0in,
-                 const uint32_t *__restrict__ v1in, int64_t e,
-                 int32_t *__restrict__ kout, uint32_t *__restrict__ v0out,
-                 uint32_t *__restrict__ v1out, int64_t E, int tile, int64_t k0,
-                 int64_t k1, int64_t j0, int32_t bias, int32_t pad_key,
-                 uint32_t pad_v0, uint32_t pad_v1, int first, int last) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t *sk = smem;
-  uint32_t *s0 = reinterpret_cast<uint32_t *>(smem + tile);
-  uint32_t *s1 = s0 + tile;
-  const int64_t tiles_per_row = E / tile;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int64_t t0 = (blockIdx.x % tiles_per_row) * tile;  // index in row
-  int32_t *ko = kout + row * E + t0;
-  uint32_t *o0 = v0out + row * E + t0;
-  uint32_t *o1 = NV == 2 ? v1out + row * E + t0 : nullptr;
-
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    if (first) {
-      const int64_t g = t0 + i;
-      const bool live = g < e;
-      sk[i] = (live ? kin[row * e + g] : pad_key) ^ bias;
-      s0[i] = live ? v0in[row * e + g] : pad_v0;
-      if constexpr (NV == 2) s1[i] = live ? v1in[row * e + g] : pad_v1;
-    } else {
-      sk[i] = ko[i];
-      s0[i] = o0[i];
-      if constexpr (NV == 2) s1[i] = o1[i];
+  if (lane == 31) part[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t p = lane < kTileWarps ? part[lane] : 0u;
+    uint32_t q = p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, q, o);
+      if (lane >= o) q += y;
+    }
+    if (lane < kTileWarps) part[lane] = q - p;
+  }
+  __syncthreads();
+  uint32_t run = part[warp] + x - own;
+  for (int i = 0; i < per; ++i) {
+    if (b + i < n) {
+      const uint32_t c = cnt[b + i];
+      cnt[b + i] = run;
+      run += c;
     }
   }
   __syncthreads();
-  for (int64_t k = k0; k <= k1; k <<= 1) {
-    for (int64_t j = (k == k0 ? j0 : k >> 1); j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-        const int64_t i = 2 * p - (p & (j - 1));
-        cx<NV>(sk, s0, s1, i, i + j, ((t0 + i) & k) == 0);
+}
+
+// Stable radix sort of one tile of T = min(E, kTile) entries of a row of
+// the caller's width e, padded to E.  Thread `lane` of warp w holds the
+// entries at positions w * 32 * kPerThread + k * 32 + lane (warp-striped,
+// so a warp's entries are in position order step by step); positions past
+// T (a row narrower than kTile) rank in an extra digit after every real
+// one and are never stored.  Keys are stored xor `unflip`.
+template <int NV>
+__global__ void __launch_bounds__(kTileThreads, 2)
+sort_tile_kernel(const uint32_t *__restrict__ kin,
+                 const uint32_t *__restrict__ v0in,
+                 const uint32_t *__restrict__ v1in, int64_t e, int64_t E,
+                 int T, uint32_t flip, uint32_t pad_key, uint32_t pad_v0,
+                 uint32_t pad_v1, uint32_t unflip, uint32_t *__restrict__ kout,
+                 uint32_t *__restrict__ v0out, uint32_t *__restrict__ v1out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t *sk = smem;                                    // kTile keys
+  uint16_t *sp = reinterpret_cast<uint16_t *>(smem + kTile);  // slots
+  uint32_t *cnt = smem + kTile + kTile / 2;               // kCounters
+  __shared__ uint32_t part[kTileWarps];
+  __shared__ uint32_t ref, diff;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t lt = (1u << lane) - 1u;
+  const int64_t tiles = E / T;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t t0 = (blockIdx.x % tiles) * T;
+  const uint32_t *krow = kin + row * e;
+  const int base = warp * 32 * kPerThread + lane;
+
+  uint32_t u[kPerThread];   // keys in u32 order
+  uint32_t rp[kPerThread];  // rank << 16 | source slot
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int p = base + 32 * k;
+    const int64_t g = t0 + p;
+    u[k] = (p < T ? (g < e ? krow[g] : pad_key) : 0u) ^ flip;
+    rp[k] = static_cast<uint32_t>(p);
+  }
+  if (threadIdx.x == 0) {
+    ref = u[0];
+    diff = 0u;
+  }
+  __syncthreads();
+  uint32_t d_own = 0u;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k)
+    if (base + 32 * k < T) d_own |= u[k] ^ ref;
+  d_own = __reduce_or_sync(0xFFFFFFFFu, d_own);
+  if (lane == 0 && d_own) atomicOr(&diff, d_own);
+  __syncthreads();
+
+  // only the bits that vary in the tile are sorted
+  const uint32_t dv = diff;
+  int lo = 0, bits = 0, npass = 0;
+  if (dv) {
+    lo = __ffs(dv) - 1;
+    const int nb = 32 - __clz(dv) - lo;
+    npass = (nb + 7) / 8;
+    bits = (nb + npass - 1) / npass;
+  }
+  const uint32_t radix = 1u << bits;
+  const int n_cnt = static_cast<int>(radix + 1) * kTileWarps;
+
+  for (int pass = 0; pass < npass; ++pass) {
+    const int shift = lo + pass * bits;
+    for (int i = threadIdx.x; i < n_cnt; i += kTileThreads) cnt[i] = 0u;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t d = base + 32 * k < T ? (u[k] >> shift) & (radix - 1u)
+                                           : radix;
+      const uint32_t peers = __match_any_sync(0xFFFFFFFFu, d);
+      const int leader = __ffs(peers) - 1;
+      uint32_t before = 0u;
+      if (lane == leader) {
+        uint32_t *c = cnt + d * kTileWarps + warp;
+        before = *c;
+        *c = before + __popc(peers);
       }
-      __syncthreads();
+      before = __shfl_sync(0xFFFFFFFFu, before, leader);
+      rp[k] = ((before + __popc(peers & lt)) << 16) | (rp[k] & 0xFFFFu);
+      __syncwarp();
+    }
+    __syncthreads();
+    scan_counters(cnt, n_cnt, part);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (base + 32 * k < T) {
+        const uint32_t d = (u[k] >> shift) & (radix - 1u);
+        const uint32_t r = cnt[d * kTileWarps + warp] + (rp[k] >> 16);
+        sk[r] = u[k];
+        sp[r] = static_cast<uint16_t>(rp[k]);
+      }
+    }
+    __syncthreads();
+    if (pass + 1 < npass) {
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const int p = base + 32 * k;
+        if (p < T) {
+          u[k] = sk[p];
+          rp[k] = sp[p];
+        }
+      }
     }
   }
-  const int32_t unbias = last ? bias : 0;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    ko[i] = sk[i] ^ unbias;
-    o0[i] = s0[i];
-    if constexpr (NV == 2) o1[i] = s1[i];
+  if (npass == 0) {  // every key equal: the input order is sorted
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int p = base + 32 * k;
+      if (p < T) {
+        sk[p] = u[k];
+        sp[p] = static_cast<uint16_t>(p);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int64_t o = row * E + t0;
+  for (int i = threadIdx.x; i < T; i += kTileThreads)
+    kout[o + i] = sk[i] ^ unflip;
+  // each carried value: the tile to shared memory, then out by source slot
+  for (int j = 0; j < NV; ++j) {
+    const uint32_t *vrow = (j == 0 ? v0in : v1in) + row * e;
+    const uint32_t pad = j == 0 ? pad_v0 : pad_v1;
+    uint32_t *vout = (j == 0 ? v0out : v1out) + o;
+    __syncthreads();
+    for (int i = threadIdx.x; i < T; i += kTileThreads) {
+      const int64_t g = t0 + i;
+      sk[i] = g < e ? vrow[g] : pad;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < T; i += kTileThreads) vout[i] = sk[sp[i]];
   }
 }
 
-// One global-memory bitonic stage (k, j), j >= tile, over all rows.
+// Entries of run a taken among the first d of the stable merge of a and b
+// (ties from a first).
+template <typename P>
+__device__ __forceinline__ int64_t merge_path(P a, int64_t na, P b,
+                                              int64_t nb, int64_t d) {
+  int64_t lo = d > nb ? d - nb : 0;
+  int64_t hi = d < na ? d : na;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (a[mid] <= b[d - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The same by a whole warp in device memory: 32 probes a step, so a
+// 2^18-entry run takes 4 dependent loads instead of 18.
+__device__ int64_t warp_merge_path(const uint32_t *__restrict__ a, int64_t na,
+                                   const uint32_t *__restrict__ b, int64_t nb,
+                                   int64_t d) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = d > nb ? d - nb : 0;
+  int64_t hi = d < na ? d : na;
+  while (hi - lo > 32) {
+    const int64_t span = hi - lo;
+    const int64_t mid = lo + span * (lane + 1) / 33;  // inside [lo, hi)
+    const int t = __popc(__ballot_sync(0xFFFFFFFFu, a[mid] <= b[d - 1 - mid]));
+    const int64_t nlo = t ? lo + span * t / 33 + 1 : lo;
+    hi = t < 32 ? lo + span * (t + 1) / 33 : hi;
+    lo = nlo;
+  }
+  const int64_t mid = lo + lane;
+  const bool take = mid < hi && a[mid] <= b[d - 1 - mid];
+  return lo + __popc(__ballot_sync(0xFFFFFFFFu, take));
+}
+
+// One merge pass over all rows: sorted runs of width w (u32 keys) merge
+// pairwise into runs of 2w.  Block = one kSlice-entry slice of output.
 template <int NV>
-__global__ void __launch_bounds__(kStepThreads)
-sort_step_kernel(int32_t *__restrict__ key, uint32_t *__restrict__ v0,
-                 uint32_t *__restrict__ v1, int64_t rows, int64_t E,
-                 int64_t k, int64_t j) {
-  const int64_t half = E / 2;
-  const int64_t pairs = rows * half;
-  for (int64_t p = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       p < pairs; p += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t row = p / half;
-    const int64_t q = p % half;
-    const int64_t i = 2 * q - (q & (j - 1));
-    const int64_t base = row * E;
-    cx<NV>(key + base, v0 + base, NV == 2 ? v1 + base : nullptr, i, i + j,
-           (i & k) == 0);
+__global__ void __launch_bounds__(kMergeThreads)
+sort_merge_kernel(const uint32_t *__restrict__ kin,
+                  const uint32_t *__restrict__ v0in,
+                  const uint32_t *__restrict__ v1in, int64_t E, int64_t w,
+                  uint32_t unflip, uint32_t *__restrict__ kout,
+                  uint32_t *__restrict__ v0out,
+                  uint32_t *__restrict__ v1out) {
+  __shared__ uint32_t sk[kSlice];
+  __shared__ uint32_t s0[kSlice];
+  __shared__ uint32_t s1[NV == 2 ? kSlice : 1];
+  __shared__ int64_t split[2];
+  const int64_t slices = E / kSlice;
+  const int64_t row = blockIdx.x / slices;
+  const int64_t at = (blockIdx.x % slices) * kSlice;  // output index in row
+  const int64_t pair = at / (2 * w);
+  const int64_t base = row * E + pair * 2 * w;         // run a, then run b
+  const int64_t d0 = at - pair * 2 * w;
+  if (threadIdx.x < 64) {  // warp 0: the slice's start, warp 1: its end
+    const int64_t at_d = warp_merge_path(kin + base, w, kin + base + w, w,
+                                         d0 + (threadIdx.x >> 5) * kSlice);
+    if ((threadIdx.x & 31) == 0) split[threadIdx.x >> 5] = at_d;
+  }
+  __syncthreads();
+  const int64_t i0 = split[0];
+  const int64_t j0 = d0 - i0;
+  const int na = static_cast<int>(split[1] - i0);
+  const int nb = kSlice - na;
+  for (int x = threadIdx.x; x < kSlice; x += kMergeThreads) {
+    const int64_t src = base + (x < na ? i0 + x : w + j0 + (x - na));
+    sk[x] = kin[src];
+    s0[x] = v0in[src];
+    if constexpr (NV == 2) s1[x] = v1in[src];
+  }
+  __syncthreads();
+  const int dt = threadIdx.x * kMergeItems;
+  int ia = static_cast<int>(merge_path(sk, na, sk + na, nb, dt));
+  int ib = dt - ia;
+  uint32_t ok[kMergeItems], o0[kMergeItems], o1[kMergeItems];
+#pragma unroll
+  for (int k = 0; k < kMergeItems; ++k) {
+    const bool take_a = ia < na && (ib >= nb || sk[ia] <= sk[na + ib]);
+    const int src = take_a ? ia++ : na + ib++;
+    ok[k] = sk[src];
+    o0[k] = s0[src];
+    if constexpr (NV == 2) o1[k] = s1[src];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kMergeItems; ++k) {
+    sk[dt + k] = ok[k];
+    s0[dt + k] = o0[k];
+    if constexpr (NV == 2) s1[dt + k] = o1[k];
+  }
+  __syncthreads();
+  const int64_t o = row * E + at;
+  for (int x = threadIdx.x; x < kSlice; x += kMergeThreads) {
+    kout[o + x] = sk[x] ^ unflip;
+    v0out[o + x] = s0[x];
+    if constexpr (NV == 2) v1out[o + x] = s1[x];
   }
 }
 
 template <int NV>
 int sort_rows(const void *kin, const void *v0in, const void *v1in,
               int64_t t, int64_t e, int64_t E, int key_unsigned,
-              int32_t pad_key, uint32_t pad_v0, uint32_t pad_v1, void *kout,
-              void *v0out, void *v1out, cudaStream_t stream) {
-  const int tile = static_cast<int>(E < kTile ? E : kTile);
-  const int threads = tile / 2 < kThreads ? (tile / 2 > 32 ? tile / 2 : 32)
-                                          : kThreads;
-  const size_t smem = static_cast<size_t>(tile) * 4u * (1 + NV);
+              uint32_t pad_key, uint32_t pad_v0, uint32_t pad_v1, void *kout,
+              void *v0out, void *v1out, void *kscr, void *v0scr, void *v1scr,
+              cudaStream_t stream) {
+  const int T = static_cast<int>(E < kTile ? E : kTile);
+  int passes = 0;
+  for (int64_t w = T; w < E; w <<= 1) ++passes;
+  const size_t smem = (kTile + kTile / 2 + kCounters) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       sort_tile_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int32_t bias = key_unsigned ? INT32_MIN : 0;
-  auto ki = static_cast<const int32_t *>(kin);
-  auto a0 = static_cast<const uint32_t *>(v0in);
-  auto a1 = static_cast<const uint32_t *>(v1in);
-  auto ko = static_cast<int32_t *>(kout);
-  auto b0 = static_cast<uint32_t *>(v0out);
-  auto b1 = static_cast<uint32_t *>(v1out);
-  const unsigned blocks = static_cast<unsigned>(t * (E / tile));
-  // tiles: every stage up to k = tile
-  sort_tile_kernel<NV><<<blocks, threads, smem, stream>>>(
-      ki, a0, a1, e, ko, b0, b1, E, tile, 2, tile, 1, bias, pad_key, pad_v0,
-      pad_v1, 1, E == tile);
+  const uint32_t flip = key_unsigned ? 0u : 0x80000000u;
+  uint32_t *out[3] = {static_cast<uint32_t *>(kout),
+                      static_cast<uint32_t *>(v0out),
+                      static_cast<uint32_t *>(v1out)};
+  uint32_t *scr[3] = {static_cast<uint32_t *>(kscr),
+                      static_cast<uint32_t *>(v0scr),
+                      static_cast<uint32_t *>(v1scr)};
+  // ping-pong so that the last pass lands in the outputs
+  uint32_t **src = passes % 2 ? scr : out;
+  uint32_t **dst = passes % 2 ? out : scr;
+  sort_tile_kernel<NV><<<static_cast<unsigned>(t * (E / T)), kTileThreads,
+                         smem, stream>>>(
+      static_cast<const uint32_t *>(kin), static_cast<const uint32_t *>(v0in),
+      static_cast<const uint32_t *>(v1in), e, E, T, flip, pad_key, pad_v0,
+      pad_v1, passes ? 0u : flip, src[0], src[1], src[2]);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  for (int64_t k = 2LL * tile; k <= E; k <<= 1) {
-    for (int64_t j = k >> 1; j >= tile; j >>= 1) {
-      const int64_t pairs = t * (E / 2);
-      int64_t g = (pairs + kStepThreads - 1) / kStepThreads;
-      if (g > 132 * 64) g = 132 * 64;
-      sort_step_kernel<NV><<<static_cast<unsigned>(g), kStepThreads, 0,
-                             stream>>>(ko, b0, b1, t, E, k, j);
-      if ((err = cudaGetLastError()) != cudaSuccess)
-        return static_cast<int>(err);
-    }
-    sort_tile_kernel<NV><<<blocks, threads, smem, stream>>>(
-        ki, a0, a1, e, ko, b0, b1, E, tile, k, k, tile / 2, bias, pad_key,
-        pad_v0, pad_v1, 0, k == E);
+  for (int64_t w = T; w < E; w <<= 1) {
+    sort_merge_kernel<NV><<<static_cast<unsigned>(t * (E / kSlice)),
+                            kMergeThreads, 0, stream>>>(
+        src[0], src[1], src[2], E, w, 2 * w == E ? flip : 0u, dst[0], dst[1],
+        dst[2]);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
+    uint32_t **tmp = src;
+    src = dst;
+    dst = tmp;
   }
   return 0;
 }
@@ -297,18 +496,20 @@ extern "C" int hdrf_match_deltas(const void *vals, int64_t t, int64_t e,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sort t rows of e entries (key + n_val carried 32-bit values) into
-// outputs of width E (e padded to a power of two).
+// Stable sort of t rows of e entries (key + n_val carried 32-bit values)
+// into outputs of width E (e padded to a power of two with the pads).
+// Rows wider than one tile need scratch shaped like the outputs.
 extern "C" int hdrf_sort_rows(const void *key, const void *v0,
                               const void *v1, int32_t n_val, int64_t t,
                               int64_t e, int64_t E, int32_t key_unsigned,
-                              int32_t pad_key, uint32_t pad_v0,
+                              uint32_t pad_key, uint32_t pad_v0,
                               uint32_t pad_v1, void *kout, void *v0out,
-                              void *v1out, void *stream) {
+                              void *v1out, void *kscr, void *v0scr,
+                              void *v1scr, void *stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (n_val == 1)
     return sort_rows<1>(key, v0, v1, t, e, E, key_unsigned, pad_key, pad_v0,
-                        pad_v1, kout, v0out, v1out, s);
+                        pad_v1, kout, v0out, v1out, kscr, v0scr, v1scr, s);
   return sort_rows<2>(key, v0, v1, t, e, E, key_unsigned, pad_key, pad_v0,
-                      pad_v1, kout, v0out, v1out, s);
+                      pad_v1, kout, v0out, v1out, kscr, v0scr, v1scr, s);
 }

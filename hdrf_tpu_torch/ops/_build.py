@@ -33,9 +33,10 @@ _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
 _SIGNATURES = {
     # data, n_pad, n, mask, min, words, bitmap, stream
     "hdrf_cdc_scan": [_P, _I64, _I64, _U32, _I64, _P, _P, _P],
-    # bitmap, nbm, n, min, max, b_small, table, ols, olb, cap, stream
+    # bitmap, nbm, n, min, max, b_small, table, ols, olb, cap, seg_width,
+    # scratch, stream
     "hdrf_cdc_select": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I64,
-                        _P],
+                        _I64, _P, _P],
     # local, halo, m, base, mask, words, count, stream
     "hdrf_cdc_shard_scan": [_P, _P, _I64, _I64, _U32, _P, _P, _P],
     # words, nw, offs, lens, L, W, out, stream
@@ -45,9 +46,9 @@ _SIGNATURES = {
     # vals, t, e, stride, out, stream
     "hdrf_match_deltas": [_P, _I64, _I64, _I32, _P, _P],
     # key, v0, v1, n_val, t, e, E, unsigned, pad_key, pad_v0, pad_v1,
-    # key_out, v0_out, v1_out, stream
-    "hdrf_sort_rows": [_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _U32,
-                       _U32, _P, _P, _P, _P],
+    # key_out, v0_out, v1_out, key_scr, v0_scr, v1_scr, stream
+    "hdrf_sort_rows": [_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _U32, _U32,
+                       _U32, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -11,8 +11,8 @@ offset/length lane tables by padded SHA block count.
 
 Design (csrc/cdc.cu).  The TPU kernel walks the block as a sequential grid
 carrying the hash history and the frontier in scratch; on Hopper that
-would leave 131 of 132 SMs idle, so the work is two launches on one
-stream:
+would leave 131 of 132 SMs idle, so the work is a parallel scan and a
+parallel select on one stream:
 
 (a) a parallel scan — one thread per 256-byte run, warmed up on the 32
     bytes before its run (``h = (h << 1) + G[b]`` over zero history equals
@@ -20,11 +20,21 @@ stream:
     memory.  It writes the BE word image and a candidate bitmap (bit ``i``
     = ``pos1 == i + 1``).  Bound: bytes — it reads the block once and
     writes it once more as words (about 0.08 ms per 128 MiB at 3.35 TB/s).
-(b) the select — one thread block walks the frontier.  The bitmap streams
-    through a 64 KiB shared-memory window with a one-bit-per-word summary,
-    so each cut costs a few shared-memory reads and warp ballots instead
-    of global-memory round trips.  It is serial in the number of cuts,
-    the part to look at first for time.
+(b) the select — segmented speculative walks and a stitch, four kernels
+    (one wrapper call, one launch count).  The block is cut into segments
+    of ``seg_width`` positions (default 128 KiB rounded to a multiple of
+    ``max_chunk``, so zeros and candidate-free runs align with the
+    segments); one warp per segment walks the frontier from the segment
+    start as if a cut stood there; each walker then goes on until it
+    lands on a point of the next segments' chains (where two chains meet
+    they agree); one block follows those merge pointers from segment 0,
+    the only exact start, and scans the segments' counts; then every
+    segment on the true chain writes its cuts and lanes in parallel.  A
+    chain that never merges is walked to the end: the worst case is the
+    serial walk, never a wrong answer.  Bound: bytes (the bitmap read
+    once, a few words per cut written); the walks are latency-bound (one
+    dependent L2 load per 4,096 bitmap bits), hence spread over ~1,000
+    warps for a 128 MiB block.
 
 One select covers both reference variants (the skip-ahead sequence select
 and the PR 4 walk), which give identical cuts by construction.
@@ -65,6 +75,9 @@ import torch
 from hdrf_tpu_torch.ops import _build, gear
 
 PAD_GRID = 512          # block bytes are padded to this grid (zeros)
+SEG_WIDTH = 1 << 17     # select segment width in positions (default)
+MAX_SEGS = 8192         # the select's stitch holds its pointers on chip
+SEG_ARRAYS = 9          # per-segment scratch arrays of the select
 TABLE_HDR = 8
 H_COUNT, H_OVERFLOW, H_SMALL, H_BIG = 0, 1, 2, 3
 H_SURV, H_CANDS = 4, 5  # reference telemetry lanes; zero here
@@ -226,19 +239,34 @@ def cdc_select_plain(bitmap: torch.Tensor, n: int, min_chunk: int,
             torch.from_numpy(olb).to(dev))
 
 
+def select_geometry(n: int, min_chunk: int, max_chunk: int,
+                    seg_width: int | None = None) -> tuple[int, int]:
+    """(segment width, scratch ints) of the select kernel for an n-byte
+    block: the width is ``seg_width`` (default ``SEG_WIDTH`` rounded down
+    to a multiple of ``max_chunk``), raised until at most ``MAX_SEGS``
+    segments cover the block; each segment keeps ``min(W, n) // min + 3``
+    points and running small counts, plus ``SEG_ARRAYS`` counters."""
+    w = seg_width or max_chunk * max(1, SEG_WIDTH // max_chunk)
+    w = max(int(w), -(-n // MAX_SEGS))
+    s = -(-n // w)
+    return w, 2 * s * (min(w, n) // min_chunk + 3) + SEG_ARRAYS * s
+
+
 def cdc_select(bitmap: torch.Tensor, n: int, min_chunk: int, max_chunk: int,
-               b_small: int):
+               b_small: int, *, seg_width: int | None = None):
     """Min/max cut select over a candidate bitmap (the second launch of
     the CDC pair).  Returns ``(table int32[8+cap]`` = header + cuts,
     ``ols``/``olb int32[2, cap]`` small/big lanes — row 0 byte offsets,
     row 1 lengths); entries past the header counts are unspecified.  A
     chunk is small when its padded SHA block count ``(len + 9 + 63) // 64
-    <= b_small``."""
+    <= b_small``.  ``seg_width`` sets the kernel's segment width (tests
+    set it small to stress the stitch); the result does not depend on
+    it."""
     if bitmap.device.type == "cpu":
         return cdc_select_plain(bitmap, n, min_chunk, max_chunk, b_small)
     if bitmap.device.type != "cuda" or bitmap.dtype != torch.int32 \
             or not bitmap.is_contiguous() or bitmap.data_ptr() % 16 \
-            or not 0 < n <= 32 * bitmap.numel():
+            or not 0 < n <= 32 * bitmap.numel() or n >= (1 << 31):
         raise ValueError("cdc_select: expected a contiguous, 16-byte "
                          f"aligned int32 CUDA bitmap covering n={n}")
     global select_launches
@@ -248,9 +276,11 @@ def cdc_select(bitmap: torch.Tensor, n: int, min_chunk: int, max_chunk: int,
     table = torch.empty(TABLE_HDR + cap, dtype=torch.int32, device=dev)
     ols = torch.empty((2, cap), dtype=torch.int32, device=dev)
     olb = torch.empty((2, cap), dtype=torch.int32, device=dev)
+    w, nscr = select_geometry(n, min_chunk, int(max_chunk), seg_width)
+    scratch = torch.empty(nscr, dtype=torch.int32, device=dev)
     _build.launch("hdrf_cdc_select", dev, bitmap.data_ptr(), bitmap.numel(),
                   n, min_chunk, int(max_chunk), int(b_small), table.data_ptr(),
-                  ols.data_ptr(), olb.data_ptr(), cap,
+                  ols.data_ptr(), olb.data_ptr(), cap, w, scratch.data_ptr(),
                   what="cdc select kernel")
     with _launch_lock:
         select_launches += 1

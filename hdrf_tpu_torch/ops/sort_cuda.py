@@ -18,9 +18,10 @@ each entry with its left neighbour, sort back by position.
 ascending key/value sort of (t, e) int32 tensors with one or two carried
 values; ``key_unsigned`` orders the key's bits as u32.  Rows that are not
 a power of two are padded with the caller's sentinel, which must sort at
-or past every live key; the result has the input's width.  Ties keep no
-order: the plain version is stable, the kernel is not, so they agree on
-the keys and on every slot whose key is unique.
+or past every live key; the result has the input's width.  The sort is
+stable — equal keys keep their input order, pad slots after live ones —
+so the kernel and the plain version (``torch.sort(stable=True)``) agree
+on every slot.
 
 Design (csrc/sort.cu).  A stride-2 row is 65,536 keys — 256 KiB, more
 than one block's 227 KB of shared memory — so the match kernel does not
@@ -28,12 +29,14 @@ sort: one block per row keeps a "latest position of each hash16" table
 (u16, 128 KiB) in shared memory, and one warp walks the row in position
 order, 32 positions a step, resolving same-hash lanes of a step with
 ``__match_any_sync``; then the whole block compares the grams and writes
-the deltas.  The row sort is a bitonic network: rows up to 8,192 entries
-sort in one block's shared memory (the L1/L2 pack rows, key + 2 values =
-96 KiB); the L3 and escape rows (up to 2^19 entries) sort 8,192-entry
-tiles there and merge with one global-memory launch per stride >= 8,192
-and one shared-memory launch for the strides below.  Bound: bytes for
-both (each row read once and written once at 3.35 TB/s).
+the deltas.  The row sort is a radix tile sort plus merges: one block per
+tile of up to 8,192 entries runs a stable LSD radix sort in shared memory
+over only the key bits that vary in the tile (the L1/L2 pack keys, row-
+local indices up to 8,192: two 7-bit passes), and rows longer than a
+tile (the L3 and escape rows, up to 2^19 entries) then take log2(E /
+8,192) merge-path merge passes, one launch each over all rows, every
+block making a 2,048-entry slice of output.  Bound: bytes for both (each
+row read once and written once at 3.35 TB/s).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each wrapper counts one launch per call
@@ -51,6 +54,7 @@ from hdrf_tpu_torch.ops.gear import M32
 
 HASH_MUL = 2654435761   # golden-ratio multiplier (lz4.cpp hash4)
 _BIAS = -(1 << 31)      # int32 bits of 0x80000000
+_TILE = 8192            # row entries one block of the sort kernel sorts
 
 # Launches of each kernel, one per wrapper call on a CUDA tensor.
 match_deltas_launches = 0
@@ -61,12 +65,6 @@ _launch_lock = threading.Lock()
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2^32)."""
     return x.to(torch.int64) & M32
-
-
-def _i32(x: int) -> int:
-    """A Python int's low 32 bits as a signed int32 value."""
-    x = int(x) & M32
-    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def positions(e: int, stride: int, device) -> torch.Tensor:
@@ -184,16 +182,19 @@ def sort_rows(key: torch.Tensor, *vals: torch.Tensor, pad_key=None,
     if t == 0 or e == 0:
         return (key.clone(), *[v.clone() for v in vals])
     width = 1 << (e - 1).bit_length()
-    outs = [torch.empty((t, width), dtype=torch.int32, device=key.device)
+    dev = key.device
+    outs = [torch.empty((t, width), dtype=torch.int32, device=dev)
             for _ in range(1 + len(vals))]
+    # rows wider than one tile merge through scratch shaped like the outputs
+    scr = [torch.empty_like(o) for o in outs] if width > _TILE else []
     pv = [int(p) & M32 for p in (pad_vals or ())] + [0, 0]
-    v1 = vals[1].data_ptr() if len(vals) == 2 else None
-    o1 = outs[2].data_ptr() if len(vals) == 2 else None
-    _build.launch("hdrf_sort_rows", key.device, key.data_ptr(),
-                  vals[0].data_ptr(), v1, len(vals), t, e, width,
-                  int(key_unsigned), _i32(pad_key or 0), pv[0], pv[1],
-                  outs[0].data_ptr(), outs[1].data_ptr(), o1,
-                  what="sort rows kernel")
+
+    def ptrs(ts, k):
+        return [x.data_ptr() for x in ts] + [None] * (k - len(ts))
+    _build.launch("hdrf_sort_rows", dev, key.data_ptr(), *ptrs(vals, 2),
+                  len(vals), t, e, width, int(key_unsigned),
+                  int(pad_key or 0) & M32, pv[0], pv[1], *ptrs(outs, 3),
+                  *ptrs(scr, 3), what="sort rows kernel")
     with _launch_lock:
         sort_rows_launches += 1
     return tuple(o[:, :e] for o in outs)

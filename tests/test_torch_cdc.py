@@ -162,3 +162,127 @@ def test_empty_and_unaligned_blocks():
         cuts, _ = cdc_cuda.chunks_fused(a, 0xFF, 16, 256, device="cpu")
         np.testing.assert_array_equal(cuts, native.cdc_chunk(a, 0xFF, 16,
                                                              256))
+
+
+# ----------------------------------------- the select kernel's algorithm
+
+def _next_cut(cand, n, mn, mx, f):
+    lo, hi = f + mn, min(f + mx, n)
+    if lo <= hi:
+        i = int(np.searchsorted(cand, lo))
+        if i < cand.size and cand[i] <= hi:
+            return int(cand[i])
+    return hi
+
+
+def _select_model(cand, n, mn, mx, b_small, w):
+    """numpy model of csrc/cdc.cu's select at segment width ``w``: (a)
+    speculative walks from every segment start, (b) each walker on from
+    its exit until it lands on a point of the chain of the segment it is
+    in, (c) the stitch along the merge pointers from segment 0, (d) the
+    emit at offsets scanned from the segments' counts.  Returns the
+    kernel's (table, ols, olb) up to the header counts and the number of
+    segments on the true chain."""
+    nseg = -(-n // w)
+    small = lambda ln: (ln + 9 + 63) // 64 <= b_small   # noqa: E731
+    pts = []                                            # (a)
+    for i in range(nseg):
+        p = [i * w]
+        while p[-1] < (i + 1) * w and p[-1] < n or len(p) == 1:
+            p.append(_next_cut(cand, n, mn, mx, p[-1]))
+        pts.append(p)
+    merge, ys = [], []                                  # (b)
+    for i in range(nseg):
+        f, y, m = pts[i][-1], [], None
+        while f < n:
+            k = f // w
+            if f in pts[k]:
+                m = (k, pts[k].index(f))
+                break
+            f = _next_cut(cand, n, mn, mx, f)
+            y.append(f)
+        merge.append(m)
+        ys.append(y)
+    ent, k, e = [-1] * nseg, 0, 0                       # (c)
+    while True:
+        ent[k] = e
+        if merge[k] is None:
+            break
+        k, e = merge[k]
+    pieces = [[] if ent[k] < 0 else pts[k][ent[k]:] + ys[k]
+              for k in range(nseg)]
+    nc = [max(len(p) - 1, 0) for p in pieces]
+    ns = [sum(small(b - a) for a, b in zip(p, p[1:])) for p in pieces]
+    oc, os_ = np.cumsum([0] + nc), np.cumsum([0] + ns)  # scan
+    ob = oc - os_
+    table = np.zeros(8 + oc[-1], np.int32)              # (d)
+    ols = np.zeros((2, os_[-1]), np.int32)
+    olb = np.zeros((2, ob[-1]), np.int32)
+    for k, p in enumerate(pieces):
+        c, s, b = oc[k], os_[k], ob[k]
+        for a, cut in zip(p, p[1:]):
+            table[8 + c] = cut
+            c += 1
+            if small(cut - a):
+                ols[:, s] = (a, cut - a)
+                s += 1
+            else:
+                olb[:, b] = (a, cut - a)
+                b += 1
+    table[:4] = (oc[-1], 0, os_[-1], ob[-1])
+    return table, ols, olb, sum(e >= 0 for e in ent)
+
+
+def _select_cases():
+    """(name, candidates or bytes, n, mask, min, max): adversarial inputs
+    of the segmented select; byte corpora go through the native scan."""
+    rng = np.random.default_rng(41)
+    yield "zeros", np.zeros(300_000, np.uint8), None, 0x1FFF, 2048, 65536
+    yield "no-candidates", np.empty(0, np.int64), 100_000, 0, 512, 4096
+    # one candidate per 1,531 positions, under min: chains a period apart
+    # never meet, and no segment width is a multiple of the period
+    yield "period-never-aligns", np.arange(700, 250_000, 1531), 250_000, \
+        0, 2048, 8192
+    yield "segment-starts", "starts", 200_000, 0, 2048, 8192
+    yield "dense", rng.integers(0, 256, 30_000, dtype=np.uint8), None, \
+        0x7, 8, 64
+    yield "forced-max-runs", rng.integers(0, 256, 120_000, dtype=np.uint8), \
+        None, 0xFFFFFF, 512, 4096
+    yield "tail-short", rng.integers(0, 256, 3 * 8192 + 37, dtype=np.uint8), \
+        None, 0x3FF, 256, 2048
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["w-multiple-of-max", "w-odd"])
+@pytest.mark.parametrize("name,src,n,mask,mn,mx", list(_select_cases()),
+                         ids=[c[0] for c in _select_cases()])
+def test_segmented_select_model_equals_serial(name, src, n, mask, mn, mx,
+                                              aligned):
+    """The select kernel's four phases, modelled at tiny segment widths,
+    give the serial walk's cuts (port gear.cdc_select and the reference's
+    native.cdc_select) and the plain version's table and lane tables."""
+    w = mx if aligned else mx + mn // 2 + 1
+    if isinstance(src, str):               # candidates at segment starts
+        cand = np.arange(w, n, w)
+    elif src.dtype == np.uint8:
+        n = src.size
+        cand = native.gear_candidates(src, mask).astype(np.int64)
+    else:
+        cand = src
+    b_small = 2
+    got = _select_model(cand[cand >= gear.skip_ahead_threshold(mn)], n,
+                        mn, mx, b_small, w)
+    want = native.cdc_select(cand.astype(np.uint64), n, mn, mx)
+    np.testing.assert_array_equal(got[0][8:], want.astype(np.int64))
+    np.testing.assert_array_equal(got[0][8:],
+                                  gear.cdc_select(cand, n, mn, mx))
+    assert got[3] <= -(-n // w) and -(-n // w) >= 3
+    bits = torch.zeros(n + (-n) % 512, dtype=torch.bool)
+    bits[torch.from_numpy(cand[cand >= gear.skip_ahead_threshold(mn)]
+                          - 1)] = True
+    table, ols, olb = cdc_cuda.cdc_select_plain(gear.pack_bits(bits), n, mn,
+                                                mx, b_small)
+    nc, _, ns, nbg = got[0][:4]
+    np.testing.assert_array_equal(got[0], table[:8 + nc].numpy())
+    np.testing.assert_array_equal(got[1], ols[:, :ns].numpy())
+    np.testing.assert_array_equal(got[2], olb[:, :nbg].numpy())

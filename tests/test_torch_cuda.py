@@ -58,15 +58,41 @@ def _data(seed, n, fill):
     return rng.integers(lo, hi, n, dtype=np.uint8)
 
 
-@pytest.mark.parametrize("seed,n,fill,mask,mn,mx", CASES)
-def test_kernels_equal_plain(dev, seed, n, fill, mask, mn, mx):
-    a = _data(seed, n, fill)
+def _periodic(seed, n, period, mask):
+    """n bytes of one random pattern of ``period`` bytes repeated, drawn
+    so that the repetition holds exactly one candidate per period: with a
+    period under min_chunk, chains a period apart never meet."""
+    rng = np.random.default_rng(seed)
+    while True:
+        pat = rng.integers(0, 256, period, dtype=np.uint8)
+        c = native.gear_candidates(np.tile(pat, 3), mask)
+        if np.count_nonzero(c > period) == 2:
+            return np.resize(pat, n)
+
+
+SELECT_CASES = [  # adversarial inputs of the segmented select
+    (7, 600_000, "periodic", 0x1FFF, 2048, 65536),
+    (8, 200_000, "starts", 0x1FFF, 2048, 8192),
+]
+
+
+@pytest.mark.parametrize("seg_width", [None, 9217])
+@pytest.mark.parametrize("seed,n,fill,mask,mn,mx", CASES + SELECT_CASES)
+def test_kernels_equal_plain(dev, seed, n, fill, mask, mn, mx, seg_width):
+    if fill == "periodic":
+        a = _periodic(seed, n, 1531, mask)
+    elif fill == "starts":   # zeros at every segment start, random between
+        a = _data(seed, n, "random")
+        for s in range(0, n, seg_width or 131072):
+            a[max(s - 64, 0):s] = 0
+    else:
+        a = _data(seed, n, fill)
     block, n = cdc_cuda.padded_block(a, dev)
-    k = cdc_cuda.cdc_block(block, n, mask, mn, mx, 4)
-    p = cdc_cuda.cdc_block_plain(block, n, mask, mn, mx, 4)
     kw, kb = cdc_cuda.cdc_scan(block, n, mask, mn)
     pw, pb = cdc_cuda.cdc_scan_plain(block, n, mask, mn)
     assert torch.equal(kw, pw) and torch.equal(kb, pb)
+    k = (kw, *cdc_cuda.cdc_select(kb, n, mn, mx, 4, seg_width=seg_width))
+    p = cdc_cuda.cdc_block_plain(block, n, mask, mn, mx, 4)
     nc, _, ns, nbg = k[1][:4].tolist()
     assert k[1][:4].tolist() == p[1][:4].tolist()
     assert torch.equal(k[0], p[0])
@@ -81,6 +107,17 @@ def test_kernels_equal_plain(dev, seed, n, fill, mask, mn, mx):
         nb = ((lanes[1] + 72) // 64).to(torch.int32)
         assert torch.equal(sha256_cuda.sha256_words_cuda(mk, nb),
                            sha256_words(mk, nb))
+
+
+def test_select_counts_one_launch(dev):
+    """The select's four kernels are one wrapper call, one launch."""
+    a = _data(1, 150_000, "random")
+    block, n = cdc_cuda.padded_block(a, dev)
+    _, bitmap = cdc_cuda.cdc_scan(block, n, 0x1FFF, 2048)
+    n0 = cdc_cuda.select_launches
+    cdc_cuda.cdc_select(bitmap, n, 2048, 65536, 4, seg_width=4096)
+    torch.cuda.synchronize()
+    assert cdc_cuda.select_launches == n0 + 1
 
 
 def test_sha_partial_last_thread_block(dev):
@@ -172,9 +209,13 @@ def test_match_deltas_kernel_equals_plain(dev, stride, t, kind):
         assert bool((got > 0).any())
 
 
-def _unique_keys(rng, t, e, unsigned):
+def _keys(rng, t, e, unsigned, tied):
+    """Unique keys (a permutation) or, ``tied``, keys from e // 4 values,
+    centred on 0 (i32) or across the sign bit of the u32 order."""
     key = np.stack([rng.permutation(e).astype(np.int64) for _ in range(t)])
-    if unsigned:   # across the sign bit of the u32 order
+    if tied:
+        key //= 4
+    if unsigned:
         key = key + 0x80000000 - e // 2
     else:
         key = key - e // 2
@@ -192,10 +233,12 @@ SORT_CASES = [  # (t, e, n_val, unsigned)
 ]
 
 
+@pytest.mark.parametrize("tied", [False, True], ids=["unique", "tied"])
 @pytest.mark.parametrize("t,e,n_val,unsigned", SORT_CASES)
-def test_sort_rows_kernel_equals_plain(dev, t, e, n_val, unsigned):
+def test_sort_rows_kernel_equals_plain(dev, t, e, n_val, unsigned, tied):
+    """Every slot equals the stable plain sort, ties included."""
     rng = np.random.default_rng(e + t)
-    key = _unique_keys(rng, t, e, unsigned).to(dev)
+    key = _keys(rng, t, e, unsigned, tied).to(dev)
     vals = [torch.from_numpy(rng.integers(-2**31, 2**31, size=(t, e))
                              .astype(np.int32)).to(dev)
             for _ in range(n_val)]
@@ -213,8 +256,8 @@ def test_sort_rows_kernel_equals_plain(dev, t, e, n_val, unsigned):
 
 def test_sort_rows_tied_dead_slots(dev):
     """Pack-sort keys: live slots carry their unique index, dead slots tie
-    on the row width (gpos _INVALID).  Keys and live slots are exact; the
-    dead slots hold the same multiset."""
+    on the row width (gpos _INVALID).  The sort is stable, so every slot,
+    dead ones included, equals the plain version."""
     rng = np.random.default_rng(12)
     t, e = 64, 8192
     live = rng.random((t, e)) < 0.1
@@ -224,15 +267,33 @@ def test_sort_rows_tied_dead_slots(dev):
                                   _INVALID).astype(np.int32)).to(dev)
     r = torch.from_numpy(rng.integers(-2**31, 2**31, (t, e))
                          .astype(np.int32)).to(dev)
-    gk, gg, gr = sort_cuda.sort_rows(key, g, r)
-    wk, wg, wr = sort_cuda.sort_rows_plain(key, g, r)
-    assert torch.equal(gk, wk)
-    alive = wk < e
-    assert torch.equal(gg[alive], wg[alive]) and torch.equal(gr[alive],
-                                                             wr[alive])
-    assert bool((gg[~alive] == _INVALID).all())
-    assert torch.equal(torch.sort(gr[~alive]).values,
-                       torch.sort(wr[~alive]).values)
+    got = sort_cuda.sort_rows(key, g, r)
+    want = sort_cuda.sort_rows_plain(key, g, r)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t,e", [(1, 300_000), (2, 131_072)])
+def test_sort_rows_long_rows_stable_across_tiles(dev, t, e):
+    """Long rows whose keys tie across tiles (16 values, some equal to the
+    pad sentinel, the L3 case): the merge passes keep the input order of
+    equal keys, and pad slots stay after the live slots that tie with the
+    sentinel."""
+    rng = np.random.default_rng(e)
+    vals = rng.integers(0, 16, (t, e))
+    key = np.where(vals == 15, _INVALID, vals).astype(np.int32)
+    order = np.broadcast_to(np.arange(e, dtype=np.int32), (t, e))
+    k, v = (torch.from_numpy(np.array(x)).to(dev)
+            for x in (key, order))
+    gk, gv = sort_cuda.sort_rows(k, v, pad_key=_INVALID, pad_vals=(-1,))
+    wk, wv = sort_cuda.sort_rows_plain(k, v, pad_key=_INVALID,
+                                       pad_vals=(-1,))
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert bool((gv >= 0).all())           # no pad slot among the first e
+    gk, gv = gk.cpu().numpy(), gv.cpu().numpy()
+    for row in range(t):
+        for kv in np.unique(gk[row]):
+            assert np.all(np.diff(gv[row][gk[row] == kv]) > 0)
 
 
 def _seal_corpora():
