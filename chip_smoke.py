@@ -2,7 +2,6 @@
 """Chip smoke test of the PyTorch/CUDA port (hdrf_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--requests 8] [--block-mib 128]
-                          [--baseline DIR]
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
@@ -14,16 +13,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    PyTorch versions on the card, on the seven corpora of
    tests/test_cdc_pallas.py (rebuilt from their seed), a seeded random
    block and an all-zeros block of ``--block-mib``, and the CDC pair on a
-   low-entropy text block (bytes 97..122) and a periodic adversary of the
-   same size (a 1,531-byte random pattern repeated, holding one candidate
-   per period: under min_chunk and dividing no segment width, so the
-   select's speculative chains need not meet).  Outputs are integers:
-   tolerance zero.  Times at the random block: kernel median of 20 runs
-   after warm-up (CUDA events), plain version once, and ``library_ms`` —
-   one PyTorch call computing the same function — for the gather (an
-   advanced-indexing gather of the same bytes); CDC and SHA-256 have none.
-   The select is timed on each of the four big blocks (``TIMING
-   cdc_select`` lines).
+   low-entropy text block (bytes 97..122) and two periodic adversaries of
+   the same size (a random pattern of 1,531 and of 3 bytes repeated,
+   holding one candidate per period: under min_chunk and dividing no
+   segment width, so the select's speculative chains need not meet; at 3
+   bytes they never do and the select walks serially).  Outputs are
+   integers: tolerance zero.  Times at the random block: kernel median of
+   20 runs after warm-up (CUDA events), plain version once, and
+   ``library_ms`` — one PyTorch call computing the same function — for the
+   gather (an advanced-indexing gather of the same bytes); CDC and SHA-256
+   have none.  The select is timed on each of the five big blocks
+   (``TIMING cdc_select`` lines).  Every timed kernel call is preceded by a
+   write of 128 MiB, so its inputs come from HBM, not from the 50 MB L2.
 4. Main path: the port's ReductionWorker on 127.0.0.1:0 on the card answers
    ``--requests`` ``reduce`` requests of ``--block-mib`` each, sent by the
    port's WorkerClient in 64 KiB packets with CdcConfig() defaults.  Each
@@ -85,11 +86,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-With ``--baseline DIR`` (a checkout of an earlier commit, e.g. unpacked
-with ``git archive`` into a directory that .gitignore lists), the script
-also builds DIR's kernels with DIR's own build module and times its CDC
-select and row sort on the same inputs, right after this checkout's
-(``baseline_ms`` in the TIMING lines).
+kernel_times.py times the select and the row sort of any checkout on
+the same inputs (``time_select``, ``time_sort_site``).
 
 The CDC kernel pair is two wrapper calls with a launch count each:
 ``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
@@ -103,7 +101,6 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import importlib.util
 import json
 import math
 import statistics
@@ -111,6 +108,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -151,18 +149,17 @@ MIB = 1 << 20
 SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
 _I32_MIN = -(1 << 31)
 TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
-SELECT_KERNELS = ("cdc_select_",)                 # its four kernels
-SORT_KERNELS = ("sort_tile_kernel", "sort_merge_kernel")
-# the kernels a --baseline checkout launches (a one-launch select and a
-# bitonic sort)
-BASE_SELECT_KERNELS = ("cdc_select_kernel",)
-BASE_SORT_KERNELS = ("sort_tile_kernel", "sort_step_kernel")
+SELECT_KERNELS = ("cdc_select",)     # the select's kernels, by name
+SORT_KERNELS = ("sort_",)            # the row sort's tile and merge kernels
+L2_SCRUB_BYTES = 128 * MIB           # written before each timed call
 REDUCE_KERNEL_NAMES = {"cdc_scan_kernel": "cdc_scan",
                        "cdc_select_": "cdc_select",   # its four kernels
                        "gather_pad_kernel": "gather_pad",
                        "sha256_kernel": "sha256"}
 SORT_SITES = ("L1", "L2", "L3", "E1", "E2")   # match_scan's sort call sites
-ADVERSARIAL_PERIOD = 1531   # under min_chunk, and no power of two's divisor
+# under min_chunk and no power of two's divisor: chains meet late (1,531)
+# or never (3, a solid 24-bit colour)
+ADVERSARIAL_PERIODS = {"periodic-block": 1531, "period3-block": 3}
 
 KERNELS = {
     "cdc_scan": ("hdrf_tpu_torch/csrc/cdc.cu",
@@ -243,12 +240,26 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+_scrub: list = []
+
+
+def scrub_l2() -> None:
+    """Write a buffer larger than the card's L2 (50 MB), so that the next
+    call reads its inputs from HBM, as the byte bound assumes."""
+    if not _scrub:
+        _scrub.append(torch.empty(L2_SCRUB_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+    _scrub[0].fill_(1)
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events), the
+    L2 scrubbed before each."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        scrub_l2()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -262,8 +273,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
 def device_ms(fn, names, reps: int = 10):
     """Device time per call of ``fn``'s kernels — those whose name holds
     one of ``names`` — summed from torch.profiler over ``reps`` calls
-    after one warm-up; None when the trace holds none of them.  Unlike
-    ``cuda_ms`` it leaves out the host's launch overhead."""
+    after one warm-up, the L2 scrubbed before each; None when the trace
+    holds none of them.  Unlike ``cuda_ms`` it leaves out the host's
+    launch overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -271,6 +283,7 @@ def device_ms(fn, names, reps: int = 10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            scrub_l2()
             fn()
         torch.cuda.synchronize()
     us = [e.self_device_time_total for e in prof.key_averages()
@@ -293,14 +306,22 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None,
-                 select_ms=None, baseline=None, cdc_only=False):
-    """Every kernel against its plain version on one corpus; with
-    ``select_ms`` (a dict), time the select here under ``name`` (and
-    ``baseline``'s select beside it); with ``timing`` (a dict, given with
-    ``select_ms``), also time every kernel at this corpus's shapes;
-    ``cdc_only`` stops after the CDC pair."""
-    b_small, b_big = buckets_of(mask, mx)
+class Cdc(NamedTuple):
+    """One corpus's block on the card and the CDC pair's outputs."""
+    block: torch.Tensor
+    n: int
+    words: torch.Tensor
+    bitmap: torch.Tensor
+    sel: tuple            # (table, ols, olb)
+    b_small: int
+    scan_plain_ms: float
+    select_plain_ms: float
+
+
+def cdc_phase(name, a, mask, mn, mx, dev, errs) -> Cdc:
+    """The CDC scan and select kernels against their plain versions on
+    one corpus: words, bitmap, header, cuts and both lane tables."""
+    b_small, _ = buckets_of(mask, mx)
     block, n = cdc_cuda.padded_block(a, dev)
     words, bitmap = cdc_cuda.cdc_scan(block, n, mask, mn)
     (pw, pb), scan_ms = timed(lambda: cdc_cuda.cdc_scan_plain(block, n, mask,
@@ -309,61 +330,55 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None,
     errs["cdc_scan"] = max(errs["cdc_scan"], e)
     check(e == 0, f"{name}: cdc scan kernel != plain (max err {e})")
     del pw, pb
-    k = (words, *cdc_cuda.cdc_select(bitmap, n, mn, mx, b_small))
+    k = cdc_cuda.cdc_select(bitmap, n, mn, mx, b_small)
     p, sel_ms = timed(lambda: cdc_cuda.cdc_select_plain(bitmap, n, mn, mx,
                                                         b_small))
-    hk, hp = k[1][:8].cpu().tolist(), p[0][:8].cpu().tolist()
+    hk, hp = k[0][:8].cpu().tolist(), p[0][:8].cpu().tolist()
     check(hk[:4] == hp[:4], f"{name}: cdc header {hk} != {hp}")
     nc, _, ns, nbg = hk[:4]
-    e = max(max_err(k[1][:8 + nc], p[0][:8 + nc]),
-            max_err(k[2][:, :ns], p[1][:, :ns]),
-            max_err(k[3][:, :nbg], p[2][:, :nbg]))
+    e = max(max_err(k[0][:8 + nc], p[0][:8 + nc]),
+            max_err(k[1][:, :ns], p[1][:, :ns]),
+            max_err(k[2][:, :nbg], p[2][:, :nbg]))
     errs["cdc_select"] = max(errs["cdc_select"], e)
     check(e == 0, f"{name}: cdc select kernel != plain (max err {e})")
-    cuts = k[1][8:8 + nc].cpu().numpy().astype(np.int64)
-    host = a if a.size else np.empty(0, np.uint8)
-    # bitmap read, header + cuts and one lane entry per cut written
-    sel_bound = bound(bitmap.numel() * 4 + 4 * (8 + nc) + 8 * nc,
-                      CDC_SELECT_OPS_PER_CUT * nc)
-    if select_ms is not None:
-        def sel():
-            return cdc_cuda.cdc_select(bitmap, n, mn, mx, b_small)
-        row = select_ms[name] = {
-            "cuts": nc, "ms": cuda_ms(sel),
-            "device_ms": device_ms(sel, SELECT_KERNELS),
-            "bound_ms": sel_bound[0]}
-        if baseline is not None:
-            def base():
-                return baseline.select(bitmap, n, mn, mx, b_small)
-            hb = base()[0][:4]
-            check(hb.tolist() == hp[:4], f"{name}: baseline select header "
-                                         f"{hb.tolist()} != {hp[:4]}")
-            row["baseline_ms"] = cuda_ms(base)
-            row["baseline_device_ms"] = device_ms(base, BASE_SELECT_KERNELS)
-        print(f"TIMING cdc_select {name}: " + json.dumps(row), flush=True)
-    if cdc_only:
-        return nc
+    return Cdc(block, n, words, bitmap, k, b_small, scan_ms, sel_ms)
+
+
+def time_select(name, c: Cdc, mn, mx) -> dict:
+    """The select's time on one corpus: one wrapper call (CUDA events),
+    its kernels alone (profiler), and its byte bound — the bitmap read,
+    header + cuts and one lane entry per cut written."""
+    def sel():
+        return cdc_cuda.cdc_select(c.bitmap, c.n, mn, mx, c.b_small)
+    nc = int(c.sel[0][0])
+    b = bound(c.bitmap.numel() * 4 + 4 * (8 + nc) + 8 * nc,
+              CDC_SELECT_OPS_PER_CUT * nc)
+    row = {"cuts": nc, "ms": cuda_ms(sel),
+           "device_ms": device_ms(sel, SELECT_KERNELS), "bound_ms": b[0],
+           "bound_by": b[1]}
+    print(f"TIMING cdc_select {name}: " + json.dumps(row), flush=True)
+    return row
+
+
+def lane_phase(name, a, c: Cdc, mask, mx, dev, errs, timing=None) -> None:
+    """The gather and SHA-256 kernels against their plain versions on
+    both lane tables of one corpus (small corpora also against hashlib);
+    with ``timing`` (a dict), also time both at this corpus's shapes."""
+    b_small, b_big = buckets_of(mask, mx)
+    words, (table, ols, olb) = c.words, c.sel
+    nc, _, ns, nbg = table[:4].cpu().tolist()
     if timing is not None:
-        timing["cdc_scan"] = {
-            "ms": cuda_ms(lambda: cdc_cuda.cdc_scan(block, n, mask, mn)),
-            "plain_ms": scan_ms, "library_ms": None,
-            # block read, word image and bitmap written
-            "bound": bound(block.numel() + words.numel() * 4
-                           + bitmap.numel() * 4, CDC_SCAN_OPS_PER_BYTE * n)}
-        timing["cdc_select"] = {"ms": select_ms[name]["ms"],
-                                "plain_ms": sel_ms, "library_ms": None,
-                                "bound": sel_bound}
         for kname in ("gather_pad", "sha256"):
             timing[kname] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                              "bytes": 0.0, "ops": 0.0}
     digs = {}
-    for ol, bucket, cnt in ((k[2], b_small, ns), (k[3], b_big, nbg)):
+    for ol, bucket, cnt in ((ols, b_small, ns), (olb, b_big, nbg)):
         if not cnt:
             continue
         lanes = ol[:, :cnt]
-        mk = gather_cuda.gather_pad_messages(k[0], lanes, bucket)
+        mk = gather_cuda.gather_pad_messages(words, lanes, bucket)
         mp, mp_ms = timed(lambda: gather_cuda.gather_pad_messages_plain(
-            k[0], lanes, bucket))
+            words, lanes, bucket))
         nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
         dk = sha256_cuda.sha256_words_cuda(mk, nb)
         dp, dp_ms = timed(lambda: sha256_words(mk, nb))
@@ -381,12 +396,12 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None,
             L, W = lanes.shape[1], bucket * 16
             g, s = timing["gather_pad"], timing["sha256"]
             g["ms"] += cuda_ms(lambda: gather_cuda.gather_pad_messages(
-                k[0], lanes, bucket))
+                words, lanes, bucket))
             g["plain_ms"] += mp_ms
             byte_idx = (lanes[0].to(torch.int64)[:, None] + torch.arange(
-                W * 4, device=dev)[None, :]).clamp_(max=block.numel() - 1)
+                W * 4, device=dev)[None, :]).clamp_(max=c.block.numel() - 1)
             g["library_ms"] = (g["library_ms"] or 0.0) + cuda_ms(
-                lambda: block[byte_idx], reps=5, warmup=1)
+                lambda: c.block[byte_idx], reps=5, warmup=1)
             del byte_idx
             g["bytes"] += int(lens.sum()) + 8 * L + 4 * L * W
             s["ms"] += cuda_ms(lambda: sha256_cuda.sha256_words_cuda(mk, nb))
@@ -399,13 +414,13 @@ def kernel_phase(name, a, mask, mn, mx, dev, errs, timing=None,
             t = timing[kname]
             t["bound"] = bound(t.pop("bytes"), t.pop("ops"))
     # the small corpora are also held against hashlib
-    if host.size <= 1 << 20:
+    if a.size <= 1 << 20:
+        cuts = table[8:8 + nc].cpu().numpy().astype(np.int64)
         check(len(digs) == nc, f"{name}: {len(digs)} digests for {nc} cuts")
         for o in np.concatenate([[0], cuts[:-1]]):
             ln, d = digs[int(o)]
-            check(bytes(d) == hashlib.sha256(host[o:o + ln].tobytes()).digest(),
+            check(bytes(d) == hashlib.sha256(a[o:o + ln].tobytes()).digest(),
                   f"{name}: digest at {o} != hashlib")
-    return nc
 
 
 def periodic_block(seed: int, n: int, period: int, mask: int) -> np.ndarray:
@@ -414,62 +429,24 @@ def periodic_block(seed: int, n: int, period: int, mask: int) -> np.ndarray:
     period under min_chunk that divides no segment width, the select's
     speculative chains a period apart need not meet."""
     rng = np.random.default_rng(seed)
+    reps = -(-64 // period) + 2      # two whole periods past the window
     while True:
         pat = rng.integers(0, 256, period, dtype=np.uint8)
-        c = native.gear_candidates(np.tile(pat, 3), mask)
-        if np.count_nonzero(c > period) == 2:
+        c = native.gear_candidates(np.tile(pat, reps), mask)
+        if np.count_nonzero(c > (reps - 2) * period) == 2:
             return np.resize(pat, n)
 
 
-class Baseline:
-    """The CDC select and row sort kernels of an earlier checkout
-    (``--baseline DIR``: one whose select is a single launch and whose
-    sort takes no scratch), built from its own sources by its own
-    ``_build`` module into its own build directory and called through
-    its C interface, to time them on this run's inputs."""
-
-    def __init__(self, root: str):
-        spec = importlib.util.spec_from_file_location(
-            "baseline_build", Path(root) / "hdrf_tpu_torch/ops/_build.py")
-        self.mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(self.mod)
-        sigs = self.mod._SIGNATURES
-        check(len(sigs["hdrf_cdc_select"]) == 11
-              and len(sigs["hdrf_sort_rows"]) == 15,
-              f"baseline {root}: not the expected C interface")
-        t0 = time.perf_counter()
-        self.mod.library()
-        print(f"BASELINE {root} built in {time.perf_counter() - t0:.1f}s",
-              flush=True)
-
-    def select(self, bitmap, n, mn, mx, b_small):
-        cap = cdc_cuda.cap_for(n, mn)
-        dev = bitmap.device
-        table = torch.empty(8 + cap, dtype=torch.int32, device=dev)
-        ols = torch.empty((2, cap), dtype=torch.int32, device=dev)
-        olb = torch.empty((2, cap), dtype=torch.int32, device=dev)
-        self.mod.launch("hdrf_cdc_select", dev, bitmap.data_ptr(),
-                        bitmap.numel(), n, mn, mx, b_small, table.data_ptr(),
-                        ols.data_ptr(), olb.data_ptr(), cap,
-                        what="baseline cdc select")
-        return table, ols, olb
-
-    def sort(self, key, vals, kw):
-        t, e = key.shape
-        width = 1 << (e - 1).bit_length()
-        outs = [torch.empty((t, width), dtype=torch.int32, device=key.device)
-                for _ in range(1 + len(vals))]
-        pv = [int(p) & 0xFFFFFFFF for p in kw.get("pad_vals") or ()] + [0, 0]
-        pk = (int(kw.get("pad_key") or 0) + (1 << 31)) % (1 << 32) - (1 << 31)
-        two = len(vals) == 2
-        self.mod.launch("hdrf_sort_rows", key.device, key.data_ptr(),
-                        vals[0].data_ptr(), vals[1].data_ptr() if two else None,
-                        len(vals), t, e, width,
-                        int(kw.get("key_unsigned", False)), pk, pv[0], pv[1],
-                        outs[0].data_ptr(), outs[1].data_ptr(),
-                        outs[2].data_ptr() if two else None,
-                        what="baseline sort rows")
-        return outs
+def big_blocks(seed: int, nbig: int, mask: int):
+    """(name, bytes) of the select's big corpora, one at a time: random,
+    zeros, low-entropy text and the periodic adversaries."""
+    yield "random-block", np.random.default_rng(seed + 1).integers(
+        0, 256, nbig, dtype=np.uint8)
+    yield "zeros-block", np.zeros(nbig, dtype=np.uint8)
+    yield "text-block", np.random.default_rng(seed + 4).integers(
+        97, 123, nbig, dtype=np.uint8)
+    for i, (name, period) in enumerate(ADVERSARIAL_PERIODS.items()):
+        yield name, periodic_block(seed + 5 + i, nbig, period, mask)
 
 
 def main_path_corpus(seed: int, nblocks: int, block_mib: int) -> list:
@@ -682,6 +659,14 @@ def _sparse_copies(rng, n: int) -> np.ndarray:
     return out
 
 
+def source_container(n: int) -> np.ndarray:
+    """The reference package's source text (structured code), repeated to
+    n bytes."""
+    root = Path(__file__).resolve().parent / "hdrf_tpu"
+    return _fill(b"".join(p.read_bytes() for p in sorted(root.rglob("*.py"))),
+                 n)
+
+
 def seal_corpora(seed: int, chunks: np.ndarray) -> dict:
     """One 32 MiB container of each kind: the generators of
     tests/test_lz4_tpu.py scaled up, the reference package's source text
@@ -690,15 +675,13 @@ def seal_corpora(seed: int, chunks: np.ndarray) -> dict:
     between the emit and flood regimes (the grey-zone race)."""
     rng = np.random.default_rng(seed + 2)
     n = SEAL_BYTES
-    root = Path(__file__).resolve().parent / "hdrf_tpu"
-    source = b"".join(p.read_bytes() for p in sorted(root.rglob("*.py")))
     return {"text": _seal_text(rng, n),
             "zeros": np.zeros(n, np.uint8),
             "random": rng.integers(0, 256, n, dtype=np.uint8),
             "rand_ascii": rng.integers(97, 123, n, dtype=np.uint8),
             "repeat997": _fill(rng.integers(0, 256, 997,
                                             dtype=np.uint8).tobytes(), n),
-            "source": _fill(source, n),
+            "source": source_container(n),
             "chunks": _fill(chunks.tobytes(), n),
             "sparse": _sparse_copies(rng, n)}
 
@@ -766,14 +749,25 @@ def sort_ops(key) -> float:
     return key.numel() * max(math.log2(e), 1.0)
 
 
-def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict,
-                      baseline=None) -> dict:
+def time_sort_site(site: str, key, vs, kw) -> dict:
+    """sort_rows at one call site: one wrapper call (CUDA events), its
+    kernels alone (profiler), the library call and the byte bound."""
+    def srt():
+        return sort_cuda.sort_rows(key, *vs, **kw)
+    row = {"site": site, "shape": list(key.shape), "ms": cuda_ms(srt),
+           "device_ms": device_ms(srt, SORT_KERNELS),
+           "library_ms": cuda_ms(lambda: sort_library(key, vs, kw)),
+           "bound_ms": bound(sort_bytes(key, vs), sort_ops(key))[0]}
+    print("TIMING sort_rows " + json.dumps(row), flush=True)
+    return row
+
+
+def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
     """match_deltas (stride 2 and 4) and sort_rows (every call site of the
     match scan, plus synthetic rows) against their plain versions on the
     card, on every seal corpus; timed on the source container at stride 2
-    (the main path's stride), ``sort_rows`` per call site (and
-    ``baseline``'s sort beside it).  Returns each corpus's count of kept
-    match records at stride 2."""
+    (the main path's stride), ``sort_rows`` per call site.  Returns each
+    corpus's count of kept match records at stride 2."""
     records = {}
     md = timing["match_deltas"] = {"ms": 0.0, "plain_ms": 0.0,
                                    "library_ms": None}
@@ -816,25 +810,7 @@ def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict,
                               f"{i} {tuple(key.shape)} kernel != plain "
                               f"(max err {e})")
                 if timed_here and i < len(SORT_SITES):   # the scan's sites
-                    def srt():
-                        return sort_cuda.sort_rows(key, *vs, **kw)
-
-                    def base():
-                        return baseline.sort(key, vs, kw)
-                    site = {"site": SORT_SITES[i], "shape": list(key.shape),
-                            "ms": cuda_ms(srt),
-                            "device_ms": device_ms(srt, SORT_KERNELS),
-                            "library_ms": cuda_ms(
-                                lambda: sort_library(key, vs, kw)),
-                            "bound_ms": bound(sort_bytes(key, vs),
-                                              sort_ops(key))[0]}
-                    if baseline is not None:
-                        site["baseline_ms"] = cuda_ms(base)
-                        site["baseline_device_ms"] = device_ms(
-                            base, BASE_SORT_KERNELS)
-                        sr["baseline_ms"] = sr.get("baseline_ms", 0.0) \
-                            + site["baseline_ms"]
-                    print("TIMING sort_rows " + json.dumps(site), flush=True)
+                    site = time_sort_site(SORT_SITES[i], key, vs, kw)
                     sr["sites"].append(site)
                     sr["ms"] += site["ms"]
                     sr["plain_ms"] += w_ms
@@ -1166,12 +1142,9 @@ def mesh_phase(args, dev, cdc: CdcConfig, corpora: dict, errs: dict,
 
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
-        base = (f" baseline_ms={t['baseline_ms']:.4f}"
-                if "baseline_ms" in t else "")
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
               f"plain_ms={t['plain_ms']:.2f} library_ms={t['library_ms']} "
-              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]}){base}",
-              flush=True)
+              f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
 
 
 def run(args) -> int:
@@ -1188,46 +1161,46 @@ def run(args) -> int:
     print(f"BUILD {time.perf_counter() - t0:.1f}s " + " | ".join(ptxas),
           flush=True)
 
-    baseline = Baseline(args.baseline) if args.baseline else None
     errs = {k: 0 for k in KERNELS}
     for name, a, mask, mn, mx in standard_corpora():
-        nc = kernel_phase(name, a, mask, mn, mx, dev, errs)
-        print(f"KERNELS {name}: {a.size} bytes, {nc} chunks, identical",
-              flush=True)
+        c = cdc_phase(name, a, mask, mn, mx, dev, errs)
+        lane_phase(name, a, c, mask, mx, dev, errs)
+        print(f"KERNELS {name}: {a.size} bytes, {int(c.sel[0][0])} chunks, "
+              f"identical", flush=True)
     cdc = CdcConfig()
-    mask = gear_mask(cdc)
-    nbig = args.block_mib * MIB
-    # the select per 128 MiB corpus: random (the full kernel phase, timed),
-    # zeros, low-entropy text and the periodic adversary (CDC pair only)
-    big = {"random-block": np.random.default_rng(args.seed + 1).integers(
-               0, 256, nbig, dtype=np.uint8),
-           "zeros-block": np.zeros(nbig, dtype=np.uint8),
-           "text-block": np.random.default_rng(args.seed + 4).integers(
-               97, 123, nbig, dtype=np.uint8),
-           "periodic-block": periodic_block(args.seed + 5, nbig,
-                                            ADVERSARIAL_PERIOD, mask)}
+    mask, mn, mx = gear_mask(cdc), cdc.min_chunk, cdc.max_chunk
     timing: dict = {}
-    select_ms: dict = {}
-    for name in list(big):
-        a = big.pop(name)
-        nc = kernel_phase(name, a, mask, cdc.min_chunk, cdc.max_chunk, dev,
-                          errs, timing if name == "random-block" else None,
-                          select_ms, baseline,
-                          cdc_only=name in ("text-block", "periodic-block"))
-        print(f"KERNELS {name}: {a.size} bytes, {nc} chunks, identical",
-              flush=True)
-        del a
+    for name, a in big_blocks(args.seed, args.block_mib * MIB, mask):
+        c = cdc_phase(name, a, mask, mn, mx, dev, errs)
+        row = time_select(name, c, mn, mx)
+        if name == "random-block":
+            timing["cdc_scan"] = {
+                "ms": cuda_ms(lambda: cdc_cuda.cdc_scan(c.block, c.n, mask,
+                                                        mn)),
+                "plain_ms": c.scan_plain_ms, "library_ms": None,
+                # block read, word image and bitmap written
+                "bound": bound(c.block.numel() + c.words.numel() * 4
+                               + c.bitmap.numel() * 4,
+                               CDC_SCAN_OPS_PER_BYTE * c.n)}
+            timing["cdc_select"] = {"ms": row["ms"],
+                                    "plain_ms": c.select_plain_ms,
+                                    "library_ms": None,
+                                    "bound": (row["bound_ms"],
+                                              row["bound_by"])}
+        if name in ("random-block", "zeros-block"):
+            lane_phase(name, a, c, mask, mx, dev, errs,
+                       timing if name == "random-block" else None)
+        print(f"KERNELS {name}: {a.size} bytes, {row['cuts']} chunks, "
+              f"identical", flush=True)
+        del a, c
     torch.cuda.empty_cache()
-    if baseline is not None:
-        timing["cdc_select"]["baseline_ms"] = \
-            select_ms["random-block"]["baseline_ms"]
     print_timing(timing)
 
     mp, chunks = main_path(args, dev, cdc)
     corpora = seal_corpora(args.seed, chunks)
     del chunks
     seal_timing: dict = {}
-    records = seal_kernel_phase(corpora, dev, errs, seal_timing, baseline)
+    records = seal_kernel_phase(corpora, dev, errs, seal_timing)
     print_timing(seal_timing)
     timing.update(seal_timing)
     sp = seal_main_path(corpora, records)
@@ -1259,9 +1232,6 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--block-mib", type=int, default=128)
-    p.add_argument("--baseline", metavar="DIR",
-                   help="a checkout of an earlier commit: time its CDC "
-                        "select and row sort kernels beside this one's")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)",

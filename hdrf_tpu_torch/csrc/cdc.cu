@@ -21,26 +21,31 @@
 //                      bitmap bits a warp step, and keeps its points up
 //                      to the first cut past the segment (segment 0's
 //                      walk is exact).  (b) converge: each walker goes on
-//                      from its exit until it lands on a point of the
-//                      chain of the segment it is in — from there the two
-//                      chains agree — and records where.  At once for
-//                      zeros (cuts every min, W a multiple of min) and
-//                      candidate-free runs (W a multiple of max); within a
-//                      cut or two on random data; a walker that never
-//                      merges walks to n, so the worst case is today's
-//                      serial walk, never a wrong answer.  (c) stitch: one
-//                      block follows the merge pointers from segment 0 in
-//                      shared memory, giving each segment the index where
-//                      the true chain enters it, and scans the segments'
-//                      cut and small/big counts into output offsets.
-//                      (d) emit: every segment on the chain writes its
-//                      cuts and both lane tables in parallel, and walks
-//                      again from its exit to the merge for the rest.
+//                      from its exit, at most four segments' worth of
+//                      cuts, until it lands on a point of the chain of the
+//                      segment it is in — from there the two chains agree
+//                      — and keeps its cuts.  At once for zeros (cuts
+//                      every min, W a multiple of min); within a cut or
+//                      two on random data.  (c) stitch: one warp follows
+//                      the merge pointers from segment 0 in shared memory;
+//                      past a walker that did not merge it walks on alone,
+//                      cut after cut through a shared-memory window of the
+//                      bitmap, until the chain lands on a segment's point
+//                      again.  The block then scans the segments' cut and
+//                      small/big counts into output offsets.  (d) emit:
+//                      every segment on the chain writes its points,
+//                      walker cuts and serial run into the cut table and
+//                      both lane tables in parallel.
 //
 // Bound: the scan moves the block's bytes (read once, written once as
 // words); the select reads the bitmap and writes a few words per cut.
 // The select's walks are latency-bound (one dependent L2 load a warp
 // step, a few steps a cut), so it is spread over ~n / 128 KiB warps.
+// Where chains never meet (a short period holding one candidate a period
+// steps every chain by the same stride, so chains a non-multiple apart
+// stay apart), the stitch's serial walk does the whole block: one warp,
+// one shared-memory find a cut — the worst case, measured by chip_smoke.py
+// on a 3-byte period.
 //
 // A third kernel replaces the Pallas `_scan_kernel` of the same file
 // (pallas_call at cdc_pallas.py:570, reached through
@@ -57,6 +62,7 @@
 //                      read once, the bitmap written once).
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,7 +72,12 @@ constexpr int kScanThreads = 256;    // == 256 Gear table entries
 constexpr int kWalkThreads = 128;    // select walkers: one warp a segment
 constexpr int kStitchThreads = 1024;
 constexpr int kMaxSegs = 8192;       // the stitch holds 3 x S ints shared
-constexpr int kSegArrays = 9;        // per-segment scratch arrays
+constexpr int kWin = 8192;           // bitmap words of the stitch's window
+constexpr int kReach = 4;            // converge walks, in segments' worth
+constexpr int kSegArrays = 12;       // scratch arrays of one int a segment
+constexpr int kRunArrays = 4;        // scratch arrays of one int a serial cut
+constexpr int32_t kChainEnd = -1;    // merge pointer: the walker reached n
+constexpr int32_t kChainOpen = -2;   // merge pointer: no merge in reach
 constexpr int kTableHdr = 8;
 constexpr int kHalo = 31;            // WINDOW - 1 bytes of shard history
 
@@ -218,57 +229,81 @@ cdc_shard_scan_kernel(const uint8_t *__restrict__ local,
 // The chain of cuts f -> next(f): lo = f + min, hi = min(f + max, n), the
 // first candidate in [lo, hi], else hi.  Segment i covers [i W, (i+1) W).
 // Per-segment scratch: the speculative chain's points (pts: the segment
-// start, then its cuts up to the first >= the next start or n) and the
-// running count of small chunks at each point (csm); per segment the
-// point count, the merge pointer of its walker (segment, index; -1 at the
-// end of the block), the count of cuts it made between its exit and the
-// merge (ny, nys of them small), the index where the true chain enters it
-// (ent, -1 when it does not) and the output offsets of its cuts and of
-// its small and big chunks.
+// start, then its cuts up to the first >= the next start or n; lcap
+// entries) and the running count of small chunks at each point (csm); the
+// cuts its walker made after the exit (ys; kReach * lcap entries) and
+// their running small counts (ysm).  Per segment: the point count, the
+// walker's merge pointer (segment, index; kChainEnd at n, kChainOpen when
+// it made kReach * lcap cuts unmerged),
+// its cut and small counts after the exit (ny, nys), the index where the
+// true chain enters it (ent, -1 when it does not), the output offsets of
+// its cuts and of its small and big chunks, and the stitch's serial run
+// after its walker (start in the run arrays, cuts, small ones).  Per serial
+// cut (cap entries): the cut, its chunk start, the small count of its run
+// up to and with it, and its segment; then the serial cut count.
 
 struct SelScratch {
-  int32_t *pts, *csm, *npts, *mseg, *midx, *ny, *nys, *ent, *offc, *offs,
-      *offb;
+  int32_t *pts, *csm, *ys, *ysm;
+  int32_t *npts, *mseg, *midx, *ny, *nys, *ent, *offc, *offs, *offb, *zst,
+      *zn, *zns;
+  int32_t *zcut, *zpos, *zrs, *zseg, *zcount;
 };
 
+// pts and csm hold lcap ints a segment, ys and ysm kReach * lcap.
 __device__ __forceinline__ SelScratch sel_scratch(int32_t *base, int64_t S,
-                                                  int64_t lcap) {
+                                                  int64_t lcap, int64_t cap) {
   SelScratch r;
   r.pts = base;
   r.csm = base + S * lcap;
-  int32_t *p = base + 2 * S * lcap;
-  int32_t **seg[] = {&r.npts, &r.mseg, &r.midx, &r.ny, &r.nys,
-                     &r.ent, &r.offc, &r.offs, &r.offb};
+  r.ys = base + 2 * S * lcap;
+  r.ysm = r.ys + S * kReach * lcap;
+  int32_t *p = r.ysm + S * kReach * lcap;
+  int32_t **seg[] = {&r.npts, &r.mseg, &r.midx, &r.ny, &r.nys, &r.ent,
+                     &r.offc, &r.offs, &r.offb, &r.zst, &r.zn, &r.zns};
   for (int i = 0; i < kSegArrays; ++i) *seg[i] = p + i * S;
+  p += kSegArrays * S;
+  int32_t **run[] = {&r.zcut, &r.zpos, &r.zrs, &r.zseg};
+  for (int i = 0; i < kRunArrays; ++i) *run[i] = p + i * cap;
+  r.zcount = p + kRunArrays * cap;
   return r;
 }
 
+// Positions, bit indices and word indices of the walks are 32-bit (the
+// wrapper keeps n < 2^31): a walk is one dependent chain, and 64-bit
+// arithmetic or a division a cut lengthens it several times over.
+
 // First set bit in [b0, b1] (bit i <=> pos1 i + 1), or -1, by a whole
-// warp: 128 words (4,096 bits) a step, one 16-byte load per lane.
-__device__ int64_t warp_find(const uint32_t *__restrict__ bitmap,
-                             int64_t nbm, int64_t b0, int64_t b1) {
+// warp: 128 words (4,096 bits) a step, one 16-byte load per lane.  Word w
+// is src[w - off] for w < lim and zero past it: the bitmap itself
+// (off 0), or the stitch's window of it in shared memory.
+template <bool kShared>
+__device__ int warp_find(const uint32_t *__restrict__ src, int off, int lim,
+                         int b0, int b1) {
   const int lane = threadIdx.x & 31;
-  const int64_t wlo = b0 >> 5, whi = b1 >> 5;
-  for (int64_t w = wlo & ~int64_t{3}; w <= whi; w += 128) {
-    const int64_t wi = w + 4 * lane;
+  const int wlo = b0 >> 5, whi = b1 >> 5;
+  const uint32_t mlo = 0xFFFFFFFFu << (b0 & 31);
+  const uint32_t mhi = 0xFFFFFFFFu >> (31 - (b1 & 31));
+  for (int w = wlo & ~3; w <= whi; w += 128) {
+    const int wi = w + 4 * lane;
     uint32_t x[4];
-    if (wi + 3 < nbm) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4 *>(bitmap + wi));
+    if (wi + 3 < lim) {
+      const uint4 *q = reinterpret_cast<const uint4 *>(src + (wi - off));
+      const uint4 v = kShared ? *q : __ldg(q);
       x[0] = v.x;
       x[1] = v.y;
       x[2] = v.z;
       x[3] = v.w;
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) x[j] = wi + j < nbm ? bitmap[wi + j] : 0u;
+      for (int j = 0; j < 4; ++j) x[j] = wi + j < lim ? src[wi + j - off] : 0u;
     }
-    int64_t hit = -1;
+    int hit = -1;
 #pragma unroll
     for (int j = 3; j >= 0; --j) {
-      const int64_t word = wi + j;
+      const int word = wi + j;
       uint32_t m = word < wlo || word > whi ? 0u : x[j];
-      if (word == wlo) m &= 0xFFFFFFFFu << (b0 & 31);
-      if (word == whi) m &= 0xFFFFFFFFu >> (31 - (b1 & 31));
+      if (word == wlo) m &= mlo;
+      if (word == whi) m &= mhi;
       if (m) hit = (word << 5) + __ffs(m) - 1;
     }
     const uint32_t any = __ballot_sync(0xFFFFFFFFu, hit >= 0);
@@ -277,50 +312,86 @@ __device__ int64_t warp_find(const uint32_t *__restrict__ bitmap,
   return -1;
 }
 
-// The next cut after frontier f (warp-uniform).
-__device__ __forceinline__ int64_t warp_next(const uint32_t *bitmap,
-                                             int64_t nbm, int64_t n,
-                                             int64_t mn, int64_t mx,
-                                             int64_t f) {
-  const int64_t lo = f + mn;
-  const int64_t hi = f + mx < n ? f + mx : n;
-  if (lo <= hi) {
-    const int64_t b = warp_find(bitmap, nbm, lo - 1, hi - 1);
+// The next cut after frontier f (warp-uniform): the first candidate in
+// [f + mn, min(f + mx, n)], else the upper end.
+__device__ __forceinline__ int warp_next(const uint32_t *bitmap, int nbm,
+                                         int n, int mn, int mx, int f) {
+  const int rem = n - f;
+  const int hi = rem > mx ? f + mx : n;
+  if (mn <= rem && mn <= mx) {
+    const int b = warp_find<false>(bitmap, 0, nbm, f + mn - 1, hi - 1);
     if (b >= 0) return b + 1;
   }
   return hi;
 }
 
-__device__ __forceinline__ int small_chunk(int64_t len, int32_t b_small) {
+__device__ __forceinline__ int small_chunk(int len, int32_t b_small) {
   return (len + 9 + 63) / 64 <= b_small;
+}
+
+// A warp's cursor over the points (sorted) of the segment a walk is in:
+// lane l holds point j0 + l (INT32_MAX past the last), vmax the largest
+// held.  A walk only moves forward, so it reloads only when it passes the
+// points held or leaves the segment.
+struct PointCursor {
+  int k = -1;
+  int64_t end = 0;  // (k + 1) W
+  int j0 = 0;
+  int32_t v = 0, vmax = 0;
+};
+
+__device__ __forceinline__ void cursor_load(PointCursor &c,
+                                            const SelScratch &r,
+                                            int64_t lcap) {
+  const int i = c.j0 + (threadIdx.x & 31);
+  c.v = i < r.npts[c.k] ? r.pts[c.k * lcap + i] : INT32_MAX;
+  c.vmax = __shfl_sync(0xFFFFFFFFu, c.v, 31);
+}
+
+// Index of f among the points of the segment f lies in, or -1.
+__device__ __forceinline__ int cursor_find(PointCursor &c,
+                                           const SelScratch &r, int64_t lcap,
+                                           int64_t W, int f) {
+  if (f >= c.end) {  // a division once a segment, not once a cut
+    c.k = static_cast<int>(f / W);
+    c.end = (c.k + 1) * W;
+    c.j0 = 0;
+    cursor_load(c, r, lcap);
+  }
+  while (f > c.vmax) {
+    c.j0 += 32;
+    cursor_load(c, r, lcap);
+  }
+  const uint32_t eq = __ballot_sync(0xFFFFFFFFu, c.v == f);
+  return eq ? c.j0 + __ffs(eq) - 1 : -1;
 }
 
 // (a) Speculate: one warp per segment walks from the segment start as if
 // a cut stood there, up to the first cut >= the next start (or n).
 __global__ void __launch_bounds__(kWalkThreads)
-cdc_select_spec_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
-                       int64_t n, int64_t mn, int64_t mx, int32_t b_small,
-                       int64_t W, int64_t S, int64_t lcap,
+cdc_select_spec_kernel(const uint32_t *__restrict__ bitmap, int nbm, int n,
+                       int mn, int mx, int32_t b_small, int64_t W, int64_t S,
+                       int64_t lcap, int64_t cap,
                        int32_t *__restrict__ scratch) {
   const int64_t seg =
       (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
   if (seg >= S) return;  // warp-uniform
-  const SelScratch r = sel_scratch(scratch, S, lcap);
+  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
   const bool lead = (threadIdx.x & 31) == 0;
   int32_t *pts = r.pts + seg * lcap, *csm = r.csm + seg * lcap;
   const int64_t end = (seg + 1) * W;
-  int64_t f = seg * W;
+  int f = static_cast<int>(seg * W);
   int k = 0, ns = 0;
   if (lead) {
-    pts[0] = static_cast<int32_t>(f);
+    pts[0] = f;
     csm[0] = 0;
   }
   do {
-    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
+    const int cut = warp_next(bitmap, nbm, n, mn, mx, f);
     ns += small_chunk(cut - f, b_small);
     ++k;
     if (lead) {
-      pts[k] = static_cast<int32_t>(cut);
+      pts[k] = cut;
       csm[k] = ns;
     }
     f = cut;
@@ -328,47 +399,46 @@ cdc_select_spec_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
   if (lead) r.npts[seg] = k + 1;
 }
 
-// Index of point f in a segment's sorted points, or -1.
-__device__ __forceinline__ int find_point(const int32_t *pts, int cnt,
-                                          int64_t f) {
-  int lo = 0, hi = cnt;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (pts[mid] < f) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo < cnt && pts[lo] == f ? lo : -1;
-}
-
-// (b) Converge: each walker goes on from its exit until it lands on a
-// point of the chain of the segment it is in (the chains agree from
-// there on) or reaches n.  A walker that never merges walks to n: the
-// serial walk, never a wrong answer.
+// (b) Converge: each walker goes on from its exit, at most kReach
+// segments' worth of cuts, until it lands on a point of the chain of the
+// segment it is in (the chains agree from there on) or reaches n, keeping
+// its cuts.
 __global__ void __launch_bounds__(kWalkThreads)
-cdc_select_converge_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
-                           int64_t n, int64_t mn, int64_t mx,
-                           int32_t b_small, int64_t W, int64_t S,
-                           int64_t lcap, int32_t *__restrict__ scratch) {
+cdc_select_converge_kernel(const uint32_t *__restrict__ bitmap, int nbm,
+                           int n, int mn, int mx, int32_t b_small, int64_t W,
+                           int64_t S, int64_t lcap, int64_t cap,
+                           int32_t *__restrict__ scratch) {
   const int64_t seg =
       (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
   if (seg >= S) return;  // warp-uniform
-  const SelScratch r = sel_scratch(scratch, S, lcap);
-  int64_t f = r.pts[seg * lcap + r.npts[seg] - 1];
-  int32_t ms = -1, mi = 0, ny = 0, nys = 0;
+  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int64_t ycap = kReach * lcap;
+  int32_t *ys = r.ys + seg * ycap, *ysm = r.ysm + seg * ycap;
+  int f = r.pts[seg * lcap + r.npts[seg] - 1];
+  PointCursor cur;
+  int32_t ms = kChainEnd, mi = 0, ny = 0, nys = 0;
   while (f < n) {
-    const int64_t k = f / W;
-    const int idx = find_point(r.pts + k * lcap, r.npts[k], f);
+    const int idx = cursor_find(cur, r, lcap, W, f);
     if (idx >= 0) {
-      ms = static_cast<int32_t>(k);
+      ms = cur.k;
       mi = idx;
       break;
     }
-    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
+    if (ny == ycap) {
+      ms = kChainOpen;
+      break;
+    }
+    const int cut = warp_next(bitmap, nbm, n, mn, mx, f);
     nys += small_chunk(cut - f, b_small);
+    if (lead) {
+      ys[ny] = cut;
+      ysm[ny] = nys;
+    }
     ++ny;
     f = cut;
   }
-  if ((threadIdx.x & 31) == 0) {
+  if (lead) {
     r.mseg[seg] = ms;
     r.midx[seg] = mi;
     r.ny[seg] = ny;
@@ -376,31 +446,160 @@ cdc_select_converge_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
   }
 }
 
-// (c) Stitch: one block follows the merge pointers from segment 0 (in
-// shared memory), then scans the segments' counts into output offsets
-// and writes the table header.
+// Stage bitmap words [wb, wb + kWin) in the window (zeros past nbm), by
+// one warp: asynchronous copies, all in flight at once.
+__device__ void stage_window(uint32_t *win, const uint32_t *__restrict__ bitmap,
+                             int nbm, int wb) {
+  __syncwarp();
+  for (int i = 4 * (threadIdx.x & 31); i < kWin; i += 128) {
+    const int w = wb + i;
+    if (w + 3 < nbm) {
+      __pipeline_memcpy_async(win + i, bitmap + w, 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) win[i + j] = w + j < nbm ? bitmap[w + j] : 0u;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+}
+
+// The next cut after f for the stitch's serial walk (lane-uniform): the
+// range's first word read from the shared window by every lane, the rest
+// by a warp find there (the window restaged when the range leaves it), or
+// in the bitmap itself when the range is wider than the window.  Dense
+// runs, where chains fail to meet, end in the first word.
+__device__ __forceinline__ int serial_next(uint32_t *win, int &wb,
+                                           const uint32_t *bitmap, int nbm,
+                                           int n, int mn, int mx, int f) {
+  const int rem = n - f;
+  const int hi = rem > mx ? f + mx : n;
+  if (mn > rem || mn > mx) return hi;
+  const int b0 = f + mn - 1, b1 = hi - 1;
+  const int w0 = b0 >> 5, w1 = b1 >> 5;
+  if (w1 - (w0 & ~3) >= kWin) {
+    const int b = warp_find<false>(bitmap, 0, nbm, b0, b1);
+    return b >= 0 ? b + 1 : hi;
+  }
+  if (wb < 0 || w0 < wb || w1 >= wb + kWin) {
+    wb = w0 & ~3;
+    stage_window(win, bitmap, nbm, wb);
+  }
+  uint32_t x = win[w0 - wb] & (0xFFFFFFFFu << (b0 & 31));
+  if (w0 == w1) x &= 0xFFFFFFFFu >> (31 - (b1 & 31));
+  if (x) return (w0 << 5) + __ffs(x);  // bit index + 1
+  if (w0 == w1) return hi;
+  const int b = warp_find<true>(win, wb, wb + kWin, (w0 + 1) << 5, b1);
+  return b >= 0 ? b + 1 : hi;
+}
+
+// Index of point f in a segment's sorted points, or -1.
+__device__ __forceinline__ int find_point(const int32_t *pts, int cnt, int f) {
+  int lo = 0, hi = cnt;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(pts + mid) < f) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo < cnt && __ldg(pts + lo) == f ? lo : -1;
+}
+
+// (c) Stitch: one warp follows the merge pointers from segment 0 (in
+// shared memory).  Past a walker that did not merge it walks on itself,
+// cut after cut through a shared window of the bitmap, until the chain
+// lands on a point of the segment it is in, and keeps those cuts as that
+// segment's serial run.  Then the block scans the segments' counts
+// into output offsets and writes the table header.
 __global__ void __launch_bounds__(kStitchThreads)
-cdc_select_stitch_kernel(int64_t S, int64_t lcap, int32_t *__restrict__ table,
+cdc_select_stitch_kernel(const uint32_t *__restrict__ bitmap, int nbm, int n,
+                         int mn, int mx, int32_t b_small, int64_t W,
+                         int64_t S, int64_t lcap, int64_t cap,
+                         int32_t *__restrict__ table,
                          int32_t *__restrict__ scratch) {
-  extern __shared__ int32_t sh[];
-  int32_t *ms = sh, *mi = sh + S, *ent = sh + 2 * S;
+  extern __shared__ uint4 sh4[];
+  uint32_t *win = reinterpret_cast<uint32_t *>(sh4);
+  int32_t *ms = reinterpret_cast<int32_t *>(win + kWin), *mi = ms + S,
+          *ent = ms + 2 * S;
   __shared__ uint64_t part[kStitchThreads / 32];
-  const SelScratch r = sel_scratch(scratch, S, lcap);
+  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int64_t i = threadIdx.x; i < S; i += kStitchThreads) {
     ms[i] = r.mseg[i];
     mi[i] = r.midx[i];
     ent[i] = -1;
+    r.zn[i] = 0;
+    r.zns[i] = 0;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t k = 0, e = 0;
+  if (warp == 0) {  // warp-uniform from here to the end of the chain
+    const int64_t ycap = kReach * lcap;
+    const int W32 = static_cast<int>(W < n ? W : n);  // f / W, f < n
+    int wb = -1;
+    int32_t k = 0, e = 0, zc = 0;
     for (;;) {
-      ent[k] = e;
-      if (ms[k] < 0) break;
-      e = mi[k];
-      k = ms[k];
+      if (lane == 0) ent[k] = e;
+      const int32_t m = ms[k];
+      if (m >= 0) {
+        e = mi[k];
+        k = m;
+        continue;
+      }
+      if (m == kChainEnd) break;
+      // kChainOpen (ny == ycap): walk on from the walker's last cut, 32
+      // cuts a batch (lane l keeps cut l and its chunk start), then find
+      // the batch's first cut that lands on a point of its segment or
+      // reaches n, and keep the cuts up to it
+      int f = r.ys[k * ycap + r.ny[k] - 1];
+      const int32_t z0 = zc;
+      int32_t ns = 0, idx = -1;
+      for (;;) {
+        int cut = 0, st = 0, cnt = 0;
+        for (; cnt < 32 && f < n; ++cnt) {
+          const int c = serial_next(win, wb, bitmap, nbm, n, mn, mx, f);
+          if (lane == cnt) {
+            cut = c;
+            st = f;
+          }
+          f = c;
+        }
+        const int ks = lane < cnt && cut < n ? cut / W32 : -1;
+        const int pi =
+            ks < 0 ? -1 : find_point(r.pts + ks * lcap, r.npts[ks], cut);
+        const uint32_t ev =
+            __ballot_sync(0xFFFFFFFFu, pi >= 0 || (lane < cnt && cut >= n));
+        const int take = ev ? __ffs(ev) : cnt;
+        int sm = lane < take ? small_chunk(cut - st, b_small) : 0;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xFFFFFFFFu, sm, o);
+          if (lane >= o) sm += y;
+        }
+        if (lane < take) {
+          r.zcut[zc + lane] = cut;
+          r.zpos[zc + lane] = st;
+          r.zrs[zc + lane] = ns + sm;
+          r.zseg[zc + lane] = k;
+        }
+        ns += __shfl_sync(0xFFFFFFFFu, sm, take - 1);
+        zc += take;
+        if (ev) {
+          const int l = __ffs(ev) - 1;
+          idx = __shfl_sync(0xFFFFFFFFu, pi, l);  // -1: the walk reached n
+          f = __shfl_sync(0xFFFFFFFFu, cut, l);
+          break;
+        }
+      }
+      if (lane == 0) {
+        r.zst[k] = z0;
+        r.zn[k] = zc - z0;
+        r.zns[k] = ns;
+      }
+      if (idx < 0) break;
+      e = idx;
+      k = f / W32;
     }
+    if (lane == 0) *r.zcount = zc;
   }
   __syncthreads();
   // per segment (cuts << 32 | small chunks), contiguous runs per thread
@@ -411,8 +610,10 @@ cdc_select_stitch_kernel(int64_t S, int64_t lcap, int32_t *__restrict__ table,
     if (e < 0) return 0;
     const int last = r.npts[k] - 1;
     const int32_t *csm = r.csm + k * lcap;
-    const uint64_t nc = static_cast<uint64_t>(last - e + r.ny[k]);
-    const uint64_t ns = static_cast<uint64_t>(csm[last] - csm[e] + r.nys[k]);
+    const uint64_t nc =
+        static_cast<uint64_t>(last - e + r.ny[k] + r.zn[k]);
+    const uint64_t ns =
+        static_cast<uint64_t>(csm[last] - csm[e] + r.nys[k] + r.zns[k]);
     return nc << 32 | ns;
   };
   uint64_t own = 0;
@@ -461,59 +662,63 @@ cdc_select_stitch_kernel(int64_t S, int64_t lcap, int32_t *__restrict__ table,
   }
 }
 
-// (d) Emit: one warp per segment on the true chain writes its cuts from
-// the entry on (the lanes in parallel), then walks again from its exit
-// to the merge and writes those cuts.
+// Cut i of a segment's piece of the chain (si of its cuts up to and with
+// this one small), chunk [st, cut), at the piece's output offsets.
+__device__ __forceinline__ void put_cut(const SelScratch &r, int64_t k,
+                                        int64_t i, int64_t si, int32_t st,
+                                        int32_t cut, int32_t b_small,
+                                        int32_t *cuts, int32_t *ols,
+                                        int32_t *olb, int64_t cap) {
+  cuts[r.offc[k] + i] = cut;
+  if (small_chunk(cut - st, b_small)) {
+    const int64_t s = r.offs[k] + si - 1;
+    ols[s] = st;
+    ols[cap + s] = cut - st;
+  } else {
+    const int64_t g = r.offb[k] + i - si;
+    olb[g] = st;
+    olb[cap + g] = cut - st;
+  }
+}
+
+// (d) Emit: every segment on the true chain writes its piece — its points
+// from the entry on, its walker's cuts, its serial run — at the scanned
+// offsets; the lanes of its warp write the points and walker cuts, the
+// whole grid the serial runs.
 __global__ void __launch_bounds__(kWalkThreads)
-cdc_select_emit_kernel(const uint32_t *__restrict__ bitmap, int64_t nbm,
-                       int64_t n, int64_t mn, int64_t mx, int32_t b_small,
-                       int64_t S, int64_t lcap,
+cdc_select_emit_kernel(int32_t b_small, int64_t S, int64_t lcap, int64_t cap,
                        int32_t *__restrict__ scratch,
                        int32_t *__restrict__ table, int32_t *__restrict__ ols,
-                       int32_t *__restrict__ olb, int64_t cap) {
-  const int64_t seg =
-      (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
+                       int32_t *__restrict__ olb) {
+  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
+  int32_t *cuts = table + kTableHdr;
+  const int64_t tid =
+      static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
+  const int64_t zc = *r.zcount;
+  for (int64_t t = tid; t < zc;
+       t += static_cast<int64_t>(gridDim.x) * kWalkThreads) {
+    const int64_t k = r.zseg[t];
+    const int e = r.ent[k], last = r.npts[k] - 1;
+    const int32_t *csm = r.csm + k * lcap;
+    put_cut(r, k, last - e + r.ny[k] + (t - r.zst[k]),
+            csm[last] - csm[e] + r.nys[k] + r.zrs[t], r.zpos[t], r.zcut[t],
+            b_small, cuts, ols, olb, cap);
+  }
+  const int64_t seg = tid >> 5;
   if (seg >= S) return;  // warp-uniform
-  const SelScratch r = sel_scratch(scratch, S, lcap);
   const int e = r.ent[seg];
   if (e < 0) return;
   const int lane = threadIdx.x & 31;
   const int32_t *pts = r.pts + seg * lcap, *csm = r.csm + seg * lcap;
+  const int32_t *ys = r.ys + seg * kReach * lcap;
+  const int32_t *ysm = r.ysm + seg * kReach * lcap;
   const int last = r.npts[seg] - 1;
-  const int64_t oc = r.offc[seg], os = r.offs[seg], ob = r.offb[seg];
-  int32_t *cuts = table + kTableHdr;
-  for (int j = e + 1 + lane; j <= last; j += 32) {
-    const int32_t st = pts[j - 1], cut = pts[j];
-    const int64_t i = j - e - 1;            // index among the piece's cuts
-    const int64_t si = csm[j] - csm[e];     // small ones up to and with j
-    cuts[oc + i] = cut;
-    if (small_chunk(cut - st, b_small)) {
-      ols[os + si - 1] = st;
-      ols[cap + os + si - 1] = cut - st;
-    } else {
-      olb[ob + i - si] = st;
-      olb[cap + ob + i - si] = cut - st;
-    }
-  }
-  int64_t c = oc + last - e, s = os + csm[last] - csm[e];
-  int64_t bg = ob + (last - e) - (csm[last] - csm[e]);
-  int64_t f = pts[last];
-  for (int y = 0, ny = r.ny[seg]; y < ny; ++y) {
-    const int64_t cut = warp_next(bitmap, nbm, n, mn, mx, f);
-    if (lane == 0) {
-      cuts[c] = static_cast<int32_t>(cut);
-      if (small_chunk(cut - f, b_small)) {
-        ols[s] = static_cast<int32_t>(f);
-        ols[cap + s] = static_cast<int32_t>(cut - f);
-      } else {
-        olb[bg] = static_cast<int32_t>(f);
-        olb[cap + bg] = static_cast<int32_t>(cut - f);
-      }
-    }
-    ++c;
-    if (small_chunk(cut - f, b_small)) ++s; else ++bg;
-    f = cut;
-  }
+  for (int j = e + 1 + lane; j <= last; j += 32)
+    put_cut(r, seg, j - e - 1, csm[j] - csm[e], pts[j - 1], pts[j], b_small,
+            cuts, ols, olb, cap);
+  for (int y = lane, ny = r.ny[seg]; y < ny; y += 32)
+    put_cut(r, seg, last - e + y, csm[last] - csm[e] + ysm[y],
+            y ? ys[y - 1] : pts[last], ys[y], b_small, cuts, ols, olb, cap);
 }
 
 }  // namespace
@@ -535,39 +740,48 @@ extern "C" int hdrf_cdc_scan(const void *data, int64_t n_pad, int64_t n,
 
 // The select: candidate bitmap -> cut table + the two binned lane tables,
 // in four launches on the stream; `scratch` holds
-// 2 * S * lcap + kSegArrays * S ints (S = ceil(n / W) segments of W
-// positions, lcap = min(W, n) / min + 3 points a segment).
+// (2 + 2 kReach) S lcap + kSegArrays S + kRunArrays cap + 1 ints
+// (S = ceil(n / W) segments of W positions, lcap = min(W, n) / min + 3).
 extern "C" int hdrf_cdc_select(const void *bitmap, int64_t nbm, int64_t n,
                                int64_t min_chunk, int64_t max_chunk,
                                int32_t b_small, void *table, void *ols,
                                void *olb, int64_t cap, int64_t W,
                                void *scratch, void *stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W <= 0 || n <= 0 || n > INT32_MAX || min_chunk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t S = (n + W - 1) / W;
-  if (W <= 0 || S > kMaxSegs) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > kMaxSegs) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t lcap = (W < n ? W : n) / min_chunk + 3;
+  // 32-bit walks: min(f + max, n) is unchanged by max clamped to n
+  const int n32 = static_cast<int>(n);
+  const int nbm32 = static_cast<int>(nbm < INT32_MAX ? nbm : INT32_MAX);
+  const int mn = static_cast<int>(min_chunk < INT32_MAX ? min_chunk
+                                                        : INT32_MAX);
+  const int mx = static_cast<int>(max_chunk < n ? max_chunk : n);
   const auto bm = static_cast<const uint32_t *>(bitmap);
   auto scr = static_cast<int32_t *>(scratch);
   auto tab = static_cast<int32_t *>(table);
   const unsigned walk_blocks =
       static_cast<unsigned>((S * 32 + kWalkThreads - 1) / kWalkThreads);
   cdc_select_spec_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
-      bm, nbm, n, min_chunk, max_chunk, b_small, W, S, lcap, scr);
+      bm, nbm32, n32, mn, mx, b_small, W, S, lcap, cap, scr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   cdc_select_converge_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
-      bm, nbm, n, min_chunk, max_chunk, b_small, W, S, lcap, scr);
+      bm, nbm32, n32, mn, mx, b_small, W, S, lcap, cap, scr);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = 3 * S * sizeof(int32_t);
+  const size_t smem = kWin * sizeof(uint32_t) + 3 * S * sizeof(int32_t);
   e = cudaFuncSetAttribute(cdc_select_stitch_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  cdc_select_stitch_kernel<<<1, kStitchThreads, smem, s>>>(S, lcap, tab, scr);
+  cdc_select_stitch_kernel<<<1, kStitchThreads, smem, s>>>(
+      bm, nbm32, n32, mn, mx, b_small, W, S, lcap, cap, tab, scr);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   cdc_select_emit_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
-      bm, nbm, n, min_chunk, max_chunk, b_small, S, lcap, scr, tab,
-      static_cast<int32_t *>(ols), static_cast<int32_t *>(olb), cap);
+      b_small, S, lcap, cap, scr, tab, static_cast<int32_t *>(ols),
+      static_cast<int32_t *>(olb));
   return static_cast<int>(cudaGetLastError());
 }
 

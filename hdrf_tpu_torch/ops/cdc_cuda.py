@@ -25,16 +25,19 @@ parallel select on one stream:
     of ``seg_width`` positions (default 128 KiB rounded to a multiple of
     ``max_chunk``, so zeros and candidate-free runs align with the
     segments); one warp per segment walks the frontier from the segment
-    start as if a cut stood there; each walker then goes on until it
-    lands on a point of the next segments' chains (where two chains meet
-    they agree); one block follows those merge pointers from segment 0,
-    the only exact start, and scans the segments' counts; then every
-    segment on the true chain writes its cuts and lanes in parallel.  A
-    chain that never merges is walked to the end: the worst case is the
-    serial walk, never a wrong answer.  Bound: bytes (the bitmap read
-    once, a few words per cut written); the walks are latency-bound (one
-    dependent L2 load per 4,096 bitmap bits), hence spread over ~1,000
-    warps for a 128 MiB block.
+    start as if a cut stood there; each walker then goes on, at most four
+    segments' worth of cuts, until it lands on a point of the next
+    segments' chains (where two chains meet they agree); one warp follows
+    those merge pointers from segment 0, the only exact start, walking on
+    by itself through a shared-memory window of the bitmap past a walker
+    that did not merge, and the block scans the segments' counts; then
+    every segment on the true chain writes its cuts and lanes in
+    parallel.  Where chains never meet (a short period with one
+    candidate a period) that one warp walks the whole block: the worst
+    case is a serial walk, never a wrong answer.  Bound: bytes (the
+    bitmap read once, a few words per cut written); the walks are
+    latency-bound (one dependent L2 load per 4,096 bitmap bits), hence
+    spread over ~1,000 warps for a 128 MiB block.
 
 One select covers both reference variants (the skip-ahead sequence select
 and the PR 4 walk), which give identical cuts by construction.
@@ -77,7 +80,9 @@ from hdrf_tpu_torch.ops import _build, gear
 PAD_GRID = 512          # block bytes are padded to this grid (zeros)
 SEG_WIDTH = 1 << 17     # select segment width in positions (default)
 MAX_SEGS = 8192         # the select's stitch holds its pointers on chip
-SEG_ARRAYS = 9          # per-segment scratch arrays of the select
+WALK_REACH = 4          # select converge walks, in segments' worth of cuts
+SEG_ARRAYS = 12         # select scratch arrays of one int a segment
+RUN_ARRAYS = 4          # select scratch arrays of one int a serial cut
 TABLE_HDR = 8
 H_COUNT, H_OVERFLOW, H_SMALL, H_BIG = 0, 1, 2, 3
 H_SURV, H_CANDS = 4, 5  # reference telemetry lanes; zero here
@@ -244,12 +249,16 @@ def select_geometry(n: int, min_chunk: int, max_chunk: int,
     """(segment width, scratch ints) of the select kernel for an n-byte
     block: the width is ``seg_width`` (default ``SEG_WIDTH`` rounded down
     to a multiple of ``max_chunk``), raised until at most ``MAX_SEGS``
-    segments cover the block; each segment keeps ``min(W, n) // min + 3``
-    points and running small counts, plus ``SEG_ARRAYS`` counters."""
+    segments cover the block; each segment keeps ``lcap = min(W, n) //
+    min + 3`` points and ``WALK_REACH * lcap`` walker cuts, each with a
+    running small count, plus ``SEG_ARRAYS`` counters; the serial walk
+    keeps up to ``cap_for(n, min)`` cuts, plus their count."""
     w = seg_width or max_chunk * max(1, SEG_WIDTH // max_chunk)
     w = max(int(w), -(-n // MAX_SEGS))
     s = -(-n // w)
-    return w, 2 * s * (min(w, n) // min_chunk + 3) + SEG_ARRAYS * s
+    lcap = min(w, n) // min_chunk + 3
+    return w, ((2 + 2 * WALK_REACH) * s * lcap + SEG_ARRAYS * s
+               + RUN_ARRAYS * cap_for(n, min_chunk) + 1)
 
 
 def cdc_select(bitmap: torch.Tensor, n: int, min_chunk: int, max_chunk: int,

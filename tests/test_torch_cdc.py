@@ -178,38 +178,55 @@ def _next_cut(cand, n, mn, mx, f):
 def _select_model(cand, n, mn, mx, b_small, w):
     """numpy model of csrc/cdc.cu's select at segment width ``w``: (a)
     speculative walks from every segment start, (b) each walker on from
-    its exit until it lands on a point of the chain of the segment it is
-    in, (c) the stitch along the merge pointers from segment 0, (d) the
-    emit at offsets scanned from the segments' counts.  Returns the
-    kernel's (table, ols, olb) up to the header counts and the number of
-    segments on the true chain."""
+    its exit, at most 4 lcap cuts, until it lands on a point of the chain
+    of the segment it is in, (c) the stitch along the merge pointers from
+    segment 0, walking on serially past a walker that did not merge until
+    the chain lands on a segment's point, (d) the emit at offsets scanned
+    from the segments' counts.  Returns the kernel's (table, ols, olb) up
+    to the header counts, the number of segments on the true chain and
+    the number of cuts the stitch walked serially."""
     nseg = -(-n // w)
+    lcap = min(w, n) // mn + 3
     small = lambda ln: (ln + 9 + 63) // 64 <= b_small   # noqa: E731
     pts = []                                            # (a)
     for i in range(nseg):
         p = [i * w]
         while p[-1] < (i + 1) * w and p[-1] < n or len(p) == 1:
             p.append(_next_cut(cand, n, mn, mx, p[-1]))
+        assert len(p) <= lcap
         pts.append(p)
     merge, ys = [], []                                  # (b)
     for i in range(nseg):
-        f, y, m = pts[i][-1], [], None
+        f, y, m = pts[i][-1], [], "end"
         while f < n:
             k = f // w
             if f in pts[k]:
                 m = (k, pts[k].index(f))
                 break
+            if len(y) == cdc_cuda.WALK_REACH * lcap:
+                m = "open"
+                break
             f = _next_cut(cand, n, mn, mx, f)
             y.append(f)
         merge.append(m)
         ys.append(y)
-    ent, k, e = [-1] * nseg, 0, 0                       # (c)
+    ent, runs, k, e = [-1] * nseg, [[] for _ in range(nseg)], 0, 0  # (c)
     while True:
         ent[k] = e
-        if merge[k] is None:
+        if merge[k] == "end":
             break
+        if merge[k] == "open":
+            f = ys[k][-1]
+            while f < n:
+                f = _next_cut(cand, n, mn, mx, f)
+                runs[k].append(f)
+                if f < n and f in pts[f // w]:
+                    break
+            if f >= n:
+                break
+            merge[k] = (f // w, pts[f // w].index(f))
         k, e = merge[k]
-    pieces = [[] if ent[k] < 0 else pts[k][ent[k]:] + ys[k]
+    pieces = [[] if ent[k] < 0 else pts[k][ent[k]:] + ys[k] + runs[k]
               for k in range(nseg)]
     nc = [max(len(p) - 1, 0) for p in pieces]
     ns = [sum(small(b - a) for a, b in zip(p, p[1:])) for p in pieces]
@@ -230,7 +247,11 @@ def _select_model(cand, n, mn, mx, b_small, w):
                 olb[:, b] = (a, cut - a)
                 b += 1
     table[:4] = (oc[-1], 0, os_[-1], ob[-1])
-    return table, ols, olb, sum(e >= 0 for e in ent)
+    return (table, ols, olb, sum(e >= 0 for e in ent),
+            sum(len(r) for r in runs))
+
+
+SHORT_PERIODS = (3, 5, 7)
 
 
 def _select_cases():
@@ -243,6 +264,12 @@ def _select_cases():
     # never meet, and no segment width is a multiple of the period
     yield "period-never-aligns", np.arange(700, 250_000, 1531), 250_000, \
         0, 2048, 8192
+    # short periods (a solid 24-bit colour is a 3-byte one): every chain
+    # steps by the same stride, so chains a non-multiple apart never meet
+    # and the stitch walks serially
+    for p in SHORT_PERIODS:
+        yield f"period-{p}", np.arange(1000 + p // 2, 250_000, p), 250_000, \
+            0, 2048, 8192
     yield "segment-starts", "starts", 200_000, 0, 2048, 8192
     yield "dense", rng.integers(0, 256, 30_000, dtype=np.uint8), None, \
         0x7, 8, 64
@@ -277,6 +304,8 @@ def test_segmented_select_model_equals_serial(name, src, n, mask, mn, mx,
     np.testing.assert_array_equal(got[0][8:],
                                   gear.cdc_select(cand, n, mn, mx))
     assert got[3] <= -(-n // w) and -(-n // w) >= 3
+    if name.startswith("period-") and name != "period-never-aligns":
+        assert got[4] > 0                  # the stitch walked serially
     bits = torch.zeros(n + (-n) % 512, dtype=torch.bool)
     bits[torch.from_numpy(cand[cand >= gear.skip_ahead_threshold(mn)]
                           - 1)] = True

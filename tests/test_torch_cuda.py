@@ -63,15 +63,17 @@ def _periodic(seed, n, period, mask):
     so that the repetition holds exactly one candidate per period: with a
     period under min_chunk, chains a period apart never meet."""
     rng = np.random.default_rng(seed)
+    reps = -(-64 // period) + 2      # two whole periods past the window
     while True:
         pat = rng.integers(0, 256, period, dtype=np.uint8)
-        c = native.gear_candidates(np.tile(pat, 3), mask)
-        if np.count_nonzero(c > period) == 2:
+        c = native.gear_candidates(np.tile(pat, reps), mask)
+        if np.count_nonzero(c > (reps - 2) * period) == 2:
             return np.resize(pat, n)
 
 
 SELECT_CASES = [  # adversarial inputs of the segmented select
     (7, 600_000, "periodic", 0x1FFF, 2048, 65536),
+    (9, 600_000, "period3", 0x1FFF, 2048, 65536),
     (8, 200_000, "starts", 0x1FFF, 2048, 8192),
 ]
 
@@ -79,8 +81,8 @@ SELECT_CASES = [  # adversarial inputs of the segmented select
 @pytest.mark.parametrize("seg_width", [None, 9217])
 @pytest.mark.parametrize("seed,n,fill,mask,mn,mx", CASES + SELECT_CASES)
 def test_kernels_equal_plain(dev, seed, n, fill, mask, mn, mx, seg_width):
-    if fill == "periodic":
-        a = _periodic(seed, n, 1531, mask)
+    if fill in ("periodic", "period3"):   # chains meet late, or never
+        a = _periodic(seed, n, 1531 if fill == "periodic" else 3, mask)
     elif fill == "starts":   # zeros at every segment start, random between
         a = _data(seed, n, "random")
         for s in range(0, n, seg_width or 131072):

@@ -296,7 +296,7 @@ def _py(args, **kw):
 
 def test_port_imports_no_jax_and_no_reference():
     code = ("import importlib, pkgutil, sys\n"
-            "import hdrf_tpu_torch, chip_smoke\n"
+            "import hdrf_tpu_torch, chip_smoke, kernel_times\n"
             "for m in pkgutil.walk_packages(hdrf_tpu_torch.__path__,\n"
             "                               'hdrf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -330,11 +330,14 @@ def test_worker_module_entry_point_serves():
 
 
 def test_card_entry_points_fail_without_a_card():
-    """Without a GPU the worker's default device and chip_smoke.py refuse
-    to run (exit non-zero, no result line) instead of using the CPU."""
+    """Without a GPU the worker's default device, chip_smoke.py and
+    kernel_times.py refuse to run (exit non-zero, no result line) instead
+    of using the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     r = _py(["-m", "hdrf_tpu_torch.server.reduction_worker", "--port", "0"])
     assert r.returncode != 0 and "listening" not in r.stdout
     r = _py(["chip_smoke.py"])
     assert r.returncode != 0 and '"ok"' not in r.stdout
+    r = _py(["kernel_times.py"])
+    assert r.returncode != 0 and '"cdc_select"' not in r.stdout
