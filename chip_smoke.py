@@ -17,14 +17,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the same size (a random pattern of 1,531 and of 3 bytes repeated,
    holding one candidate per period: under min_chunk and dividing no
    segment width, so the select's speculative chains need not meet; at 3
-   bytes they never do and the select walks serially).  Outputs are
-   integers: tolerance zero.  Times at the random block: kernel median of
-   20 runs after warm-up (CUDA events), plain version once, and
-   ``library_ms`` — one PyTorch call computing the same function — for the
-   gather (an advanced-indexing gather of the same bytes); CDC and SHA-256
-   have none.  The select is timed on each of the five big blocks
-   (``TIMING cdc_select`` lines).  Every timed kernel call is preceded by a
-   write of 128 MiB, so its inputs come from HBM, not from the 50 MB L2.
+   bytes they never do and the select walks serially).  SHA-256 runs both
+   lane tables of a block in one grouped launch and each through the
+   one-table call.  Outputs are integers: tolerance zero.  Times at the
+   random block: kernel median of 20 runs after warm-up (CUDA events),
+   plain version once, and ``library_ms`` — one PyTorch call computing the
+   same function — for the gather (an advanced-indexing gather of the same
+   bytes); CDC and SHA-256 have none.  The select is timed on each of the
+   five big blocks (``TIMING cdc_select`` lines); SHA-256 on the random,
+   text and zeros blocks, each lane table alone and both grouped, wrapper
+   and device time (``TIMING sha256`` lines), beside its chain bound from
+   a probe of the card's dependent SHF -> LOP3 -> IADD3 latency (``SHA
+   chain probe``).  Every timed kernel call is preceded by a write of 128
+   MiB, so its inputs come from HBM, not from the 50 MB L2.
 4. Main path: the port's ReductionWorker on 127.0.0.1:0 on the card answers
    ``--requests`` ``reduce`` requests of ``--block-mib`` each, sent by the
    port's WorkerClient in 64 KiB packets with CdcConfig() defaults.  Each
@@ -46,8 +51,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``sort_rows`` runs on the inputs of every call site of the match scan,
    captured from a real scan, plus unique i32 keys, u32 keys across the
    sign bit and a padded row that is not a power of two; both sorts are
-   stable, so every slot must be exact.  Times on the ``source``
-   container at stride 2: kernel median of 20 runs, plain once,
+   stable, so every slot must be exact.  ``match_deltas`` is timed at
+   both strides on the random, zeros, text, source and sparse containers
+   (``TIMING match_deltas`` lines: wrapper and device ms).  Times on the
+   ``source`` container at stride 2: kernel median of 20 runs, plain once,
    ``library_ms`` for ``sort_rows`` (``torch.sort`` and a
    ``torch.gather`` per value; ``match_deltas`` has none); ``sort_rows``
    per call site (L1, L2, L3 and the escape lanes E1, E2: ``TIMING
@@ -86,8 +93,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-kernel_times.py times the select and the row sort of any checkout on
-the same inputs (``time_select``, ``time_sort_site``).
+kernel_times.py times the select, SHA-256, the match deltas and the row
+sort of any checkout on the same inputs (``time_select``, ``time_sha``,
+``time_match``, ``time_sort_site``).
 
 The CDC kernel pair is two wrapper calls with a launch count each:
 ``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
@@ -150,6 +158,10 @@ SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
 _I32_MIN = -(1 << 31)
 TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SELECT_KERNELS = ("cdc_select",)     # the select's kernels, by name
+SHA_KERNELS = ("sha256_kernel",)
+MATCH_KERNELS = ("match_",)          # the match deltas' kernels
+SHA_TIMED = ("random-block", "text-block", "zeros-block")
+MATCH_TIMED = ("random", "zeros", "text", "source", "sparse")
 SORT_KERNELS = ("sort_",)            # the row sort's tile and merge kernels
 L2_SCRUB_BYTES = 128 * MIB           # written before each timed call
 REDUCE_KERNEL_NAMES = {"cdc_scan_kernel": "cdc_scan",
@@ -360,67 +372,121 @@ def time_select(name, c: Cdc, mn, mx) -> dict:
     return row
 
 
+def lane_tables(c: Cdc, mask: int, mx: int) -> list:
+    """Both lane tables of a CDC result as the reducer hashes them: [(big
+    bucket's lanes, bucket), (small bucket's lanes, bucket)]."""
+    b_small, b_big = buckets_of(mask, mx)
+    _, _, ns, nbg = c.sel[0][:4].cpu().tolist()
+    return [(c.sel[2][:, :nbg], b_big), (c.sel[1][:, :ns], b_small)]
+
+
 def lane_phase(name, a, c: Cdc, mask, mx, dev, errs, timing=None) -> None:
     """The gather and SHA-256 kernels against their plain versions on
-    both lane tables of one corpus (small corpora also against hashlib);
-    with ``timing`` (a dict), also time both at this corpus's shapes."""
-    b_small, b_big = buckets_of(mask, mx)
-    words, (table, ols, olb) = c.words, c.sel
-    nc, _, ns, nbg = table[:4].cpu().tolist()
+    both lane tables of one corpus, SHA-256 through one grouped launch and
+    through the one-table call (small corpora also against hashlib); with
+    ``timing`` (a dict), also time the gather at this corpus's shapes and
+    take the plain SHA's time."""
+    nc = int(c.sel[0][0])
     if timing is not None:
-        for kname in ("gather_pad", "sha256"):
-            timing[kname] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                             "bytes": 0.0, "ops": 0.0}
-    digs = {}
-    for ol, bucket, cnt in ((ols, b_small, ns), (olb, b_big, nbg)):
-        if not cnt:
-            continue
-        lanes = ol[:, :cnt]
-        mk = gather_cuda.gather_pad_messages(words, lanes, bucket)
+        timing["gather_pad"] = {"ms": 0.0, "plain_ms": 0.0,
+                                "library_ms": None, "bytes": 0.0, "ops": 0.0}
+        timing["sha256"] = {"plain_ms": 0.0, "library_ms": None}
+    lts, tables, digs = lane_tables(c, mask, mx), [], {}
+    for lanes, bucket in lts:
+        mk = gather_cuda.gather_pad_messages(c.words, lanes, bucket)
         mp, mp_ms = timed(lambda: gather_cuda.gather_pad_messages_plain(
-            words, lanes, bucket))
-        nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
-        dk = sha256_cuda.sha256_words_cuda(mk, nb)
-        dp, dp_ms = timed(lambda: sha256_words(mk, nb))
-        torch.cuda.synchronize()
-        eg, es = max_err(mk, mp), max_err(dk, dp)
+            c.words, lanes, bucket))
+        eg = max_err(mk, mp)
         errs["gather_pad"] = max(errs["gather_pad"], eg)
-        errs["sha256"] = max(errs["sha256"], es)
         check(eg == 0, f"{name}: gather kernel != plain (max err {eg})")
-        check(es == 0, f"{name}: sha256 kernel != plain (max err {es})")
-        offs = lanes[0].cpu().numpy()
-        lens = lanes[1].cpu().numpy()
-        for o, ln, d in zip(offs, lens, dk.cpu().numpy()):
-            digs[int(o)] = (int(ln), d)
-        if timing is not None:
+        tables.append((mk, ((lanes[1] + 9 + 63) // 64).to(torch.int32)))
+        if timing is not None and lanes.shape[1]:
             L, W = lanes.shape[1], bucket * 16
-            g, s = timing["gather_pad"], timing["sha256"]
+            g = timing["gather_pad"]
             g["ms"] += cuda_ms(lambda: gather_cuda.gather_pad_messages(
-                words, lanes, bucket))
+                c.words, lanes, bucket))
             g["plain_ms"] += mp_ms
             byte_idx = (lanes[0].to(torch.int64)[:, None] + torch.arange(
                 W * 4, device=dev)[None, :]).clamp_(max=c.block.numel() - 1)
             g["library_ms"] = (g["library_ms"] or 0.0) + cuda_ms(
                 lambda: c.block[byte_idx], reps=5, warmup=1)
             del byte_idx
-            g["bytes"] += int(lens.sum()) + 8 * L + 4 * L * W
-            s["ms"] += cuda_ms(lambda: sha256_cuda.sha256_words_cuda(mk, nb))
-            s["plain_ms"] += dp_ms
-            nblk = int(nb.sum())
-            s["bytes"] += 64 * nblk + 4 * L + 32 * L
-            s["ops"] += SHA_OPS_PER_BLOCK * nblk
+            g["bytes"] += int(lanes[1].sum()) + 8 * L + 4 * L * W
+    grouped = sha256_cuda.sha256_words_grouped(tables)
+    for (mk, nb), (lanes, _), dk in zip(tables, lts, grouped):
+        dp, dp_ms = timed(lambda: sha256_words(mk, nb))
+        torch.cuda.synchronize()
+        es = max(max_err(dk, dp),
+                 max_err(sha256_cuda.sha256_words_cuda(mk, nb), dp))
+        errs["sha256"] = max(errs["sha256"], es)
+        check(es == 0, f"{name}: sha256 kernel != plain (max err {es})")
+        if timing is not None:
+            timing["sha256"]["plain_ms"] += dp_ms
+        for o, ln, d in zip(lanes[0].cpu().numpy(), lanes[1].cpu().numpy(),
+                            dk.cpu().numpy()):
+            digs[int(o)] = (int(ln), d)
     if timing is not None:
-        for kname in ("gather_pad", "sha256"):
-            t = timing[kname]
-            t["bound"] = bound(t.pop("bytes"), t.pop("ops"))
+        t = timing["gather_pad"]
+        t["bound"] = bound(t.pop("bytes"), t.pop("ops"))
     # the small corpora are also held against hashlib
     if a.size <= 1 << 20:
-        cuts = table[8:8 + nc].cpu().numpy().astype(np.int64)
+        cuts = c.sel[0][8:8 + nc].cpu().numpy().astype(np.int64)
         check(len(digs) == nc, f"{name}: {len(digs)} digests for {nc} cuts")
         for o in np.concatenate([[0], cuts[:-1]]):
             ln, d = digs[int(o)]
             check(bytes(d) == hashlib.sha256(a[o:o + ln].tobytes()).digest(),
                   f"{name}: digest at {o} != hashlib")
+
+
+def time_sha(name, a, c: Cdc, mask, mx, chain) -> dict:
+    """SHA-256 at one 128 MiB block's shapes: each lane table alone (one
+    one-table launch each) and both grouped (one launch; two one-table
+    launches for a checkout without the grouped call), each as
+    one wrapper call (CUDA events) and its kernel alone (profiler), held
+    against hashlib on a sample of chunks.  Bounds: bytes (messages read
+    once, digests written), operations (1,384 a block), and the chain of
+    the longest lane (``chain``: ns a SHF -> LOP3 -> IADD3 link, x 64
+    rounds x its blocks)."""
+    tables = []
+    for lanes, bucket in lane_tables(c, mask, mx):
+        tables.append((gather_cuda.gather_pad_messages(c.words, lanes,
+                                                       bucket),
+                       ((lanes[1] + 9 + 63) // 64).to(torch.int32), lanes))
+    grouped = getattr(sha256_cuda, "sha256_words_grouped", None)
+
+    def both():
+        if grouped is None:
+            return [sha256_cuda.sha256_words_cuda(m, nb)
+                    for m, nb, _ in tables]
+        return grouped([(m, nb) for m, nb, _ in tables])
+    got = both()
+    rng = np.random.default_rng(len(name))
+    for (_, _, lanes), dk in zip(tables, got):
+        for i in rng.integers(0, max(lanes.shape[1], 1),
+                              min(lanes.shape[1], 16)):
+            o, ln = (int(x) for x in lanes[:, i].cpu())
+            check(bytes(dk[i].cpu().numpy())
+                  == hashlib.sha256(a[o:o + ln].tobytes()).digest(),
+                  f"{name}: grouped digest of lane {i} != hashlib")
+    nblk = sum(int(nb.sum()) for _, nb, _ in tables)
+    lmax = max(int(nb.max()) if nb.numel() else 0 for _, nb, _ in tables)
+    L = sum(nb.numel() for _, nb, _ in tables)
+    row = {"lanes": [nb.numel() for _, nb, _ in tables], "blocks": nblk,
+           "longest_lane_blocks": lmax}
+    for tag, (m, nb, _) in zip(("big", "small"), tables):
+        if nb.numel():
+            def one(m=m, nb=nb):
+                return sha256_cuda.sha256_words_cuda(m, nb)
+            row[f"{tag}_ms"] = cuda_ms(one)
+            row[f"{tag}_device_ms"] = device_ms(one, SHA_KERNELS)
+    row["grouped_ms"] = cuda_ms(both)
+    row["grouped_device_ms"] = device_ms(both, SHA_KERNELS)
+    row["bytes_bound_ms"] = (64 * nblk + 36 * L) / HBM_BYTES_PER_S * 1e3
+    row["op_bound_ms"] = SHA_OPS_PER_BLOCK * nblk / INT32_OPS_PER_S * 1e3
+    row["chain_bound_ms"] = (None if chain is None else
+                             chain["ns_per_link"] * 64 * lmax / 1e6)
+    print(f"TIMING sha256 {name}: " + json.dumps(row), flush=True)
+    return row
 
 
 def periodic_block(seed: int, n: int, period: int, mask: int) -> np.ndarray:
@@ -762,12 +828,31 @@ def time_sort_site(site: str, key, vs, kw) -> dict:
     return row
 
 
+def time_match(name, stride, vals, pos_bits) -> dict:
+    """match_deltas on one container at one stride: one wrapper call (CUDA
+    events), its kernels alone (profiler; also its tile sort and its
+    look-back apart), and the byte bound (entries read once, deltas
+    written once)."""
+    def md():
+        return sort_cuda.match_deltas(vals, stride, pos_bits)
+    b = bound(8 * vals.numel(), MATCH_OPS_PER_ENTRY * vals.numel())
+    row = {"corpus": name, "stride": stride, "shape": list(vals.shape),
+           "ms": cuda_ms(md), "device_ms": device_ms(md, MATCH_KERNELS),
+           "tile_device_ms": device_ms(md, ("match_tile",)),
+           "look_device_ms": device_ms(md, ("match_look",)),
+           "bound_ms": b[0], "bound_by": b[1]}
+    print("TIMING match_deltas " + json.dumps(row), flush=True)
+    return row
+
+
 def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
     """match_deltas (stride 2 and 4) and sort_rows (every call site of the
     match scan, plus synthetic rows) against their plain versions on the
-    card, on every seal corpus; timed on the source container at stride 2
-    (the main path's stride), ``sort_rows`` per call site.  Returns each
-    corpus's count of kept match records at stride 2."""
+    card, on every seal corpus; ``match_deltas`` timed at both strides on
+    the MATCH_TIMED containers, ``sort_rows`` per call site on the source
+    container at stride 2 (the main path's stride, also the ``kernels``
+    line's figure for both).  Returns each corpus's count of kept match
+    records at stride 2."""
     records = {}
     md = timing["match_deltas"] = {"ms": 0.0, "plain_ms": 0.0,
                                    "library_ms": None}
@@ -785,12 +870,12 @@ def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
             check(e == 0, f"seal {name} stride {stride}: match_deltas "
                           f"kernel != plain (max err {e})")
             timed_here = name == "source" and stride == 2
-            if timed_here:
-                md["ms"] = cuda_ms(lambda: sort_cuda.match_deltas(
-                    vals, stride, pos_bits))
-                md["plain_ms"] = p_ms
-                md["bound"] = bound(8 * vals.numel(),
-                                    MATCH_OPS_PER_ENTRY * vals.numel())
+            if name in MATCH_TIMED:
+                row = time_match(name, stride, vals, pos_bits)
+                if timed_here:
+                    md["ms"] = row["ms"]
+                    md["plain_ms"] = p_ms
+                    md["bound"] = (row["bound_ms"], row["bound_by"])
             del vals, k, p
             shapes = lz4_device.DeviceLz4(stride=stride,
                                           device=dev)._shapes(block.numel())
@@ -842,7 +927,8 @@ SEAL_BATCHES = (("text", "random", "source", "zeros"),
                 ("repeat997", "zeros", "text", "sparse"))
 SEAL_PROFILED = ("sparse", "source")
 RACE_MIN_RECORDS = (SEAL_BYTES // 2) >> 10    # DeviceLz4's grey-zone floor
-SEAL_KERNEL_NAMES = {"match_deltas_kernel": "match_deltas",
+SEAL_KERNEL_NAMES = {"match_tile_kernel": "match_deltas",
+                     "match_look_kernel": "match_deltas",
                      "sort_tile_kernel": "sort_rows",
                      "sort_merge_kernel": "sort_rows",
                      "cdc_scan_kernel": "cdc_scan"}
@@ -1169,6 +1255,8 @@ def run(args) -> int:
               f"identical", flush=True)
     cdc = CdcConfig()
     mask, mn, mx = gear_mask(cdc), cdc.min_chunk, cdc.max_chunk
+    chain = sha256_cuda.chain_probe(dev)
+    print("SHA chain probe " + json.dumps(chain), flush=True)
     timing: dict = {}
     for name, a in big_blocks(args.seed, args.block_mib * MIB, mask):
         c = cdc_phase(name, a, mask, mn, mx, dev, errs)
@@ -1190,6 +1278,13 @@ def run(args) -> int:
         if name in ("random-block", "zeros-block"):
             lane_phase(name, a, c, mask, mx, dev, errs,
                        timing if name == "random-block" else None)
+        if name in SHA_TIMED:
+            srow = time_sha(name, a, c, mask, mx, chain)
+            if name == "random-block":
+                timing["sha256"]["ms"] = srow["grouped_ms"]
+                timing["sha256"]["bound"] = bound(
+                    64 * srow["blocks"] + 36 * sum(srow["lanes"]),
+                    SHA_OPS_PER_BLOCK * srow["blocks"])
         print(f"KERNELS {name}: {a.size} bytes, {row['cuts']} chunks, "
               f"identical", flush=True)
         del a, c

@@ -4,25 +4,33 @@
 // Replaces the two Pallas kernels of hdrf_tpu/ops/sort_pallas.py
 // (ops/sort_cuda.py has the design note):
 //
-//   match_deltas_kernel  `_match_deltas_call` (pallas_call at
-//                        sort_pallas.py:273).  For each position p of a
+//   match_tile_kernel +  `_match_deltas_call` (pallas_call at
+//   match_look_kernel    sort_pallas.py:273).  For each position p of a
 //                        row, q = the latest position < p with the same
 //                        hash16 of its 4-gram; delta(p) = (p - q) * stride
 //                        when the grams are equal, not degenerate
 //                        (v != rotl8(v)) and the product is <= 65535, else
 //                        0; output in position order.  The TPU sorts
-//                        (hash16 << pos_bits | pos) keys and sorts back;
-//                        a row of 65,536 keys does not fit one block's
-//                        shared memory, so here one block per row keeps a
-//                        65,536-entry table "latest position + 1 of each
-//                        hash" (u16, 128 KiB) in shared memory.  Warp 0
-//                        walks the row in position order, 32 positions a
-//                        step: __match_any_sync finds earlier lanes of the
-//                        same hash, the table covers earlier steps, and the
-//                        last lane of each hash group updates the table.
-//                        Then all threads compare the grams (re-read by
-//                        position) and write the deltas.  Exactly the
-//                        sorted-neighbour relation, without a sort.
+//                        (hash16 << pos_bits | pos) keys and sorts back.
+//                        Only q >= p - 65535 / stride can give a delta,
+//                        so the row is cut into tiles of 8,192 positions
+//                        and each is answered from itself and the few
+//                        tiles before it.  (1) One block per tile: a
+//                        stable radix sort of the tile by hash16 (the
+//                        machinery of sort_tile_kernel); a left neighbour
+//                        of the same hash is q, and the gram compare,
+//                        degenerate test and cap are done there, once.
+//                        The tile's summary goes to scratch: a 65,536-bit
+//                        hash bitmap with a running count of distinct
+//                        hashes per word, and per distinct hash its first
+//                        and last slot.  (2) One block per later tile: the
+//                        first position of each hash looks back through
+//                        the tiles that reach into its window (4 at stride
+//                        2, 2 at stride 4), nearest first, one shared-
+//                        memory bitmap probe each; the first tile holding
+//                        the hash gives q as its last slot (bitmap rank).
+//                        The result is the serial relation exactly, for
+//                        any tile width.
 //   sort_tile_kernel +   `_sort_rows_call` (pallas_call at
 //   sort_merge_kernel    sort_pallas.py:148).  A stable sort: equal keys
 //                        keep their input order, as torch.sort(stable=True)
@@ -53,16 +61,15 @@
 // Bound: bytes for both — each row read once and written once — against
 // which the radix sort moves its tile through shared memory once per
 // pass, a merge pass reads and writes the row once more, and the match
-// walk is serial in a row's positions.
+// deltas sort each tile by hash (two 8-bit passes on most data) and write
+// a summary of up to 80 KiB a tile that the look-back reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kHashes = 1 << 16;   // hash16 range: the match table's size
-constexpr int kUnroll = 16;        // match-walk steps loaded ahead
+constexpr int kHashes = 1 << 16;   // hash16 range
 
 constexpr int kTile = 8192;        // row entries one block radix-sorts
 constexpr int kTileThreads = 512;
@@ -73,89 +80,6 @@ constexpr int kCounters = (kRadixMax + 1) * kTileWarps;  // + pad bucket
 constexpr int kMergeThreads = 256;
 constexpr int kMergeItems = 8;
 constexpr int kSlice = kMergeThreads * kMergeItems;      // 2,048 entries
-
-// ------------------------------------------------------------ match deltas
-
-__device__ __forceinline__ int64_t entry_of(int64_t p, int64_t half,
-                                            int stride) {
-  // stride 2 rows hold [even positions..., odd positions...]
-  return stride == 2 ? ((p & 1) ? half + (p >> 1) : (p >> 1)) : p;
-}
-
-__global__ void __launch_bounds__(kThreads)
-match_deltas_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
-                    uint32_t *__restrict__ out) {
-  // latest position + 1 of each hash; 0 = none yet
-  extern __shared__ __align__(16) uint16_t last[];
-  const uint32_t *v = vals + blockIdx.x * e;
-  uint32_t *d = out + blockIdx.x * e;
-  const int64_t half = e / 2;
-  uint32_t *last32 = reinterpret_cast<uint32_t *>(last);
-  for (int i = threadIdx.x; i < kHashes / 2; i += kThreads) last32[i] = 0u;
-  __syncthreads();
-
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const uint32_t below = (1u << lane) - 1u;
-    uint32_t cur[kUnroll], nxt[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t p = 32 * u + lane;
-      cur[u] = p < e ? v[entry_of(p, half, stride)] : 0u;
-    }
-    for (int64_t base = 0; base < e; base += 32 * kUnroll) {
-      const int64_t nb = base + 32 * kUnroll;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {  // the next steps' loads in flight
-        const int64_t p = nb + 32 * u + lane;
-        nxt[u] = p < e ? v[entry_of(p, half, stride)] : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t s = base + 32 * u;
-        const int64_t p = s + lane;
-        const bool live = p < e;
-        // lanes past the row get keys outside the 16-bit range: no peers
-        const uint32_t h = live ? (cur[u] * 2654435761u) >> 16
-                                : 0x10000u + lane;
-        const uint32_t peers = __match_any_sync(0xFFFFFFFFu, h);
-        const uint32_t lower = peers & below;
-        uint32_t q1 = 0u;
-        if (lower) {
-          q1 = static_cast<uint32_t>(s + (31 - __clz(lower)) + 1);
-        } else if (live) {
-          q1 = last[h];
-        }
-        __syncwarp();  // every read of last[h] before its update
-        // the group's highest lane records it for later steps; the final
-        // step's positions are never read again (and p + 1 may be 65536)
-        if (live && (peers >> lane) == 1u && s + 32 < e) {
-          last[h] = static_cast<uint16_t>(p + 1);
-        }
-        __syncwarp();
-        if (live) d[p] = q1;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-    }
-  }
-  __syncthreads();  // the walk's writes to d are visible to the block
-
-  for (int64_t p = threadIdx.x; p < e; p += kThreads) {
-    const uint32_t q1 = d[p];
-    uint32_t delta = 0u;
-    if (q1) {
-      const int64_t q = q1 - 1;
-      const uint32_t vp = v[entry_of(p, half, stride)];
-      const uint32_t vq = v[entry_of(q, half, stride)];
-      const uint32_t rot = (vp << 8) | (vp >> 24);
-      const uint32_t dd = static_cast<uint32_t>(p - q) *
-                          static_cast<uint32_t>(stride);
-      if (vp == vq && vp != rot && dd <= 65535u) delta = dd;
-    }
-    d[p] = delta;
-  }
-}
 
 // --------------------------------------------------------------- row sort
 
@@ -480,19 +404,301 @@ int sort_rows(const void *kin, const void *v0in, const void *v1in,
   return 0;
 }
 
+// ------------------------------------------------------------ match deltas
+
+constexpr int kHashWords = kHashes / 32;   // a tile's hash bitmap: 2,048
+constexpr int kLookThreads = 512;
+constexpr int kLookBatch = 4;      // look-ups a thread keeps in flight
+
+__device__ __forceinline__ int64_t entry_of(int64_t p, int64_t half,
+                                            int stride) {
+  // stride 2 rows hold [even positions..., odd positions...]
+  return stride == 2 ? ((p & 1) ? half + (p >> 1) : (p >> 1)) : p;
+}
+
+__device__ __forceinline__ uint32_t hash16(uint32_t v) {
+  return (v * 2654435761u) >> 16;
+}
+
+__device__ __forceinline__ bool degenerate(uint32_t v) {
+  return v == ((v << 8) | (v >> 24));
+}
+
+// Rank of hash h among the distinct hashes of a tile, from its bitmap word
+// and the count of distinct hashes before that word.
+__device__ __forceinline__ uint32_t hash_rank(uint32_t bits, uint32_t before,
+                                              uint32_t h) {
+  return before + __popc(bits & ((1u << (h & 31)) - 1u));
+}
+
+// Phase 1, one block per tile of kTile positions of a row.  The tile's
+// positions are radix-sorted by hash16 in shared memory (stable: equal
+// hashes stay in position order, the sort of sort_tile_kernel over only
+// the hash bits that vary in the tile); a position whose left neighbour in
+// sorted order has its hash takes that neighbour as q, compares the grams
+// and writes its delta.  The first position of each hash in the tile
+// writes 0 and is left to phase 2.  The tile's summary goes to scratch:
+// its hash bitmap with, per bitmap word, the count of distinct hashes
+// before it (so a hash's rank is one popcount away), and per rank the
+// first and the last tile slot holding that hash and the first slot's
+// gram.
+__global__ void __launch_bounds__(kTileThreads, 2)
+match_tile_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
+                  int tiles, uint32_t *__restrict__ d, uint2 *__restrict__ bp,
+                  uint32_t *__restrict__ fv, uint16_t *__restrict__ first,
+                  uint16_t *__restrict__ last) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t *vs = smem;               // the tile's grams in position order
+  uint32_t *sk = smem + kTile;       // sorted hash << 16 | slot
+  uint32_t *cnt = smem + 2 * kTile;  // digit counters, then bitmap + prefix
+  __shared__ uint32_t part[kTileWarps];
+  __shared__ uint32_t diff;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t lt = (1u << lane) - 1u;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x % tiles) * kTile;
+  const int T = static_cast<int>(e - t0 < kTile ? e - t0 : kTile);
+  const int64_t half = e / 2;
+  const uint32_t *v = vals + row * e;
+  for (int i = threadIdx.x; i < T; i += kTileThreads)
+    vs[i] = v[entry_of(t0 + i, half, stride)];
+  if (threadIdx.x == 0) diff = 0u;
+  __syncthreads();
+
+  const int base = warp * 32 * kPerThread + lane;
+  const uint32_t h0 = hash16(vs[0]);
+  uint32_t u[kPerThread];   // hashes
+  uint32_t rp[kPerThread];  // rank << 16 | slot
+  uint32_t d_own = 0u;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int p = base + 32 * k;
+    u[k] = p < T ? hash16(vs[p]) : 0u;
+    rp[k] = static_cast<uint32_t>(p);
+    if (p < T) d_own |= u[k] ^ h0;
+  }
+  d_own = __reduce_or_sync(0xFFFFFFFFu, d_own);
+  if (lane == 0 && d_own) atomicOr(&diff, d_own);
+  __syncthreads();
+  const uint32_t dv = diff;
+  int lo = 0, bits = 0, npass = 0;
+  if (dv) {
+    lo = __ffs(dv) - 1;
+    const int nb = 32 - __clz(dv) - lo;
+    npass = (nb + 7) / 8;
+    bits = (nb + npass - 1) / npass;
+  }
+  const uint32_t radix = 1u << bits;
+  const int n_cnt = static_cast<int>(radix + 1) * kTileWarps;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int shift = lo + pass * bits;
+    for (int i = threadIdx.x; i < n_cnt; i += kTileThreads) cnt[i] = 0u;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t dg = base + 32 * k < T ? (u[k] >> shift) & (radix - 1u)
+                                            : radix;
+      const uint32_t peers = __match_any_sync(0xFFFFFFFFu, dg);
+      const int leader = __ffs(peers) - 1;
+      uint32_t before = 0u;
+      if (lane == leader) {
+        uint32_t *c = cnt + dg * kTileWarps + warp;
+        before = *c;
+        *c = before + __popc(peers);
+      }
+      before = __shfl_sync(0xFFFFFFFFu, before, leader);
+      rp[k] = ((before + __popc(peers & lt)) << 16) | (rp[k] & 0xFFFFu);
+      __syncwarp();
+    }
+    __syncthreads();
+    scan_counters(cnt, n_cnt, part);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (base + 32 * k < T) {
+        const uint32_t dg = (u[k] >> shift) & (radix - 1u);
+        sk[cnt[dg * kTileWarps + warp] + (rp[k] >> 16)] =
+            (u[k] << 16) | (rp[k] & 0xFFFFu);
+      }
+    }
+    __syncthreads();
+    if (pass + 1 < npass) {
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const int p = base + 32 * k;
+        if (p < T) {
+          u[k] = sk[p] >> 16;
+          rp[k] = sk[p] & 0xFFFFu;
+        }
+      }
+    }
+  }
+  if (npass == 0) {  // one hash in the whole tile: position order is sorted
+    for (int p = threadIdx.x; p < T; p += kTileThreads)
+      sk[p] = (h0 << 16) | static_cast<uint32_t>(p);
+  }
+
+  uint32_t *hbits = cnt, *pre = cnt + kHashWords;
+  for (int i = threadIdx.x; i < kHashWords; i += kTileThreads) hbits[i] = 0u;
+  __syncthreads();
+  // in-tile neighbours: thread x holds sorted entries x, x + 512, ...
+  uint32_t dl[kPerThread], sl[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = threadIdx.x + j * kTileThreads;
+    dl[j] = 0u;
+    sl[j] = 0u;
+    if (i < T) {
+      const uint32_t key = sk[i], h = key >> 16, slot = key & 0xFFFFu;
+      sl[j] = slot;
+      const uint32_t prev = i ? sk[i - 1] : 0u;
+      if (i == 0 || (prev >> 16) != h) {
+        atomicOr(&hbits[h >> 5], 1u << (h & 31));
+      } else {
+        const uint32_t q = prev & 0xFFFFu, vp = vs[slot];
+        const uint32_t dd = (slot - q) * static_cast<uint32_t>(stride);
+        if (vp == vs[q] && !degenerate(vp) && dd <= 65535u) dl[j] = dd;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kHashWords; i += kTileThreads)
+    pre[i] = __popc(hbits[i]);
+  __syncthreads();
+  scan_counters(pre, kHashWords, part);
+  uint2 *bpt = bp + static_cast<int64_t>(blockIdx.x) * kHashWords;
+  for (int i = threadIdx.x; i < kHashWords; i += kTileThreads)
+    bpt[i] = make_uint2(hbits[i], pre[i]);
+  uint16_t *ft = first + static_cast<int64_t>(blockIdx.x) * kTile;
+  uint16_t *lt16 = last + static_cast<int64_t>(blockIdx.x) * kTile;
+  uint32_t *fvt = fv + static_cast<int64_t>(blockIdx.x) * kTile;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = threadIdx.x + j * kTileThreads;
+    if (i < T) {
+      const uint32_t h = sk[i] >> 16;
+      const bool is_first = i == 0 || (sk[i - 1] >> 16) != h;
+      const bool is_last = i == T - 1 || (sk[i + 1] >> 16) != h;
+      if (is_first || is_last) {
+        const uint32_t r = hash_rank(hbits[h >> 5], pre[h >> 5], h);
+        if (is_first) {
+          ft[r] = static_cast<uint16_t>(sl[j]);
+          fvt[r] = vs[sl[j]];
+        }
+        if (is_last) lt16[r] = static_cast<uint16_t>(sl[j]);
+      }
+    }
+  }
+  __syncthreads();  // every read of sk and vs done: vs stages the deltas
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    if (threadIdx.x + j * kTileThreads < T) vs[sl[j]] = dl[j];
+  __syncthreads();
+  uint32_t *drow = d + row * e + t0;
+  for (int i = threadIdx.x; i < T; i += kTileThreads) drow[i] = vs[i];
+}
+
+// Phase 2, one block per tile after a row's first: the first position of
+// each hash in the tile looks back through the earlier tiles that reach
+// into its window (q >= p - 65535 / stride), nearest first, and stops at
+// the first tile whose bitmap holds its hash: that tile's last slot of the
+// hash is the latest q.  Only a nonzero delta is written.  The earlier
+// tiles' bitmap words and prefix counts are staged in shared memory; a
+// thread keeps kLookBatch lookups in flight, so their loads overlap.
+__global__ void __launch_bounds__(kLookThreads)
+match_look_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
+                  int tiles, const uint2 *__restrict__ bp,
+                  const uint32_t *__restrict__ fv,
+                  const uint16_t *__restrict__ first,
+                  const uint16_t *__restrict__ last,
+                  uint32_t *__restrict__ d) {
+  extern __shared__ __align__(16) uint2 sbp[];   // [look-back][kHashWords]
+  const int k = blockIdx.x % tiles;
+  if (k == 0) return;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t win = 65535 / stride;
+  const int nlb = min(k, static_cast<int>((win + kTile - 1) / kTile));
+  for (int i = threadIdx.x; i < nlb * kHashWords; i += kLookThreads)
+    sbp[i] = bp[(static_cast<int64_t>(blockIdx.x) - 1 - i / kHashWords) *
+                    kHashWords + i % kHashWords];
+  const uint2 own =
+      bp[static_cast<int64_t>(blockIdx.x) * kHashWords + kHashWords - 1];
+  const int n = static_cast<int>(own.y + __popc(own.x));
+  __syncthreads();
+  const int64_t t0 = static_cast<int64_t>(k) * kTile, half = e / 2;
+  const uint32_t *v = vals + row * e;
+  const int64_t own_at = static_cast<int64_t>(blockIdx.x) * kTile;
+  for (int r0 = threadIdx.x; r0 < n; r0 += kLookThreads * kLookBatch) {
+    int64_t p[kLookBatch], q[kLookBatch];
+    uint32_t vp[kLookBatch];
+#pragma unroll
+    for (int b = 0; b < kLookBatch; ++b) {
+      const int r = r0 + b * kLookThreads;
+      p[b] = r < n ? t0 + first[own_at + r] : -1;
+      vp[b] = r < n ? fv[own_at + r] : 0u;
+    }
+#pragma unroll
+    for (int b = 0; b < kLookBatch; ++b) {
+      q[b] = -1;
+      if (p[b] < 0 || degenerate(vp[b])) continue;
+      const uint32_t h = hash16(vp[b]);
+      for (int jj = 0; jj < nlb; ++jj) {
+        const int64_t j = k - 1 - jj;
+        if ((j + 1) * kTile - 1 < p[b] - win) break;   // the window ends
+        const uint2 wd = sbp[jj * kHashWords + (h >> 5)];
+        if (!((wd.x >> (h & 31)) & 1u)) continue;
+        q[b] = j * kTile + last[(static_cast<int64_t>(blockIdx.x) - 1 - jj) *
+                                    kTile + hash_rank(wd.x, wd.y, h)];
+        break;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kLookBatch; ++b) {
+      if (q[b] >= 0 && p[b] - q[b] <= win &&
+          v[entry_of(q[b], half, stride)] == vp[b])
+        d[row * e + p[b]] = static_cast<uint32_t>((p[b] - q[b]) * stride);
+    }
+  }
+}
+
 }  // namespace
 
+// Match deltas of t rows of e entries: phase 1 (every tile), then phase 2
+// (the tiles after each row's first).  Scratch, each array whole over all
+// tiles in order: per tile kHashWords uint2 (bitmap word, distinct hashes
+// before it), kTile u32 first-slot grams, kTile u16 first slots, kTile u16
+// last slots.
 extern "C" int hdrf_match_deltas(const void *vals, int64_t t, int64_t e,
-                                 int32_t stride, void *out, void *stream) {
-  const size_t smem = kHashes * sizeof(uint16_t);
+                                 int32_t stride, void *out, void *scratch,
+                                 void *stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int tiles = static_cast<int>((e + kTile - 1) / kTile);
+  const int64_t n_tiles = t * tiles;
+  auto *bp = static_cast<uint2 *>(scratch);
+  auto *fv = reinterpret_cast<uint32_t *>(bp + n_tiles * kHashWords);
+  auto *first = reinterpret_cast<uint16_t *>(fv + n_tiles * kTile);
+  uint16_t *last = first + n_tiles * kTile;
+  const auto *v = static_cast<const uint32_t *>(vals);
+  auto *d = static_cast<uint32_t *>(out);
+  const size_t smem = (2 * kTile + kCounters) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      match_deltas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      match_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  match_deltas_kernel<<<static_cast<unsigned>(t), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t *>(vals), e, stride,
-      static_cast<uint32_t *>(out));
+  match_tile_kernel<<<static_cast<unsigned>(n_tiles), kTileThreads, smem, s>>>(
+      v, e, stride, tiles, d, bp, fv, first, last);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (tiles == 1) return 0;
+  const int64_t win = 65535 / stride;
+  const int lb = static_cast<int>((win + kTile - 1) / kTile);
+  const size_t smem2 =
+      static_cast<size_t>(lb < tiles - 1 ? lb : tiles - 1) * kHashWords *
+      sizeof(uint2);
+  err = cudaFuncSetAttribute(match_look_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  match_look_kernel<<<static_cast<unsigned>(n_tiles), kLookThreads, smem2,
+                      s>>>(v, e, stride, tiles, bp, fv, first, last, d);
   return static_cast<int>(cudaGetLastError());
 }
 

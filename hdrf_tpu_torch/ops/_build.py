@@ -41,10 +41,13 @@ _SIGNATURES = {
     "hdrf_cdc_shard_scan": [_P, _P, _I64, _I64, _U32, _P, _P, _P],
     # words, nw, offs, lens, L, W, out, stream
     "hdrf_gather_pad": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
-    # msgs, L, W, nblocks, out, stream
-    "hdrf_sha256": [_P, _I64, _I32, _P, _P, _P],
-    # vals, t, e, stride, out, stream
-    "hdrf_match_deltas": [_P, _I64, _I64, _I32, _P, _P],
+    # per lane table (two): msgs, L, W, nblocks, order, out; then the
+    # unit counter, stream
+    "hdrf_sha256": [_P, _I64, _I32, _P, _P, _P] * 2 + [_P, _P],
+    # x, y, z, iters, out, cycles, stream
+    "hdrf_sha_chain_probe": [_U32, _U32, _U32, _I32, _P, _P, _P],
+    # vals, t, e, stride, out, scratch, stream
+    "hdrf_match_deltas": [_P, _I64, _I64, _I32, _P, _P, _P],
     # key, v0, v1, n_val, t, e, E, unsigned, pad_key, pad_v0, pad_v1,
     # key_out, v0_out, v1_out, key_scr, v0_scr, v1_scr, stream
     "hdrf_sort_rows": [_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _U32, _U32,

@@ -9,10 +9,10 @@ only the cut table and the digests come back.  Per block, on one stream:
    two-bucket rule: small when ``(len + 9 + 63) // 64 <= b_small``,
    ``b_small = max(1, min((2 << mask_bits) // 64, max_nb))``,
    resident.py:371-372).  Its 8-word header goes to pinned host memory.
-2. Once the header has landed: ``gather_cuda.gather_pad_messages`` and
-   ``sha256_cuda.sha256_words_cuda`` per non-empty bucket, each launched
-   with exactly the header's lane count; digests and cuts copy back to
-   pinned host memory.
+2. Once the header has landed: ``gather_cuda.gather_pad_messages`` per
+   bucket, then one ``sha256_cuda.sha256_words_grouped`` launch over both
+   (the big bucket's long chains first), each sized to exactly the
+   header's lane counts; digests and cuts copy back to pinned host memory.
 
 **One path.**  The reference keeps an XLA prep + host-select path beside
 its fused kernel, for device-resident input, a kernel overflow and
@@ -42,7 +42,7 @@ from hdrf_tpu_torch.config import CdcConfig
 from hdrf_tpu_torch.ops import cdc_cuda
 from hdrf_tpu_torch.ops.dispatch import gear_mask, resolve_device
 from hdrf_tpu_torch.ops.gather_cuda import gather_pad_messages
-from hdrf_tpu_torch.ops.sha256_cuda import sha256_words_cuda
+from hdrf_tpu_torch.ops.sha256_cuda import sha256_words_grouped
 from hdrf_tpu_torch.utils import device_ledger as _ledger
 
 _HDR = cdc_cuda.TABLE_HDR
@@ -68,13 +68,22 @@ def record_event(device: torch.device):
     return ev
 
 
+def digest_buckets(words: torch.Tensor, buckets) -> list[torch.Tensor]:
+    """Gather kernel per lane table, then ONE SHA launch over all of them
+    (``buckets``: one or two ``(lanes int32[2, L] of byte offsets and
+    lengths, bucket)``, the first hashed longest lanes first) of a BE word
+    image: digests u8[L, 32] per table, on the device."""
+    tables = []
+    for lanes, bucket in buckets:
+        nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
+        tables.append((gather_pad_messages(words, lanes, bucket), nb))
+    return sha256_words_grouped(tables)
+
+
 def digest_lanes(words: torch.Tensor, lanes: torch.Tensor,
                  bucket: int) -> torch.Tensor:
-    """Gather + SHA kernels over one lane table (int32[2, L]: byte offsets,
-    lengths) of a BE word image: digests u8[L, 32] on the device."""
-    msgs = gather_pad_messages(words, lanes, bucket)
-    nb = ((lanes[1] + 9 + 63) // 64).to(torch.int32)
-    return sha256_words_cuda(msgs, nb)
+    """Gather + SHA kernels over one lane table of a BE word image."""
+    return digest_buckets(words, [(lanes, bucket)])[0]
 
 
 @dataclasses.dataclass
@@ -175,8 +184,9 @@ class ResidentReducer:
         return BatchJob(blocks=blocks, _ev=ev)
 
     def start_sha_many(self, bj: BatchJob) -> None:
-        """Wait for each block's header, then enqueue its gather + SHA
-        kernels sized to the header's lane counts and the result copies."""
+        """Wait for each block's header, then enqueue its two gathers and
+        one SHA launch over both lane tables, sized to the header's lane
+        counts, and the result copies."""
         nbytes = 0
         for b in bj.blocks:
             if not b.n:
@@ -185,11 +195,10 @@ class ResidentReducer:
                 b.hdr_ready.synchronize()
             nc, _, ns, nbg = (int(v) for v in b.hdr[:4].tolist())
             nbytes += b.hdr.numel() * 4
-            b.digs_host = []
-            for ol, bucket, cnt in ((b.ols, self._b_small, ns),
-                                    (b.olb, self._b_big, nbg)):
-                b.digs_host.append(to_host(
-                    digest_lanes(b.words, ol[:, :cnt], bucket)))
+            big, small = digest_buckets(
+                b.words, [(b.olb[:, :nbg], self._b_big),
+                          (b.ols[:, :ns], self._b_small)])
+            b.digs_host = [to_host(small), to_host(big)]
             b.cuts_host = to_host(b.table[_HDR:_HDR + nc])
             b.done = record_event(self.device)
             b.words = b.table = b.ols = b.olb = None
@@ -256,7 +265,7 @@ class ResidentReducer:
         """SHA-256 digests u8[n_chunks, 32] of the caller's chunks ``[prev
         cut, cut)``: the block's word image from the CDC scan kernel, the
         chunks binned into the small and big lane tables by the rule the
-        CDC select applies, then the gather + SHA kernels.  A big lane is
+        CDC select applies, then the gathers and one SHA launch.  A big lane is
         as wide as the caller's longest chunk needs."""
         cuts = np.asarray(cuts, dtype=np.int64)
         if cuts.size == 0:
@@ -266,13 +275,15 @@ class ResidentReducer:
         starts = np.concatenate([[0], cuts[:-1]])
         lens = cuts - starts
         small = self._small(lens)
-        digs_host = []
-        for sel, bucket in ((small, self._b_small),
-                            (~small, max(self._b_big,
-                                         int((lens.max() + 72) // 64)))):
-            lanes = torch.as_tensor(np.stack([starts[sel], lens[sel]]).astype(
+
+        def lanes(sel):
+            return torch.as_tensor(np.stack([starts[sel], lens[sel]]).astype(
                 np.int32), device=self.device)
-            digs_host.append(to_host(digest_lanes(words, lanes, bucket)))
+        big, sm = digest_buckets(
+            words, [(lanes(~small), max(self._b_big,
+                                        int((lens.max() + 72) // 64))),
+                    (lanes(small), self._b_small)])
+        digs_host = [to_host(sm), to_host(big)]
         done = record_event(self.device)
         if done is not None:
             done.synchronize()

@@ -23,19 +23,24 @@ stable — equal keys keep their input order, pad slots after live ones —
 so the kernel and the plain version (``torch.sort(stable=True)``) agree
 on every slot.
 
-Design (csrc/sort.cu).  A stride-2 row is 65,536 keys — 256 KiB, more
-than one block's 227 KB of shared memory — so the match kernel does not
-sort: one block per row keeps a "latest position of each hash16" table
-(u16, 128 KiB) in shared memory, and one warp walks the row in position
-order, 32 positions a step, resolving same-hash lanes of a step with
-``__match_any_sync``; then the whole block compares the grams and writes
-the deltas.  The row sort is a radix tile sort plus merges: one block per
-tile of up to 8,192 entries runs a stable LSD radix sort in shared memory
-over only the key bits that vary in the tile (the L1/L2 pack keys, row-
-local indices up to 8,192: two 7-bit passes), and rows longer than a
-tile (the L3 and escape rows, up to 2^19 entries) then take log2(E /
-8,192) merge-path merge passes, one launch each over all rows, every
-block making a 2,048-entry slice of output.  Bound: bytes for both (each
+Design (csrc/sort.cu).  Only a previous occurrence at most 65,535 bytes
+back gives a delta, so the match kernel answers each row tile by tile:
+one block per tile of 8,192 positions sorts the tile by hash16 (a stable
+radix sort in shared memory), takes every position's left neighbour of
+the same hash as q, and writes the tile's summary (hash bitmap, distinct
+hashes before each bitmap word, first and last slot of each hash, the
+first slot's gram) to scratch; a second launch lets each tile's first position of a hash look
+back through the earlier tiles inside its window, nearest first, and
+stop at the first whose bitmap holds the hash.  Gram compare, degenerate
+test and cap are done where q is found.
+
+The row sort is a radix tile sort plus merges: one block per tile of up
+to 8,192 entries runs a stable LSD radix sort in shared memory over only
+the key bits that vary in the tile (the L1/L2 pack keys, row-local
+indices up to 8,192: two 7-bit passes), and rows longer than a tile (the
+L3 and escape rows, up to 2^19 entries) then take log2(E / 8,192)
+merge-path merge passes, one launch each over all rows, every block
+making a 2,048-entry slice of output.  Bound: bytes for both (each
 row read once and written once at 3.35 TB/s).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
@@ -54,7 +59,8 @@ from hdrf_tpu_torch.ops.gear import M32
 
 HASH_MUL = 2654435761   # golden-ratio multiplier (lz4.cpp hash4)
 _BIAS = -(1 << 31)      # int32 bits of 0x80000000
-_TILE = 8192            # row entries one block of the sort kernel sorts
+_TILE = 8192            # row entries a block of the sort kernels sorts
+_HASH_WORDS = 2048      # u32 words of a tile's 65,536-bit hash bitmap
 
 # Launches of each kernel, one per wrapper call on a CUDA tensor.
 match_deltas_launches = 0
@@ -117,6 +123,14 @@ def match_deltas_plain(vals: torch.Tensor, stride: int,
     return torch.gather(delta, 1, back).to(torch.int32)
 
 
+def match_scratch_words(t: int, e: int) -> int:
+    """int32 words of the match kernel's per-tile summaries: per tile of a
+    row, 2,048 (bitmap word, distinct hashes before it) pairs, and per
+    distinct hash the gram at its first slot and a u16 first and last
+    slot."""
+    return t * -(-e // _TILE) * (2 * _HASH_WORDS + 2 * _TILE)
+
+
 def match_deltas(vals: torch.Tensor, stride: int,
                  pos_bits: int) -> torch.Tensor:
     """(t, e) int32 4-gram entries (u32 bits, entry order) -> (t, e) int32
@@ -131,8 +145,11 @@ def match_deltas(vals: torch.Tensor, stride: int,
     out = torch.empty_like(vals)
     if t == 0:
         return out
+    scratch = torch.empty(match_scratch_words(t, e), dtype=torch.int32,
+                          device=vals.device)
     _build.launch("hdrf_match_deltas", vals.device, vals.data_ptr(), t, e,
-                  stride, out.data_ptr(), what="match deltas kernel")
+                  stride, out.data_ptr(), scratch.data_ptr(),
+                  what="match deltas kernel")
     with _launch_lock:  # handler threads of the worker launch too
         match_deltas_launches += 1
     return out

@@ -140,6 +140,84 @@ def test_sha_partial_last_thread_block(dev):
             raw[i, :lens[i]].tobytes()).digest()
 
 
+def test_sha_lone_long_lane_beside_short_lanes(dev):
+    """One 1,025-block lane (a 64 KiB chunk) in the big table beside
+    10,000 short lanes in the small one, one grouped launch: the long lane
+    against the plain version (run on the CPU: one lane, 1,025 steps) and
+    hashlib, the short lanes against the plain version on the card."""
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+    words = torch.from_numpy(raw.view(">u4").astype(np.uint32).view(
+        np.int32)).to(dev)
+    big_ol = torch.tensor([[4096], [65536]], dtype=torch.int32, device=dev)
+    lens = rng.integers(0, 4 * 64 - 9 + 1, 10_000)
+    offs = rng.integers(0, raw.size - 256, 10_000)
+    small_ol = torch.from_numpy(np.stack([offs, lens]).astype(
+        np.int32)).to(dev)
+    big = gather_cuda.gather_pad_messages(words, big_ol, 1025)
+    small = gather_cuda.gather_pad_messages(words, small_ol, 4)
+    nb_big = torch.tensor([1025], dtype=torch.int32, device=dev)
+    nb_small = ((small_ol[1] + 9 + 63) // 64).to(torch.int32)
+    n0 = sha256_cuda.launches
+    got_big, got_small = sha256_cuda.sha256_words_grouped(
+        [(big, nb_big), (small, nb_small)])
+    torch.cuda.synchronize()
+    assert sha256_cuda.launches == n0 + 1
+    assert torch.equal(got_big.cpu(), sha256_words(big.cpu(), nb_big.cpu()))
+    assert bytes(got_big[0].cpu().numpy()) == hashlib.sha256(
+        raw[4096:4096 + 65536].tobytes()).digest()
+    assert torch.equal(got_small, sha256_words(small, nb_small))
+    for i in (0, 1, 4999, 9999):
+        o, n = int(offs[i]), int(lens[i])
+        assert bytes(got_small[i].cpu().numpy()) == hashlib.sha256(
+            raw[o:o + n].tobytes()).digest()
+
+
+def test_sha_grouped_partial_last_thread_blocks(dev):
+    """133 lanes in each table, mixed lengths: both tables end in a
+    partial 32-lane thread block and every lane is still hashed, each
+    digest in its own row after the big table's longest-first order."""
+    rng = np.random.default_rng(13)
+    raw = rng.integers(0, 256, 1 << 18, dtype=np.uint8)
+    words = torch.from_numpy(raw.view(">u4").astype(np.uint32).view(
+        np.int32)).to(dev)
+    tables, spans = [], []
+    for bucket, hi in ((9, 9 * 64 - 9), (2, 2 * 64 - 9)):
+        lens = rng.integers(0, hi + 1, 133)
+        offs = rng.integers(0, raw.size - 1024, 133)
+        ol = torch.from_numpy(np.stack([offs, lens]).astype(np.int32)).to(dev)
+        tables.append((gather_cuda.gather_pad_messages(words, ol, bucket),
+                       ((ol[1] + 9 + 63) // 64).to(torch.int32)))
+        spans.append(list(zip(offs, lens)))
+    got = sha256_cuda.sha256_words_grouped(tables)
+    for (msgs, nb), g, sp in zip(tables, got, spans):
+        assert torch.equal(g, sha256_words(msgs, nb))
+        for (o, n), d in zip(sp, g.cpu().numpy()):
+            assert bytes(d) == hashlib.sha256(raw[o:o + n].tobytes()).digest()
+
+
+def test_reducer_grouped_sha_once_per_block(dev):
+    """ResidentReducer.reduce on blocks with both lane tables filled, one
+    with the big table empty: equal to the native oracle, one SHA launch
+    (both tables) and two gather launches a block."""
+    rng = np.random.default_rng(17)
+    cdc = CdcConfig(mask_bits=10, min_chunk=256, max_chunk=4096)
+    r = ResidentReducer(cdc, device=dev)
+    for a in (rng.integers(0, 256, 1 << 20, dtype=np.uint8),
+              rng.integers(97, 123, 300_000, dtype=np.uint8),
+              np.zeros(100_000, np.uint8)):
+        n0, g0 = sha256_cuda.launches, gather_cuda.launches
+        cuts, digs = r.reduce(a)
+        torch.cuda.synchronize()
+        assert sha256_cuda.launches == n0 + 1
+        lens = np.diff(cuts.astype(np.int64), prepend=0)
+        n_big = int(((lens + 72) // 64 > r._b_small).sum())
+        assert gather_cuda.launches == g0 + 1 + (n_big > 0)
+        wc, wd = _oracle(a, cdc)
+        np.testing.assert_array_equal(cuts, wc)
+        np.testing.assert_array_equal(digs, wd)
+
+
 def test_fingerprints_on_card_equal_hashlib(dev):
     """dispatch.fingerprints with the caller's cuts (one chunk longer than
     max_chunk): the BE image comes from the CDC scan kernel alone, then
@@ -209,6 +287,71 @@ def test_match_deltas_kernel_equals_plain(dev, stride, t, kind):
     assert torch.equal(got, want)
     if kind in ("text", "few"):
         assert bool((got > 0).any())
+
+
+_INV = pow(sort_cuda.HASH_MUL, -1, 1 << 32)   # grams with a chosen hash16
+
+
+def _special_rows(rng, stride):
+    """Full rows of non-degenerate grams with unique hash16 except: row 0,
+    gram pairs exactly 65535 // stride and one more apart (the window's
+    edge), some ending on a tile's first position; row 1, a gram A, then
+    B of A's hash but another gram, then A twice (only the last A
+    matches); row 2, runs of degenerate grams.  Position order in, the
+    kernel's entry order out."""
+    e = 65536 if stride == 2 else 32768
+    win, tile = 65535 // stride, 8192
+    rows = []
+    for r in range(3):
+        h = rng.permutation(1 << 16)[:e].astype(np.int64)
+        v = (((h << 16) | rng.integers(1, 0xFF00, e)) * _INV) & 0xFFFFFFFF
+        v = v.astype(np.uint32)
+        if r == 0:
+            last = 6 if stride == 2 else 3   # tiles of a row after the pairs
+            for q, p in ((100, 100 + win), (5000, 5001 + win),
+                         ((last - 1) * tile - win, (last - 1) * tile),
+                         (last * tile - win - 1, last * tile)):
+                v[p] = v[q]
+        elif r == 1:
+            for a1, gap in ((10, 10), (500, 300), (1000, 8000), (3000, 2500)):
+                a = v[a1]
+                for i, g in enumerate((a, (int(a) + _INV) & 0xFFFFFFFF, a, a)):
+                    v[a1 + i * gap] = g
+        else:
+            for at in range(0, e - 600, 5000):
+                v[at:at + 300] = 0x41414141
+                v[at + 300:at + 600] = 0
+        rows.append(v)
+    v = np.stack(rows)
+    if stride == 2:
+        v = np.concatenate([v[:, ::2], v[:, 1::2]], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(v).view(np.int32))
+
+
+@pytest.mark.parametrize("stride", [2, 4])
+def test_match_deltas_kernel_window_edge_and_gram_rows(dev, stride):
+    """The window's edge, same-hash grams that differ, degenerate runs:
+    every slot equal to the plain version."""
+    pos_bits = 16 if stride == 2 else 15
+    vals = _special_rows(np.random.default_rng(stride), stride).to(dev)
+    got = sort_cuda.match_deltas(vals, stride, pos_bits)
+    want = sort_cuda.match_deltas_plain(vals, stride, pos_bits)
+    assert torch.equal(got, want)
+    nz = (want != 0).sum(dim=1).tolist()
+    assert nz == [2, 4, 0]
+
+
+@pytest.mark.parametrize("stride,e", [(2, 700), (2, 10_000), (4, 8193),
+                                      (2, 65534)])
+@pytest.mark.parametrize("kind", ["text", "few"])
+def test_match_deltas_kernel_ragged_rows(dev, stride, e, kind):
+    """Rows that are no multiple of the 8,192-position tile: one tile, a
+    ragged last tile."""
+    vals = _grams(np.random.default_rng(e), kind, 5, e, stride).to(dev)
+    pos_bits = int(e - 1).bit_length()
+    got = sort_cuda.match_deltas(vals, stride, pos_bits)
+    assert torch.equal(got, sort_cuda.match_deltas_plain(vals, stride,
+                                                         pos_bits))
 
 
 def _keys(rng, t, e, unsigned, tied):
@@ -285,7 +428,7 @@ def test_sort_rows_long_rows_stable_across_tiles(dev, t, e):
     vals = rng.integers(0, 16, (t, e))
     key = np.where(vals == 15, _INVALID, vals).astype(np.int32)
     order = np.broadcast_to(np.arange(e, dtype=np.int32), (t, e))
-    k, v = (torch.from_numpy(np.array(x)).to(dev)
+    k, v = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in (key, order))
     gk, gv = sort_cuda.sort_rows(k, v, pad_key=_INVALID, pad_vals=(-1,))
     wk, wv = sort_cuda.sort_rows_plain(k, v, pad_key=_INVALID,
