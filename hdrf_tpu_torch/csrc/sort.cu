@@ -407,6 +407,11 @@ int sort_rows(const void *kin, const void *v0in, const void *v1in,
 // ------------------------------------------------------------ match deltas
 
 constexpr int kHashWords = kHashes / 32;   // a tile's hash bitmap: 2,048
+// Digit counters of the hash sort, (digit, warp) in scan order with one
+// pad word a digit: a warp's counters for 32 different digits (random
+// hashes) then fall in 32 different banks, not two.
+constexpr int kCntStride = kTileWarps + 1;
+constexpr int kMatchCounters = (kRadixMax + 1) * kCntStride;
 constexpr int kLookThreads = 512;
 constexpr int kLookBatch = 4;      // look-ups a thread keeps in flight
 
@@ -451,6 +456,7 @@ match_tile_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
   uint32_t *vs = smem;               // the tile's grams in position order
   uint32_t *sk = smem + kTile;       // sorted hash << 16 | slot
   uint32_t *cnt = smem + 2 * kTile;  // digit counters, then bitmap + prefix
+  static_assert(kMatchCounters >= 2 * kHashWords, "bitmap + prefix fit");
   __shared__ uint32_t part[kTileWarps];
   __shared__ uint32_t diff;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -489,7 +495,7 @@ match_tile_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
     bits = (nb + npass - 1) / npass;
   }
   const uint32_t radix = 1u << bits;
-  const int n_cnt = static_cast<int>(radix + 1) * kTileWarps;
+  const int n_cnt = static_cast<int>(radix + 1) * kCntStride;
   for (int pass = 0; pass < npass; ++pass) {
     const int shift = lo + pass * bits;
     for (int i = threadIdx.x; i < n_cnt; i += kTileThreads) cnt[i] = 0u;
@@ -502,7 +508,7 @@ match_tile_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
       const int leader = __ffs(peers) - 1;
       uint32_t before = 0u;
       if (lane == leader) {
-        uint32_t *c = cnt + dg * kTileWarps + warp;
+        uint32_t *c = cnt + dg * kCntStride + warp;
         before = *c;
         *c = before + __popc(peers);
       }
@@ -516,7 +522,7 @@ match_tile_kernel(const uint32_t *__restrict__ vals, int64_t e, int stride,
     for (int k = 0; k < kPerThread; ++k) {
       if (base + 32 * k < T) {
         const uint32_t dg = (u[k] >> shift) & (radix - 1u);
-        sk[cnt[dg * kTileWarps + warp] + (rp[k] >> 16)] =
+        sk[cnt[dg * kCntStride + warp] + (rp[k] >> 16)] =
             (u[k] << 16) | (rp[k] & 0xFFFFu);
       }
     }
@@ -679,7 +685,7 @@ extern "C" int hdrf_match_deltas(const void *vals, int64_t t, int64_t e,
   uint16_t *last = first + n_tiles * kTile;
   const auto *v = static_cast<const uint32_t *>(vals);
   auto *d = static_cast<uint32_t *>(out);
-  const size_t smem = (2 * kTile + kCounters) * sizeof(uint32_t);
+  const size_t smem = (2 * kTile + kMatchCounters) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       match_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
