@@ -19,12 +19,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    segment width, so the select's speculative chains need not meet; at 3
    bytes they never do and the select walks serially).  SHA-256 runs both
    lane tables of a block in one grouped launch and each through the
-   one-table call.  Outputs are integers: tolerance zero.  Times at the
-   random block: kernel median of 20 runs after warm-up (CUDA events),
-   plain version once, and ``library_ms`` — one PyTorch call computing the
-   same function — for the gather (an advanced-indexing gather of the same
-   bytes); CDC and SHA-256 have none.  The select is timed on each of the
-   five big blocks (``TIMING cdc_select`` lines); SHA-256 on the random,
+   one-table call.  ``be_image`` (the scan's words-only mode) is held
+   against the plain word image on every block.  Outputs are integers:
+   tolerance zero.  Times at the random block: kernel median of 20 runs
+   after warm-up (CUDA events), plain version once, and ``library_ms`` —
+   one PyTorch call computing the same function — for the gather (an
+   advanced-indexing gather of the same bytes) and ``be_image`` (a
+   ``flip`` of the block's 4-byte rows); the hashing scans, the select
+   and SHA-256 have none.  The scan and the select are timed on each of
+   the five big blocks (``TIMING cdc_scan`` / ``TIMING cdc_select``
+   lines), ``be_image`` on the random block and a 32 MiB container
+   (``TIMING be_image``); SHA-256 on the random,
    text and zeros blocks, each lane table alone and both grouped, wrapper
    and device time (``TIMING sha256`` lines), beside its chain bound from
    a probe of the card's dependent SHF -> LOP3 -> IADD3 latency (``SHA
@@ -47,7 +52,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (the generators of tests/test_lz4_tpu.py scaled up, the reference
    package's source text, the unique chunks of phase 4's corpus, and
    random bytes with sparse copies, whose match density runs the
-   grey-zone race).
+   grey-zone race), and ``be_image`` against the plain word image on each.
    ``sort_rows`` runs on the inputs of every call site of the match scan,
    captured from a real scan, plus unique i32 keys, u32 keys across the
    sign bit and a padded row that is not a power of two; both sorts are
@@ -63,12 +68,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    requests of one 32 MiB container and 2 ``compress_batch`` requests of
    4, sent by the port's WorkerClient.  Every reply must decode to its
    payload and equal, byte for byte, a CPU ``DeviceLz4`` fed the same
-   sequence; both seal kernels' launch counts over the requests must be
-   > 0; the sparse container must emit from its device records.  Per
-   request: latency, MiB/s, compressed size, ratio against the serial
-   ``native.lz4_compress``, kept match records, and the branch taken
-   (``lz4_device`` counters).  Two more ``compress`` requests are profiled as in phase 5
-   (``chiprun_out/smoke_trace_seal.json``).
+   sequence; both seal kernels' and ``be_image``'s launch counts over the
+   requests must be > 0; the sparse container must emit from its device
+   records.  Per request: latency, MiB/s, compressed size, ratio against
+   the serial ``native.lz4_compress``, kept match records, and the branch
+   taken (``lz4_device`` counters).  Two more ``compress`` requests are
+   profiled as in phase 5 (``chiprun_out/smoke_trace_seal.json``).
 8. MESH, the sharded reduction (hdrf_tpu_torch/parallel/sharded.py) on
    meshes of ``cuda:0`` repeated (a mesh may repeat a device: each shard
    has its own tensors, and halos, all-gathers and psums really run):
@@ -77,14 +82,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``--block-mib`` random block and the zeros block, each shard with the
    previous shard's tail as its halo; the shards' words together, cut at
    n, must give ``native.gear_candidates`` of the whole block.  Timed on
-   the random block at n_seq 4 (shard 1): median of 20 launches, plain
-   once.  (b) ``reduce_sharded`` on ('data'=1, 'seq'=4) and (2, 2)
-   meshes and on ``launch.global_mesh()`` (1 x 1 on one card), over the
-   ``reduce`` corpus plus one 40 KB block that takes the all-gather SHA
-   route: cuts and digests equal ``native.cdc_select`` /
-   ``native.sha256_batch`` and the serial ``ResidentReducer``; per
-   request its SHA route and latency; two more 1 x 4 requests profiled
-   as in phase 5 (``chiprun_out/smoke_trace_mesh.json``).  (c)
+   the random block at n_seq 4 and 8 (shard 1; ``TIMING shard_scan``
+   lines): median of 20 launches and device time, plain once.  (b)
+   ``reduce_sharded`` on ('data'=1, 'seq'=4) and (2, 2) meshes and on
+   ``launch.global_mesh()`` (1 x 1 on one card), over the ``reduce``
+   corpus plus one 40 KB block that takes the all-gather SHA route: cuts
+   and digests equal ``native.cdc_select`` / ``native.sha256_batch`` and
+   the serial ``ResidentReducer``; per request its SHA route and latency
+   (the word images are ``be_image``'s, and no hashing block scan runs:
+   ``MESH launches`` line); two more 1 x 4 requests profiled as in phase
+   5 (``chiprun_out/smoke_trace_mesh.json``).  (c)
    ``MeshReducer.reduce_many`` with n_data 2 on the same corpus equals the
    serial ``ResidentReducer``; after ``table.note_new`` of the first
    group's digests a second pass votes hits equal to ``host_probe``.  (d)
@@ -93,16 +100,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-kernel_times.py times the select, SHA-256, the match deltas and the row
-sort of any checkout on the same inputs (``time_select``, ``time_sha``,
+kernel_times.py times the scans, the select, SHA-256, the match deltas
+and the row sort of any checkout on the same inputs (``time_scan``,
+``time_image``, ``time_shard``, ``time_select``, ``time_sha``,
 ``time_match``, ``time_sort_site``).
 
 The CDC kernel pair is two wrapper calls with a launch count each:
 ``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
-launch); ``shard_scan`` (the same source) is the third.  Its launch count
-is that of the MESH phase's ``reduce_sharded`` requests.  Bounds use the
-card's published peaks: 3.35 TB/s HBM, and 16.7 T int32 ops/s (132 SMs x
-64 INT32 lanes x 1.98 GHz; the kernels are integer work).
+launch); ``be_image`` (the scan's words-only mode, its own counter) and
+``shard_scan`` (the same source) are the third and fourth.  Their launch
+counts are those of the seal's and the MESH phase's ``reduce_sharded``
+requests.  Bounds use the card's published peaks: 3.35 TB/s HBM, and
+16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98 GHz; the kernels are
+integer work).
 """
 
 from __future__ import annotations
@@ -123,7 +133,8 @@ import torch
 
 from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import CdcConfig
-from hdrf_tpu_torch.ops import (_build, cdc_cuda, gather_cuda, lz4_device,
+from hdrf_tpu_torch.ops import (_build, cdc_cuda, gather_cuda, gear,
+                                lz4_device,
                                 sha256_cuda, sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
 from hdrf_tpu_torch.ops.resident import ResidentReducer
@@ -158,10 +169,15 @@ SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
 _I32_MIN = -(1 << 31)
 TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SELECT_KERNELS = ("cdc_select",)     # the select's kernels, by name
+SCAN_KERNELS = ("cdc_scan_kernel",)
+# be_image's words-only scan; a checkout without it runs the full scan
+IMAGE_KERNELS = ("be_image_kernel", "cdc_scan_kernel")
+SHARD_KERNELS = ("cdc_shard_scan_kernel",)
 SHA_KERNELS = ("sha256_kernel",)
 MATCH_KERNELS = ("match_",)          # the match deltas' kernels
 SHA_TIMED = ("random-block", "text-block", "zeros-block")
 MATCH_TIMED = ("random", "zeros", "text", "source", "sparse")
+IMAGE_TIMED = "random"               # be_image's 32 MiB container
 SORT_KERNELS = ("sort_",)            # the row sort's tile and merge kernels
 L2_SCRUB_BYTES = 128 * MIB           # written before each timed call
 REDUCE_KERNEL_NAMES = {"cdc_scan_kernel": "cdc_scan",
@@ -178,6 +194,8 @@ KERNELS = {
                  "hdrf_tpu/ops/cdc_pallas.py:476"),
     "cdc_select": ("hdrf_tpu_torch/csrc/cdc.cu",
                    "hdrf_tpu/ops/cdc_pallas.py:476"),
+    "be_image": ("hdrf_tpu_torch/csrc/cdc.cu",
+                 "hdrf_tpu/ops/cdc_pallas.py:476"),
     "gather_pad": ("hdrf_tpu_torch/csrc/gather.cu",
                    "hdrf_tpu/ops/gather_pallas.py:122"),
     "sha256": ("hdrf_tpu_torch/csrc/sha256.cu",
@@ -341,6 +359,9 @@ def cdc_phase(name, a, mask, mn, mx, dev, errs) -> Cdc:
     e = max(max_err(words, pw), max_err(bitmap, pb))
     errs["cdc_scan"] = max(errs["cdc_scan"], e)
     check(e == 0, f"{name}: cdc scan kernel != plain (max err {e})")
+    e = max_err(cdc_cuda.be_image(block), pw)
+    errs["be_image"] = max(errs["be_image"], e)
+    check(e == 0, f"{name}: be_image kernel != plain (max err {e})")
     del pw, pb
     k = cdc_cuda.cdc_select(bitmap, n, mn, mx, b_small)
     p, sel_ms = timed(lambda: cdc_cuda.cdc_select_plain(bitmap, n, mn, mx,
@@ -369,6 +390,70 @@ def time_select(name, c: Cdc, mn, mx) -> dict:
            "device_ms": device_ms(sel, SELECT_KERNELS), "bound_ms": b[0],
            "bound_by": b[1]}
     print(f"TIMING cdc_select {name}: " + json.dumps(row), flush=True)
+    return row
+
+
+def time_scan(name, c: Cdc, mask, mn) -> dict:
+    """The scan's time on one corpus: one wrapper call (CUDA events), its
+    kernel alone (profiler), and its byte bound — the block read, the word
+    image and the bitmap written."""
+    def scan():
+        return cdc_cuda.cdc_scan(c.block, c.n, mask, mn)
+    b = bound(c.block.numel() + c.words.numel() * 4 + c.bitmap.numel() * 4,
+              CDC_SCAN_OPS_PER_BYTE * c.n)
+    row = {"bytes": c.block.numel(), "ms": cuda_ms(scan),
+           "device_ms": device_ms(scan, SCAN_KERNELS), "bound_ms": b[0],
+           "bound_by": b[1]}
+    print(f"TIMING cdc_scan {name}: " + json.dumps(row), flush=True)
+    return row
+
+
+def library_image(block: torch.Tensor) -> torch.Tensor:
+    """The BE word image in one PyTorch call (the yardstick of
+    ``be_image``; the port never calls it)."""
+    return block.view(-1, 4).flip(-1).contiguous().view(torch.int32) \
+        .reshape(-1)
+
+
+def time_image(name, block: torch.Tensor) -> dict:
+    """``be_image`` on one padded block: one wrapper call (CUDA events), its
+    kernel alone (profiler), the library call, and the byte bound — the
+    block read once, the image written once.  Held first against the
+    plain version and the library call, tolerance zero."""
+    def img():
+        return cdc_cuda.be_image(block)
+    want = gear.be_words(block)
+    e = max(max_err(img(), want), max_err(library_image(block), want))
+    check(e == 0, f"be_image {name}: kernel != plain (max err {e})")
+    del want
+    b = bound(2 * block.numel(), 0)
+    row = {"bytes": block.numel(), "ms": cuda_ms(img),
+           "device_ms": device_ms(img, IMAGE_KERNELS),
+           "library_ms": cuda_ms(lambda: library_image(block)),
+           "bound_ms": b[0], "bound_by": b[1]}
+    print(f"TIMING be_image {name}: " + json.dumps(row), flush=True)
+    return row
+
+
+def time_shard(name, local, halo, base, mask, n_seq) -> dict:
+    """The shard scan on one shard: one wrapper call (CUDA events), its
+    kernel alone (profiler), and its byte bound — the shard and halo read,
+    the bitmap and count written."""
+    def shard():
+        return cdc_cuda.shard_scan(local, halo, base, mask)
+    (kw, kc), (pw, pc) = shard(), cdc_cuda.shard_scan_plain(local, halo,
+                                                            base, mask)
+    e = max(max_err(kw, pw), max_err(kc, pc))
+    check(e == 0, f"shard_scan {name} n_seq {n_seq}: kernel != plain (max "
+                  f"err {e})")
+    del kw, kc, pw, pc
+    m = local.numel()
+    b = bound(m + 31 + m // 8 + 4, CDC_SCAN_OPS_PER_BYTE * m)
+    row = {"n_seq": n_seq, "bytes": m, "ms": cuda_ms(shard),
+           "device_ms": device_ms(shard, SHARD_KERNELS), "bound_ms": b[0],
+           "bound_by": b[1]}
+    print(f"TIMING shard_scan {name} n_seq {n_seq}: " + json.dumps(row),
+          flush=True)
     return row
 
 
@@ -860,6 +945,17 @@ def seal_kernel_phase(corpora: dict, dev, errs: dict, timing: dict) -> dict:
                                 "library_ms": 0.0, "sites": []}
     for name, a in corpora.items():
         block = torch.from_numpy(a.copy()).to(dev)
+        pw, p_ms = timed(lambda: gear.be_words(block))
+        e = max_err(cdc_cuda.be_image(block), pw)
+        errs["be_image"] = max(errs["be_image"], e)
+        check(e == 0, f"seal {name}: be_image kernel != plain (max err {e})")
+        del pw
+        if name == IMAGE_TIMED:
+            row = time_image(name, block)
+            timing["be_image"] = {"ms": row["ms"], "plain_ms": p_ms,
+                                  "library_ms": row["library_ms"],
+                                  "bound": (row["bound_ms"],
+                                            row["bound_by"])}
         for stride in (2, 4):
             vals, pos_bits = lz4_device.entries(block, stride)
             k = sort_cuda.match_deltas(vals, stride, pos_bits)
@@ -931,7 +1027,7 @@ SEAL_KERNEL_NAMES = {"match_tile_kernel": "match_deltas",
                      "match_look_kernel": "match_deltas",
                      "sort_tile_kernel": "sort_rows",
                      "sort_merge_kernel": "sort_rows",
-                     "cdc_scan_kernel": "cdc_scan"}
+                     "be_image_kernel": "be_image"}
 BRANCHES = ("bypassed_scans", "native_fallbacks", "native_wins",
             "races_skipped", "emits", "escape_rescans")
 
@@ -956,6 +1052,7 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
     rows, outs = [], []
     try:
         sort_cuda.match_deltas_launches = sort_cuda.sort_rows_launches = 0
+        cdc_cuda.image_launches = 0
         for names in reqs:
             datas = [corpora[k] for k in names]
             c0 = dict(reg.snapshot()["counters"])
@@ -970,7 +1067,8 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
                          _branch(c0, dict(reg.snapshot()["counters"]))))
             outs.append(got)
         launches = {"match_deltas": sort_cuda.match_deltas_launches,
-                    "sort_rows": sort_cuda.sort_rows_launches}
+                    "sort_rows": sort_cuda.sort_rows_launches,
+                    "be_image": cdc_cuda.image_launches}
         stats = client.stats()
         prof_outs = []
         prof = profile_window(
@@ -1028,6 +1126,7 @@ MESH_SEQS = (1, 4, 8)
 MESH_SMALL = 40_000      # shards under one gather window: all-gather SHA
 MESH_SEAL = ("sparse", "random", "chunks", "zeros")
 MESH_KERNEL_NAMES = {"cdc_shard_scan_kernel": "shard_scan",
+                     "be_image_kernel": "be_image",
                      "cdc_scan_kernel": "cdc_scan",
                      "gather_pad_kernel": "gather_pad",
                      "sha256_kernel": "sha256"}
@@ -1062,14 +1161,13 @@ def shard_scan_phase(name, a, mask, dev, errs, timing=None) -> None:
             errs["shard_scan"] = max(errs["shard_scan"], e)
             check(e == 0, f"{name} n_seq {n_seq} shard {s}: shard scan "
                           f"kernel != plain (max err {e})")
-            if timing is not None and n_seq == 4 and s == 1:
-                timing["shard_scan"] = {
-                    "ms": cuda_ms(lambda: cdc_cuda.shard_scan(
-                        local, halo, s * m, mask)),
-                    "plain_ms": p_ms, "library_ms": None,
-                    # shard + halo read, bitmap + count written
-                    "bound": bound(m + 31 + m // 8 + 4,
-                                   CDC_SCAN_OPS_PER_BYTE * m)}
+            if timing is not None and n_seq in (4, 8) and s == 1:
+                row = time_shard(name, local, halo, s * m, mask, n_seq)
+                if n_seq == 4:
+                    timing["shard_scan"] = {
+                        "ms": row["ms"], "plain_ms": p_ms,
+                        "library_ms": None,
+                        "bound": (row["bound_ms"], row["bound_by"])}
             words.append(kw.cpu().numpy())
             del pw, pc
         got = np.unpackbits(np.concatenate(words).view(np.uint8),
@@ -1103,6 +1201,7 @@ def mesh_reduce_phase(blocks, want, dev, cdc: CdcConfig) -> dict:
     rows = []
     try:
         cdc_cuda.shard_scan_launches = cdc_cuda.scan_launches = 0
+        cdc_cuda.image_launches = 0
         gather_cuda.launches = sha256_cuda.launches = 0
         for mname, mesh in meshes.items():
             for i, blk in enumerate(blocks):
@@ -1111,9 +1210,10 @@ def mesh_reduce_phase(blocks, want, dev, cdc: CdcConfig) -> dict:
                 lat = time.perf_counter() - t0
                 rows.append((mname, i, routes[-1], lat, cuts, digs))
         launches = {"shard_scan": cdc_cuda.shard_scan_launches,
-                    "cdc_scan": cdc_cuda.scan_launches,
+                    "be_image": cdc_cuda.image_launches,
                     "gather_pad": gather_cuda.launches,
                     "sha256": sha256_cuda.launches}
+        hashing_scans = cdc_cuda.scan_launches
     finally:
         sharded._sha_chunks_halo, sharded._sha_chunks_sharded = real
     out = []
@@ -1130,6 +1230,12 @@ def mesh_reduce_phase(blocks, want, dev, cdc: CdcConfig) -> dict:
                     "latency_ms": lat * 1e3})
     for kname, cnt in launches.items():
         check(cnt > 0, f"reduce_sharded never launched the {kname} kernel")
+    print("MESH launches " + json.dumps({**launches,
+                                         "cdc_scan": hashing_scans}),
+          flush=True)
+    check(hashing_scans == 0, f"reduce_sharded ran the hashing block scan "
+                              f"{hashing_scans} times (its image is words "
+                              f"only)")
     check({"halo", "all-gather"} <= set(routes), f"SHA routes {set(routes)}")
     again = []
     prof = profile_window(
@@ -1261,15 +1367,14 @@ def run(args) -> int:
     for name, a in big_blocks(args.seed, args.block_mib * MIB, mask):
         c = cdc_phase(name, a, mask, mn, mx, dev, errs)
         row = time_select(name, c, mn, mx)
+        scan = time_scan(name, c, mask, mn)
         if name == "random-block":
-            timing["cdc_scan"] = {
-                "ms": cuda_ms(lambda: cdc_cuda.cdc_scan(c.block, c.n, mask,
-                                                        mn)),
-                "plain_ms": c.scan_plain_ms, "library_ms": None,
-                # block read, word image and bitmap written
-                "bound": bound(c.block.numel() + c.words.numel() * 4
-                               + c.bitmap.numel() * 4,
-                               CDC_SCAN_OPS_PER_BYTE * c.n)}
+            timing["cdc_scan"] = {"ms": scan["ms"],
+                                  "plain_ms": c.scan_plain_ms,
+                                  "library_ms": None,
+                                  "bound": (scan["bound_ms"],
+                                            scan["bound_by"])}
+            time_image(name, c.block)
             timing["cdc_select"] = {"ms": row["ms"],
                                     "plain_ms": c.select_plain_ms,
                                     "library_ms": None,

@@ -1,4 +1,4 @@
-// Content-defined chunking on Hopper: Gear scan + min/max cut select.
+// Content-defined chunking on Hopper: Gear scans + min/max cut select.
 //
 // Replaces the Pallas `_select_kernel` of hdrf_tpu/ops/cdc_pallas.py
 // (pallas_call at cdc_pallas.py:476).  The TPU kernel walks the block as a
@@ -6,11 +6,13 @@
 // grid steps in scratch.  Here the work is split into a scan and a select on
 // one stream (ops/cdc_cuda.py has the design note):
 //
-//   cdc_scan_kernel    one thread per 256-byte run, all runs in parallel:
-//                      Gear hash h = (h << 1) + G[b] warmed up on the 32
-//                      bytes before the run (zero history == the window-32
-//                      sum because G[0] == 0), the big-endian word image,
-//                      and a candidate bitmap (bit i <=> pos1 == i + 1).
+//   cdc_scan_kernel    the Gear hash h = (h << 1) + G[b] of every byte
+//                      (zero history before the block == the window-32 sum
+//                      because G[0] == 0), the big-endian word image, and a
+//                      candidate bitmap (bit i <=> pos1 == i + 1).
+//   be_image_kernel    the same scan's words-only mode: the word image
+//                      alone, for callers that bring their own cuts (the
+//                      LZ4 seal's entries, the sharded SHA routes).
 //   cdc_select_*       the frontier lo = f + min, hi = min(f + max, n),
 //                      cut = first candidate in [lo, hi] else hi (the rule
 //                      of hdrf_tpu/native/src/cdc.cpp:74-92), as segmented
@@ -38,48 +40,85 @@
 //                      both lane tables in parallel.
 //
 // Bound: the scan moves the block's bytes (read once, written once as
-// words); the select reads the bitmap and writes a few words per cut.
-// The select's walks are latency-bound (one dependent L2 load a warp
-// step, a few steps a cut), so it is spread over ~n / 128 KiB warps.
-// Where chains never meet (a short period holding one candidate a period
-// steps every chain by the same stride, so chains a non-multiple apart
-// stay apart), the stitch's serial walk does the whole block: one warp,
-// one shared-memory find a cut — the worst case, measured by chip_smoke.py
-// on a 3-byte period.
+// words, plus the bitmap); the select reads the bitmap and writes a few
+// words per cut.  The select's walks are latency-bound (one dependent L2
+// load a warp step, a few steps a cut), so it is spread over ~n / 128 KiB
+// warps.  Where chains never meet (a short period holding one candidate a
+// period steps every chain by the same stride, so chains a non-multiple
+// apart stay apart), the stitch's serial walk does the whole block: one
+// warp, one shared-memory find a cut — the worst case, measured by
+// chip_smoke.py on a 3-byte period.
 //
-// A third kernel replaces the Pallas `_scan_kernel` of the same file
+// A third scan replaces the Pallas `_scan_kernel` of the same file
 // (pallas_call at cdc_pallas.py:570, reached through
 // `local_candidate_words_pallas`), the per-shard candidate scan of the
 // sharded reduction (hdrf_tpu_torch/parallel/sharded.py):
 //
-//   cdc_shard_scan_kernel  the parallel scan above over one shard of a
-//                      block, warmed up from the 31-byte halo (the previous
-//                      shard's tail) for the shard's first run; candidate
-//                      bitmap words with no `<= n` clamp and no min-chunk
-//                      floor (only pos1 >= 32 of the whole block), plus the
-//                      candidate count: a warp reduce and one atomicAdd
-//                      per thread block.  Bound: bytes (the shard and halo
-//                      read once, the bitmap written once).
+//   cdc_shard_scan_kernel  the same scan over one shard of a block, its
+//                      history the 31-byte halo (the previous shard's
+//                      tail) read by bytes; candidate bitmap words with no
+//                      `<= n` clamp and no min-chunk floor (only pos1 >= 32
+//                      of the whole block), no word image, plus the
+//                      candidate count: a warp reduce and one atomicAdd per
+//                      thread block.
+//
+// The three scans are one body (`gear_scan`, a mode template).  They are
+// byte-bound, so the design is built around coalesced movement:
+//   * A persistent grid, sized by occupancy to fill every SM, gives each
+//     warp a contiguous span of 1 KiB chunks.  A warp stages its chunks
+//     through a private three-stage cp.async ring in shared memory (512
+//     contiguous bytes a copy instruction), two chunks in flight while it
+//     works on the third.  No block-wide barrier in the loop.
+//   * A chunk is 32 pieces of 32 bytes, one a lane.  The window is 32
+//     bytes, so the hash entering a piece is the hash of the piece before
+//     it from zero history; and the Gear update is linear, so the hash
+//     after byte j of a piece is hp_j + (s << (j + 1)) (mod 2^32), hp_j the
+//     piece's own prefix hash from zero and s the hash entering it.  Each
+//     lane hashes its piece once from zero (32 dependent steps), takes s
+//     from its left neighbour's last hp by one shuffle (lane 0 from the
+//     previous chunk's lane 31), and tests its 32 positions independently.
+//     Only a span's first chunk needs history: a warp sum of
+//     G[b_k] << (31 - k) over the 32 bytes before it, one byte a lane.
+//     No byte is loaded or hashed twice in a span.
+//   * A piece's 32 tests make one bitmap word, so a warp stores 32
+//     consecutive words.  The word image is byte-swapped from the staged
+//     chunk in 16-byte units, 512 contiguous bytes a store instruction.
+//   * The position rule (thr <= pos1 <= n; shard: pos1 >= 32 of the whole
+//     block) is a bit mask a piece, applied only in the chunks that hold a
+//     bound (a warp-uniform branch); other chunks test nothing but the hash.
+//   * The Gear table is one 1 KiB copy in shared memory.  Measured against
+//     a copy a bank (32 KiB: lookups without bank conflicts) and fmix32 in
+//     registers, it is as fast on random bytes, where lanes conflict, and
+//     leaves room for a fourth block an SM (PERF.md).
+//   * Staged 16-byte units are swizzled, so the lanes' piece reads and the
+//     image's contiguous reads are both conflict-free.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRun = 256;            // bytes per scan thread (multiple of 32)
-constexpr int kScanThreads = 256;    // == 256 Gear table entries
-constexpr int kWalkThreads = 128;    // select walkers: one warp a segment
+constexpr int kChunk = 1024;           // bytes a warp step: 32 pieces of 32
+constexpr int kUnits = kChunk / 16;    // 16-byte units a chunk
+constexpr int kStages = 3;             // chunks in a warp's cp.async ring
+constexpr int kScanWarps = 8;
+constexpr int kScanThreads = 32 * kScanWarps;   // == 256 Gear entries
+constexpr int kWalkThreads = 128;      // select walkers: one warp a segment
 constexpr int kStitchThreads = 1024;
-constexpr int kMaxSegs = 8192;       // the stitch holds 3 x S ints shared
-constexpr int kWin = 8192;           // bitmap words of the stitch's window
-constexpr int kReach = 4;            // converge walks, in segments' worth
-constexpr int kSegArrays = 12;       // scratch arrays of one int a segment
-constexpr int kRunArrays = 4;        // scratch arrays of one int a serial cut
-constexpr int32_t kChainEnd = -1;    // merge pointer: the walker reached n
-constexpr int32_t kChainOpen = -2;   // merge pointer: no merge in reach
+constexpr int kMaxSegs = 8192;         // the stitch holds 3 x S ints shared
+constexpr int kWin = 8192;             // bitmap words of the stitch's window
+constexpr int kReach = 4;              // converge walks, in segments' worth
+constexpr int kSegArrays = 12;         // scratch arrays of one int a segment
+constexpr int kRunArrays = 4;          // scratch arrays of one int a serial cut
+constexpr int32_t kChainEnd = -1;      // merge pointer: the walker reached n
+constexpr int32_t kChainOpen = -2;     // merge pointer: no merge in reach
 constexpr int kTableHdr = 8;
-constexpr int kHalo = 31;            // WINDOW - 1 bytes of shard history
+constexpr int kHalo = 31;              // WINDOW - 1 bytes of shard history
+constexpr int kMaxDevices = 64;        // cards a process may launch scans on
+
+enum ScanMode { kBlockScan, kShardScan, kImageOnly };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t z) {
   z ^= z >> 16;
@@ -90,138 +129,200 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t z) {
   return z;
 }
 
-// Roll one little-endian word (4 bytes) into the hash.
-__device__ __forceinline__ uint32_t roll_word(uint32_t h, uint32_t w,
-                                              const uint32_t *g) {
-#pragma unroll
-  for (int b = 0; b < 4; ++b) h = (h << 1) + g[(w >> (8 * b)) & 0xFFu];
-  return h;
+// Staged 16-byte unit u of a chunk lives at slot u ^ ((u >> 3) & 1): a
+// quarter-warp reading lane pieces (units 2l, 2l + 1) or image units (l,
+// l + 32) then touches eight distinct 16-byte bank groups.
+__device__ __forceinline__ int unit_slot(int u) { return u ^ ((u >> 3) & 1); }
+
+// The bits lo..hi of a word (none when lo > hi); lo, hi in any range.
+__device__ __forceinline__ uint32_t bit_range(int64_t lo, int64_t hi) {
+  if (lo > 31 || hi < 0 || lo > hi) return 0u;
+  uint32_t m = ~0u;
+  if (lo > 0) m <<= lo;
+  if (hi < 31) m &= (2u << hi) - 1u;
+  return m;
 }
 
-// The Gear table in shared memory, one entry per thread (kScanThreads
-// == 256); the caller synchronises.
-__device__ __forceinline__ void load_gear_table(uint32_t *g) {
-  g[threadIdx.x] = fmix32(threadIdx.x * 0x9E3779B1u);
-}
+struct ScanArgs {
+  const uint8_t *data;   // the block (or shard), 16-byte aligned
+  const uint8_t *halo;   // shard: its 31 bytes of history
+  int64_t len;           // bytes, a multiple of 256
+  int64_t lo, hi;        // selectable pos1 within `data`: [lo, hi]
+  uint32_t mask;
+  uint32_t *words_be;    // block, image: uint32[len / 4]
+  uint32_t *bitmap;      // block, shard: uint32[len / 32]
+  int32_t *count;        // shard: += the candidates (zeroed by the caller)
+  int64_t span;          // chunks a warp
+};
 
-// The hash after the 32 bytes at `p` (16-byte aligned), from zero history:
-// the warm-up of a run that starts at p + 32.
-__device__ __forceinline__ uint32_t warm32(const uint8_t *p,
-                                           const uint32_t *g) {
-  const uint4 *wp = reinterpret_cast<const uint4 *>(p);
-  const uint4 v0 = wp[0], v1 = wp[1];
-  uint32_t h = 0;
-  h = roll_word(h, v0.x, g);
-  h = roll_word(h, v0.y, g);
-  h = roll_word(h, v0.z, g);
-  h = roll_word(h, v0.w, g);
-  h = roll_word(h, v1.x, g);
-  h = roll_word(h, v1.y, g);
-  h = roll_word(h, v1.z, g);
-  h = roll_word(h, v1.w, g);
-  return h;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-cdc_scan_kernel(const uint8_t *__restrict__ data, int64_t n_pad, int64_t n,
-                uint32_t mask, int64_t thr, uint32_t *__restrict__ words_be,
-                uint32_t *__restrict__ bitmap) {
-  __shared__ uint32_t g[256];
-  load_gear_table(g);
-  __syncthreads();
-
-  const int64_t start =
-      (static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x) * kRun;
-  if (start >= n_pad) return;
-
-  // warm-up: the 32 bytes before the run
-  uint32_t h = start >= 32 ? warm32(data + start - 32, g) : 0u;
-
-  const uint4 *src = reinterpret_cast<const uint4 *>(data + start);
-  uint4 *dst = reinterpret_cast<uint4 *>(words_be + start / 4);
-  uint32_t bits = 0;
-#pragma unroll 2
-  for (int i = 0; i < kRun / 16; ++i) {
-    const uint4 v = src[i];
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint4 o;
-    o.x = __byte_perm(v.x, 0, 0x0123);
-    o.y = __byte_perm(v.y, 0, 0x0123);
-    o.z = __byte_perm(v.z, 0, 0x0123);
-    o.w = __byte_perm(v.w, 0, 0x0123);
-    dst[i] = o;
+// Copy chunk c of a warp's span into ring stage `st`, then commit a group
+// (an empty one past the span, so the wait count stays uniform).
+__device__ __forceinline__ void stage_chunk(const ScanArgs &a, uint4 *stage,
+                                            int64_t c, int64_t c1,
+                                            int lane) {
+  if (c < c1) {
+    const int64_t off = c * kChunk;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        h = (h << 1) + g[(w[k] >> (8 * b)) & 0xFFu];
-        const int r = i * 16 + k * 4 + b;           // byte within the run
-        const int64_t pos1 = start + r + 1;
-        const bool c = ((h & mask) == 0u) && pos1 >= thr && pos1 <= n;
-        bits |= static_cast<uint32_t>(c) << (r & 31);
-      }
-    }
-    if (i & 1) {  // 32 bytes done: one bitmap word
-      bitmap[(start + i * 16 - 16) >> 5] = bits;
-      bits = 0;
+    for (int h = 0; h < 2; ++h) {
+      const int u = lane + 32 * h;
+      if (off + 16 * u < a.len)
+        __pipeline_memcpy_async(stage + unit_slot(u), a.data + off + 16 * u,
+                                16);
     }
   }
+  __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-cdc_shard_scan_kernel(const uint8_t *__restrict__ local,
-                      const uint8_t *__restrict__ halo, int64_t m,
-                      int64_t base, uint32_t mask,
-                      uint32_t *__restrict__ words,
-                      int32_t *__restrict__ count) {
-  __shared__ uint32_t g[256];
-  __shared__ int warp_sum[kScanThreads / 32];
-  load_gear_table(g);
-  __syncthreads();
+template <int kMode>
+__device__ __forceinline__ void gear_scan(const ScanArgs &a) {
+  constexpr bool kHash = kMode != kImageOnly;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t *gear = reinterpret_cast<uint32_t *>(smem);
+  uint4 *ring = reinterpret_cast<uint4 *>(
+      smem + (kHash ? 256 * sizeof(uint32_t) : 0));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (kHash) {
+    gear[threadIdx.x] = fmix32(threadIdx.x * 0x9E3779B1u);   // one a thread
+    __syncthreads();
+  }
+  uint4 *buf = ring + warp * kStages * kUnits;
+  const int64_t nchunks = (a.len + kChunk - 1) / kChunk;
+  const int64_t c0 =
+      (static_cast<int64_t>(blockIdx.x) * kScanWarps + warp) * a.span;
+  const int64_t c1 = c0 + a.span < nchunks ? c0 + a.span : nchunks;
 
-  const int64_t start =
-      (static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x) * kRun;
+  // the hash entering the span: the 32 bytes before it, one a lane
+  uint32_t carry = 0;
+  if (kHash && c0 < c1) {
+    const int64_t p = c0 * kChunk - 32 + lane;
+    uint32_t b = 0;
+    if (p >= 0)
+      b = a.data[p];
+    else if (kMode == kShardScan && p >= -kHalo)
+      b = a.halo[kHalo + p];
+    carry = __reduce_add_sync(0xFFFFFFFFu, gear[b] << (31 - lane));
+  }
+
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k)
+    stage_chunk(a, buf + k * kUnits, c0 + k, c1, lane);
   int cnt = 0;
-  if (start < m) {
-    uint32_t h = 0;
-    if (start >= 32) {
-      h = warm32(local + start - 32, g);
-    } else {  // the shard's first run: the halo is its history
-      for (int i = 0; i < kHalo; ++i) h = (h << 1) + g[halo[i]];
-    }
-    const uint4 *src = reinterpret_cast<const uint4 *>(local + start);
-    uint32_t bits = 0;
-#pragma unroll 2
-    for (int i = 0; i < kRun / 16; ++i) {
-      const uint4 v = src[i];
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  for (int64_t c = c0; c < c1; ++c) {
+    const int i = static_cast<int>(c - c0);
+    stage_chunk(a, buf + ((i + kStages - 1) % kStages) * kUnits,
+                c + kStages - 1, c1, lane);
+    __pipeline_wait_prior(kStages - 1);   // chunk c has landed
+    __syncwarp();
+    const uint4 *in = buf + (i % kStages) * kUnits;
+    const int64_t off = c * kChunk;
+    const int64_t rem = a.len - off < kChunk ? a.len - off : kChunk;
+    if (kMode != kShardScan) {   // the word image, 512 B a store
+      uint4 *dst = reinterpret_cast<uint4 *>(a.words_be) + off / 16;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          h = (h << 1) + g[(w[k] >> (8 * b)) & 0xFFu];
-          const int r = i * 16 + k * 4 + b;         // byte within the run
-          const int64_t pos1 = base + start + r + 1;  // in the whole block
-          const bool c = ((h & mask) == 0u) && pos1 >= 32;
-          bits |= static_cast<uint32_t>(c) << (r & 31);
+      for (int h = 0; h < 2; ++h) {
+        const int u = lane + 32 * h;
+        if (16 * u < rem) {
+          const uint4 v = in[unit_slot(u)];
+          dst[u] = make_uint4(__byte_perm(v.x, 0, 0x0123),
+                              __byte_perm(v.y, 0, 0x0123),
+                              __byte_perm(v.z, 0, 0x0123),
+                              __byte_perm(v.w, 0, 0x0123));
         }
       }
-      if (i & 1) {  // 32 bytes done: one bitmap word
-        words[(start + i * 16 - 16) >> 5] = bits;
+    }
+    if (kHash) {   // the lane's piece: bytes off + 32 lane ..
+      const uint4 v0 = in[unit_slot(2 * lane)];
+      const uint4 v1 = in[unit_slot(2 * lane + 1)];
+      const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      uint32_t hp[32];
+      uint32_t h = 0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        h = (h << 1) + gear[(w[j >> 2] >> (8 * (j & 3))) & 0xFFu];
+        hp[j] = h;
+      }
+      const uint32_t left = __shfl_up_sync(0xFFFFFFFFu, h, 1);
+      const uint32_t s = lane ? left : carry;
+      carry = __shfl_sync(0xFFFFFFFFu, h, 31);
+      uint32_t bits = static_cast<uint32_t>((h & a.mask) == 0u) << 31;
+#pragma unroll
+      for (int j = 0; j < 31; ++j)
+        bits |= static_cast<uint32_t>(((hp[j] + (s << (j + 1))) & a.mask) ==
+                                      0u)
+                << j;
+      if (off + 1 < a.lo || off + rem > a.hi) {   // a chunk holding a bound
+        const int64_t p1 = off + 32 * lane + 1;    // pos1 of bit 0
+        bits &= bit_range(a.lo - p1, a.hi - p1);
+      }
+      if (32 * lane < rem) {
+        a.bitmap[off / 32 + lane] = bits;
         cnt += __popc(bits);
-        bits = 0;
       }
     }
+    __syncwarp();   // stage i % kStages is refilled next step
   }
-  for (int off = 16; off > 0; off >>= 1)
-    cnt += __shfl_down_sync(0xFFFFFFFFu, cnt, off);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < kScanThreads / 32; ++i) total += warp_sum[i];
-    if (total) atomicAdd(count, total);
+  if (kMode == kShardScan) {
+    // every copy has landed (the last groups are empty): each warp's ring
+    // is free to hold its count
+    cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+    if (lane == 0) *reinterpret_cast<int *>(buf) = cnt;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int total = 0;
+      for (int i = 0; i < kScanWarps; ++i)
+        total += *reinterpret_cast<const int *>(ring + i * kStages * kUnits);
+      if (total) atomicAdd(a.count, total);
+    }
   }
+}
+
+__global__ void __launch_bounds__(kScanThreads, 3)
+cdc_scan_kernel(const ScanArgs a) {
+  gear_scan<kBlockScan>(a);
+}
+
+__global__ void __launch_bounds__(kScanThreads, 3)
+cdc_shard_scan_kernel(const ScanArgs a) {
+  gear_scan<kShardScan>(a);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+be_image_kernel(const ScanArgs a) {
+  gear_scan<kImageOnly>(a);
+}
+
+// Launch one scan on a persistent grid: as many blocks as fit on every SM
+// at once, each warp a contiguous span of ceil(chunks / warps) chunks.  The
+// resident warps of a device are found once, so a launch makes no query.
+template <int kMode>
+cudaError_t launch_scan(void (*kernel)(ScanArgs), ScanArgs a,
+                        cudaStream_t s) {
+  constexpr int kSmem =   // under the 48 KiB default: no opt-in needed
+      (kMode != kImageOnly ? 256 * 4 : 0) + kScanWarps * kStages * kChunk;
+  static std::atomic<int> resident[kMaxDevices];   // warps; 0: not known
+  if (a.len <= 0) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int warps = resident[dev].load(std::memory_order_relaxed);
+  if (warps == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kScanThreads, kSmem);
+    if (e != cudaSuccess) return e;
+    warps = sms * (per_sm > 0 ? per_sm : 1) * kScanWarps;
+    resident[dev].store(warps, std::memory_order_relaxed);
+  }
+  const int64_t nchunks = (a.len + kChunk - 1) / kChunk;
+  a.span = (nchunks + warps - 1) / warps;
+  const int64_t used = (nchunks + a.span - 1) / a.span;
+  const unsigned blocks =
+      static_cast<unsigned>((used + kScanWarps - 1) / kScanWarps);
+  kernel<<<blocks, kScanThreads, kSmem, s>>>(a);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ cut select
@@ -727,15 +828,27 @@ cdc_select_emit_kernel(int32_t b_small, int64_t S, int64_t lcap, int64_t cap,
 extern "C" int hdrf_cdc_scan(const void *data, int64_t n_pad, int64_t n,
                              uint32_t mask, int64_t min_chunk, void *words_be,
                              void *bitmap, void *stream) {
-  const int64_t threads = n_pad / kRun;
-  const int64_t thr = min_chunk > 32 ? min_chunk : 32;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kScanThreads - 1) / kScanThreads);
-  cdc_scan_kernel<<<blocks, kScanThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t *>(data), n_pad, n, mask, thr,
-      static_cast<uint32_t *>(words_be), static_cast<uint32_t *>(bitmap));
-  return static_cast<int>(cudaGetLastError());
+  ScanArgs a{};
+  a.data = static_cast<const uint8_t *>(data);
+  a.len = n_pad;
+  a.lo = min_chunk > 32 ? min_chunk : 32;   // skip_ahead_threshold(min)
+  a.hi = n;
+  a.mask = mask;
+  a.words_be = static_cast<uint32_t *>(words_be);
+  a.bitmap = static_cast<uint32_t *>(bitmap);
+  return static_cast<int>(launch_scan<kBlockScan>(
+      cdc_scan_kernel, a, static_cast<cudaStream_t>(stream)));
+}
+
+// The scan's words-only mode: block bytes -> big-endian word image.
+extern "C" int hdrf_be_image(const void *data, int64_t n_pad,
+                             void *words_be, void *stream) {
+  ScanArgs a{};
+  a.data = static_cast<const uint8_t *>(data);
+  a.len = n_pad;
+  a.words_be = static_cast<uint32_t *>(words_be);
+  return static_cast<int>(launch_scan<kImageOnly>(
+      be_image_kernel, a, static_cast<cudaStream_t>(stream)));
 }
 
 // The select: candidate bitmap -> cut table + the two binned lane tables,
@@ -792,12 +905,15 @@ extern "C" int hdrf_cdc_shard_scan(const void *local, const void *halo,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int32_t), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t threads = m / kRun;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kScanThreads - 1) / kScanThreads);
-  cdc_shard_scan_kernel<<<blocks, kScanThreads, 0, s>>>(
-      static_cast<const uint8_t *>(local), static_cast<const uint8_t *>(halo),
-      m, base, mask, static_cast<uint32_t *>(words),
-      static_cast<int32_t *>(count));
-  return static_cast<int>(cudaGetLastError());
+  ScanArgs a{};
+  a.data = static_cast<const uint8_t *>(local);
+  a.halo = static_cast<const uint8_t *>(halo);
+  a.len = m;
+  a.lo = 32 - base;   // pos1 >= 32 of the whole block
+  a.hi = m;
+  a.mask = mask;
+  a.bitmap = static_cast<uint32_t *>(words);
+  a.count = static_cast<int32_t *>(count);
+  return static_cast<int>(launch_scan<kShardScan>(cdc_shard_scan_kernel, a,
+                                                  s));
 }

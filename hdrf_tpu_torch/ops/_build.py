@@ -37,6 +37,8 @@ _SIGNATURES = {
     # scratch, stream
     "hdrf_cdc_select": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I64,
                         _I64, _P, _P],
+    # data, n_pad, words, stream
+    "hdrf_be_image": [_P, _I64, _P, _P],
     # local, halo, m, base, mask, words, count, stream
     "hdrf_cdc_shard_scan": [_P, _P, _I64, _I64, _U32, _P, _P, _P],
     # words, nw, offs, lens, L, W, out, stream

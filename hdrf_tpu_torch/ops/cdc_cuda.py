@@ -14,12 +14,20 @@ carrying the hash history and the frontier in scratch; on Hopper that
 would leave 131 of 132 SMs idle, so the work is a parallel scan and a
 parallel select on one stream:
 
-(a) a parallel scan — one thread per 256-byte run, warmed up on the 32
-    bytes before its run (``h = (h << 1) + G[b]`` over zero history equals
-    the window sum because ``G[0] == 0``), with the Gear table in shared
-    memory.  It writes the BE word image and a candidate bitmap (bit ``i``
-    = ``pos1 == i + 1``).  Bound: bytes — it reads the block once and
-    writes it once more as words (about 0.08 ms per 128 MiB at 3.35 TB/s).
+(a) a parallel scan on a persistent grid: each warp walks a contiguous
+    span of 1 KiB chunks staged through its own cp.async ring in shared
+    memory; each lane hashes one 32-byte piece from zero history and
+    takes the hash entering it from its left neighbour by a shuffle (the
+    window is 32 bytes and ``h = (h << 1) + G[b]`` is linear, so the hash
+    after byte j is ``hp_j + (s << (j + 1))``), which makes one bitmap
+    word a lane; the Gear table is one copy in shared memory.
+    It writes the BE word image and a candidate bitmap (bit ``i`` =
+    ``pos1 == i + 1``), both in coalesced stores, and applies the
+    position rule only in the chunks that hold ``thr`` or ``n``.  Its
+    words-only mode (``be_image``) writes the image alone.  Bound: bytes
+    — it reads the block once and writes it once more as words, plus the
+    bitmap (about 0.085 ms per 128 MiB at 3.35 TB/s; the words-only mode
+    0.020 ms per 32 MiB).
 (b) the select — segmented speculative walks and a stitch, four kernels
     (one wrapper call, one launch count).  The block is cut into segments
     of ``seg_width`` positions (default 128 KiB rounded to a multiple of
@@ -58,12 +66,13 @@ launches its kernel or raises.
 replaces the Pallas ``_scan_kernel`` (pallas_call at cdc_pallas.py:570,
 host half ``local_candidate_words_pallas`` at :621-647): the candidate
 scan of one ``seq`` shard of a block in the sharded reduction
-(parallel/sharded.py).  Same parallel scan, but the shard's first run
+(parallel/sharded.py).  The same scan body, but the shard's first chunk
 takes its history from a 31-byte halo (the previous shard's tail, zeros
-for shard 0), a candidate needs only ``pos1 >= WINDOW`` of the whole
-block (no ``<= n`` clamp and no min-chunk floor: the zero pad's
-candidates are counted, and the host drops them), and it returns packed
-bitmap words in the reference's ``pack_bitmap_words`` layout, so the TPU
+for shard 0, read by bytes: it is an unaligned slice), a candidate needs
+only ``pos1 >= WINDOW`` of the whole block (no ``<= n`` clamp and no
+min-chunk floor: the zero pad's candidates are counted, and the host
+drops them), no word image is written, and it returns packed bitmap
+words in the reference's ``pack_bitmap_words`` layout, so the TPU
 kernel's nibble stage has no counterpart, plus the candidate count.
 Bound: bytes — the shard and halo read once, the bitmap written once.
 """
@@ -87,8 +96,10 @@ TABLE_HDR = 8
 H_COUNT, H_OVERFLOW, H_SMALL, H_BIG = 0, 1, 2, 3
 H_SURV, H_CANDS = 4, 5  # reference telemetry lanes; zero here
 
-# Launches of each kernel, one per wrapper call on a CUDA block.
+# Launches of each kernel, one per wrapper call on a CUDA block
+# (``image_launches``: the scan's words-only mode, ``be_image``).
 scan_launches = 0
+image_launches = 0
 select_launches = 0
 shard_scan_launches = 0
 _launch_lock = threading.Lock()
@@ -316,14 +327,21 @@ def cdc_block(block: torch.Tensor, n: int, mask: int, min_chunk: int,
 def be_image(block: torch.Tensor) -> torch.Tensor:
     """int32 big-endian word image of a padded u8 block (``cdc_scan``'s
     first output) for a caller that brings its own cuts.  On the card it
-    is the scan kernel, its bitmap unused, so no plain code runs on a CUDA
-    tensor."""
+    is the scan kernel's words-only mode (no hash, no bitmap; counter
+    ``image_launches``), so no plain code runs on a CUDA tensor."""
     if block.device.type == "cpu":
         return gear.be_words(block)
     n = block.numel()
     if n == 0:
         return torch.empty(0, dtype=torch.int32, device=block.device)
-    return cdc_scan(block, n, 0, n)[0]
+    _check_block(block, n, "be_image")
+    global image_launches
+    words = torch.empty(n // 4, dtype=torch.int32, device=block.device)
+    _build.launch("hdrf_be_image", block.device, block.data_ptr(), n,
+                  words.data_ptr(), what="cdc scan kernel (words only)")
+    with _launch_lock:
+        image_launches += 1
+    return words
 
 
 def table_cuts(table: np.ndarray) -> np.ndarray:

@@ -11,11 +11,12 @@ correctness never depends on the device output — only the ratio does.
 
 The device half of :func:`match_scan`, per block of ``N % _S == 0`` bytes:
 
-1. The big-endian word image (``cdc_cuda.be_image``: the CDC scan kernel
-   on the card, ``gear.be_words`` on the CPU) and the stride-2 phase words
-   ``(w << 16) | (next >> 16)``, where ``next`` is the following word of
-   the whole block (the last entry of a supertile reads the next
-   supertile's first word; the block's last word reads 0).
+1. The big-endian word image (``cdc_cuda.be_image``: the CDC scan
+   kernel's words-only mode on the card, ``gear.be_words`` on the CPU)
+   and the stride-2 phase words ``(w << 16) | (next >> 16)``, where
+   ``next`` is the following word of the whole block (the last entry of
+   a supertile reads the next supertile's first word; the block's last
+   word reads 0).
 2. ``sort_cuda.match_deltas`` — kernel 4: per position, the back-reference
    delta to the previous same-hash position whose 4-gram is equal, in
    position order.

@@ -263,10 +263,11 @@ class ResidentReducer:
 
     def fingerprint(self, data, cuts: np.ndarray) -> np.ndarray:
         """SHA-256 digests u8[n_chunks, 32] of the caller's chunks ``[prev
-        cut, cut)``: the block's word image from the CDC scan kernel, the
-        chunks binned into the small and big lane tables by the rule the
-        CDC select applies, then the gathers and one SHA launch.  A big lane is
-        as wide as the caller's longest chunk needs."""
+        cut, cut)``: the block's word image from the CDC scan kernel's
+        words-only mode, the chunks binned into the small and big lane
+        tables by the rule the CDC select applies, then the gathers and
+        one SHA launch.  A big lane is as wide as the caller's longest
+        chunk needs."""
         cuts = np.asarray(cuts, dtype=np.int64)
         if cuts.size == 0:
             return np.empty((0, 32), dtype=np.uint8)

@@ -415,6 +415,13 @@ class WorkerClient:
             self._pool.clear()
 
 
+# The reference's --backend names (hdrf_tpu/server/reduction_worker.py
+# main, passed by its spawn_local_worker) -> the port's device; None: not
+# ported.
+BACKENDS = {"auto": "cuda", "tpu": "cuda", "cuda": "cuda", "cpu": "cpu",
+            "native": None}
+
+
 def main(argv=None) -> int:
     import argparse
     import time
@@ -422,10 +429,23 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="hdrf-torch-reduction-worker")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
-    p.add_argument("--device", default="cuda",
-                   help="cuda (the card) or cpu (plain versions, for tests)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the card, the default) or cpu (plain "
+                        "versions, for tests)")
+    p.add_argument("--backend", default=None, choices=sorted(BACKENDS),
+                   help="the reference spawner's flag: auto, tpu and cuda "
+                        "select the card, cpu the plain versions")
     args = p.parse_args(argv)
-    w = ReductionWorker(args.host, args.port, device=args.device).start()
+    device = args.device or "cuda"
+    if args.backend is not None:
+        device = BACKENDS[args.backend]
+        if device is None:
+            p.error(f"backend {args.backend!r} is not ported yet "
+                    "(ROADMAP Queue A #9a)")
+        if args.device is not None and args.device != device:
+            p.error(f"--backend {args.backend} selects {device}, not "
+                    f"--device {args.device}")
+    w = ReductionWorker(args.host, args.port, device=device).start()
     # The banner's "listening on host:port" substring is what launchers
     # parse (the reference's spawn_local_worker regex).
     print(f"reduction worker ({w.backend}) listening on "

@@ -9,6 +9,7 @@ Cuts are integers: every comparison is exact.
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -315,3 +316,143 @@ def test_segmented_select_model_equals_serial(name, src, n, mask, mn, mx,
     np.testing.assert_array_equal(got[0], table[:8 + nc].numpy())
     np.testing.assert_array_equal(got[1], ols[:, :ns].numpy())
     np.testing.assert_array_equal(got[2], olb[:, :nbg].numpy())
+
+
+# ------------------------------------------- the scan kernel's algorithm
+
+def _bit_range(lo: int, hi: int) -> int:
+    """csrc/cdc.cu ``bit_range``: bits lo..hi of a word, none if lo > hi."""
+    if lo > 31 or hi < 0 or lo > hi:
+        return 0
+    m = gear.M32
+    if lo > 0:
+        m = (m << lo) & gear.M32
+    if hi < 31:
+        m &= (2 << hi) - 1
+    return m
+
+
+def _scan_model(buf: np.ndarray, hist: np.ndarray, lo: int, hi: int,
+                mask: int, lanes: int = 32, span: int = 1):
+    """numpy model of csrc/cdc.cu's ``gear_scan`` over ``buf`` (u8, a
+    multiple of 32 bytes) with ``hist`` the 32 bytes before it, at
+    ``lanes`` 32-byte pieces a chunk and ``span`` chunks a warp.  Each
+    piece is hashed once from zero history (prefix hashes hp_j); the hash
+    entering it is its left neighbour's last hp (the previous chunk's
+    last lane for lane 0), or, for the first piece of a span, a warp sum
+    of ``G[b_k] << (31 - k)`` over the 32 bytes before it; the hash after
+    byte j is ``hp_j + (s << (j + 1))``.  The position rule (selectable
+    pos1 within ``buf``: [lo, hi]) is applied as a bit mask a piece, only
+    in chunks that hold a bound.  Returns (bitmap u32[len / 32], the
+    hashes u64[len], the number of clamped chunks)."""
+    g = gear.gear_table_np().astype(np.uint64)
+    n = buf.size
+    pieces = g[buf.reshape(-1, 32)]
+    hp = np.zeros_like(pieces)
+    h = np.zeros(len(pieces), np.uint64)
+    for j in range(32):
+        h = ((h << np.uint64(1)) + pieces[:, j]) & gear.M32
+        hp[:, j] = h
+    chunk = 32 * lanes
+    p = np.arange(len(pieces))
+    s = np.concatenate([[np.uint64(0)], hp[:-1, 31]])   # the left lane's
+    ext = np.concatenate([hist, buf])
+    for q in np.nonzero(p * 32 % (chunk * span) == 0)[0]:  # span starts
+        pre = ext[32 * q:32 * q + 32].astype(np.uint64)    # 32 bytes before
+        s[q] = np.uint64(sum(int(g[b]) << (31 - k)
+                             for k, b in enumerate(pre)) & gear.M32)
+    shift = np.arange(1, 33, dtype=np.uint64)
+    t = (hp + ((s[:, None] << shift) & gear.M32)) & gear.M32
+    bits = (((t & np.uint64(mask)) == 0).astype(np.uint64)
+            << np.arange(32, dtype=np.uint64)).sum(axis=1)
+    off = p * 32 // chunk * chunk
+    rem = np.minimum(chunk, n - off)
+    clamped = (off + 1 < lo) | (off + rem > hi)
+    for q in np.nonzero(clamped)[0]:
+        bits[q] &= np.uint64(_bit_range(lo - (32 * q + 1), hi - (32 * q + 1)))
+    return (bits.astype(np.uint32), t.reshape(-1),
+            len(set((off[clamped] // chunk).tolist())))
+
+
+SCAN_MODEL_CASES = [  # (name, n, fill, mask, min, lanes, span)
+    ("n-in-a-piece-300", 300, "random", 0, 16, 32, 1),
+    ("pos1-is-thr-512", 512, "random", 0, 32, 32, 1),
+    ("ragged-last-tile", 1536, "random", 0, 1000, 32, 1),
+    ("thr-in-third-tile", 5000, "text", 0x7, 2100, 32, 3),
+    ("zeros", 4096, "zeros", 0x1FFF, 64, 32, 2),
+    ("narrow-lanes", 3000, "random", 0xF, 100, 4, 3),
+    ("two-lanes-text", 20_000, "text", 0xFF, 300, 2, 5),
+    ("random-spans", 200_000, "random", 0x1FFF, 2048, 32, 7),
+]
+
+
+def _scan_data(n: int, fill: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if fill == "zeros":
+        return np.zeros(n, np.uint8)
+    return rng.integers(*((97, 123) if fill == "text" else (0, 256)), n,
+                        dtype=np.uint8)
+
+
+@pytest.mark.parametrize("name,n,fill,mask,mn,lanes,span", SCAN_MODEL_CASES,
+                         ids=[c[0] for c in SCAN_MODEL_CASES])
+def test_scan_model_equals_window_hashes_and_reference(name, n, fill, mask,
+                                                       mn, lanes, span):
+    """The scan kernel's decomposition (pieces hashed from zero, entering
+    hashes by neighbour and warp sum, the hoisted position rule), modelled
+    at the kernel's widths and at narrow ones, gives every window hash of
+    ``gear.window_hashes`` and the bitmap of the plain scan, of the
+    reference's ``candidate_bitmap_words`` and ``gear_candidates_jax``
+    and of ``native.gear_candidates``, tolerance zero."""
+    a = _scan_data(n, fill, n + mn)
+    block, n = cdc_cuda.padded_block(a, "cpu")
+    thr = gear.skip_ahead_threshold(mn)
+    got, hashes, clamped = _scan_model(block.numpy(), np.zeros(32, np.uint8),
+                                       thr, n, mask, lanes, span)
+    assert clamped >= 1
+    np.testing.assert_array_equal(hashes,
+                                  gear.window_hashes(block).numpy())
+    _, plain = cdc_cuda.cdc_scan_plain(block, n, mask, mn)
+    np.testing.assert_array_equal(got, plain.numpy().view(np.uint32))
+    ref = np.asarray(ref_gear.candidate_bitmap_words(
+        jnp.asarray(block.numpy()), jnp.uint32(mask)))
+    pos = np.arange(1, block.numel() + 1)
+    rule = ((pos >= thr) & (pos <= n)).reshape(-1, 32)
+    ref_bits = np.unpackbits(ref.view(np.uint8), bitorder="little") \
+        .reshape(-1, 32).astype(bool) & rule
+    np.testing.assert_array_equal(
+        np.unpackbits(got.view(np.uint8), bitorder="little")
+        .reshape(-1, 32).astype(bool), ref_bits)
+    (idx,) = np.nonzero(got)
+    cand = gear.words_to_positions(idx, got[idx], n)
+    for oracle in (native.gear_candidates(a, mask),
+                   ref_gear.gear_candidates_jax(a, mask)):
+        oracle = oracle.astype(np.uint64)
+        np.testing.assert_array_equal(cand, oracle[oracle >= thr])
+
+
+def test_scan_model_hoisted_rule_equals_per_position_rule():
+    """Clamping only the chunks that hold ``thr`` or ``n`` gives the same
+    bitmap as testing every position, at the kernel's widths: mask 0 makes
+    every position a candidate, so the bitmap is exactly the rule."""
+    for n, mn in ((300, 16), (512, 32), (1536, 1000), (4000, 2100),
+                  (70_000, 4097)):
+        block, n = cdc_cuda.padded_block(_scan_data(n, "random", n), "cpu")
+        thr = gear.skip_ahead_threshold(mn)
+        got, _, _ = _scan_model(block.numpy(), np.zeros(32, np.uint8), thr,
+                                n, 0)
+        pos = np.arange(1, block.numel() + 1)
+        want = np.packbits((pos >= thr) & (pos <= n), bitorder="little")
+        np.testing.assert_array_equal(got.view(np.uint8), want)
+
+
+@pytest.mark.parametrize("n", [512, 1536, 4096 + 512, 65_536])
+def test_be_image_plain_equals_reference_word_image(n):
+    """``be_image``'s plain version (``gear.be_words``; the words-only
+    scan on the card) equals the reference's ``be_word_image`` on the
+    CPU."""
+    from hdrf_tpu.ops.resident import be_word_image
+    a = _scan_data(n, "random", n)
+    got = cdc_cuda.be_image(torch.from_numpy(a)).numpy().view(np.uint32)
+    want = np.asarray(be_word_image(jnp.asarray(a)))
+    np.testing.assert_array_equal(got, want)

@@ -111,6 +111,77 @@ def test_kernels_equal_plain(dev, seed, n, fill, mask, mn, mx, seg_width):
                            sha256_words(mk, nb))
 
 
+SCAN_EDGES = [  # (n, fill, mask, min): the scan's tiles are 1 KiB chunks
+    (300, "random", 0, 16),             # n inside a piece, mask 0
+    (512, "random", 0, 32),             # pos1 == thr == 32 and == n
+    (512, "zeros", 0x1FFF, 2048),       # thr past n: no candidate
+    (1536, "random", 0, 1000),          # ragged last chunk, thr mid-piece
+    (5000, "text", 0, 2100),            # thr in the third chunk
+    (64 * 1024 + 300, "random", 0xFF, 4097),
+    ((3 << 20) + 512, "random", 0x1FFF, 2048),   # spans of many chunks
+    ((3 << 20) + 77, "zeros", 0x1FFF, 2048),
+]
+
+
+@pytest.mark.parametrize("n,fill,mask,mn", SCAN_EDGES)
+def test_scan_edges_equal_plain(dev, n, fill, mask, mn):
+    """The scan at its position-rule and tiling edges: words and bitmap
+    equal the plain version, the bitmap's positions equal the native
+    candidates in [thr, n], one launch."""
+    a = _data(n + mn, n, fill)
+    block, n = cdc_cuda.padded_block(a, dev)
+    n0 = cdc_cuda.scan_launches
+    kw, kb = cdc_cuda.cdc_scan(block, n, mask, mn)
+    torch.cuda.synchronize()
+    assert cdc_cuda.scan_launches == n0 + 1
+    pw, pb = cdc_cuda.cdc_scan_plain(block, n, mask, mn)
+    assert torch.equal(kw, pw) and torch.equal(kb, pb)
+    wv = kb.cpu().numpy().view(np.uint32)
+    (idx,) = np.nonzero(wv)
+    pos = words_to_positions(idx.astype(np.uint32), wv[idx], n)
+    nat = native.gear_candidates(a, mask)
+    np.testing.assert_array_equal(pos, nat[nat >= max(mn, 32)])
+
+
+@pytest.mark.parametrize("n", [512, 1536, (1 << 20) + 512, 32 << 20,
+                               128 << 20])
+def test_be_image_words_only_launch(dev, n):
+    """``be_image`` is one launch of the scan's words-only mode (its own
+    counter; ``scan_launches`` does not move) and equals gear.be_words."""
+    from hdrf_tpu_torch.ops import gear
+    g = torch.Generator(device=dev).manual_seed(n % 1000)
+    block = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                          generator=g)
+    s0, i0 = cdc_cuda.scan_launches, cdc_cuda.image_launches
+    got = cdc_cuda.be_image(block)
+    torch.cuda.synchronize()
+    assert (cdc_cuda.scan_launches, cdc_cuda.image_launches) == (s0, i0 + 1)
+    assert torch.equal(got, gear.be_words(block))
+
+
+SHARD_EDGES = [  # (m, base): shards of 256 B, one chunk +- 256 B, many
+    (256, 0), (256, 4096), (768, 0), (768, 1024), (1280, 0), (1280, 1280),
+    ((2 << 20) + 256, 0), ((2 << 20) + 256, (2 << 20) + 256),
+]
+
+
+@pytest.mark.parametrize("mask", [0, 0x7, 0x1FFF])
+@pytest.mark.parametrize("m,base", SHARD_EDGES)
+def test_shard_scan_edges_equal_plain(dev, m, base, mask):
+    """A shard at the scan's tiling edges with a random, unaligned halo
+    (a slice of the bytes before it): words and count equal the plain
+    version."""
+    rng = np.random.default_rng(m + base + mask)
+    buf = torch.from_numpy(rng.integers(0, 256, m + 64, dtype=np.uint8))
+    buf = buf.to(dev)
+    local = buf[64:]
+    halo = buf[64 - 31:64] if base else torch.zeros(31, dtype=torch.uint8,
+                                                    device=dev)
+    kw, kc = cdc_cuda.shard_scan(local, halo, base, mask)
+    pw, pc = cdc_cuda.shard_scan_plain(local, halo, base, mask)
+    assert torch.equal(kw, pw) and torch.equal(kc, pc)
+
+
 def test_select_counts_one_launch(dev):
     """The select's four kernels are one wrapper call, one launch."""
     a = _data(1, 150_000, "random")
@@ -220,14 +291,17 @@ def test_reducer_grouped_sha_once_per_block(dev):
 
 def test_fingerprints_on_card_equal_hashlib(dev):
     """dispatch.fingerprints with the caller's cuts (one chunk longer than
-    max_chunk): the BE image comes from the CDC scan kernel alone, then
-    the gather and SHA kernels."""
+    max_chunk): the BE image comes from the CDC scan kernel's words-only
+    mode alone (no hashing scan, no select), then the gather and SHA
+    kernels."""
     rng = np.random.default_rng(9)
     a = rng.integers(0, 256, 140_001, dtype=np.uint8)
     cuts = np.array([1, 64, 119, 5000, 5001, 21_000, 140_001], np.uint64)
     scans, selects = cdc_cuda.scan_launches, cdc_cuda.select_launches
+    images = cdc_cuda.image_launches
     got = dispatch.fingerprints(a, cuts, "cuda")
-    assert cdc_cuda.scan_launches == scans + 1
+    assert cdc_cuda.image_launches == images + 1
+    assert cdc_cuda.scan_launches == scans
     assert cdc_cuda.select_launches == selects
     start = 0
     for c, d in zip(cuts, got):

@@ -27,6 +27,8 @@ from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import CdcConfig
 from hdrf_tpu_torch.ops import cdc_cuda, dispatch
 from hdrf_tpu_torch.ops.dispatch import gear_mask
+from hdrf_tpu_torch.ops.gear import words_to_positions as \
+    gear_words_to_positions
 from hdrf_tpu_torch.parallel import sharded
 
 # the plain SHA-256 steps once per 64-byte block of the longest chunk:
@@ -112,6 +114,50 @@ def test_shard_scan_plain_halo_and_position_rule():
                                       torch.zeros(31, dtype=torch.uint8), 0,
                                       0x3F)
     assert int(zeros[1]) == 256 - 31   # every pos1 >= 32 of the zero pad
+
+
+SHARD_MODEL_CASES = [  # (m, n_seq, lanes, span): shards of 256 B, one
+    (256, 4, 32, 1),      # 1 KiB tile +- 256 B, many tiles, narrow lanes
+    (768, 3, 32, 1), (1280, 3, 32, 1), (1280, 2, 32, 2),
+    (8192 + 256, 4, 32, 3), (4096, 4, 4, 2), (2816, 3, 2, 5),
+]
+
+
+@pytest.mark.parametrize("mask", [0, 0x3F, 0x1FFF])
+@pytest.mark.parametrize("m,n_seq,lanes,span", SHARD_MODEL_CASES)
+def test_shard_scan_model_equals_reference(m, n_seq, lanes, span, mask):
+    """The shard-scan kernel's decomposition (tests/test_torch_cdc.py's
+    model: the 31-byte halo as the first tile's history, read by bytes;
+    the rule ``pos1 >= 32`` of the whole block, hoisted to the tiles that
+    hold it) gives, shard by shard, the reference's whole-block
+    ``candidate_bitmap_words`` slice, the plain version's words and
+    count, and ``native.gear_candidates``, tolerance zero."""
+    from test_torch_cdc import _scan_model
+    from hdrf_tpu.ops import gear as ref_gear
+    a = np.random.default_rng(m + n_seq).integers(0, 256, m * n_seq,
+                                                  dtype=np.uint8)
+    a[m - 40:m + 40] = 0        # a zero run across the first shard edge
+    ref = np.asarray(ref_gear.candidate_bitmap_words(jnp.asarray(a),
+                                                     jnp.uint32(mask)))
+    words = []
+    for s in range(n_seq):
+        base = s * m
+        local = a[base:base + m]
+        halo = a[base - 31:base] if s else np.zeros(31, np.uint8)
+        got, _, _ = _scan_model(local, np.concatenate([[0], halo]).astype(
+            np.uint8), 32 - base, m, mask, lanes, span)
+        np.testing.assert_array_equal(got, ref[base // 32:(base + m) // 32])
+        pw, pc = cdc_cuda.shard_scan_plain(torch.from_numpy(local),
+                                           torch.from_numpy(halo.copy()),
+                                           base, mask)
+        np.testing.assert_array_equal(got, pw.numpy().view(np.uint32))
+        assert int(pc) == int(np.unpackbits(got.view(np.uint8)).sum())
+        words.append(got)
+    wv = np.concatenate(words)
+    (idx,) = np.nonzero(wv)
+    np.testing.assert_array_equal(
+        gear_words_to_positions(idx, wv[idx], a.size),
+        ref_native.gear_candidates(a, mask))
 
 
 def test_shard_scan_wrapper_runs_plain_only_on_the_cpu():

@@ -329,6 +329,40 @@ def test_worker_module_entry_point_serves():
         proc.wait(timeout=10)
 
 
+def test_worker_backend_flag_spawns_like_the_reference():
+    """The reference's spawn_local_worker command line (``--port 0
+    --backend B``) starts the port's worker; its banner parses with the
+    reference's regex and the worker answers ``ping``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdrf_tpu_torch.server.reduction_worker",
+         "--port", "0", "--backend", "cpu"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"listening on ([\d.]+):(\d+)", line)
+        assert m and "(cpu)" in line, line
+        c = WorkerClient((m.group(1), int(m.group(2))))
+        assert c.ping()["ok"]
+        c.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
+def test_worker_backend_native_is_refused_until_ported():
+    """``--backend native`` exits with an error naming the ROADMAP item
+    that ports it; a ``--device`` that contradicts ``--backend`` is
+    refused too."""
+    r = _py(["-m", "hdrf_tpu_torch.server.reduction_worker", "--port", "0",
+             "--backend", "native"])
+    assert r.returncode != 0 and "listening" not in r.stdout
+    assert "Queue A #9a" in r.stderr, r.stderr
+    r = _py(["-m", "hdrf_tpu_torch.server.reduction_worker", "--port", "0",
+             "--backend", "cpu", "--device", "cuda"])
+    assert r.returncode != 0 and "listening" not in r.stdout
+
+
 def test_card_entry_points_fail_without_a_card():
     """Without a GPU the worker's default device, chip_smoke.py and
     kernel_times.py refuse to run (exit non-zero, no result line) instead
