@@ -97,7 +97,35 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    group's digests a second pass votes hits equal to ``host_probe``.  (d)
    ``lz4_compress_many_sharded`` of one 4 x 32 MiB group equals
    ``DeviceLz4.compress_many`` fed the same sequence.
-9. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+9. SCHEME, the in-process ``dedup_lz4`` scheme as the DataNode runs it
+   (hdrf_tpu/server/datanode.py:139-262 wired on the port at
+   ``ReductionConfig()`` defaults: 32 MiB lz4 containers sealed by the
+   device LZ4, the chunk index with its group-commit window, a
+   ``DeviceReconstructor`` with a 256 MiB budget, the read plane and its
+   admission controller; data under a ``tempfile`` directory).  (a) The
+   raw lane-gather kernel against its plain version on every lane, at
+   every bucket from 16 to 2048, on a random and a zeros image of a
+   staged 32 MiB container, all four byte alignments and lanes whose
+   window ends at the image's edge; tolerance zero.  (b) Write: the
+   ``reduce`` corpus through ``scheme.get("dedup_lz4").reduce`` on
+   ``cuda``, then ``flush_open``; every block's chunk lengths and hashes
+   in the index equal ``native.cdc_select`` + ``sha256_batch``, every
+   sealed container decodes (``native.lz4_decompress`` for lz4 frames) to
+   the payload its roll saw; the write kernels' launch counts (zeroed
+   before) are > 0 (``SCHEME write``: ms per block, MiB/s, dedup ratio,
+   containers sealed).  (c) Read: every block whole through
+   ``reconstruct`` (the reconstructor), twice, bit-identical; then
+   ranged reads at odd offsets above and below ``DEVICE_RECON_MIN`` (the
+   reconstructor and the read plane) against the slices (``SCHEME
+   read``: ms per block, MiB/s, ``image_hits``, ``images_staged``,
+   launches).  (d) The index closed and reopened from its directory: its
+   refcounts equal a plain model of the blocks written; two blocks read
+   again.  (e) ``TIMING gather_raw``: every (container, bucket) group of
+   one block's read, card ms, device ms, plain once, the library call
+   (advanced indexing + shift) and the byte bound.  (f) ``PROFILE
+   scheme_write`` / ``scheme_read``: one more block written and read
+   under ``torch.profiler`` (traces ``smoke_trace_scheme_*.json``).
+10. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas
@@ -110,7 +138,9 @@ The CDC kernel pair is two wrapper calls with a launch count each:
 launch); ``be_image`` (the scan's words-only mode, its own counter) and
 ``shard_scan`` (the same source) are the third and fourth.  Their launch
 counts are those of the seal's and the MESH phase's ``reduce_sharded``
-requests.  Bounds use the card's published peaks: 3.35 TB/s HBM, and
+requests.  ``gather_raw`` (the raw lane gather of the read path, a
+jitted XLA program in the reference, not a ``pallas_call``) counts its
+launches over SCHEME's first full read pass.  Bounds use the card's published peaks: 3.35 TB/s HBM, and
 16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98 GHz; the kernels are
 integer work).
 """
@@ -121,6 +151,7 @@ import argparse
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -136,14 +167,16 @@ from hdrf_tpu_torch.config import CdcConfig
 from hdrf_tpu_torch.ops import (_build, cdc_cuda, gather_cuda, gear,
                                 lz4_device,
                                 sha256_cuda, sort_cuda)
+from hdrf_tpu_torch.ops import dispatch as ops_dispatch
 from hdrf_tpu_torch.ops.dispatch import gear_mask
 from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.ops.sha256 import sha256_words
 from hdrf_tpu_torch.parallel import launch, sharded
 from hdrf_tpu_torch.proto.datatransfer import DEFAULT_PACKET
+from hdrf_tpu_torch.reduction import scheme as ops_scheme
 from hdrf_tpu_torch.server.reduction_worker import (ReductionWorker,
                                                     WorkerClient)
-from hdrf_tpu_torch.utils import metrics
+from hdrf_tpu_torch.utils import metrics, profiler
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -206,6 +239,9 @@ KERNELS = {
                   "hdrf_tpu/ops/sort_pallas.py:148"),
     "shard_scan": ("hdrf_tpu_torch/csrc/cdc.cu",
                    "hdrf_tpu/ops/cdc_pallas.py:570"),
+    # a jitted XLA program of the reference, not a pallas_call
+    "gather_raw": ("hdrf_tpu_torch/csrc/gather.cu",
+                   "hdrf_tpu/ops/reconstruct.py:46"),
 }
 
 
@@ -648,11 +684,15 @@ def _union_us(spans: list, lo: float, hi: float) -> float:
     return total
 
 
-def profile_window(tag: str, run_requests, nreq: int, names) -> dict:
+def profile_window(tag: str, run_requests, nreq: int, names,
+                   expect=()) -> dict:
     """``nreq`` requests (``run_requests()``) under torch.profiler: the
     device's busy share of the window (union of kernel, copy and fill
     intervals) and the device ms per request of each kernel, by the first
-    of ``names`` (kernel name -> label) found in its name.  The trace is
+    of ``names`` (kernel name -> label) found in its name; ``complete``:
+    whether every label of ``expect`` was seen (late in this script the
+    trace of a scheme write has lost device records; kernel_times.py
+    --only scheme profiles it in a fresh process).  The trace is
     kept in ``chiprun_out/smoke_trace_<tag>.json``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -687,6 +727,8 @@ def profile_window(tag: str, run_requests, nreq: int, names) -> dict:
     out = {"requests": nreq, "window_ms": (hi - lo) / 1e3,
            "busy_share": _union_us(spans, lo, hi) / (hi - lo),
            "device_ms_per_request": per_kernel}
+    if expect:
+        out["complete"] = all(k in per_kernel for k in expect)
     print(f"PROFILE {tag} " + json.dumps(out), flush=True)
     return out
 
@@ -1332,6 +1374,373 @@ def mesh_phase(args, dev, cdc: CdcConfig, corpora: dict, errs: dict,
     return out
 
 
+# ----------------------------------------------------------------- scheme
+
+SCHEME_BUCKETS = tuple(16 << i for i in range(8))     # 16 .. 2048
+SCHEME_KERNEL_NAMES = {**REDUCE_KERNEL_NAMES, **SEAL_KERNEL_NAMES,
+                       "gather_raw_kernel": "gather_raw"}
+SCHEME_WRITE_KERNELS = ("cdc_scan", "cdc_select", "gather_pad", "sha256",
+                        "match_deltas", "sort_rows", "be_image")
+SCHEME_READ_KERNELS = ("gather_raw", "be_image")
+RAW_KERNELS = ("gather_raw_kernel",)
+
+
+def _scheme_launch_counts() -> dict:
+    return {"cdc_scan": cdc_cuda.scan_launches,
+            "cdc_select": cdc_cuda.select_launches,
+            "gather_pad": gather_cuda.launches,
+            "sha256": sha256_cuda.launches,
+            "match_deltas": sort_cuda.match_deltas_launches,
+            "sort_rows": sort_cuda.sort_rows_launches,
+            "be_image": cdc_cuda.image_launches,
+            "gather_raw": gather_cuda.raw_launches}
+
+
+def _zero_launch_counts() -> None:
+    cdc_cuda.scan_launches = cdc_cuda.select_launches = 0
+    cdc_cuda.image_launches = gather_cuda.launches = 0
+    sha256_cuda.launches = gather_cuda.raw_launches = 0
+    sort_cuda.match_deltas_launches = sort_cuda.sort_rows_launches = 0
+
+
+def library_raw(words: torch.Tensor, ol: torch.Tensor,
+                bucket: int) -> torch.Tensor:
+    """The raw lane gather as PyTorch calls — advanced indexing of the
+    words by ``q[:, None] + arange(W + 1)`` and the funnel shift — the
+    yardstick of ``gather_raw`` (the port never calls it)."""
+    W = bucket * 16
+    q = (ol[0] >> 2).to(torch.int64)
+    s = ((ol[0] & 3) * 8)[:, None]
+    lanes = words[q[:, None] + torch.arange(W + 1, device=words.device)]
+    a, b = lanes[:, :W], lanes[:, 1:]
+    low = (b >> (32 - s).clamp(max=31)) & ((1 << s) - 1)
+    return torch.where(s == 0, a, (a << s) | low)
+
+
+def raw_kernel_phase(dev, errs: dict) -> None:
+    """The raw gather kernel against its plain version on every lane, at
+    every bucket from 16 to 2048, on a random and a zeros image the size
+    of a staged 32 MiB container (payload + the reconstructor's headroom,
+    on its 512-byte grid): all four byte alignments, random offsets and a
+    lane whose window ends at the image's edge.  Tolerance zero."""
+    nw = (SEAL_BYTES + (1 << 20) + 4096) // 4
+    rng = np.random.default_rng(11)
+    images = {"random": torch.from_numpy(rng.integers(
+                  -(1 << 31), 1 << 31, nw, dtype=np.int64).astype(np.int32))
+                  .to(dev),
+              "zeros": torch.zeros(nw, dtype=torch.int32, device=dev)}
+    for fill, words in images.items():
+        for bucket in SCHEME_BUCKETS:
+            W = bucket * 16
+            hi = (nw - W - 1) * 4
+            offs = np.concatenate([rng.integers(0, hi, 1019),
+                                   [0, 1, 2, 3, hi - 1, hi - 2, hi - 3, hi,
+                                    hi + 3]])
+            ol = torch.from_numpy(np.stack([
+                offs, rng.integers(1, W * 4 - 4, offs.size)]).astype(
+                    np.int32)).to(dev)
+            e = max_err(gather_cuda.gather_lanes_raw(words, ol, bucket),
+                        gather_cuda.gather_lanes_raw_plain(words, ol, bucket))
+            errs["gather_raw"] = max(errs["gather_raw"], e)
+            check(e == 0, f"gather_raw {fill} bucket {bucket}: kernel != "
+                          f"plain (max err {e})")
+    print(f"KERNELS gather_raw: buckets {SCHEME_BUCKETS[0]}-"
+          f"{SCHEME_BUCKETS[-1]}, random and zeros images, 1,028 lanes "
+          f"each, identical", flush=True)
+
+
+def scheme_context(root: str, payloads: dict):
+    """The DataNode's wiring of ``dedup_lz4`` (hdrf_tpu/server/
+    datanode.py:139-262) on the port, at ReductionConfig() defaults:
+    32 MiB lz4 containers sealed by the device LZ4, the chunk index with
+    its group-commit window, a DeviceReconstructor (its invalidation on
+    container delete), the read plane with its admission controller.
+    ``payloads`` collects each sealed container's payload digest (the
+    store's roll hook)."""
+    from hdrf_tpu_torch.config import ReductionConfig
+    from hdrf_tpu_torch.index.chunk_index import ChunkIndex
+    from hdrf_tpu_torch.ops.reconstruct import DeviceReconstructor
+    from hdrf_tpu_torch.reduction.scheme import ReductionContext
+    from hdrf_tpu_torch.server.read_plane import ReadPlane
+    from hdrf_tpu_torch.storage.container_store import ContainerStore
+    from hdrf_tpu_torch.utils import qos
+
+    red = ReductionConfig()
+    backend = ops_dispatch.resolve_backend(red.backend)
+    containers = ContainerStore(
+        os.path.join(root, "containers"),
+        container_size=red.container_size, codec=red.container_codec,
+        compress_fn=lambda d: ops_dispatch.block_compress("lz4", d, backend),
+        compress_batch_fn=lambda ds: ops_dispatch.block_compress_batch(
+            "lz4", ds, backend),
+        fsync=red.fsync_containers,
+        on_roll=lambda cid, p: payloads.__setitem__(
+            cid, (len(p), hashlib.sha256(p).digest())))
+    index = ChunkIndex(os.path.join(root, "index"),
+                       group_window_s=(red.group_commit_window_ms / 1000.0
+                                       if red.pipeline_depth > 1 else 0.0),
+                       group_max=red.pipeline_max_inflight)
+    recon = DeviceReconstructor()
+    containers._on_delete = recon.invalidate
+    ctrl = qos.AdmissionController(rate_mb_s=red.qos_tenant_rate_mb_s,
+                                   burst_mb=red.qos_tenant_burst_mb,
+                                   shed_p95_mult=red.shed_p95_mult)
+    rp = ReadPlane(containers, chunk_cache_mb=red.chunk_cache_mb,
+                   window_ms=red.read_batch_window_ms,
+                   max_inflight=red.read_max_inflight, backend=backend,
+                   qos_ctrl=ctrl)
+    rp.attach_store(containers)
+    return ReductionContext(config=red, containers=containers, index=index,
+                            backend=backend, recon=recon, read_plane=rp)
+
+
+def _check_sealed(ctx, payloads: dict) -> dict:
+    """Every sealed container file decodes (``native.lz4_decompress``
+    for an lz4 frame) to the payload its roll saw."""
+    from hdrf_tpu_torch.storage import container_store as cs
+    from hdrf_tpu_torch.utils import codec as codecs
+
+    kinds: dict = {}
+    for cid in ctx.containers.container_ids():
+        blob = ctx.containers.sealed_file_bytes(cid)
+        if blob is None:
+            continue
+        magic, usize, cid_codec = cs._SEAL_HDR.unpack(blob[:cs._SEAL_HDR.size])
+        body = blob[cs._SEAL_HDR.size:]
+        codec = codecs.CODEC_NAMES[cid_codec]
+        data = native.lz4_decompress(body, usize) if codec == "lz4" else body
+        check(magic == cs._SEAL_MAGIC and cid in payloads
+              and (len(data), hashlib.sha256(data).digest()) == payloads[cid],
+              f"sealed container {cid} ({codec}) != its payload")
+        kinds[codec] = kinds.get(codec, 0) + 1
+    return kinds
+
+
+def _phase_ms(t0: float, t1: float, n: int) -> dict:
+    """Host ms per block of each phase the scheme's layers recorded
+    (utils/profiler: ``dedup_lookup``, ``container_io`` (the seals on
+    roll included), ``wal_commit``, ``index_lookup``, ``container_decode``
+    (the reconstructor's staging, gather and copy-out), ``cache_probe``,
+    ``decode_wait``) in [t0, t1], exclusive, as the overlap accountant
+    partitions them."""
+    prof = profiler.window_profile(t0, t1)
+    return {k: v * 1e3 / n for k, v in prof["phases"].items()}
+
+
+def scheme_write(ctx, blocks: list, want: list) -> dict:
+    s = ops_scheme.get("dedup_lz4")
+    datas = [b.tobytes() for b in blocks]
+    _zero_launch_counts()
+    lat = []
+    t_start = profiler.mark()
+    for bid, d in enumerate(datas):
+        t0 = time.perf_counter()
+        check(s.reduce(bid, d, ctx) == b"", f"block {bid}: stored bytes")
+        lat.append(time.perf_counter() - t0)
+    phases = _phase_ms(t_start, profiler.mark(), len(datas))
+    t0 = time.perf_counter()
+    ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    launches = _scheme_launch_counts()
+    for kname in SCHEME_WRITE_KERNELS:
+        check(launches[kname] > 0,
+              f"SCHEME write never launched the {kname} kernel")
+    for bid, (cuts, digs) in enumerate(want):
+        hashes = ctx.index.get_block(bid).hashes
+        locs = ctx.index.lookup_chunks(hashes)
+        lens = np.array([locs[h].length for h in hashes], np.uint64)
+        check(hashes == [bytes(d) for d in digs]
+              and np.array_equal(np.cumsum(lens), cuts),
+              f"block {bid}: scheme cuts/digests != native oracle")
+    st = ctx.index.stats()
+    return {"blocks": len(datas), "block_mib": blocks[0].size / MIB,
+            "ms_per_block": [x * 1e3 for x in lat],
+            "mib_per_s": [b.size / MIB / x for b, x in zip(blocks, lat)],
+            "flush_open_ms": flush_ms, "phase_ms_per_block": phases,
+            "dedup_ratio": st["logical_bytes"] / st["unique_chunk_bytes"],
+            "chunks": st["chunks"], "containers_sealed":
+                st["sealed_containers"], "launches": launches}
+
+
+def _recon_counts() -> dict:
+    c = metrics.registry("device_recon").snapshot()["counters"]
+    return {k: c.get(k, 0) for k in ("image_hits", "images_staged",
+                                     "chunks_gathered")}
+
+
+def scheme_read_pass(ctx, blocks: list) -> dict:
+    s = ops_scheme.get("dedup_lz4")
+    c0 = _recon_counts()
+    lat, phases = [], {}
+    for bid, blk in enumerate(blocks):
+        t0 = time.perf_counter()
+        m0 = profiler.mark()
+        got = s.reconstruct(bid, b"", blk.size, ctx)
+        m1 = profiler.mark()
+        lat.append(time.perf_counter() - t0)
+        for k, v in _phase_ms(m0, m1, len(blocks)).items():
+            phases[k] = phases.get(k, 0.0) + v
+        check(got == blk.tobytes(), f"block {bid}: read != written bytes")
+    c1 = _recon_counts()
+    return {"ms_per_block": [x * 1e3 for x in lat],
+            "mib_per_s": [b.size / MIB / x for b, x in zip(blocks, lat)],
+            "phase_ms_per_block": phases,
+            **{k: c1[k] - c0[k] for k in c1}}
+
+
+def scheme_ranged(ctx, blocks: list) -> dict:
+    """Ranged reads at odd offsets, above DEVICE_RECON_MIN (the
+    reconstructor) and below it (the read plane); each equals its
+    slice."""
+    from hdrf_tpu_torch.reduction.dedup import DEVICE_RECON_MIN
+
+    s = ops_scheme.get("dedup_lz4")
+    n_dev = n_plane = 0
+    for bid, blk in enumerate(blocks):
+        for off, ln in ((12_345 + 7_777 * bid, DEVICE_RECON_MIN + 4_099),
+                        (blk.size - DEVICE_RECON_MIN - 3 - bid, -1),
+                        (99_999 + bid, 65_537),
+                        (blk.size - 1_000 - bid, 5_000)):
+            got = s.reconstruct(bid, b"", blk.size, ctx, off, ln)
+            end = blk.size if ln < 0 else min(off + ln, blk.size)
+            check(got == blk[off:end].tobytes(),
+                  f"block {bid}: ranged read ({off}, {ln}) != slice")
+            if end - off >= DEVICE_RECON_MIN:
+                n_dev += 1
+            else:
+                n_plane += 1
+    return {"device_recon_reads": n_dev, "read_plane_reads": n_plane}
+
+
+def time_gather_raw(ctx, bid: int, n: int) -> dict:
+    """``gather_raw`` at one 128 MiB read's shapes: every (container,
+    bucket) group of the block's plan, images resident.  Card ms (CUDA
+    events, one wrapper call a group), device ms (profiler), the plain
+    version once, the library call (advanced indexing + shift), and the
+    byte bound — each lane's W + 1 image words read once, its W words
+    written, its offset read."""
+    from hdrf_tpu_torch.ops import reconstruct
+    from hdrf_tpu_torch.server.read_plane import resolve_chunk_plan
+
+    plan = resolve_chunk_plan(ctx.index, bid)
+    groups: dict = {}
+    for cid, off, ln in plan.wanted:
+        b = reconstruct._bucket_of(-(-ln // 64) + 1)
+        groups.setdefault((cid, b), []).append(off)
+    calls, nbytes, lanes = [], 0, 0
+    for (cid, b), offs in groups.items():
+        img = ctx.recon._image(cid, lambda c=cid:
+                               ctx.containers.read_container(c))
+        L = -(-len(offs) // 128) * 128
+        ol = np.zeros((2, L), np.int32)
+        ol[0, :len(offs)] = offs
+        calls.append((img, torch.from_numpy(ol).to(img.device), b))
+        W = b * 16
+        nbytes += L * (W + 1) * 4 + L * W * 4 + 4 * L
+        lanes += L
+    e = 0
+    for img, ol, b in calls:
+        k = gather_cuda.gather_lanes_raw(img, ol, b)
+        e = max(e, max_err(k, library_raw(img, ol, b)))
+    check(e == 0, f"gather_raw: library call != kernel (max err {e})")
+
+    def kernel():
+        return [gather_cuda.gather_lanes_raw(i, o, b) for i, o, b in calls]
+
+    def library():
+        return [library_raw(i, o, b) for i, o, b in calls]
+    _, plain_ms = timed(lambda: [gather_cuda.gather_lanes_raw_plain(i, o, b)
+                                 for i, o, b in calls])
+    bd = bound(nbytes, 0)
+    row = {"block": bid, "bytes": n, "groups": len(calls), "lanes": lanes,
+           "ms": cuda_ms(kernel), "device_ms": device_ms(kernel,
+                                                         RAW_KERNELS),
+           "plain_ms": plain_ms,
+           "library_ms": cuda_ms(library, reps=5, warmup=1),
+           "bound_ms": bd[0], "bound_by": bd[1]}
+    print("TIMING gather_raw " + json.dumps(row), flush=True)
+    return row
+
+
+def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
+                 timing: dict) -> dict:
+    """SCHEME: the in-process dedup_lz4 scheme on the card, reached as the
+    DataNode reaches it (``scheme.get("dedup_lz4").reduce`` /
+    ``.reconstruct``), over the ``reduce`` corpus."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    raw_kernel_phase(dev, errs)
+    torch.cuda.empty_cache()
+    blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
+    want = [oracle(b, cdc) for b in blocks]
+    payloads: dict = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_scheme_") as root:
+        ctx = scheme_context(root, payloads)
+        try:
+            wr = scheme_write(ctx, blocks, want)
+            wr["sealed_by_codec"] = _check_sealed(ctx, payloads)
+            print("SCHEME write " + json.dumps(wr), flush=True)
+            _zero_launch_counts()
+            first = scheme_read_pass(ctx, blocks)
+            rd_launches = _scheme_launch_counts()
+            for kname in SCHEME_READ_KERNELS:
+                check(rd_launches[kname] > 0,
+                      f"SCHEME read never launched the {kname} kernel")
+            second = scheme_read_pass(ctx, blocks)
+            check(second["image_hits"] > 0, "SCHEME read: no image hits")
+            ranged = scheme_ranged(ctx, blocks)
+            print("SCHEME read " + json.dumps({
+                "first_pass": first, "second_pass": second, **ranged,
+                "launches": rd_launches,
+                "gather_raw_launches_per_block":
+                    rd_launches["gather_raw"] / len(blocks)}), flush=True)
+            # restart the index: close, reopen from its directory
+            from hdrf_tpu_torch.index.chunk_index import ChunkIndex
+
+            ctx.index.close()
+            ctx.index = ChunkIndex(os.path.join(root, "index"))
+            model: dict = {}
+            for _, digs in want:
+                for d in digs:
+                    model[bytes(d)] = model.get(bytes(d), 0) + 1
+            locs = ctx.index.lookup_chunks(list(model))
+            check(ctx.index.stats()["chunks"] == len(model)
+                  and all(locs[h] is not None and locs[h].refcount == c
+                          for h, c in model.items()),
+                  "reopened index refcounts != the blocks written")
+            again = scheme_read_pass(ctx, blocks[:2])
+            scheme_ranged(ctx, blocks[:2])
+            print(f"SCHEME restart: index reopened, {len(model)} chunks, "
+                  f"refcounts equal the model; blocks 0-1 read back "
+                  f"{again['ms_per_block']} ms", flush=True)
+            raw = time_gather_raw(ctx, 0, blocks[0].size)
+            timing["gather_raw"] = {
+                "ms": raw["ms"], "plain_ms": raw["plain_ms"],
+                "library_ms": raw["library_ms"],
+                "bound": (raw["bound_ms"], raw["bound_by"])}
+            s = ops_scheme.get("dedup_lz4")
+            extra = main_path_corpus(args.seed + 9, 2, args.block_mib)[0]
+            data = extra.tobytes()
+            pw = profile_window(
+                "scheme_write", lambda: s.reduce(100, data, ctx), 1,
+                SCHEME_KERNEL_NAMES, expect=("cdc_scan", "sha256"))
+            pr = profile_window(
+                "scheme_read", lambda: check(
+                    s.reconstruct(100, b"", extra.size, ctx) == data,
+                    "profiled read != written"),
+                1, SCHEME_KERNEL_NAMES, expect=("gather_raw",))
+        finally:
+            ctx.read_plane.close()
+            ctx.index.close()
+    out = {"seconds": time.perf_counter() - t0, "write": wr,
+           "read": {"first": first, "second": second},
+           "profile": {"write": pw, "read": pr},
+           "launches": {"gather_raw": rd_launches["gather_raw"]}}
+    print(f"SCHEME done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -1405,8 +1814,11 @@ def run(args) -> int:
     timing.update(seal_timing)
     sp = seal_main_path(corpora, records)
     ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
+    torch.cuda.empty_cache()
+    sc = scheme_phase(args, dev, cdc, errs, timing)
     launches = {**mp["launches"], **sp["launches"],
-                "shard_scan": ms["reduce"]["launches"]["shard_scan"]}
+                "shard_scan": ms["reduce"]["launches"]["shard_scan"],
+                **sc["launches"]}
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -1,13 +1,22 @@
-"""Chunking configuration (port of hdrf_tpu/config.py:27-46 ``CdcConfig``).
+"""Chunking and reduction configuration (port of hdrf_tpu/config.py:27-46
+``CdcConfig`` and :50-230 ``ReductionConfig``).
 
-A copy of the reference dataclass with the same field names and defaults,
-so a reference ``dataclasses.asdict(CdcConfig)`` dict maps onto it field
-for field (``ops.dispatch.from_reference_cdc``).
+Copies of the reference dataclasses with the same field names and
+defaults, so a reference ``dataclasses.asdict(CdcConfig)`` dict maps onto
+the port's field for field (``ops.dispatch.from_reference_cdc``).  Of
+``ReductionConfig`` the scheme layer reads ``container_size``,
+``container_codec``, ``backend``, ``device_recon``, ``chunk_cache_mb``,
+``read_batch_window_ms``, ``read_max_inflight``, the ``qos_*`` and
+``shed_p95_mult`` fields and ``cdc``; the rest are carried for field
+parity (the write pipeline, worker supervision, the mirror and EC planes
+are later slices).  ``backend`` takes the reference's names: ``auto`` and
+``tpu`` select the card, ``native`` the host C++ library
+(ops/dispatch.resolve_backend).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -26,3 +35,183 @@ class CdcConfig:
     @property
     def avg_chunk(self) -> int:
         return 1 << self.mask_bits
+
+
+@dataclass
+class ReductionConfig:
+    """Reduction pipeline selection + resources.
+
+    Replaces DataNode.java:438 ``compressor`` hardcoded switch and the per-scheme
+    concurrency table at DataNode.java:499-510.
+    """
+
+    # Default scheme name for new files; overridable per-create by client policy.
+    default_scheme: str = "dedup_lz4"
+    # Max concurrent reduction jobs per datanode (admission control; replaces the
+    # ticket queues at DataXceiver.java:313-380).
+    max_concurrent_writes: int = 4
+    max_concurrent_reads: int = 8
+    # Streaming (direct-scheme) writes: wide like the reference's direct mode
+    # (999 at DataNode.java:499-510) but still bounded.
+    max_concurrent_direct: int = 64
+    # Chunk container rollover size (reference: 2**25 at DataNode.java:434).
+    container_size: int = 1 << 25
+    # Compress containers on rollover (reference: LZ4 at DataDeduplicator.java:770-781).
+    container_codec: str = "lz4"
+    # Execution backend for the per-byte scans (ops/dispatch.py): "native"
+    # (the host C++ library), "auto" or "tpu" (the card; no host fallback).
+    backend: str = "auto"
+    # fsync container data files on append.  Default OFF — HDFS parity:
+    # DataNodes do not fsync block data on finalize (durability comes from
+    # replication; hsync is opt-in per client), and the scanner +
+    # re-replication path covers post-crash chunk loss.  The index WAL is
+    # always fsync'd (metadata integrity is not replication-recoverable).
+    # CAUTION: because chunks are SHARED, an OS crash that loses one
+    # container corrupts every dedup'd block referencing it on this DN; the
+    # DN cross-checks index-vs-containers at startup and drops affected
+    # blocks so peers re-replicate them — but at replication=1 there IS no
+    # peer: set fsync_containers=True for replication=1 deployments.
+    fsync_containers: bool = False
+    # Co-located reduction worker (host, port): when set, the DN streams
+    # block bytes to this separate worker PROCESS for CDC+SHA (and LZ4
+    # container seals) instead of computing in-process — the north-star
+    # deployment shape (BASELINE.json; bytes land in the worker's HBM as
+    # they stream).  None = in-process compute via ``backend``.
+    worker_addr: list | None = None
+    # Per-op worker deadline budget: base seconds + a per-MiB term scaled by
+    # payload size (replaces the reference's fixed 600 s socket timeout —
+    # DataNode.java:436 ``socketTimeout`` has no payload awareness).  A hung
+    # worker costs at most this budget before the DN falls back to the
+    # in-process codec.
+    worker_deadline_s: float = 120.0
+    worker_deadline_s_per_mb: float = 2.0
+    # DN->worker circuit breaker: open after N consecutive WORKER failures
+    # (caller-side iterator errors never count), half-open probe after
+    # reset_s, re-close on probe success.  While open, writes skip the
+    # connect entirely and reduce in-process (degraded passthrough).
+    worker_breaker_failures: int = 3
+    worker_breaker_reset_s: float = 10.0
+    # DN-side worker supervision: when True the DN spawns its own
+    # co-located reduction worker (spawn_local_worker) and respawns it
+    # with capped backoff if it dies; worker_addr then names the LIVE
+    # address and is updated on each respawn.
+    worker_spawn: bool = False
+    worker_respawn_base_s: float = 0.5
+    worker_respawn_cap_s: float = 15.0
+    # Device read path: reconstruction-heavy reads gather chunks from
+    # device-resident container images (ops/reconstruct.py).  Default OFF
+    # (the reference's default): it pays where repeat reads amortize the
+    # image staging.
+    device_recon: bool = False
+    # Async multi-block write pipeline (server/write_pipeline.py).
+    # pipeline_depth: how many in-flight blocks one shared device batch may
+    # coalesce (the ResidentReducer submit_many group bound); 1 = today's
+    # serial one-block-at-a-time path, every pipeline stage bypassed.
+    pipeline_depth: int = 4
+    # Bounded WAL group-commit window (ms): concurrent commit_block calls
+    # arriving within the window share ONE fsync (index/chunk_index.py).
+    # Only armed when pipeline_depth > 1; 0 disables grouping outright.
+    group_commit_window_ms: float = 2.0
+    # Admission bound on blocks simultaneously inside the pipeline
+    # (admitted-but-uncommitted); backpressures client streams beyond it.
+    pipeline_max_inflight: int = 8
+    # Mesh-sharded reduction plane (parallel/sharded.MeshReducer): when
+    # True and >1 device is attached, coalesced groups run CDC+SHA+dedup
+    # probe as ONE dispatch per mesh step, blocks data-parallel over the
+    # whole mesh, with the device-resident sharded fingerprint bucket
+    # table answering the dedup probe on-mesh.  The single-device serial
+    # path stays verbatim as the bit-identity oracle.
+    mesh_plane: bool = False
+    # Per-device lane capacity: a mesh step coalesces up to
+    # n_devices * mesh_lanes_per_device blocks.
+    mesh_lanes_per_device: int = 2
+    # Bucket slots PER DEVICE in the sharded fingerprint table (u32 pairs;
+    # 2^15 slots = 256 KiB/device).  Collisions only cost a host re-check
+    # or a duplicate append — never correctness.
+    mesh_bucket_slots: int = 1 << 15
+    # Coded mirror plane (server/mirror_plane.py): number of RS parity
+    # segments cut over the reduced mirror payload.  0 = today's serial
+    # relay through targets[0] (byte-identical path); m > 0 splits the
+    # payload into k = n_targets - m data segments + m parity segments,
+    # fans the legs out concurrently, and acks once ANY k land — a dead
+    # or straggling mirror costs m/k extra bytes instead of a stall.
+    mirror_parity: int = 0
+    # Hedge trigger: parity legs launch when fewer than k data legs have
+    # landed after (rolling-window p95 per-peer leg latency) * this
+    # multiplier (the peer latency windows feed the p95; no window data
+    # falls back to mirror_hedge_floor_s).
+    mirror_hedge_p95_mult: float = 3.0
+    # Hedge-delay floor/fallback in seconds: used when the peer latency
+    # windows have no samples yet, and as a lower bound so a cold window
+    # never hedges at ~0 s.
+    mirror_hedge_floor_s: float = 0.25
+    # Read plane (server/read_plane.py): byte budget of the DN-wide
+    # decoded-chunk cache, keyed by fingerprint so hits serve cross-file
+    # as far as dedup reached.  0 disables the cache (plans still resolve
+    # chunk-granular).
+    chunk_cache_mb: float = 8.0
+    # Read coalescer window (ms): concurrent readers' container-decode
+    # misses arriving within the window decode through one batched
+    # dispatch.  Only armed on the card's backend with read_max_inflight > 1;
+    # 0 decodes inline on the reader's thread (today's serial behavior).
+    read_batch_window_ms: float = 2.0
+    # Admission bound on plans simultaneously inside the read plane's
+    # fetch stage (the read-side sibling of pipeline_max_inflight; the
+    # DN-level max_concurrent_reads gate still applies outside it).
+    read_max_inflight: int = 16
+    # Per-tenant QoS admission (utils/qos.py): token-bucket refill rate in
+    # MB/s and burst depth in MB, per tenant, shared across the DN's write
+    # and read planes.  0 rate disables bucket-based admission (the
+    # deadline shed below still applies); the bucket is a DEFICIT bucket —
+    # admission charges nothing, actual bytes are debited after the op.
+    qos_tenant_rate_mb_s: float = 0.0
+    qos_tenant_burst_mb: float = 8.0
+    # Deadline-aware load shedding: an op whose ambient ``_deadline``
+    # budget cannot cover (rolling-p95 service time) * this multiplier is
+    # refused AT ADMISSION with a retryable ShedError + retry-after hint,
+    # instead of burning a slot to time out mid-pipeline.  Only fires when
+    # the client sent a deadline AND the estimator has warmed up (≥5
+    # samples in the 5-minute window).  0 disables.
+    shed_p95_mult: float = 3.0
+    # k+δ hedged stripe reads (server/ec_tier.py _gather): number of extra
+    # stripe legs launched alongside the k primaries once the rolling
+    # per-holder p95 leg latency (* mirror_hedge_p95_mult, floored at
+    # mirror_hedge_floor_s) elapses — decode proceeds from the first k legs
+    # to land, so one straggling holder never sets read latency.
+    # 0 restores the serial holder-by-holder gather.
+    ec_read_hedge_delta: int = 1
+    # Coded-exchange shuffle plane (server/coded_exchange.py).
+    # ec_coded_repair: stripe repair gathers partial SUMS instead of full
+    # stripes — each surviving holder bit-matmuls its local stripes into a
+    # GF-combined contribution and the chain XOR-folds them on the way back,
+    # so the repairing owner ingests ~|missing| stripes of bytes instead of
+    # k (ops/rs.py repair_rows/partial_sums).  False pins the classic full
+    # gather (byte-identical output either way — the partial-sum fold IS
+    # the decode, redistributed).
+    ec_coded_repair: bool = True
+    # LZ4-compress coded-exchange intermediates (repair contributions,
+    # stripe pushes on demote/repair) via the batched compress path
+    # (ops/dispatch.py block_compress_batch; the device compress_many when
+    # the backend resolves to the card).  Negotiated per op: smaller-of ships, raw
+    # wins ties, old peers that never asked get raw — False pins raw.
+    coded_exchange_compress: bool = True
+    # Mirror-plane segment legs (server/mirror_plane.py) ship
+    # LZ4-compressed segments under the same smaller-of negotiation
+    # (seg_crc always covers the RAW bytes).  False pins the old raw
+    # path for A/B.
+    mirror_compress_segments: bool = True
+    # Content-adaptive chunk sizing (reduction/accounting.py
+    # AdaptiveChunkController): the DN heartbeat observes the dedup
+    # hit/miss counters and retunes cdc_mask_bits/min/max through the
+    # live-reconfig path when a window of commits shows the corpus is
+    # dedup-poor (coarsen) or dedup-rich (walk back toward the target).
+    # Off by default: geometry then stays exactly the static CdcConfig.
+    cdc_adaptive: bool = False
+    # Floor under the controller's emitted min_chunk (the smallest cut
+    # spacing any retune may select; the overflow-cap regression test pins
+    # the fused kernel's fallback at this floor's smallest geometry).
+    cdc_min_size: int = 512
+    # The mask_bits the controller steps back toward when dedup yield is
+    # healthy; 13 reproduces the shipped 2048/65536 geometry exactly.
+    cdc_target_mask_bits: int = 13
+    cdc: CdcConfig = field(default_factory=CdcConfig)

@@ -1,7 +1,8 @@
 """Host native helpers: CRC32C, the LZ4 codec, the Gear candidate scan,
-the min/max cut select and SHA-256 of byte ranges (port of
-hdrf_tpu/native/__init__.py:123-166, 180-263, 307 over its ``crc32c.cpp``,
-``lz4.cpp``, ``cdc.cpp`` and ``sha256.cpp``).
+the min/max cut select, SHA-256 of byte ranges and the byte-range gather
+(port of hdrf_tpu/native/__init__.py:123-166, 180-263, 307, 320 over its
+``crc32c.cpp``, ``lz4.cpp``, ``cdc.cpp``, ``sha256.cpp`` and
+``ranges.cpp``).
 
 The port keeps its own copies of those sources in ``native/src`` and
 builds every ``src/*.cpp`` with ``g++`` into one library,
@@ -11,8 +12,9 @@ then binds it with ctypes.  What crosses: the packet checksum and the
 host half of the LZ4 seal (the serial encoder, its tail-reporting form
 for segmented compression, the emit over device match records, the
 packed-record unpack and the decoder), the sharded reduction's host cut
-select, and the host candidate scan and SHA-256 that ``chip_smoke.py``
-holds the kernels to.
+select, the host candidate scan and SHA-256 (the ``native`` backend, and
+what ``chip_smoke.py`` holds the kernels to), and the container store's
+chunk-byte gather.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ _SIGNATURES = {
     "hdrf_cdc_select": ([_P, _U64, _U64, _U64, _U64, _P, _U64], _U64),
     # data, offsets, lengths, n, out
     "hdrf_sha256_batch": ([_P, _P, _P, _U64, _P], None),
+    # src, n, starts, lens, dst
+    "hdrf_gather_ranges": ([_P, _U64, _P, _P, _P], _U64),
 }
 
 
@@ -235,4 +239,21 @@ def sha256_batch(data, offsets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     out = np.empty((offs.size, 32), dtype=np.uint8)
     _load().hdrf_sha256_batch(a.ctypes.data, offs.ctypes.data,
                               lens.ctypes.data, offs.size, out.ctypes.data)
+    return out
+
+
+def gather_ranges(data, starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Concatenate the ``[starts[i], starts[i] + lens[i])`` ranges of
+    ``data`` into one u8 buffer in one native pass (the dedup commit's
+    chunk-byte shuffle, ContainerStore.append_ranges)."""
+    a = _as_u8(data)
+    ss = np.ascontiguousarray(starts, dtype=np.uint64)
+    ls = np.ascontiguousarray(lens, dtype=np.uint64)
+    if ss.shape != ls.shape:
+        raise ValueError("starts/lens shape mismatch")
+    if ss.size and int((ss + ls).max()) > a.size:
+        raise ValueError("range exceeds data buffer")
+    out = np.empty(int(ls.sum()), dtype=np.uint8)
+    _load().hdrf_gather_ranges(a.ctypes.data, ss.size, ss.ctypes.data,
+                               ls.ctypes.data, out.ctypes.data)
     return out

@@ -1,13 +1,18 @@
 """Backend dispatch for the reduction hot ops (port of
 hdrf_tpu/ops/dispatch.py:31-281).
 
-Two backends with identical outputs:
+Three backends with identical outputs:
 
 - ``cuda``: the card — ops/resident.ResidentReducer over the CDC, gather
   and SHA-256 kernels, ops/lz4_device.DeviceLz4 over the match-delta and
-  row-sort kernels (``auto`` resolves here);
-- ``cpu``: the same pipelines with each kernel's plain PyTorch version,
-  for tests on a machine without a card.
+  row-sort kernels.  The reference's ``auto`` and ``tpu`` (its
+  accelerator) resolve here; without a card they raise, nothing falls
+  back to a host backend;
+- ``native``: the host C++ library, as the reference's ``native``
+  backend — ``native.gear_candidates`` + ``cdc_select`` +
+  ``sha256_batch`` for the funnel, the host codec for the seal;
+- ``cpu``: the card's pipelines with each kernel's plain PyTorch
+  version, for tests on a machine without a card.
 
 ``chunk_and_fingerprint`` is the write path's one funnel,
 ``block_compress`` / ``block_compress_batch`` the container seal's.  With
@@ -32,7 +37,9 @@ from hdrf_tpu_torch.utils import metrics as _metrics
 
 _M = _metrics.registry("ops_dispatch")
 
-BACKENDS = ("cuda", "cpu")
+BACKENDS = ("cuda", "native", "cpu")
+# The reference's names for the accelerator (hdrf_tpu/config.py:70-72).
+_CARD_ALIASES = ("auto", "tpu")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -50,12 +57,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def resolve_backend(backend: str) -> str:
-    """``auto`` -> ``cuda``; otherwise the name, checked."""
-    if backend == "auto":
+    """``auto`` and ``tpu`` -> ``cuda``; otherwise the name, checked."""
+    if backend in _CARD_ALIASES:
         return "cuda"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS} or 'auto'")
+                         f"{BACKENDS + _CARD_ALIASES}")
     return backend
 
 
@@ -88,8 +95,19 @@ def _device_for(backend: str) -> torch.device:
                           else "cpu")
 
 
+def _host_u8(data) -> np.ndarray:
+    return (data if isinstance(data, np.ndarray)
+            else np.frombuffer(data, dtype=np.uint8))
+
+
 def chunk_cuts(data, cdc: CdcConfig, backend: str = "auto") -> np.ndarray:
     """Exclusive chunk end offsets covering [0, len(data)] (uint64)."""
+    if resolve_backend(backend) == "native":
+        from hdrf_tpu_torch import native
+
+        a = _host_u8(data)
+        return native.cdc_select(native.gear_candidates(a, gear_mask(cdc)),
+                                 a.size, cdc.min_chunk, cdc.max_chunk)
     from hdrf_tpu_torch.ops import cdc_cuda
 
     cuts, _ = cdc_cuda.chunks_fused(data, gear_mask(cdc), cdc.min_chunk,
@@ -100,6 +118,12 @@ def chunk_cuts(data, cdc: CdcConfig, backend: str = "auto") -> np.ndarray:
 
 def fingerprints(data, cuts: np.ndarray, backend: str = "auto") -> np.ndarray:
     """(n_chunks, 32) SHA-256 digests of the chunks delimited by ``cuts``."""
+    if resolve_backend(backend) == "native":
+        from hdrf_tpu_torch import native
+
+        starts = np.concatenate([[0], cuts[:-1]]).astype(np.uint64)
+        lens = (np.asarray(cuts, np.uint64) - starts).astype(np.uint64)
+        return native.sha256_batch(_host_u8(data), starts, lens)
     from hdrf_tpu_torch.ops.sha256 import fingerprint_chunks
 
     return fingerprint_chunks(data, cuts, device=_device_for(backend))
@@ -180,16 +204,25 @@ def _multichip_mesh():
 
 def chunk_and_fingerprint(data, cdc: CdcConfig, backend: str = "auto"):
     """(cuts, digests) in one call — THE entry point for the write path.
-    The block crosses to the device once: the sharded pipeline with two or
+    On a device the block crosses once: the sharded pipeline with two or
     more cards, else ops/resident.ResidentReducer (one per geometry and
-    device, kept)."""
+    device, kept).  ``native`` is the host library's pair of calls."""
     from hdrf_tpu_torch.ops.resident import ResidentReducer
+    from hdrf_tpu_torch.reduction import accounting
+    from hdrf_tpu_torch.utils import profiler
 
     backend = resolve_backend(backend)
     nbytes = (len(data) if isinstance(data, (bytes, bytearray))
               else data.nbytes)
     _M.incr(f"reduce_{backend}_total")
     _M.incr(f"reduce_{backend}_bytes", nbytes)
+    accounting.note_geometry(cdc)
+    if backend == "native":
+        # synchronous host work: a host phase (device paths are not
+        # wrapped, their waits are the device's)
+        with profiler.phase("reduce_compute"):
+            cuts = chunk_cuts(data, cdc, backend)
+            return cuts, fingerprints(data, cuts, backend)
     if backend == "cuda":
         mesh = _multichip_mesh()
         if mesh is not None:
@@ -244,14 +277,14 @@ def lz4_engine(backend: str = "auto"):
 def block_compress(codec: str, data: bytes, backend: str = "auto") -> bytes:
     """Codec dispatch for the entropy stage (container seal).  ``lz4``
     finds its matches on the backend's device (ops/lz4_device.py); every
-    other codec is the host codec.  The output is a standard LZ4 block
-    either way."""
+    other codec, and every codec on ``native``, is the host codec.  The
+    output is a standard LZ4 block either way."""
     from hdrf_tpu_torch.utils import codec as codecs
 
     backend = resolve_backend(backend)
     _M.incr(f"compress_{backend}_total")
     _M.incr(f"compress_{backend}_bytes", len(data))
-    if codec == "lz4":
+    if codec == "lz4" and backend != "native":
         return lz4_engine(backend).compress(data)
     return codecs.compress(codec, data)
 
@@ -263,7 +296,7 @@ def block_compress_batch(codec: str, datas: list,
     none of it), spread over the cards when the mesh plane is on;
     everything else per item."""
     backend = resolve_backend(backend)
-    if codec == "lz4":
+    if codec == "lz4" and backend != "native":
         _M.incr(f"compress_{backend}_total", len(datas))
         _M.incr(f"compress_{backend}_bytes", sum(len(d) for d in datas))
         if backend == "cuda" and mesh_plane_enabled():

@@ -1,6 +1,8 @@
-"""Chunk gather with SHA-256 padding: kernel 2 and its plain version (port
-of hdrf_tpu/ops/gather_pallas.py; replaces the Pallas ``_kernel`` reached
-through ``_gather_chunk`` at gather_pallas.py:122).
+"""Chunk-lane gathers: with SHA-256 padding (kernel 2, port of
+hdrf_tpu/ops/gather_pallas.py; replaces the Pallas ``_kernel`` reached
+through ``_gather_chunk`` at gather_pallas.py:122) and raw, for the read
+path (port of hdrf_tpu/ops/reconstruct.py:46-60 ``gather_lanes_raw``, a
+jitted XLA program), each beside its plain version.
 
 ``gather_pad_messages(words, ol, bucket)`` turns each chunk lane — a byte
 offset and a length into the big-endian word image — into a ready-to-hash
@@ -21,7 +23,18 @@ once (about 0.4 GB per 128 MiB block at the default geometry, ~0.12 ms at
 3.35 TB/s).  Reads past the end of the image return zero, so the image
 needs no pad words.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+``gather_lanes_raw(words, ol, bucket)`` is the same funnel-shift loop
+without the pad: output word ``j`` of a lane is image words ``q + j`` and
+``q + j + 1`` shifted together, for all ``bucket * 16`` words (past the
+chunk's length they are the image's next bytes, not zeros; ``ol[1]`` is
+not read).  Its kernel is ``gather_raw_kernel`` in the same source.  The
+reference's ``dynamic_slice`` clamps a window that would run past the
+image; here loads past the image read zero.  The two agree inside the
+reconstructor's headroom contract (``bucket * 64 + 4 <= headroom``), which
+ops/reconstruct.py asserts.  Bound: bytes — each lane's ``W + 1`` image
+words read once and its ``W`` words written once.
+
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 
@@ -34,19 +47,32 @@ import torch
 from hdrf_tpu_torch.ops import _build
 from hdrf_tpu_torch.ops.gear import M32, to_i32
 
-# Kernel launches, one per wrapper call on CUDA tensors with L > 0.
+# Kernel launches, one per wrapper call on CUDA tensors with L > 0
+# (``launches``: the padded gather; ``raw_launches``: the raw gather).
 launches = 0
+raw_launches = 0
 _launch_lock = threading.Lock()
 
 
-def gather_pad_messages_plain(words: torch.Tensor, ol: torch.Tensor,
-                              bucket: int) -> torch.Tensor:
-    """Plain version of :func:`gather_pad_messages` (the arithmetic of
-    hdrf_tpu/ops/resident.py:158-193 ``sha_pad_messages``)."""
-    W = bucket * 16
+def _check_args(what: str, words: torch.Tensor, ol: torch.Tensor) -> None:
+    if words.device.type != "cuda" or ol.device != words.device:
+        raise ValueError(f"{what}: words and ol must share a CUDA device")
+    if words.dtype != torch.int32 or words.dim() != 1 \
+            or not words.is_contiguous():
+        raise ValueError(f"{what}: words must be contiguous 1-D int32")
+    if ol.dtype != torch.int32 or ol.dim() != 2 or ol.shape[0] != 2 \
+            or ol.stride(1) != 1:
+        raise ValueError(f"{what}: ol must be int32[2, L] with contiguous "
+                         "rows")
+
+
+def _shifted_lanes(words: torch.Tensor, offs: torch.Tensor,
+                   W: int) -> torch.Tensor:
+    """int64[L, W] (u32 values): lane i's words j = funnel shift of image
+    words ``q + j``, ``q + j + 1`` at byte offset ``offs[i]``; loads past
+    the image read zero."""
     dev = words.device
-    offs = ol[0].to(torch.int64)[:, None]
-    lens = ol[1].to(torch.int64)[:, None]
+    offs = offs.to(torch.int64)[:, None]
     w64 = torch.cat([words.to(torch.int64) & M32,
                      torch.zeros(W + 1, dtype=torch.int64, device=dev)])
     q = offs // 4
@@ -55,7 +81,17 @@ def gather_pad_messages_plain(words: torch.Tensor, ol: torch.Tensor,
         max=w64.numel() - 1)
     lanes = w64[idx]
     a, b = lanes[:, :W], lanes[:, 1:]
-    c = torch.where(s8 == 0, a, ((a << s8) & M32) | (b >> (32 - s8)))
+    return torch.where(s8 == 0, a, ((a << s8) & M32) | (b >> (32 - s8)))
+
+
+def gather_pad_messages_plain(words: torch.Tensor, ol: torch.Tensor,
+                              bucket: int) -> torch.Tensor:
+    """Plain version of :func:`gather_pad_messages` (the arithmetic of
+    hdrf_tpu/ops/resident.py:158-193 ``sha_pad_messages``)."""
+    W = bucket * 16
+    dev = words.device
+    lens = ol[1].to(torch.int64)[:, None]
+    c = _shifted_lanes(words, ol[0], W)
     wl = lens // 4
     r8 = (lens % 4) * 8
     j = torch.arange(W, device=dev)[None, :]
@@ -79,17 +115,7 @@ def gather_pad_messages(words: torch.Tensor, ol: torch.Tensor,
     """
     if words.device.type == "cpu":
         return gather_pad_messages_plain(words, ol, bucket)
-    if words.device.type != "cuda" or ol.device != words.device:
-        raise ValueError("gather_pad_messages: words and ol must share a "
-                         "CUDA device")
-    if words.dtype != torch.int32 or words.dim() != 1 \
-            or not words.is_contiguous():
-        raise ValueError("gather_pad_messages: words must be contiguous "
-                         "1-D int32")
-    if ol.dtype != torch.int32 or ol.dim() != 2 or ol.shape[0] != 2 \
-            or ol.stride(1) != 1:
-        raise ValueError("gather_pad_messages: ol must be int32[2, L] with "
-                         "contiguous rows")
+    _check_args("gather_pad_messages", words, ol)
     L, W = ol.shape[1], bucket * 16
     out = torch.empty((L, W), dtype=torch.int32, device=words.device)
     if L == 0:
@@ -100,4 +126,35 @@ def gather_pad_messages(words: torch.Tensor, ol: torch.Tensor,
                   out.data_ptr(), what="gather kernel")
     with _launch_lock:  # handler threads of the worker launch too
         launches += 1
+    return out
+
+
+def gather_lanes_raw_plain(words: torch.Tensor, ol: torch.Tensor,
+                           bucket: int) -> torch.Tensor:
+    """Plain version of :func:`gather_lanes_raw` (the arithmetic of
+    hdrf_tpu/ops/reconstruct.py:46-60)."""
+    return to_i32(_shifted_lanes(words, ol[0], bucket * 16))
+
+
+def gather_lanes_raw(words: torch.Tensor, ol: torch.Tensor,
+                     bucket: int) -> torch.Tensor:
+    """(L, bucket*16) int32 big-endian raw chunk lanes for one bucket.
+
+    words: int32[NW] BE word image; ol: int32[2, L] — row 0 chunk byte
+    offsets into the image (row 1, the lengths, is not read), each row
+    contiguous.
+    """
+    if words.device.type == "cpu":
+        return gather_lanes_raw_plain(words, ol, bucket)
+    _check_args("gather_lanes_raw", words, ol)
+    L, W = ol.shape[1], bucket * 16
+    out = torch.empty((L, W), dtype=torch.int32, device=words.device)
+    if L == 0:
+        return out
+    global raw_launches
+    _build.launch("hdrf_gather_raw", words.device, words.data_ptr(),
+                  words.numel(), ol[0].data_ptr(), L, W, out.data_ptr(),
+                  what="raw gather kernel")
+    with _launch_lock:
+        raw_launches += 1
     return out

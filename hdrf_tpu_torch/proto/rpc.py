@@ -3,11 +3,13 @@
 
 One frame = ``[u32 len][msgpack body]``.  The card's machine has no
 ``msgpack`` package, so this module carries its own encoder/decoder of
-the subset the worker's frames use — dict, str, bytes, int, float, bool,
-None, list/tuple — byte-compatible with ``msgpack.packb`` (its defaults:
-``use_bin_type=True``, floats as float64, smallest int encoding) and with
-``msgpack.unpackb(raw=False, strict_map_key=False)``.  Extension types are
-refused with ``ValueError``.
+the subset the worker's frames and the chunk index's WAL and snapshot use
+— dict, str, bytes, int, float, bool, None, list/tuple — byte-compatible
+with ``msgpack.packb`` (its defaults: ``use_bin_type=True``, floats as
+float64, smallest int encoding) and with ``msgpack.unpackb(raw=...,
+strict_map_key=False)``: ``raw=False`` decodes str as ``str`` (the wire),
+``raw=True`` as ``bytes`` (index/chunk_index.py reads its records so, as
+the reference does).  Extension types are refused with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -136,18 +138,18 @@ class _Reader:
         return st.unpack(self.take(st.size))[0]
 
 
-def _unpack(r: _Reader) -> Any:
+def _unpack(r: _Reader, raw: bool) -> Any:
     t = r.unpack(_B)
     if t <= 0x7F:
         return t
     if t >= 0xE0:
         return t - 0x100
     if 0x80 <= t <= 0x8F:
-        return _map(r, t & 0x0F)
+        return _map(r, t & 0x0F, raw)
     if 0x90 <= t <= 0x9F:
-        return [_unpack(r) for _ in range(t & 0x0F)]
+        return [_unpack(r, raw) for _ in range(t & 0x0F)]
     if 0xA0 <= t <= 0xBF:
-        return str(r.take(t & 0x1F), "utf-8")
+        return _str(r.take(t & 0x1F), raw)
     if t == 0xC0:
         return None
     if t == 0xC2:
@@ -167,28 +169,32 @@ def _unpack(r: _Reader) -> Any:
         return r.unpack((_b, _h, _i, _q)[t - 0xD0])
     if t in (0xD9, 0xDA, 0xDB):
         n = r.unpack((_B, _H, _I)[t - 0xD9])
-        return str(r.take(n), "utf-8")
+        return _str(r.take(n), raw)
     if t in (0xDC, 0xDD):
         n = r.unpack((_H, _I)[t - 0xDC])
-        return [_unpack(r) for _ in range(n)]
+        return [_unpack(r, raw) for _ in range(n)]
     if t in (0xDE, 0xDF):
-        return _map(r, r.unpack((_H, _I)[t - 0xDE]))
+        return _map(r, r.unpack((_H, _I)[t - 0xDE]), raw)
     raise ValueError(f"unsupported msgpack type byte 0x{t:02x}")
 
 
-def _map(r: _Reader, n: int) -> dict:
+def _str(v: memoryview, raw: bool):
+    return bytes(v) if raw else str(v, "utf-8")
+
+
+def _map(r: _Reader, n: int, raw: bool) -> dict:
     out = {}
     for _ in range(n):
-        k = _unpack(r)
-        out[k] = _unpack(r)
+        k = _unpack(r, raw)
+        out[k] = _unpack(r, raw)
     return out
 
 
-def unpackb(data: bytes) -> Any:
-    """Decode one msgpack object (``msgpack.unpackb(raw=False,
+def unpackb(data: bytes, raw: bool = False) -> Any:
+    """Decode one msgpack object (``msgpack.unpackb(raw=raw,
     strict_map_key=False)`` semantics on the supported subset)."""
     r = _Reader(data)
-    obj = _unpack(r)
+    obj = _unpack(r, raw)
     if r.pos != len(r.buf):
         raise ValueError("extra bytes after msgpack object")
     return obj

@@ -17,12 +17,18 @@ ops) a packet run, then one reply frame.  Ops:
   device batch); a ``sizes`` sum that is not the stream's length answers
   ``{"error": "ValueError", ...}``;
 - ``ping``, ``stats``, ``traces`` — as the reference (``traces`` carries
-  spans and device-ledger events; profiler counters are not ported).
+  spans, device-ledger events and the profiler's counter samples).
 
-Requests may carry ``_trace`` (resumed as the span parent) and
-``_deadline``; the deadline budget is accepted and ignored.  The
-``compress`` payloads are collected on the host before the seal, as in
-the reference (reduction_worker.py:223).
+Every data op stamps its bytes into ``reduction/accounting``
+(``record_worker_bytes``), as the reference does.  Requests may carry
+``_trace`` (resumed as the span parent) and ``_deadline``; the deadline
+budget is accepted and ignored, and there is no stall watchdog (both
+later slices).  The ``compress`` payloads are collected on the host
+before the seal, as in the reference (reduction_worker.py:223).
+
+Backends (``--backend``, the reference spawner's names): ``auto``,
+``tpu`` and ``cuda`` run on the card, ``cpu`` the plain versions,
+``native`` the host C++ library (ops/dispatch.py).
 
 **Streaming ingest** (replaces ``_reduce_streaming_tpu``,
 reduction_worker.py:186-218): packets are copied into 4 MiB pinned host
@@ -54,7 +60,8 @@ from hdrf_tpu_torch.ops.dispatch import resolve_device
 from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.proto import datatransfer as dt
 from hdrf_tpu_torch.proto.rpc import recv_frame, send_frame
-from hdrf_tpu_torch.utils import device_ledger, metrics, tracing
+from hdrf_tpu_torch.reduction import accounting
+from hdrf_tpu_torch.utils import device_ledger, metrics, profiler, tracing
 
 _M = metrics.registry("reduction_worker")
 _TR = tracing.tracer("reduction_worker")
@@ -127,9 +134,15 @@ class ReductionWorker:
     connections is ordered on the worker's one CUDA stream."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        self.backend = self.device.type
+                 device="cuda", backend: str | None = None):
+        """``device`` selects the card or the CPU's plain versions;
+        ``backend`` (a dispatch name) overrides it, ``native`` running
+        the host library."""
+        self.backend = ops_dispatch.resolve_backend(
+            backend or torch.device(device).type)
+        self.device = (None if self.backend == "native" else
+                       resolve_device(device if backend is None
+                                      else self.backend))
         self._stream = (torch.cuda.Stream(self.device)
                         if self.backend == "cuda" else None)
         self._reducers: dict[tuple, ResidentReducer] = {}
@@ -198,7 +211,7 @@ class ReductionWorker:
                     "daemon": "reduction_worker",
                     "spans": tracing.all_span_snapshots(),
                     "ledger": device_ledger.events_snapshot(),
-                    "counters": []})
+                    "counters": profiler.counters_snapshot()})
             else:
                 send_frame(sock, {"error": "NoSuchOp", "message": str(op)})
         except (ConnectionError, OSError):
@@ -222,9 +235,12 @@ class ReductionWorker:
         if self.backend == "cuda":
             cuts, digs = self._reduce_streaming_cuda(sock, cdc)
         else:
-            data = dt.collect_packets(sock)
-            cuts, digs = self._reducer(cdc).reduce(
-                np.frombuffer(data, dtype=np.uint8))
+            buf = np.frombuffer(dt.collect_packets(sock), dtype=np.uint8)
+            if self.backend == "native":
+                cuts, digs = ops_dispatch.chunk_and_fingerprint(
+                    buf, cdc, "native")
+            else:
+                cuts, digs = self._reducer(cdc).reduce(buf)
         nbytes = int(cuts[-1]) if len(cuts) else 0
         with self._stats_lock:
             self._stats["blocks_reduced"] += 1
@@ -232,6 +248,7 @@ class ReductionWorker:
         send_frame(sock, {"cuts": np.asarray(cuts, np.int64).tobytes(),
                           "digests": np.ascontiguousarray(digs).tobytes()})
         _M.incr("blocks_reduced")
+        accounting.record_worker_bytes("reduce", nbytes)
 
     def _reduce_streaming_cuda(self, sock: socket.socket, cdc: CdcConfig):
         with torch.cuda.stream(self._stream):
@@ -262,6 +279,7 @@ class ReductionWorker:
             self._stats["compress_jobs"] += 1
         send_frame(sock, {"data": bytes(out)})
         _M.incr("compress_jobs")
+        accounting.record_worker_bytes("compress", len(data))
 
     def _op_compress_batch(self, sock: socket.socket, req: dict) -> None:
         """N payloads in one round trip (a DataNode sealing several
@@ -285,6 +303,7 @@ class ReductionWorker:
             self._stats["compress_jobs"] += len(sizes)
         send_frame(sock, {"datas": [bytes(o) for o in outs]})
         _M.incr("compress_jobs", len(sizes))
+        accounting.record_worker_bytes("compress", len(blob))
 
 
 # ------------------------------------------------------------------ client
@@ -416,10 +435,8 @@ class WorkerClient:
 
 
 # The reference's --backend names (hdrf_tpu/server/reduction_worker.py
-# main, passed by its spawn_local_worker) -> the port's device; None: not
-# ported.
-BACKENDS = {"auto": "cuda", "tpu": "cuda", "cuda": "cuda", "cpu": "cpu",
-            "native": None}
+# main, passed by its spawn_local_worker) and the port's own.
+BACKENDS = ("auto", "cpu", "cuda", "native", "tpu")
 
 
 def main(argv=None) -> int:
@@ -432,20 +449,18 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="cuda (the card, the default) or cpu (plain "
                         "versions, for tests)")
-    p.add_argument("--backend", default=None, choices=sorted(BACKENDS),
+    p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="the reference spawner's flag: auto, tpu and cuda "
-                        "select the card, cpu the plain versions")
+                        "select the card, cpu the plain versions, native "
+                        "the host library")
     args = p.parse_args(argv)
-    device = args.device or "cuda"
-    if args.backend is not None:
-        device = BACKENDS[args.backend]
-        if device is None:
-            p.error(f"backend {args.backend!r} is not ported yet "
-                    "(ROADMAP Queue A #9a)")
-        if args.device is not None and args.device != device:
-            p.error(f"--backend {args.backend} selects {device}, not "
+    if args.backend is not None and args.device is not None:
+        chosen = ops_dispatch.resolve_backend(args.backend)
+        if chosen != torch.device(args.device).type:
+            p.error(f"--backend {args.backend} selects {chosen}, not "
                     f"--device {args.device}")
-    w = ReductionWorker(args.host, args.port, device=device).start()
+    w = ReductionWorker(args.host, args.port, device=args.device or "cuda",
+                        backend=args.backend).start()
     # The banner's "listening on host:port" substring is what launchers
     # parse (the reference's spawn_local_worker regex).
     print(f"reduction worker ({w.backend}) listening on "

@@ -1,12 +1,14 @@
 """Metrics registry (port of hdrf_tpu/utils/metrics.py).
 
-Named counters and histograms on a process-wide registry, snapshot-able as
-a dict — the part the reduction worker and the device ledger use.
+Named counters, gauges and histograms on a process-wide registry,
+snapshot-able as a dict — what the worker, the device ledger and the
+scheme layer (index, containers, read plane, reconstructor) stamp into.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
 from typing import Any
 
@@ -51,7 +53,11 @@ class Histogram:
         return self.max
 
     def snapshot(self) -> dict[str, Any]:
-        """Snapshot with cumulative bucket counts (the Prometheus contract)."""
+        """Snapshot with CUMULATIVE bucket counts (the Prometheus histogram
+        contract: each ``le`` bucket counts all observations <= the bound, and
+        the implicit ``+Inf`` bucket equals ``count``).  Only bounds where the
+        cumulative count increases are emitted, so 32 power-of-2 bounds don't
+        bloat every snapshot; p50/p99 stay for existing JSON consumers."""
         buckets: list[list[float]] = []
         cum = 0
         for i, c in enumerate(self._buckets[:-1]):
@@ -68,11 +74,16 @@ class MetricsRegistry:
         self.name = name
         self._lock = threading.Lock()
         self._counters: dict[str, int] = defaultdict(int)
+        self._gauges: dict[str, float] = {}
         self._histograms: dict[str, Histogram] = {}
 
     def incr(self, key: str, delta: int = 1) -> None:
         with self._lock:
             self._counters[key] += delta
+
+    def gauge(self, key: str, value: float) -> None:
+        with self._lock:
+            self._gauges[key] = value
 
     def observe(self, key: str, value: float) -> None:
         with self._lock:
@@ -81,14 +92,33 @@ class MetricsRegistry:
                 h = self._histograms[key] = Histogram()
             h.update(value)
 
+    def time(self, key: str) -> "_Timer":
+        return _Timer(self, key)
+
+    def counter(self, key: str) -> int:
+        with self._lock:
+            return self._counters[key]
+
     def snapshot(self) -> dict[str, Any]:
         with self._lock:
             return {
                 "name": self.name,
                 "counters": dict(self._counters),
-                "histograms": {k: h.snapshot()
-                               for k, h in self._histograms.items()},
+                "gauges": dict(self._gauges),
+                "histograms": {k: h.snapshot() for k, h in self._histograms.items()},
             }
+
+
+class _Timer:
+    def __init__(self, reg: MetricsRegistry, key: str) -> None:
+        self._reg, self._key = reg, key
+
+    def __enter__(self) -> "_Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self._reg.observe(self._key, (time.perf_counter() - self._t0) * 1e6)
 
 
 _registries: dict[str, MetricsRegistry] = {}
@@ -101,3 +131,9 @@ def registry(name: str) -> MetricsRegistry:
         if reg is None:
             reg = _registries[name] = MetricsRegistry(name)
         return reg
+
+
+def all_snapshots() -> dict[str, Any]:
+    with _registries_lock:
+        regs = list(_registries.values())
+    return {r.name: r.snapshot() for r in regs}

@@ -634,6 +634,118 @@ def test_lz4_sharded_on_card_equals_compress_many(dev):
     assert got == DeviceLz4(device=dev).compress_many(group)
 
 
+# ------------------------------------------------------- the read path
+
+
+@pytest.mark.parametrize("bucket", [16, 32, 64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("fill", ["random", "zeros"])
+def test_gather_raw_kernel_equals_plain(dev, bucket, fill):
+    """The raw lane gather on the card equals its plain version on every
+    lane: all four byte alignments, random offsets and a lane whose
+    window ends at the image's edge."""
+    W = bucket * 16
+    rng = np.random.default_rng(bucket)
+    nw = W + 4096
+    img = (np.zeros(nw, np.int32) if fill == "zeros" else
+           rng.integers(-(1 << 31), 1 << 31, nw, dtype=np.int64)
+           .astype(np.int32))
+    offs = rng.integers(0, (nw - W - 1) * 4, 253)
+    offs = np.concatenate([offs, [0, 1, 2, 3, (nw - W - 1) * 4 + 3]])
+    ol = np.stack([offs, rng.integers(1, bucket * 64 - 4, offs.size)]) \
+        .astype(np.int32)
+    words = torch.from_numpy(img).to(dev)
+    ol_d = torch.from_numpy(ol).to(dev)
+    n0 = gather_cuda.raw_launches
+    got = gather_cuda.gather_lanes_raw(words, ol_d, bucket)
+    assert gather_cuda.raw_launches == n0 + 1
+    want = gather_cuda.gather_lanes_raw_plain(words, ol_d, bucket)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), gather_cuda.gather_lanes_raw_plain(
+        torch.from_numpy(img), torch.from_numpy(ol), bucket))
+
+
+def test_device_reconstructor_on_card_equals_cpu(dev):
+    """Card and CPU reconstructors write the same bytes and leave the same
+    counts over a sequence that evicts and hits."""
+    from hdrf_tpu_torch.ops.reconstruct import DeviceReconstructor
+
+    rng = np.random.default_rng(71)
+    pay = {c: rng.integers(0, 256, int(rng.integers(50_000, 200_000)),
+                           dtype=np.uint8).tobytes() for c in range(6)}
+    wanted, spans, pos = [], [], 0
+    for _ in range(400):
+        c = int(rng.integers(0, 6))
+        ln = int(rng.integers(1, 8000))
+        off = int(rng.integers(0, len(pay[c]) - ln))
+        lo = int(rng.integers(0, ln))
+        wanted.append((c, off, ln))
+        spans.append((pos, lo, ln - lo))
+        pos += ln - lo
+    outs = []
+    for d in (dev, "cpu"):
+        r = DeviceReconstructor(budget=600_000, headroom=70_000, device=d)
+        out = bytearray(pos)
+        r.gather(wanted, lambda c: pay[c], spans, out)
+        r.gather(wanted[:50], lambda c: pay[c], spans[:50], out)
+        outs.append((bytes(out), r._used, list(r._images),
+                     dict(r._sizes)))
+    assert outs[0] == outs[1]
+    want = b"".join(pay[c][o + lo:o + lo + n]
+                    for (c, o, _), (_, lo, n) in zip(wanted, spans))
+    assert outs[0][0] == want
+
+
+def test_dedup_scheme_on_card(dev, tmp_path):
+    """dedup_lz4 through the scheme on the card (CDC + SHA-256 kernels on
+    the write, the device seal on roll, the raw gather on reads >= 1
+    MiB) reads back every block, whole and ranged, and keeps the native
+    backend's chunk hashes."""
+    from hdrf_tpu_torch.config import ReductionConfig
+    from hdrf_tpu_torch.index.chunk_index import ChunkIndex
+    from hdrf_tpu_torch.ops.reconstruct import DeviceReconstructor
+    from hdrf_tpu_torch.reduction import scheme
+    from hdrf_tpu_torch.reduction.dedup import DEVICE_RECON_MIN
+    from hdrf_tpu_torch.reduction.scheme import ReductionContext
+    from hdrf_tpu_torch.server.read_plane import ReadPlane
+    from hdrf_tpu_torch.storage.container_store import ContainerStore
+    from hdrf_tpu_torch.utils import qos
+
+    cfg = ReductionConfig()
+    cs = ContainerStore(
+        str(tmp_path / "c"), container_size=1 << 20, codec="lz4",
+        compress_fn=lambda d: dispatch.block_compress("lz4", d, "cuda"),
+        compress_batch_fn=lambda ds: dispatch.block_compress_batch(
+            "lz4", ds, "cuda"))
+    recon = DeviceReconstructor(budget=4 << 20, device=dev)
+    cs._on_delete = recon.invalidate
+    rp = ReadPlane(cs, backend="cuda", qos_ctrl=qos.AdmissionController())
+    rp.attach_store(cs)
+    ctx = ReductionContext(cfg, cs, ChunkIndex(str(tmp_path / "i")),
+                           backend="cuda", recon=recon, read_plane=rp)
+    s = scheme.get("dedup_lz4")
+    rng = np.random.default_rng(72)
+    a = rng.integers(0, 256, 3 << 20, dtype=np.uint8).tobytes()
+    blocks = {1: a, 2: a[1 << 20:] + rng.integers(97, 123, 1 << 20,
+                                                   dtype=np.uint8).tobytes()}
+    n0 = gather_cuda.raw_launches
+    try:
+        for bid, d in blocks.items():
+            assert s.reduce(bid, d, ctx) == b""
+            want = dispatch.chunk_and_fingerprint(d, cfg.cdc, "native")[1]
+            assert ctx.index.get_block(bid).hashes == [
+                bytes(h) for h in want]
+        for bid, d in blocks.items():
+            assert s.reconstruct(bid, b"", len(d), ctx) == d
+            for off, ln in [(12_345, DEVICE_RECON_MIN + 7), (99, 4_097)]:
+                assert s.reconstruct(bid, b"", len(d), ctx, off, ln) \
+                    == d[off:off + ln]
+        assert gather_cuda.raw_launches > n0
+    finally:
+        rp.close()
+        ctx.index.close()
+
+
+
 # ------------------------------------------------- meshes over several cards
 
 @pytest.fixture

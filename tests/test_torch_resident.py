@@ -104,8 +104,10 @@ def test_dispatch_equals_reference_native():
 def test_backend_and_device_resolution():
     assert dispatch.resolve_backend("auto") == "cuda"
     assert dispatch.resolve_backend("cpu") == "cpu"
+    # the reference's name for its accelerator selects the card
+    assert dispatch.resolve_backend("tpu") == "cuda"
     with pytest.raises(ValueError):
-        dispatch.resolve_backend("tpu")
+        dispatch.resolve_backend("xla")
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         # an entry point on the card raises without one: no CPU fallback

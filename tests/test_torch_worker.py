@@ -301,10 +301,18 @@ def test_port_imports_no_jax_and_no_reference():
             "                               'hdrf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'hdrf_tpu_torch.server.reduction_worker' in sys.modules\n"
-            "for m in ('parallel.sharded', 'parallel.launch'):\n"
+            "for m in ('parallel.sharded', 'parallel.launch',\n"
+            "          'config', 'utils.wal', 'utils.rollwin',\n"
+            "          'utils.tenants', 'utils.retry', 'utils.qos',\n"
+            "          'utils.profiler', 'reduction.accounting',\n"
+            "          'reduction.scheme', 'reduction.dedup',\n"
+            "          'storage.container_store', 'index.chunk_index',\n"
+            "          'server.read_plane', 'ops.reconstruct',\n"
+            "          'ops.gather_cuda'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
+            "                                    'msgpack'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _py(["-c", code])
@@ -351,16 +359,87 @@ def test_worker_backend_flag_spawns_like_the_reference():
 
 
 def test_worker_backend_native_is_refused_until_ported():
-    """``--backend native`` exits with an error naming the ROADMAP item
-    that ports it; a ``--device`` that contradicts ``--backend`` is
-    refused too."""
-    r = _py(["-m", "hdrf_tpu_torch.server.reduction_worker", "--port", "0",
-             "--backend", "native"])
-    assert r.returncode != 0 and "listening" not in r.stdout
-    assert "Queue A #9a" in r.stderr, r.stderr
+    """``--backend native`` is ported (the host library): the worker
+    starts on the host library instead of exiting; a ``--device`` that
+    contradicts ``--backend`` is still refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdrf_tpu_torch.server.reduction_worker",
+         "--port", "0", "--backend", "native"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "(native) listening on" in line, line
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
     r = _py(["-m", "hdrf_tpu_torch.server.reduction_worker", "--port", "0",
              "--backend", "cpu", "--device", "cuda"])
     assert r.returncode != 0 and "listening" not in r.stdout
+
+
+def test_worker_backend_native_answers_reduce_like_native():
+    """The worker spawned with the reference's ``--backend native``
+    answers ``reduce`` (and ``compress``) with the reference native
+    backend's cuts, digests and host-codec bytes."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdrf_tpu_torch.server.reduction_worker",
+         "--port", "0", "--backend", "native"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        m = re.search(r"listening on ([\d.]+):(\d+)",
+                      proc.stdout.readline())
+        c = RefClient((m.group(1), int(m.group(2))), deadline_s=60.0)
+        assert c.ping()["backend"] == "native"
+        data = _bytes(300_000)
+        cuts, digs = c.reduce(data, SMALL)
+        wc, wd = ref_dispatch.chunk_and_fingerprint(
+            np.frombuffer(data, np.uint8), SMALL, "native")
+        np.testing.assert_array_equal(cuts, wc.astype(np.int64))
+        np.testing.assert_array_equal(digs, wd)
+        text = b"abcabcabd" * 5000
+        assert c.compress("lz4", text) \
+            == ref_dispatch.block_compress("lz4", text, "native")
+        c.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
+def test_traces_reply_carries_profiler_counters(worker):
+    """``traces`` returns the port profiler's counter samples, each with
+    the reference's keys."""
+    from hdrf_tpu.utils import profiler as ref_prof
+    from hdrf_tpu_torch.utils import profiler
+
+    profiler.counter_set("wal_queue_depth", 5)
+    ref_prof.counter_set("wal_queue_depth", 5)
+    got = RefClient(worker.addr).traces()["counters"]
+    assert got and got[-1]["name"] == "wal_queue_depth"
+    assert got[-1]["value"] == 5
+    assert sorted(got[-1]) == sorted(ref_prof.counters_snapshot()[-1])
+
+
+def test_worker_records_worker_bytes(worker):
+    """Each ``reduce`` / ``compress`` / ``compress_batch`` stamps its
+    bytes into reduction/accounting, as the reference's worker does."""
+    from hdrf_tpu_torch.reduction import accounting
+
+    def c(key):
+        return accounting.snapshot()["counters"].get(key, 0)
+    r0, k0 = c("worker_reduce_bytes"), c("worker_compress_bytes")
+    wc = WorkerClient(worker.addr)
+    cdc = dispatch.from_reference_cdc(dataclasses.asdict(SMALL))
+    wc.reduce(_bytes(10_000), cdc)
+    wc.compress("gzip", b"x" * 7_000)
+    wc.compress_batch("gzip", [b"y" * 100, b"z" * 300])
+    # the worker stamps after its reply; a ping on the same pooled
+    # connection is served after the stamp
+    wc.ping()
+    wc.close()
+    assert c("worker_reduce_bytes") - r0 == 10_000
+    assert c("worker_compress_bytes") - k0 == 7_400
 
 
 def test_card_entry_points_fail_without_a_card():
