@@ -46,7 +46,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 5. Profile: two more requests under ``torch.profiler``; the device's busy
    share of that window (the union of kernel and copy intervals) and each
    kernel's device time per request.  The trace is kept in
-   ``chiprun_out/smoke_trace_reduce.json``.
+   ``chiprun_out/smoke_trace_reduce.json``.  Every profiler session
+   makes ``PROFILE_WARMUP_LAUNCHES`` small launches before its window
+   (a session's first device records carry timestamps hundreds of ms
+   early, the more the older the process, and are dropped or out of
+   place), and a window in which a launch or copy call has no device
+   record, or has it out of place, is not measured; ``PROFILE warmup``
+   lines, after the build and after SCHEME, count what a window without
+   the warm-up loses.
 6. Seal kernels: ``match_deltas`` (stride 2 and 4) and ``sort_rows``
    against their plain versions on the card, on eight 32 MiB containers
    (the generators of tests/test_lz4_tpu.py scaled up, the reference
@@ -116,15 +123,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    containers sealed).  (c) Read: every block whole through
    ``reconstruct`` (the reconstructor), twice, bit-identical; then
    ranged reads at odd offsets above and below ``DEVICE_RECON_MIN`` (the
-   reconstructor and the read plane) against the slices (``SCHEME
-   read``: ms per block, MiB/s, ``image_hits``, ``images_staged``,
-   launches).  (d) The index closed and reopened from its directory: its
+   reconstructor and the read plane) against the slices, and one ranged
+   read repeated, whose second run must stage no image and hit the first
+   run's (``SCHEME read``: ms per block, MiB/s, ``image_hits``,
+   ``images_staged``, launches).  (d) The index closed and reopened from its directory: its
    refcounts equal a plain model of the blocks written; two blocks read
    again.  (e) ``TIMING gather_raw``: every (container, bucket) group of
    one block's read, card ms, device ms, plain once, the library call
-   (advanced indexing + shift) and the byte bound.  (f) ``PROFILE
-   scheme_write`` / ``scheme_read``: one more block written and read
-   under ``torch.profiler`` (traces ``smoke_trace_scheme_*.json``).
+   (advanced indexing + shift) and the byte bound (the union of the
+   lanes' image windows read once).  (f) ``PROFILE scheme_write`` /
+   ``scheme_read``: one more block written and read under
+   ``torch.profiler`` (traces ``smoke_trace_scheme_*.json``).
 10. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -201,6 +210,12 @@ MIB = 1 << 20
 SEAL_BYTES = 32 * MIB        # the reference's container_size (1 << 25)
 _I32_MIN = -(1 << 31)
 TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out"
+# runtime calls that put work on the device, and the trace categories of
+# their device records (``profiled`` matches each call to its record)
+DEVICE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROFILE_WARMUP_LAUNCHES = 512
+MISPLACED_US = 50_000.0     # a record this far before its call is misplaced
 SELECT_KERNELS = ("cdc_select",)     # the select's kernels, by name
 SCAN_KERNELS = ("cdc_scan_kernel",)
 # be_image's words-only scan; a checkout without it runs the full scan
@@ -336,25 +351,104 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names, reps: int = 10):
-    """Device time per call of ``fn``'s kernels — those whose name holds
-    one of ``names`` — summed from torch.profiler over ``reps`` calls
-    after one warm-up, the L2 scrubbed before each; None when the trace
-    holds none of them.  Unlike ``cuda_ms`` it leaves out the host's
-    launch overhead."""
-    from torch.profiler import ProfilerActivity, profile
+class Traced(NamedTuple):
+    """One profiled window: its host-clock bounds (us), the launch and
+    copy calls made inside it, those without a device record, those
+    whose record starts more than ``MISPLACED_US`` before the call, and
+    the device records (trace events) of its calls."""
+    lo: float
+    hi: float
+    calls: int
+    lost: int
+    misplaced: int
+    records: list
 
-    fn()
+
+def profiled(fn, trace: Path,
+             warmup: int = PROFILE_WARMUP_LAUNCHES) -> Traced:
+    """Run ``fn()`` (then a device synchronize) as the window
+    ``smoke.window`` of a torch.profiler session (CPU and CUDA), after
+    ``warmup`` small launches in the same session, and export the trace
+    to ``trace``.  The window's calls are those made (by any thread)
+    between its host-clock bounds; their records are found by
+    correlation id, not by time.
+
+    The warm-up: the first records of a session carry device timestamps
+    hundreds of ms early, so the profiler drops them as out of its range
+    or keeps them out of place; the older the process, the more records
+    (none in a fresh process).  The warm-up launches take those
+    (``PROFILE warmup`` lines count them).  A window with a call that
+    lost its record or has it out of place is not measured."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(warmup):
+            x.add_(1)
+        torch.cuda.synchronize()
+        with record_function("smoke.window"):
+            fn()
+            torch.cuda.synchronize()
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    win = next(e for e in events if e.get("name") == "smoke.window"
+               and e.get("cat") == "user_annotation")
+    lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    recs = {e["args"]["correlation"]: e for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+            and "correlation" in e.get("args", {})}
+    calls = [(e["args"]["correlation"], float(e["ts"])) for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})
+             and e["name"].startswith(DEVICE_CALLS)
+             and lo <= float(e["ts"]) <= hi]
+    return Traced(lo, hi, len(calls),
+                  sum(c not in recs for c, _ in calls),
+                  sum(c in recs and float(recs[c]["ts"]) < t - MISPLACED_US
+                      for c, t in calls),
+                  [recs[c] for c, _ in calls if c in recs])
+
+
+def warmup_probe(t_start: float) -> dict:
+    """The profiler's early records against the warm-up: 30 small
+    launches ~2 ms apart in a window without a warm-up and in one after
+    ``PROFILE_WARMUP_LAUNCHES``; each window's calls without a device
+    record or with it out of place, at this process age."""
+    x = torch.ones(1 << 20, device="cuda")
+
+    def launches():
+        for _ in range(30):
+            x.add_(1)
+            time.sleep(0.001)
+    out = {"process_age_s": time.perf_counter() - t_start}
+    for warm in (0, PROFILE_WARMUP_LAUNCHES):
+        w = profiled(launches, TRACE_DIR / "warmup_trace.json", warm)
+        out[f"warmup_{warm}"] = {"calls": w.calls, "lost": w.lost,
+                                 "misplaced": w.misplaced}
+    print("PROFILE warmup " + json.dumps(out), flush=True)
+    return out
+
+
+def device_ms(fn, names, reps: int = 10):
+    """Device time per call of ``fn``'s kernels — those whose name holds
+    one of ``names`` — summed from torch.profiler (``profiled``) over
+    ``reps`` calls after one warm-up, the L2 scrubbed before each; None
+    when the window holds none of them or is not measured.  Unlike
+    ``cuda_ms`` it leaves out the host's launch overhead."""
+    fn()
+
+    def run():
         for _ in range(reps):
             scrub_l2()
             fn()
-        torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if any(n in e.key for n in names)]
-    return sum(us) / 1e3 / reps if us else None
+    w = profiled(run, TRACE_DIR / "device_ms_trace.json")
+    us = [float(e["dur"]) for e in w.records if e["cat"] == "kernel"
+          and any(n in e["name"] for n in names)]
+    return sum(us) / 1e3 / reps if us and not (w.lost or w.misplaced) \
+        else None
 
 
 def timed(fn):
@@ -673,7 +767,7 @@ def _host_waits(ledger) -> dict:
             if f"wait_us|op={op}" in hist}
 
 
-def _union_us(spans: list, lo: float, hi: float) -> float:
+def _union(spans: list, lo: float, hi: float) -> float:
     """Length of the union of (start, end) spans clipped to [lo, hi]."""
     total, end = 0.0, lo
     for s, e in sorted(spans):
@@ -684,58 +778,40 @@ def _union_us(spans: list, lo: float, hi: float) -> float:
     return total
 
 
-def profile_window(tag: str, run_requests, nreq: int, names,
-                   expect=()) -> dict:
-    """``nreq`` requests (``run_requests()``) under torch.profiler: the
-    device's busy share of the window (union of kernel, copy and fill
-    intervals) and the device ms per request of each kernel, by the first
-    of ``names`` (kernel name -> label) found in its name; ``complete``:
-    whether every label of ``expect`` was seen (late in this script the
-    trace of a scheme write has lost device records; kernel_times.py
-    --only scheme profiles it in a fresh process).  The trace is
-    kept in ``chiprun_out/smoke_trace_<tag>.json``."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("smoke.window"):
-            run_requests()
-        torch.cuda.synchronize()
-    trace = TRACE_DIR / f"smoke_trace_{tag}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    win = [e for e in events if e.get("name") == "smoke.window"
-           and e.get("ph") == "X"]
-    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
-              ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not win or not any(e["cat"] == "kernel" for e in dev_ev):
-        print(f"PROFILE {tag} not measured: no device kernels in the trace",
-              flush=True)
-        return {"busy_share": None}
-    lo = float(win[0]["ts"])
-    hi = lo + float(win[0]["dur"])
+def profile_window(tag: str, run_requests, nreq: int, names) -> dict:
+    """``nreq`` requests (``run_requests()``) as a ``profiled`` window:
+    the device's busy share of the window (the union of the kernel, copy
+    and fill records of its calls over its length) and the device ms per
+    request of each kernel, by the first of ``names`` (kernel name ->
+    label) found in its name.  The trace is kept in
+    ``chiprun_out/smoke_trace_<tag>.json``."""
+    w = profiled(run_requests, TRACE_DIR / f"smoke_trace_{tag}.json")
+    if w.lost or w.misplaced or not any(e["cat"] == "kernel"
+                                        for e in w.records):
+        print(f"PROFILE {tag} not measured: of {w.calls} launch and copy "
+              f"calls {w.lost} without a device record, {w.misplaced} "
+              f"out of place", flush=True)
+        return {"busy_share": None, "calls": w.calls, "lost": w.lost,
+                "misplaced": w.misplaced}
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-             for e in dev_ev]
+             for e in w.records]
     per_kernel: dict = {}
-    for e in dev_ev:
+    for e in w.records:
         key = e["name"] if e["cat"] != "kernel" else next(
             (label for k, label in names.items() if k in e["name"]),
             "other kernels")
         per_kernel[key] = per_kernel.get(key, 0.0) \
             + float(e["dur"]) / 1e3 / nreq
-    out = {"requests": nreq, "window_ms": (hi - lo) / 1e3,
-           "busy_share": _union_us(spans, lo, hi) / (hi - lo),
-           "device_ms_per_request": per_kernel}
-    if expect:
-        out["complete"] = all(k in per_kernel for k in expect)
+    out = {"requests": nreq, "window_ms": (w.hi - w.lo) / 1e3,
+           "busy_share": _union(spans, w.lo, w.hi) / (w.hi - w.lo),
+           "device_ms_per_request": per_kernel, "calls": w.calls}
     print(f"PROFILE {tag} " + json.dumps(out), flush=True)
     return out
 
 
 def main_path(args, dev, cdc: CdcConfig) -> dict:
     blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
-    worker = ReductionWorker("127.0.0.1", 0, device="cuda").start()
+    worker = ReductionWorker("127.0.0.1", 0, backend="cuda").start()
     client = WorkerClient(worker.addr)
     ledger = metrics.registry("device_ledger")
     waits0 = _host_waits(ledger)
@@ -1085,7 +1161,7 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
     port's WorkerClient.  Every reply decodes to its payload and equals a
     CPU DeviceLz4 fed the same sequence; the single ``sparse`` seal must
     emit from its device records and run the grey-zone race."""
-    worker = ReductionWorker("127.0.0.1", 0, device="cuda").start()
+    worker = ReductionWorker("127.0.0.1", 0, backend="cuda").start()
     client = WorkerClient(worker.addr)
     twin = lz4_device.DeviceLz4(device="cpu")
     reg = metrics.registry("lz4_device")
@@ -1612,13 +1688,35 @@ def scheme_ranged(ctx, blocks: list) -> dict:
     return {"device_recon_reads": n_dev, "read_plane_reads": n_plane}
 
 
+def scheme_repeat(ctx, blk) -> dict:
+    """A resident image serves a later request: one ranged read above
+    DEVICE_RECON_MIN, then the same read again, which must stage no image
+    and hit the images the first left resident."""
+    from hdrf_tpu_torch.reduction.dedup import DEVICE_RECON_MIN
+
+    s = ops_scheme.get("dedup_lz4")
+    off, ln = 54_321, DEVICE_RECON_MIN + 8_191
+    counts = []
+    for _ in range(2):
+        c0 = _recon_counts()
+        got = s.reconstruct(0, b"", blk.size, ctx, off, ln)
+        check(got == blk[off:off + ln].tobytes(),
+              f"repeated ranged read ({off}, {ln}) != slice")
+        counts.append({k: v - c0[k] for k, v in _recon_counts().items()})
+    check(counts[1]["images_staged"] == 0 and counts[1]["image_hits"] > 0,
+          f"SCHEME read: a repeated read restaged its images {counts}")
+    return {"first": counts[0], "repeat": counts[1]}
+
+
 def time_gather_raw(ctx, bid: int, n: int) -> dict:
     """``gather_raw`` at one 128 MiB read's shapes: every (container,
     bucket) group of the block's plan, images resident.  Card ms (CUDA
     events, one wrapper call a group), device ms (profiler), the plain
     version once, the library call (advanced indexing + shift), and the
-    byte bound — each lane's W + 1 image words read once, its W words
-    written, its offset read."""
+    byte bound — the image bytes under the union of the lanes' windows
+    ``[off, off + 4(W + 1))`` read once (a lane's window runs into the
+    next chunks' bytes, and the padding lanes all read offset 0), its W
+    words a lane written, its offset read."""
     from hdrf_tpu_torch.ops import reconstruct
     from hdrf_tpu_torch.server.read_plane import resolve_chunk_plan
 
@@ -1627,7 +1725,7 @@ def time_gather_raw(ctx, bid: int, n: int) -> dict:
     for cid, off, ln in plan.wanted:
         b = reconstruct._bucket_of(-(-ln // 64) + 1)
         groups.setdefault((cid, b), []).append(off)
-    calls, nbytes, lanes = [], 0, 0
+    calls, windows, nbytes, lanes = [], {}, 0, 0
     for (cid, b), offs in groups.items():
         img = ctx.recon._image(cid, lambda c=cid:
                                ctx.containers.read_container(c))
@@ -1636,8 +1734,12 @@ def time_gather_raw(ctx, bid: int, n: int) -> dict:
         ol[0, :len(offs)] = offs
         calls.append((img, torch.from_numpy(ol).to(img.device), b))
         W = b * 16
-        nbytes += L * (W + 1) * 4 + L * W * 4 + 4 * L
+        windows.setdefault(cid, []).extend(
+            (int(o), int(o) + 4 * (W + 1)) for o in ol[0])
+        nbytes += L * W * 4 + 4 * L
         lanes += L
+    read_bytes = sum(_union(w, 0, math.inf) for w in windows.values())
+    nbytes += read_bytes
     e = 0
     for img, ol, b in calls:
         k = gather_cuda.gather_lanes_raw(img, ol, b)
@@ -1653,6 +1755,7 @@ def time_gather_raw(ctx, bid: int, n: int) -> dict:
                                  for i, o, b in calls])
     bd = bound(nbytes, 0)
     row = {"block": bid, "bytes": n, "groups": len(calls), "lanes": lanes,
+           "window_bytes_read": int(read_bytes),
            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel,
                                                          RAW_KERNELS),
            "plain_ms": plain_ms,
@@ -1688,10 +1791,13 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
                 check(rd_launches[kname] > 0,
                       f"SCHEME read never launched the {kname} kernel")
             second = scheme_read_pass(ctx, blocks)
-            check(second["image_hits"] > 0, "SCHEME read: no image hits")
+            check(second["image_hits"] > 0,
+                  "SCHEME read: no image hits within a block")
             ranged = scheme_ranged(ctx, blocks)
+            repeat = scheme_repeat(ctx, blocks[0])
             print("SCHEME read " + json.dumps({
                 "first_pass": first, "second_pass": second, **ranged,
+                "repeated_ranged_read": repeat,
                 "launches": rd_launches,
                 "gather_raw_launches_per_block":
                     rd_launches["gather_raw"] / len(blocks)}), flush=True)
@@ -1724,12 +1830,12 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
             data = extra.tobytes()
             pw = profile_window(
                 "scheme_write", lambda: s.reduce(100, data, ctx), 1,
-                SCHEME_KERNEL_NAMES, expect=("cdc_scan", "sha256"))
+                SCHEME_KERNEL_NAMES)
             pr = profile_window(
                 "scheme_read", lambda: check(
                     s.reconstruct(100, b"", extra.size, ctx) == data,
                     "profiled read != written"),
-                1, SCHEME_KERNEL_NAMES, expect=("gather_raw",))
+                1, SCHEME_KERNEL_NAMES)
         finally:
             ctx.read_plane.close()
             ctx.index.close()
@@ -1761,6 +1867,7 @@ def run(args) -> int:
              if "registers" in ln or "==" in ln]
     print(f"BUILD {time.perf_counter() - t0:.1f}s " + " | ".join(ptxas),
           flush=True)
+    warmup_probe(t_start)
 
     errs = {k: 0 for k in KERNELS}
     for name, a, mask, mn, mx in standard_corpora():
@@ -1816,6 +1923,7 @@ def run(args) -> int:
     ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
     torch.cuda.empty_cache()
     sc = scheme_phase(args, dev, cdc, errs, timing)
+    warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],
                 **sc["launches"]}

@@ -22,8 +22,9 @@
 // dynamic_slice and funnel shift): the same loop without the pad — every
 // one of the lane's W words is the funnel shift of image words q + j and
 // q + j + 1, the words past the chunk's length included (they are the
-// image's next bytes, not zeros).  Bound: bytes — the lane's W + 1 image
-// words read once, its W words written once.
+// image's next bytes, not zeros).  Bound: bytes — the image bytes under
+// the union of the lanes' W + 1 word windows read once (neighbouring
+// chunks' windows overlap), each lane's W words written once.
 
 #include <cstdint>
 #include <cuda_runtime.h>

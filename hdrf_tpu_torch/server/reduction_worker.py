@@ -40,7 +40,7 @@ of its previous copy has completed, so the host never overwrites bytes a
 copy is still reading.
 
 Run standalone: ``python -m hdrf_tpu_torch.server.reduction_worker --port 0
---device cuda`` (prints ``listening on host:port``).
+--backend cuda`` (prints ``listening on host:port``).
 """
 
 from __future__ import annotations
@@ -134,15 +134,13 @@ class ReductionWorker:
     connections is ordered on the worker's one CUDA stream."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 device="cuda", backend: str | None = None):
-        """``device`` selects the card or the CPU's plain versions;
-        ``backend`` (a dispatch name) overrides it, ``native`` running
-        the host library."""
-        self.backend = ops_dispatch.resolve_backend(
-            backend or torch.device(device).type)
+                 backend: str = "auto"):
+        """``backend``, a dispatch name: ``auto``, ``tpu`` and ``cuda``
+        the card, ``cpu`` the plain versions, ``native`` the host
+        library (no device)."""
+        self.backend = ops_dispatch.resolve_backend(backend)
         self.device = (None if self.backend == "native" else
-                       resolve_device(device if backend is None
-                                      else self.backend))
+                       resolve_device(self.backend))
         self._stream = (torch.cuda.Stream(self.device)
                         if self.backend == "cuda" else None)
         self._reducers: dict[tuple, ResidentReducer] = {}
@@ -446,21 +444,24 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="hdrf-torch-reduction-worker")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="cuda (the card, the default) or cpu (plain "
-                        "versions, for tests)")
     p.add_argument("--backend", default=None, choices=BACKENDS,
-                   help="the reference spawner's flag: auto, tpu and cuda "
-                        "select the card, cpu the plain versions, native "
-                        "the host library")
+                   help="the reference spawner's flag: auto (the default), "
+                        "tpu and cuda select the card, cpu the plain "
+                        "versions, native the host library")
+    p.add_argument("--device", default=None,
+                   help="alias of --backend: cuda (the card) or cpu (plain "
+                        "versions, for tests)")
     args = p.parse_args(argv)
-    if args.backend is not None and args.device is not None:
-        chosen = ops_dispatch.resolve_backend(args.backend)
-        if chosen != torch.device(args.device).type:
-            p.error(f"--backend {args.backend} selects {chosen}, not "
+    backend = args.backend or "auto"
+    if args.device is not None:
+        alias = torch.device(args.device).type
+        if args.backend is not None and \
+                ops_dispatch.resolve_backend(args.backend) != alias:
+            p.error(f"--backend {args.backend} selects "
+                    f"{ops_dispatch.resolve_backend(args.backend)}, not "
                     f"--device {args.device}")
-    w = ReductionWorker(args.host, args.port, device=args.device or "cuda",
-                        backend=args.backend).start()
+        backend = alias
+    w = ReductionWorker(args.host, args.port, backend=backend).start()
     # The banner's "listening on host:port" substring is what launchers
     # parse (the reference's spawn_local_worker regex).
     print(f"reduction worker ({w.backend}) listening on "

@@ -22,12 +22,8 @@ launches); ``match_deltas`` at strides 2 and 4 on the random, zeros,
 text, source and sparse containers (``TIMING match_deltas`` lines, each
 first held against its plain version); and ``sort_rows`` at each call
 site of the match scan of the ``source`` container at stride 2
-(``TIMING sort_rows`` lines; keys held against the plain sort); and
-``scheme``: chip_smoke.py's SCHEME phase (the raw gather against its
-plain version, the dedup_lz4 write and reads) in this fresh process, for
-its ``TIMING gather_raw`` line and ``PROFILE scheme_write`` /
-``scheme_read`` windows (late in chip_smoke.py the trace of the scheme
-write loses device records).  ``--only`` times a subset.  The last line is one JSON object of the
+(``TIMING sort_rows`` lines; keys held against the plain sort).
+``--only`` times a subset.  The last line is one JSON object of the
 times.  Two checkouts timed in one call on one card compare their
 kernels, e.g. an earlier commit unpacked with ``git archive`` into a
 directory that .gitignore lists:
@@ -46,7 +42,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GROUPS = ("cdc_scan", "cdc_select", "be_image", "shard_scan", "sha256",
-          "match_deltas", "sort_rows", "scheme")
+          "match_deltas", "sort_rows")
 
 
 def main(argv=None) -> int:
@@ -77,13 +73,6 @@ def main(argv=None) -> int:
         errs = {k: 0 for k in cs.KERNELS}
         cdc = cs.CdcConfig()
         mask, mn, mx = cs.gear_mask(cdc), cdc.min_chunk, cdc.max_chunk
-        if "scheme" in only:
-            timing: dict = {}
-            sc = cs.scheme_phase(argparse.Namespace(
-                seed=0, requests=8, block_mib=128), dev, cdc, errs, timing)
-            print("SCHEME profile " + json.dumps(sc["profile"]), flush=True)
-            only = only - {"scheme"}
-            torch.cuda.empty_cache()
         chain = (cs.sha256_cuda.chain_probe(dev)
                  if hasattr(cs.sha256_cuda, "chain_probe") else None)
         out = {"tree": str(tree), "card": cs.nvidia_smi(),

@@ -2,7 +2,7 @@
 driven by the reference's unmodified client and DataNode, plus the wire
 codec and the import boundary.
 
-The worker runs on ``device="cpu"`` (each kernel's plain version); the
+The worker runs on ``backend="cpu"`` (each kernel's plain version); the
 protocol, the replies and the cluster plumbing are what a card run uses.
 """
 
@@ -56,7 +56,7 @@ def _bytes(n: int) -> bytes:
 
 @pytest.fixture(scope="module")
 def worker():
-    w = ReductionWorker(device="cpu").start()
+    w = ReductionWorker(backend="cpu").start()
     yield w
     w.stop()
 
