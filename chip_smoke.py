@@ -134,13 +134,48 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    lanes' image windows read once).  (f) ``PROFILE scheme_write`` /
    ``scheme_read``: one more block written and read under
    ``torch.profiler`` (traces ``smoke_trace_scheme_*.json``).
-10. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+10. EC, the cold tier (hdrf_tpu/server/ec_tier.py as the DataNode
+   installs it, datanode.py:269, 276) on SCHEME's store, index and data
+   directory, before the directory goes: an owner (SCHEME's context) and
+   two peers, stand-in DataNodes carrying the attributes ``EcTier`` and
+   ``CodedExchange`` read, peer ops served over socket pairs in the
+   port's wire codec; RS(6,3), stripe slot i on holder i mod 3,
+   ``ReductionConfig()`` defaults (hedge delta 1, coded repair, exchange
+   compression through the device LZ4) and the DataNode's 100 MiB/s
+   background throttle.  (a) The GF(2^8) kernel against its plain
+   version, tolerance zero: RS(6,3), (10,4), (1,1) and (24,8) at lengths
+   1, 3, 15, 16, 17, 4097 and a 32 MiB container's stripe, rows aligned
+   and at odd byte offsets; partial sums on column slices holding zeros,
+   ones and 0xFF; all 129 erasure patterns of RS(6,3) through
+   ``rs_decode``; two sealed 32 MiB containers' parity against
+   ``encode_ref`` on the host.  (b) ``EcTier.demote`` of every block:
+   every sealed container striped, its manifest in the index and its
+   sealed file gone, the stripes' bytes 1.5x the logical up to padding,
+   one report per container, ``rs`` launches > 0 (``EC demote``).  (c)
+   Holder p1 loses every stripe (data 1 and 4, parity 7); the caches
+   dropped, every block read whole and at odd ranged offsets,
+   bit-identical, with ``degraded_reads``, ``be_image`` and
+   ``gather_raw`` launches > 0 (``EC read p1_lost``).  (d) Every lost
+   stripe repaired by the coded exchange (partial sums chained through
+   the peers); then the owner's stripes 0, 3 and 6 lost, two blocks read,
+   and repaired by the classic full gather (``ec_coded_repair=False``):
+   each rebuilt file equals the original and its CRC the manifest's
+   (``EC repair coded`` / ``classic``).  (e) The index closed and
+   reopened: manifests equal.  (f) ``TIMING rs`` for an encode of a 32
+   MiB container, a decode of three data stripes and a two-survivor
+   partial sum: card ms, device ms, plain once, the library call (the
+   reference's bit-plane product through ``torch.matmul`` in f32) and
+   the byte bound, each with its launches over (b) to (d); ``PROFILE
+   ec_demote`` / ``ec_read``: SCHEME's profiled block demoted and read
+   back degraded under the profiler.  ``rs``'s launch count is that of
+   (b) to (d).
+11. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-kernel_times.py times the scans, the select, SHA-256, the match deltas
-and the row sort of any checkout on the same inputs (``time_scan``,
-``time_image``, ``time_shard``, ``time_select``, ``time_sha``,
-``time_match``, ``time_sort_site``).
+kernel_times.py times the scans, the select, SHA-256, the match deltas,
+the row sort and the RS kernel of any checkout on the same inputs
+(``time_scan``, ``time_image``, ``time_shard``, ``time_select``,
+``time_sha``, ``time_match``, ``time_sort_site``, ``time_rs``).
 
 The CDC kernel pair is two wrapper calls with a launch count each:
 ``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
@@ -149,7 +184,10 @@ launch); ``be_image`` (the scan's words-only mode, its own counter) and
 counts are those of the seal's and the MESH phase's ``reduce_sharded``
 requests.  ``gather_raw`` (the raw lane gather of the read path, a
 jitted XLA program in the reference, not a ``pallas_call``) counts its
-launches over SCHEME's first full read pass.  Bounds use the card's published peaks: 3.35 TB/s HBM, and
+launches over SCHEME's first full read pass, ``rs`` (the reference's
+jitted bit-matrix product, filed under its "TPU kernels") its launches
+over EC's demote, degraded reads and repairs.  Bounds use the card's
+published peaks: 3.35 TB/s HBM, and
 16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98 GHz; the kernels are
 integer work).
 """
@@ -257,6 +295,8 @@ KERNELS = {
     # a jitted XLA program of the reference, not a pallas_call
     "gather_raw": ("hdrf_tpu_torch/csrc/gather.cu",
                    "hdrf_tpu/ops/reconstruct.py:46"),
+    # the reference's jitted bit-matrix product, filed under "TPU kernels"
+    "rs": ("hdrf_tpu_torch/csrc/rs.cu", "hdrf_tpu/ops/rs.py:167"),
 }
 
 
@@ -1765,6 +1805,420 @@ def time_gather_raw(ctx, bid: int, n: int) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ EC
+
+EC_K, EC_M = 6, 3            # the NameNode's RS(6,3) (hdrf_tpu/config.py:319)
+BALANCER_BANDWIDTH = 100 * MIB   # the DataNode's background-transfer cap
+RS_GEOMETRIES = ((6, 3), (10, 4), (1, 1), (24, 8))
+RS_LENGTHS = (1, 3, 15, 16, 17, 4097, -(-(SEAL_BYTES + 16) // EC_K))
+RS_KERNELS = ("rs_apply_kernel",)
+EC_KERNEL_NAMES = {**SCHEME_KERNEL_NAMES, "rs_apply_kernel": "rs"}
+P1_SLOTS = (1, 4, 7)         # holder p1's stripes: slot i on holder i % 3
+OWNER_SLOTS = (0, 3, 6)
+
+
+class EcNode:
+    """A stand-in DataNode carrying exactly what ``EcTier`` and
+    ``CodedExchange`` read (hdrf_tpu/server/datanode.py:120-276); a peer
+    call is served by the target's ``EcTier`` over a socket pair in the
+    port's wire codec (proto/datatransfer ``send_op`` / ``recv_op``,
+    proto/rpc ``recv_frame``)."""
+
+    def __init__(self, dn_id: str, data_dir: str, containers, index, red,
+                 cluster: dict, nns: list) -> None:
+        from types import SimpleNamespace
+
+        from hdrf_tpu_torch.server.coded_exchange import CodedExchange
+        from hdrf_tpu_torch.server.ec_tier import EcTier
+        from hdrf_tpu_torch.utils import qos
+        from hdrf_tpu_torch.utils.throttler import Throttler
+
+        self.dn_id, self.addr = dn_id, ("127.0.0.1", 20000 + len(cluster))
+        self.config = SimpleNamespace(data_dir=data_dir)
+        self.containers, self.index = containers, index
+        self.reduction_ctx = SimpleNamespace(config=red)
+        self.qos = qos.AdmissionController()
+        self.balance_throttler = Throttler(BALANCER_BANDWIDTH)
+        self._nns, self._cluster = nns, cluster
+        cluster[self.addr] = self
+        self.ec = EcTier(self)
+        self.coded = CodedExchange(self)
+
+    @property
+    def target(self) -> list:
+        return [self.dn_id, *self.addr]
+
+    def _peer_call(self, addr, op: str, **fields) -> dict:
+        import socket
+        import threading
+
+        from hdrf_tpu_torch.proto import datatransfer as dt
+        from hdrf_tpu_torch.proto.rpc import recv_frame
+
+        peer = self._cluster[tuple(addr)]
+        a, b = socket.socketpair()
+        t = threading.Thread(target=peer._xceive, args=(b,), daemon=True)
+        t.start()
+        try:
+            dt.send_op(a, op, **fields)
+            return recv_frame(a)
+        finally:
+            a.close()
+            t.join()
+
+    def _xceive(self, sock) -> None:
+        from hdrf_tpu_torch.proto import datatransfer as dt
+        from hdrf_tpu_torch.utils import retry
+
+        serve = {dt.STRIPE_READ: self.ec.serve_read,
+                 dt.STRIPE_WRITE: self.ec.serve_write,
+                 dt.STRIPE_CODED_READ: self.ec.serve_coded_read}
+        try:
+            op, fields = dt.recv_op(sock)
+            with retry.bind_remaining(fields.pop(retry.DEADLINE_KEY, None)):
+                serve[op](sock, fields)
+        except (OSError, ConnectionError):
+            pass
+        finally:
+            sock.close()
+
+
+class StandInNN:
+    def __init__(self) -> None:
+        self.calls: list = []
+
+    def call(self, method: str, **kw):
+        self.calls.append((method, kw))
+        return {"ok": True}
+
+
+def _edge_coeffs(rng, nrows: int, k: int) -> np.ndarray:
+    c = rng.integers(0, 256, (nrows, k), dtype=np.uint8)
+    c.flat[::3] = 0
+    c.flat[1::4] = 1
+    c.flat[2::5] = 0xFF
+    return c
+
+
+def rs_kernel_phase(dev, errs: dict, sealed: list) -> None:
+    """The GF(2^8) kernel against its plain version on the card,
+    tolerance zero: the encode matrices of RS(6,3), (10,4), (1,1) and
+    (24,8) at every length of ``RS_LENGTHS`` (the last a 32 MiB
+    container's stripe), rows aligned and at odd byte offsets; partial
+    sums on column slices with zeros, ones and 0xFF; every one of the 129
+    erasure patterns of RS(6,3) through ``rs_decode`` (equal to the data
+    and parity); and the parity of two sealed 32 MiB containers against
+    ``encode_ref`` on the host."""
+    from hdrf_tpu_torch.ops import rs, rs_cuda
+
+    import itertools
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def held(c, k, L, what):
+        flat = torch.randint(0, 256, (k * L + 16,), generator=g,
+                             dtype=torch.uint8, device=dev)
+        for off in ((0, 1) if L > 17 else (0, 1, 2, 3)):
+            d = flat[off:off + k * L].view(k, L)
+            e = max_err(rs_cuda.gf_apply(c, d), rs_cuda.gf_apply_plain(c, d))
+            errs["rs"] = max(errs["rs"], e)
+            check(e == 0, f"rs {what} L={L} offset {off}: kernel != plain "
+                          f"(max err {e})")
+    for k, m in RS_GEOMETRIES:
+        for L in RS_LENGTHS:
+            held(rs.rs_matrix(k, m)[k:], k, L, f"RS({k},{m})")
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(12)
+    for nwant, ncol in ((3, 2), (3, 1), (2, 4), (8, 24), (1, 6)):
+        c = _edge_coeffs(rng, nwant, ncol)
+        for L in (17, 4097, RS_LENGTHS[-1]):
+            held(c, ncol, L, f"partial sums {nwant}x{ncol}")
+        st = rng.integers(0, 256, (ncol, 4097), dtype=np.uint8)
+        check(np.array_equal(rs.partial_sums(st, c, device=dev),
+                             rs.partial_sums_ref(st, c)),
+              f"partial_sums {nwant}x{ncol} != partial_sums_ref")
+    d = rng.integers(0, 256, (EC_K, 4097), dtype=np.uint8)
+    allsh = np.concatenate([d, rs.encode_ref(d, EC_M)])
+    n = 0
+    for r in range(1, EC_M + 1):
+        for lost in itertools.combinations(range(EC_K + EC_M), r):
+            have = {i: allsh[i] for i in range(EC_K + EC_M) if i not in lost}
+            got = rs.rs_decode(have, EC_K, EC_M, want=list(lost), device=dev)
+            check(all(np.array_equal(got[i], allsh[i]) for i in lost),
+                  f"rs_decode lost {lost} != the shards")
+            n += 1
+    for blob in sealed:
+        L = -(-len(blob) // EC_K)
+        a = np.frombuffer(blob + bytes(EC_K * L - len(blob)),
+                          np.uint8).reshape(EC_K, L)
+        check(np.array_equal(rs.rs_encode(a, EC_K, EC_M, device=dev),
+                             rs.encode_ref(a, EC_M)),
+              f"rs_encode of a {len(blob)}-byte container != encode_ref")
+    torch.cuda.empty_cache()
+    print(f"KERNELS rs: RS{RS_GEOMETRIES} x L {RS_LENGTHS}, partial sums, "
+          f"{n} erasure patterns, {len(sealed)} sealed containers vs "
+          f"encode_ref, identical", flush=True)
+
+
+def time_rs(name: str, c: np.ndarray, L: int, dev,
+            launches: int | None = None) -> dict:
+    """One RS call at the main path's shapes, rows staged as ops/rs.py
+    stages them (16-byte aligned row stride): card ms (CUDA events),
+    device ms (profiler), the plain version once, the library call (the
+    reference's bit-plane product through torch.matmul in f32), the
+    bound, and ``launches``, the main path's launches of this kind of
+    call."""
+    from hdrf_tpu_torch.ops import rs, rs_cuda
+
+    nrows, k = c.shape
+    g = torch.Generator(device=dev).manual_seed(L + k)
+    buf = torch.randint(0, 256, (k, -(-L // 16) * 16), generator=g,
+                        dtype=torch.uint8, device=dev)
+    d = buf[:, :L]
+    bm = torch.from_numpy(rs._bit_matrix(c)).to(dev)
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmul is on: the library call would not be full f32")
+
+    def kernel():
+        return rs_cuda.gf_apply(c, d)
+
+    def library():
+        return rs_cuda.bit_matmul_plain(bm, d, nrows)
+    want, plain_ms = timed(lambda: rs_cuda.gf_apply_plain(c, d))
+    check(max_err(kernel(), want) == 0 and max_err(library(), want) == 0,
+          f"TIMING rs {name}: kernel or library call != plain")
+    del want
+    # bytes: k*L read, nrows*L written; operations: the bit matrix applied
+    # bit-sliced, one 32-bit XOR per set entry per 32 positions
+    bd = bound((k + nrows) * L, float(rs._bit_matrix(c).sum()) * -(-L // 32))
+    row = {"call": name, "k": k, "nrows": nrows, "L": L,
+           "ms": cuda_ms(kernel), "device_ms": device_ms(kernel, RS_KERNELS),
+           "plain_ms": plain_ms,
+           "library_ms": cuda_ms(library, reps=5, warmup=1),
+           "bound_ms": bd[0], "bound_by": bd[1],
+           "bytes": (k + nrows) * L, "launches": launches}
+    print("TIMING rs " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def _drop_caches(ctx) -> None:
+    """Forget every decoded payload: the reconstructor's images, the
+    store's LRU and the read plane's chunk cache."""
+    cids = set(ctx.containers.container_ids())
+    for cid in cids | set(ctx.index.stripe_manifests()):
+        ctx.recon.invalidate(cid)
+        ctx.read_plane.cache.invalidate_container(cid)
+    with ctx.containers._cache_lock:
+        ctx.containers._cache.clear()
+
+
+def _ec_counts() -> dict:
+    c = metrics.registry("ec").snapshot()["counters"]
+    keys = ("containers_demoted", "degraded_reads", "stripes_decoded",
+            "coded_repairs", "stripes_repaired", "stripe_gathers",
+            "ec_hedges_fired", "ec_hedge_fallbacks", "breaker_skips",
+            "repair_wire_bytes", "repair_rebuilt_bytes",
+            "stripe_push_raw_bytes", "stripe_push_wire_bytes")
+    return {k: c.get(k, 0) for k in keys}
+
+
+def _ec_delta(c0: dict) -> dict:
+    return {k: v - c0[k] for k, v in _ec_counts().items()}
+
+
+def _lose(owner, holder, slots) -> dict:
+    """Unlink ``holder``'s stripe files of ``slots`` of every striped
+    container; returns their bytes."""
+    lost = {}
+    for cid in owner.index.stripe_manifests():
+        for s in slots:
+            p = holder.ec.store._path(owner.dn_id, cid, s)
+            with open(p, "rb") as f:
+                lost[(cid, s)] = f.read()
+            os.unlink(p)
+    return lost
+
+
+def _repair(owner, holder, lost: dict) -> dict:
+    """Repair every lost stripe onto ``holder``; each rebuilt file must
+    equal the original and its CRC the manifest's."""
+    from hdrf_tpu_torch.utils import profiler as prof
+
+    c0 = _ec_counts()
+    t0 = time.perf_counter()
+    m0 = prof.mark()
+    for cid in sorted({c for c, _ in lost}):
+        slots = sorted(s for c, s in lost if c == cid)
+        owner.ec.repair({"cid": cid, "missing": slots,
+                         "targets": [holder.target] * len(slots),
+                         "block_id": None})
+    secs = time.perf_counter() - t0
+    phases = _phase_ms(m0, prof.mark(), len(lost))
+    for (cid, s), data in lost.items():
+        p = holder.ec.store._path(owner.dn_id, cid, s)
+        with open(p, "rb") as f:
+            got = f.read()
+        check(got == data and native.crc32c(got)
+              == owner.index.stripe_manifest(cid)["crcs"][s],
+              f"repaired stripe {cid}/{s} != the original")
+    return {"stripes": len(lost), "seconds": secs,
+            "mib_per_s": sum(map(len, lost.values())) / MIB / secs,
+            "phase_ms_per_stripe": phases, "ec": _ec_delta(c0)}
+
+
+def _degraded_reads(ctx, blocks: list, tag: str) -> dict:
+    c0 = _ec_counts()
+    _drop_caches(ctx)
+    first = scheme_read_pass(ctx, blocks)
+    ranged = scheme_ranged(ctx, blocks)
+    d = _ec_delta(c0)
+    check(d["degraded_reads"] > 0, f"EC read {tag}: no degraded read")
+    return {"pass": first, **ranged, "ec": d}
+
+
+def ec_phase(ctx, root: str, blocks: list, extra, errs: dict,
+             timing: dict) -> dict:
+    """EC: the cold tier of the DataNode (hdrf_tpu/server/datanode.py:269,
+    276) over SCHEME's store and index, at RS(6,3) with ReductionConfig()
+    defaults (hedge delta 1, coded repair, exchange compression): demote
+    every block, degraded reads after losing holder p1 whole and then the
+    owner's stripes, coded and classic repair, the index reopened."""
+    from hdrf_tpu_torch.index.chunk_index import ChunkIndex
+    from hdrf_tpu_torch.ops import rs, rs_cuda
+    from hdrf_tpu_torch.reduction import accounting
+    from hdrf_tpu_torch.storage.container_store import ContainerStore
+    from hdrf_tpu_torch.utils import retry
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+    s = ops_scheme.get("dedup_lz4")
+    cids = ctx.containers.container_ids()
+    sealed = [b for b in (ctx.containers.sealed_file_bytes(c)
+                          for c in cids[:2]) if b is not None]
+    rs_kernel_phase(dev, errs, sealed)
+    red = ctx.config
+    nn = StandInNN()
+    cluster: dict = {}
+    owner = EcNode("dn-owner", os.path.join(root, "owner"), ctx.containers,
+                   ctx.index, red, cluster, [nn])
+    peers = [EcNode(f"dn-p{i}", os.path.join(root, f"peer{i}"),
+                    ContainerStore(os.path.join(root, f"peer{i}", "c")),
+                    ChunkIndex(os.path.join(root, f"peer{i}", "i")), red,
+                    cluster, [nn]) for i in (1, 2)]
+    holders = [owner, *peers]
+    targets = [holders[i % 3].target for i in range(EC_K + EC_M)]
+    extra_bid = 100        # SCHEME's profiled block, in containers of its own
+    try:
+        # (b) demote
+        _zero_launch_counts()
+        rs_cuda.launches = 0
+        c0 = _ec_counts()
+        t1 = time.perf_counter()
+        m0 = profiler.mark()
+        for bid in range(len(blocks)):
+            owner.ec.demote({"block_id": bid, "k": EC_K, "m": EC_M,
+                             "targets": targets})
+        demote_s = time.perf_counter() - t1
+        demote_phases = _phase_ms(m0, profiler.mark(), len(blocks))
+        pw = profile_window("ec_demote", lambda: owner.ec.demote(
+            {"block_id": extra_bid, "k": EC_K, "m": EC_M,
+             "targets": targets}), 1, EC_KERNEL_NAMES)
+        man = ctx.index.stripe_manifests()
+        check(sorted(man) == cids and not ctx.containers.container_ids()
+              and all(ctx.containers.sealed_file_bytes(c) is None
+                      for c in cids),
+              f"EC demote: striped {sorted(man)} != sealed {cids}")
+        logical = sum(int(m["length"]) for m in man.values())
+        physical = sum(h.ec.store.physical_bytes() for h in holders)
+        pad = sum((EC_K + EC_M) * int(m["stripe_len"]) - 1.5 * int(m["length"])
+                  for m in man.values())
+        ratio = accounting.stripe_ratio(logical, physical)
+        check(abs(physical - 1.5 * logical - pad) < 1
+              and 0 <= pad < (EC_K + EC_M) * len(man),
+              f"EC demote: physical/logical {ratio} != 1.5 up to padding")
+        check(owner.ec.report()["striped_containers"] == len(man)
+              and sum(len(kw["containers"]) for _, kw in nn.calls)
+              == len(man), "EC demote: reports != the striped containers")
+        demote = {"containers": len(man), "seconds": demote_s,
+                  "logical_bytes": logical, "physical_bytes": physical,
+                  "ratio": ratio, "phase_ms_per_block": demote_phases,
+                  "ec": _ec_delta(c0),
+                  "rs_launches": rs_cuda.launches}
+        check(rs_cuda.launches > 0, "EC demote never launched the rs kernel")
+        print("EC demote " + json.dumps(demote), flush=True)
+        by_call = {"encode": rs_cuda.launches}
+        # (c) degraded reads: holder p1 lost whole (data 1, 4; parity 7)
+        lost1 = _lose(owner, peers[0], P1_SLOTS)
+        _zero_launch_counts()
+        r1 = _degraded_reads(ctx, blocks, "p1 lost")
+        launches = {**_scheme_launch_counts(), "rs": rs_cuda.launches}
+        for kname in ("be_image", "gather_raw"):
+            check(launches[kname] > 0,
+                  f"EC read never launched the {kname} kernel")
+        _drop_caches(ctx)
+        pr = profile_window(
+            "ec_read", lambda: check(
+                s.reconstruct(extra_bid, b"", extra.size, ctx)
+                == extra.tobytes(), "profiled degraded read != written"),
+            1, EC_KERNEL_NAMES)
+        print("EC read p1_lost " + json.dumps({**r1, "launches": launches}),
+              flush=True)
+        by_call["decode"] = rs_cuda.launches - by_call["encode"]
+        # (d) repair: the coded exchange, then the owner's stripes lost
+        # and read, and the classic full gather
+        rep1 = _repair(owner, peers[0], lost1)
+        check(rep1["ec"]["coded_repairs"] > 0, "EC repair: no coded repair")
+        print("EC repair coded " + json.dumps(rep1), flush=True)
+        by_call["partial_sums"] = rs_cuda.launches - sum(by_call.values())
+        retry.reset_breakers()   # holder p1 is back
+        lost2 = _lose(owner, owner, OWNER_SLOTS)
+        r2 = _degraded_reads(ctx, blocks[:2], "owner lost")
+        print("EC read owner_lost " + json.dumps(r2), flush=True)
+        red.ec_coded_repair = False
+        try:
+            rep2 = _repair(owner, owner, lost2)
+        finally:
+            red.ec_coded_repair = True
+        check(rep2["ec"]["coded_repairs"] == 0
+              and rep2["ec"]["stripes_repaired"] == len(lost2),
+              "EC repair classic: took the coded path")
+        print("EC repair classic " + json.dumps(rep2), flush=True)
+        rs_launches = rs_cuda.launches
+        by_call["decode"] += rs_launches - sum(by_call.values())
+        # (e) the index reopened: manifests equal
+        man = ctx.index.stripe_manifests()
+        ctx.index.close()
+        ctx.index = owner.index = ChunkIndex(os.path.join(root, "index"))
+        check(ctx.index.stripe_manifests() == man,
+              "EC reopen: manifests != before")
+        print(f"EC reopen: {len(man)} manifests equal", flush=True)
+        # (f) timing at the main path's shapes
+        L = max(int(m["stripe_len"]) for m in man.values())
+        dec = rs.repair_rows(EC_K, EC_M, (3, 4, 5, 6, 7, 8), (0, 1, 2))
+        rows = {"encode": time_rs("encode", rs.rs_matrix(EC_K, EC_M)[EC_K:],
+                                  L, dev, by_call["encode"]),
+                "decode": time_rs("decode", dec, L, dev, by_call["decode"]),
+                "partial_sums": time_rs("partial_sums", rs.repair_rows(
+                    EC_K, EC_M, (0, 2, 3, 5, 6, 8), (1, 4, 7))[:, [1, 4]],
+                    L, dev, by_call["partial_sums"])}
+        enc = rows["encode"]
+        timing["rs"] = {"ms": enc["ms"], "plain_ms": enc["plain_ms"],
+                        "library_ms": enc["library_ms"],
+                        "bound": (enc["bound_ms"], enc["bound_by"])}
+    finally:
+        for p in peers:
+            p.index.close()
+    out = {"seconds": time.perf_counter() - t0, "demote": demote,
+           "read_p1_lost": r1, "repair_coded": rep1, "read_owner_lost": r2,
+           "repair_classic": rep2, "timing": rows,
+           "profile": {"demote": pw, "read": pr},
+           "launches": {"rs": rs_launches}}
+    print(f"EC done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
                  timing: dict) -> dict:
     """SCHEME: the in-process dedup_lz4 scheme on the card, reached as the
@@ -1836,13 +2290,15 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
                     s.reconstruct(100, b"", extra.size, ctx) == data,
                     "profiled read != written"),
                 1, SCHEME_KERNEL_NAMES)
+            ec = ec_phase(ctx, root, blocks, extra, errs, timing)
         finally:
             ctx.read_plane.close()
             ctx.index.close()
     out = {"seconds": time.perf_counter() - t0, "write": wr,
            "read": {"first": first, "second": second},
-           "profile": {"write": pw, "read": pr},
-           "launches": {"gather_raw": rd_launches["gather_raw"]}}
+           "profile": {"write": pw, "read": pr}, "ec": ec,
+           "launches": {"gather_raw": rd_launches["gather_raw"],
+                        **ec["launches"]}}
     print(f"SCHEME done in {out['seconds']:.1f}s", flush=True)
     return out
 

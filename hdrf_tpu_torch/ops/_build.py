@@ -56,6 +56,8 @@ _SIGNATURES = {
     # key_out, v0_out, v1_out, key_scr, v0_scr, v1_scr, stream
     "hdrf_sort_rows": [_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _U32, _U32,
                        _U32, _P, _P, _P, _P, _P, _P, _P],
+    # in, in_stride, k, out, out_stride, nrows, L, coef (host), stream
+    "hdrf_rs_apply": [_P, _I64, _I32, _P, _I64, _I32, _I64, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,9 @@
-"""Framed packet streaming (port of hdrf_tpu/proto/datatransfer.py:36-38,
-107-147, 157-219).
+"""Framed packet streaming and the op header (port of
+hdrf_tpu/proto/datatransfer.py:36-38, 59-73, 89-104, 107-147, 157-219).
 
+Op header: one frame ``[op_name, fields_dict]`` (proto/rpc.send_frame);
+``send_op`` adds the caller's trace context as ``_trace`` and the ambient
+deadline's remaining seconds as ``_deadline``, as the reference does.
 Packet: ``[u32 data_len][u64 seqno][u8 flags][u32 crc32c(data)]`` + data,
 the same wire bytes as the reference, so a reference DataNode's packet
 stream lands unchanged in the port's worker.  A run ends with an empty
@@ -11,15 +14,42 @@ from __future__ import annotations
 
 import socket
 import struct
-from typing import Iterator
+from typing import Any, Iterator
 
 from hdrf_tpu_torch import native
-from hdrf_tpu_torch.proto.rpc import recv_exact
+from hdrf_tpu_torch.proto.rpc import recv_exact, recv_frame, send_frame
+from hdrf_tpu_torch.utils import retry, tracing
 
 PKT_HDR = struct.Struct("<IQBI")
 FLAG_LAST = 0x1
 
 DEFAULT_PACKET = 64 * 1024
+
+# EC cold-tier stripe ops (server/ec_tier.py; DN-protocol trust: stripe
+# ops never carry client bytes).  STRIPE_CODED_READ is the coded-exchange
+# sibling of STRIPE_READ: the request carries a per-DN chain plan and
+# ``accept_enc`` (may the response ship LZ4'd payloads with per-item
+# ``enc`` flags?); a peer without the op answers nothing, and the caller
+# falls back to plain STRIPE_READ legs.
+STRIPE_READ = "stripe_read"
+STRIPE_WRITE = "stripe_write"
+STRIPE_CODED_READ = "stripe_coded_read"
+
+
+def send_op(sock: socket.socket, op: str, **fields: Any) -> None:
+    tr = tracing.current_context()
+    if tr is not None:
+        fields["_trace"] = list(tr)
+    # the remaining deadline budget rides the op header beside _trace
+    hdr = retry.remaining_header()
+    if hdr is not None:
+        fields[retry.DEADLINE_KEY] = hdr
+    send_frame(sock, [op, fields])
+
+
+def recv_op(sock: socket.socket) -> tuple[str, dict]:
+    op, fields = recv_frame(sock)
+    return op, fields
 
 
 def write_packet(sock: socket.socket, seqno: int, data: bytes,

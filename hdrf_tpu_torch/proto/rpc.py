@@ -1,5 +1,5 @@
-"""Length-prefixed msgpack frames (port of hdrf_tpu/proto/rpc.py:67-92
-``recv_exact``/``send_frame``/``recv_frame``).
+"""Length-prefixed msgpack frames (port of hdrf_tpu/proto/rpc.py:58-92
+``RpcError``/``recv_exact``/``send_frame``/``recv_frame``).
 
 One frame = ``[u32 len][msgpack body]``.  The card's machine has no
 ``msgpack`` package, so this module carries its own encoder/decoder of
@@ -201,6 +201,15 @@ def unpackb(data: bytes, raw: bool = False) -> Any:
 
 
 # ------------------------------------------------------------------- frames
+
+class RpcError(Exception):
+    """Server-side exception re-raised at the caller (RemoteException analog)."""
+
+    def __init__(self, error: str, message: str):
+        super().__init__(f"{error}: {message}")
+        self.error = error
+        self.message = message
+
 
 def recv_exact(sock: socket.socket, n: int) -> bytes:
     buf = bytearray(n)

@@ -1,6 +1,6 @@
 """Reduction-effectiveness accounting — the paper's headline metric, kept
 (port of hdrf_tpu/reduction/accounting.py: the write, worker and read
-observation points and the geometry gauges; the EC stripe tier's stamps,
+observation points, the EC stripe tier's stamps and the geometry gauges;
 the adaptive chunk controller and the utilization histogram come with
 their callers, later slices).
 
@@ -78,6 +78,22 @@ def record_worker_bytes(op: str, nbytes: int) -> None:
     _ACC.incr(f"worker_{op}_bytes", int(nbytes))
 
 
+def record_stripe_tier(logical_bytes: int, physical_bytes: int) -> None:
+    """EC cold-tier byte accounting (server/ec_tier.py's heartbeat stamp):
+    logical = sealed-container bytes demoted to stripes, physical = stripe
+    bytes on this DN's disk.  Gauges, not counters — the tier's CURRENT
+    footprint, refreshed per heartbeat, so the cluster physical/logical ratio
+    stays repr-exact as containers demote and repair."""
+    _ACC.gauge("stripe_tier_logical_bytes", int(logical_bytes))
+    _ACC.gauge("stripe_tier_physical_bytes", int(physical_bytes))
+
+
+def stripe_ratio(logical_bytes: int, physical_bytes: int) -> float:
+    """Stripe-tier physical/logical expansion: ~(k+m)/k (1.5 for RS(6,3))
+    vs the replicated tier's replication factor; 0.0 for an empty tier."""
+    return (physical_bytes / logical_bytes) if logical_bytes else 0.0
+
+
 # ----------------------------------------------------- read amplification
 
 
@@ -107,6 +123,14 @@ def record_container_decode(nbytes: int) -> None:
     any read scope (compaction, EC repair) book under ``raw``."""
     s = _read_scheme.get() or "raw"
     _ACC.incr(f"read_physical_bytes__{s}", int(nbytes))
+
+
+def record_stripe_gather(nbytes: int) -> None:
+    """Stripe bytes gathered over the wire/disk for EC degraded reads —
+    the third rung of the amplification ladder (logical < decoded <
+    gathered when a read has to reassemble a demoted container)."""
+    s = _read_scheme.get() or "raw"
+    _ACC.incr(f"read_stripe_bytes__{s}", int(nbytes))
 
 
 def read_amplification_report() -> dict:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels of one checkout on one GPU: the CDC scan and
 select, the scan's words-only mode (``be_image``), the shard scan,
-SHA-256, the match deltas and the row sort.
+SHA-256, the match deltas, the row sort and the Reed-Solomon kernel.
 
     python3 kernel_times.py [--tree DIR] [--only cdc_scan,be_image,...]
 
@@ -22,9 +22,13 @@ launches); ``match_deltas`` at strides 2 and 4 on the random, zeros,
 text, source and sparse containers (``TIMING match_deltas`` lines, each
 first held against its plain version); and ``sort_rows`` at each call
 site of the match scan of the ``source`` container at stride 2
-(``TIMING sort_rows`` lines; keys held against the plain sort).
-``--only`` times a subset.  The last line is one JSON object of the
-times.  Two checkouts timed in one call on one card compare their
+(``TIMING sort_rows`` lines; keys held against the plain sort); and the
+GF(2^8) Reed-Solomon kernel at a 32 MiB container's stripe length, as
+RS(6,3) encode, a decode of three data stripes and a two-survivor
+partial sum (``TIMING rs`` lines, each held against its plain version;
+a checkout without ``ops/rs_cuda.py`` has no such kernel and is
+skipped).  ``--only`` times a subset.  The last line is one JSON object
+of the times.  Two checkouts timed in one call on one card compare their
 kernels, e.g. an earlier commit unpacked with ``git archive`` into a
 directory that .gitignore lists:
 
@@ -42,7 +46,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GROUPS = ("cdc_scan", "cdc_select", "be_image", "shard_scan", "sha256",
-          "match_deltas", "sort_rows")
+          "match_deltas", "sort_rows", "rs")
 
 
 def main(argv=None) -> int:
@@ -78,7 +82,7 @@ def main(argv=None) -> int:
         out = {"tree": str(tree), "card": cs.nvidia_smi(),
                "sha_chain_probe": chain, "cdc_scan": {}, "cdc_select": {},
                "be_image": {}, "shard_scan": [], "sha256": {},
-               "match_deltas": [], "sort_rows": {}}
+               "match_deltas": [], "sort_rows": {}, "rs": {}}
         for name, a in cs.big_blocks(0, 128 * cs.MIB, mask):
             if not only & {"cdc_scan", "cdc_select", "sha256", "be_image",
                            "shard_scan"}:
@@ -101,7 +105,8 @@ def main(argv=None) -> int:
             del a, c
         torch.cuda.empty_cache()
         # chip_smoke.py's containers (the chunks kind is not timed)
-        corpora = cs.seal_corpora(0, np.zeros(1, np.uint8))
+        corpora = (cs.seal_corpora(0, np.zeros(1, np.uint8))
+                   if only & {"be_image", "match_deltas"} else {})
         if "be_image" in only:
             block = torch.from_numpy(corpora[cs.IMAGE_TIMED].copy()).to(dev)
             out["be_image"][cs.IMAGE_TIMED] = cs.time_image(cs.IMAGE_TIMED,
@@ -123,6 +128,16 @@ def main(argv=None) -> int:
             del block, vals
         del corpora
         torch.cuda.empty_cache()
+        if "rs" in only and (tree / "hdrf_tpu_torch/ops/rs_cuda.py").exists():
+            from hdrf_tpu_torch.ops import rs
+            L, k, m = cs.RS_LENGTHS[-1], cs.EC_K, cs.EC_M
+            for name, c in (
+                    ("encode", rs.rs_matrix(k, m)[k:]),
+                    ("decode", rs.repair_rows(k, m, (3, 4, 5, 6, 7, 8),
+                                              (0, 1, 2))),
+                    ("partial_sums", rs.repair_rows(
+                        k, m, (0, 2, 3, 5, 6, 8), (1, 4, 7))[:, [1, 4]])):
+                out["rs"][name] = cs.time_rs(name, c, L, dev)
         if "sort_rows" not in only:
             print(json.dumps(out), flush=True)
             return 0

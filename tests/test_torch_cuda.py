@@ -21,8 +21,8 @@ import torch
 
 from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import CdcConfig
-from hdrf_tpu_torch.ops import (cdc_cuda, dispatch, gather_cuda, sha256_cuda,
-                                sort_cuda)
+from hdrf_tpu_torch.ops import (cdc_cuda, dispatch, gather_cuda, rs, rs_cuda,
+                                sha256_cuda, sort_cuda)
 from hdrf_tpu_torch.ops.dispatch import gear_mask
 from hdrf_tpu_torch.ops.gear import words_to_positions
 from hdrf_tpu_torch.ops.lz4_device import _INVALID, _S, DeviceLz4
@@ -814,3 +814,63 @@ def test_launch_selftest_nccl(cards):
                 p.wait(timeout=10)
     for rc, out, err in outs:
         assert rc == 0 and "oracle_match=True" in out, out + err[-3000:]
+
+
+# ------------------------------------------------------ GF(2^8) RS kernel
+
+RS_LENGTHS = [1, 3, 15, 16, 17, 4097, 65_536 + 5]
+RS_SHAPES = [(6, 3), (10, 4), (1, 1), (24, 8), (2, 3), (5, 12)]
+
+
+def _edge_coeffs(rng, nrows, k):
+    c = rng.integers(0, 256, (nrows, k), dtype=np.uint8)
+    c.flat[::3] = 0
+    c.flat[1::4] = 1
+    c.flat[2::5] = 0xFF
+    return c
+
+
+@pytest.mark.parametrize("L", RS_LENGTHS)
+def test_rs_kernel_matches_plain(dev, L):
+    """Aligned rows, rows at every byte offset of a flat buffer (odd L puts
+    each row at another alignment), coefficients with zeros, ones, 0xFF,
+    and more than 8 rows (two launches)."""
+    rng = np.random.default_rng(L)
+    for k, nrows in RS_SHAPES:
+        c = _edge_coeffs(rng, nrows, k)
+        flat = torch.from_numpy(rng.integers(0, 256, k * L + 19,
+                                             dtype=np.uint8)).to(dev)
+        for off in (0, 1, 2, 3, 5, 16):
+            d = flat[off:off + k * L].view(k, L)
+            n0 = rs_cuda.launches
+            got = rs_cuda.gf_apply(c, d)
+            torch.cuda.synchronize()
+            assert rs_cuda.launches - n0 == -(-nrows // rs_cuda.MAX_ROWS)
+            assert torch.equal(got, rs_cuda.gf_apply_plain(c, d)), (k, off)
+
+
+def test_rs_entry_points_on_the_card(dev):
+    """rs_encode / rs_decode / partial_sums on the card equal the host
+    oracles: every RS(6,3) erasure pattern at an odd stripe length."""
+    import itertools
+
+    rng = np.random.default_rng(8)
+    L = 4097
+    d = rng.integers(0, 256, (6, L), dtype=np.uint8)
+    par = rs.rs_encode(d, 6, 3, device=dev)
+    assert np.array_equal(par, rs.encode_ref(d, 3))
+    allsh = np.concatenate([d, par])
+    for r in (1, 2, 3):
+        for lost in itertools.combinations(range(9), r):
+            have = {i: allsh[i] for i in range(9) if i not in lost}
+            got = rs.rs_decode(have, 6, 3, want=list(lost), device=dev)
+            assert all(np.array_equal(got[i], allsh[i]) for i in lost)
+    c = _edge_coeffs(rng, 3, 2)
+    assert np.array_equal(rs.partial_sums(allsh[:2], c, device=dev),
+                          rs.partial_sums_ref(allsh[:2], c))
+    bm = rs._bit_matrix(rs.rs_matrix(6, 3)[6:])
+    assert np.array_equal(rs._bit_matmul(bm, d, 3, device=dev), par)
+    with pytest.raises(ValueError, match="not the expansion"):
+        rs._bit_matmul(np.eye(24, 48, dtype=np.float32)[::-1].copy(), d, 3,
+                       device=dev)
+

@@ -308,7 +308,9 @@ def test_port_imports_no_jax_and_no_reference():
             "          'reduction.scheme', 'reduction.dedup',\n"
             "          'storage.container_store', 'index.chunk_index',\n"
             "          'server.read_plane', 'ops.reconstruct',\n"
-            "          'ops.gather_cuda'):\n"
+            "          'ops.gather_cuda', 'ops.rs', 'ops.rs_cuda',\n"
+            "          'storage.stripe_store', 'server.coded_exchange',\n"
+            "          'server.ec_tier', 'utils.throttler'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
