@@ -111,9 +111,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``DeviceReconstructor`` with a 256 MiB budget, the read plane and its
    admission controller; data under a ``tempfile`` directory).  (a) The
    raw lane-gather kernel against its plain version on every lane, at
-   every bucket from 16 to 2048, on a random and a zeros image of a
-   staged 32 MiB container, all four byte alignments and lanes whose
-   window ends at the image's edge; tolerance zero.  (b) Write: the
+   every bucket from 16 to 2048, in both orders (the big-endian words
+   and the bytes the reconstructor takes), on a random and a zeros image
+   of a staged 32 MiB container, all four byte alignments and lanes
+   whose window ends at the image's edge; tolerance zero.  (b) Write: the
    ``reduce`` corpus through ``scheme.get("dedup_lz4").reduce`` on
    ``cuda``, then ``flush_open``; every block's chunk lengths and hashes
    in the index equal ``native.cdc_select`` + ``sha256_batch``, every
@@ -129,9 +130,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``images_staged``, launches).  (d) The index closed and reopened from its directory: its
    refcounts equal a plain model of the blocks written; two blocks read
    again.  (e) ``TIMING gather_raw``: every (container, bucket) group of
-   one block's read, card ms, device ms, plain once, the library call
-   (advanced indexing + shift) and the byte bound (the union of the
-   lanes' image windows read once).  (f) ``PROFILE scheme_write`` /
+   a block's read, for block 0 and for the block whose read makes the
+   most groups: card ms and device ms in byte order (what the read
+   runs) and in words, plain once, the library call (advanced indexing
+   + shift) and the byte bound (the union of the lanes' image windows
+   read once).  (f) ``PROFILE scheme_write`` /
    ``scheme_read``: one more block written and read under
    ``torch.profiler`` (traces ``smoke_trace_scheme_*.json``).
 10. EC, the cold tier (hdrf_tpu/server/ec_tier.py as the DataNode
@@ -145,7 +148,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    background throttle.  (a) The GF(2^8) kernel against its plain
    version, tolerance zero: RS(6,3), (10,4), (1,1) and (24,8) at lengths
    1, 3, 15, 16, 17, 4097 and a 32 MiB container's stripe, rows aligned
-   and at odd byte offsets; partial sums on column slices holding zeros,
+   and at odd byte offsets; every shard count 1-24 (one instantiation of
+   the kernel each) at every row count 1-8; partial sums on column
+   slices holding zeros,
    ones and 0xFF; all 129 erasure patterns of RS(6,3) through
    ``rs_decode``; two sealed 32 MiB containers' parity against
    ``encode_ref`` on the host.  (b) ``EcTier.demote`` of every block:
@@ -173,9 +178,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
-the row sort and the RS kernel of any checkout on the same inputs
-(``time_scan``, ``time_image``, ``time_shard``, ``time_select``,
-``time_sha``, ``time_match``, ``time_sort_site``, ``time_rs``).
+the row sort, the RS kernel and the raw gather of any checkout on the
+same inputs (``time_scan``, ``time_image``, ``time_shard``,
+``time_select``, ``time_sha``, ``time_match``, ``time_sort_site``,
+``time_rs``, ``time_raw``).
 
 The CDC kernel pair is two wrapper calls with a launch count each:
 ``cdc_scan`` and ``cdc_select`` (whose four kernels count as one
@@ -195,7 +201,9 @@ integer work).
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -266,6 +274,7 @@ MATCH_TIMED = ("random", "zeros", "text", "source", "sparse")
 IMAGE_TIMED = "random"               # be_image's 32 MiB container
 SORT_KERNELS = ("sort_",)            # the row sort's tile and merge kernels
 L2_SCRUB_BYTES = 128 * MIB           # written before each timed call
+FILL_KERNELS = ("FillFunctor",)      # the scrub's write, by kernel name
 REDUCE_KERNEL_NAMES = {"cdc_scan_kernel": "cdc_scan",
                        "cdc_select_": "cdc_select",   # its four kernels
                        "gather_pad_kernel": "gather_pad",
@@ -472,12 +481,13 @@ def warmup_probe(t_start: float) -> dict:
     return out
 
 
-def device_ms(fn, names, reps: int = 10):
+def device_ms(fn, names, reps: int = 10, exclude=()):
     """Device time per call of ``fn``'s kernels — those whose name holds
-    one of ``names`` — summed from torch.profiler (``profiled``) over
-    ``reps`` calls after one warm-up, the L2 scrubbed before each; None
-    when the window holds none of them or is not measured.  Unlike
-    ``cuda_ms`` it leaves out the host's launch overhead."""
+    one of ``names`` and none of ``exclude`` — summed from torch.profiler
+    (``profiled``) over ``reps`` calls after one warm-up, the L2 scrubbed
+    before each; None when the window holds none of them or is not
+    measured.  Unlike ``cuda_ms`` it leaves out the host's launch
+    overhead."""
     fn()
 
     def run():
@@ -486,7 +496,8 @@ def device_ms(fn, names, reps: int = 10):
             fn()
     w = profiled(run, TRACE_DIR / "device_ms_trace.json")
     us = [float(e["dur"]) for e in w.records if e["cat"] == "kernel"
-          and any(n in e["name"] for n in names)]
+          and any(n in e["name"] for n in names)
+          and not any(n in e["name"] for n in exclude)]
     return sum(us) / 1e3 / reps if us and not (w.lost or w.misplaced) \
         else None
 
@@ -1535,10 +1546,11 @@ def library_raw(words: torch.Tensor, ol: torch.Tensor,
 
 def raw_kernel_phase(dev, errs: dict) -> None:
     """The raw gather kernel against its plain version on every lane, at
-    every bucket from 16 to 2048, on a random and a zeros image the size
-    of a staged 32 MiB container (payload + the reconstructor's headroom,
-    on its 512-byte grid): all four byte alignments, random offsets and a
-    lane whose window ends at the image's edge.  Tolerance zero."""
+    every bucket from 16 to 2048, in both orders (words and bytes), on a
+    random and a zeros image the size of a staged 32 MiB container
+    (payload + the reconstructor's headroom, on its 512-byte grid): all
+    four byte alignments, random offsets and a lane whose window ends at
+    the image's edge.  Tolerance zero."""
     nw = (SEAL_BYTES + (1 << 20) + 4096) // 4
     rng = np.random.default_rng(11)
     images = {"random": torch.from_numpy(rng.integers(
@@ -1555,14 +1567,17 @@ def raw_kernel_phase(dev, errs: dict) -> None:
             ol = torch.from_numpy(np.stack([
                 offs, rng.integers(1, W * 4 - 4, offs.size)]).astype(
                     np.int32)).to(dev)
-            e = max_err(gather_cuda.gather_lanes_raw(words, ol, bucket),
-                        gather_cuda.gather_lanes_raw_plain(words, ol, bucket))
-            errs["gather_raw"] = max(errs["gather_raw"], e)
-            check(e == 0, f"gather_raw {fill} bucket {bucket}: kernel != "
-                          f"plain (max err {e})")
+            for order in ("words", "bytes"):
+                e = max_err(
+                    gather_cuda.gather_lanes_raw(words, ol, bucket, order),
+                    gather_cuda.gather_lanes_raw_plain(words, ol, bucket,
+                                                       order))
+                errs["gather_raw"] = max(errs["gather_raw"], e)
+                check(e == 0, f"gather_raw {fill} bucket {bucket} {order}: "
+                              f"kernel != plain (max err {e})")
     print(f"KERNELS gather_raw: buckets {SCHEME_BUCKETS[0]}-"
           f"{SCHEME_BUCKETS[-1]}, random and zeros images, 1,028 lanes "
-          f"each, identical", flush=True)
+          f"each, words and bytes, identical", flush=True)
 
 
 def scheme_context(root: str, payloads: dict):
@@ -1748,61 +1763,121 @@ def scheme_repeat(ctx, blk) -> dict:
     return {"first": counts[0], "repeat": counts[1]}
 
 
-def time_gather_raw(ctx, bid: int, n: int) -> dict:
-    """``gather_raw`` at one 128 MiB read's shapes: every (container,
-    bucket) group of the block's plan, images resident.  Card ms (CUDA
-    events, one wrapper call a group), device ms (profiler), the plain
-    version once, the library call (advanced indexing + shift), and the
-    byte bound — the image bytes under the union of the lanes' windows
-    ``[off, off + 4(W + 1))`` read once (a lane's window runs into the
-    next chunks' bytes, and the padding lanes all read offset 0), its W
-    words a lane written, its offset read."""
-    from hdrf_tpu_torch.ops import reconstruct
-    from hdrf_tpu_torch.server.read_plane import resolve_chunk_plan
+@functools.cache
+def _raw_byte_order() -> bool:
+    return "order" in inspect.signature(
+        gather_cuda.gather_lanes_raw).parameters
 
-    plan = resolve_chunk_plan(ctx.index, bid)
-    groups: dict = {}
-    for cid, off, ln in plan.wanted:
-        b = reconstruct._bucket_of(-(-ln // 64) + 1)
-        groups.setdefault((cid, b), []).append(off)
+
+def raw_lanes(img: torch.Tensor, ol: torch.Tensor, bucket: int,
+              order: str) -> torch.Tensor:
+    """One group's lanes as the read path takes them: ``order="words"``
+    the kernel's big-endian words, ``"bytes"`` the chunk bytes.  A
+    checkout whose wrapper has no byte-order mode gathers words and
+    flips each word's bytes with ``torch.flip``, as its reconstructor
+    did."""
+    if order == "words":
+        return gather_cuda.gather_lanes_raw(img, ol, bucket)
+    if _raw_byte_order():
+        return gather_cuda.gather_lanes_raw(img, ol, bucket, order="bytes")
+    lanes = gather_cuda.gather_lanes_raw(img, ol, bucket)
+    return lanes.view(torch.uint8).view(lanes.shape[0], -1, 4).flip(-1)
+
+
+def raw_calls(groups: dict, image_of) -> tuple[list, int, int]:
+    """(calls, bytes, lanes) of the raw gathers of ``groups`` ((image
+    key, bucket) -> chunk offsets) as ``DeviceReconstructor.gather``
+    makes them: one call a group, padded to a multiple of 128 lanes.
+    ``bytes`` is the byte bound's count: the image bytes under the union
+    of the lanes' windows ``[off, off + 4(W + 1))`` read once (a lane's
+    window runs into the next chunks' bytes, and the padding lanes all
+    read offset 0), its W words a lane written, its offset read."""
     calls, windows, nbytes, lanes = [], {}, 0, 0
-    for (cid, b), offs in groups.items():
-        img = ctx.recon._image(cid, lambda c=cid:
-                               ctx.containers.read_container(c))
+    for (key, b), offs in groups.items():
+        img = image_of(key)
         L = -(-len(offs) // 128) * 128
         ol = np.zeros((2, L), np.int32)
         ol[0, :len(offs)] = offs
         calls.append((img, torch.from_numpy(ol).to(img.device), b))
         W = b * 16
-        windows.setdefault(cid, []).extend(
+        windows.setdefault(key, []).extend(
             (int(o), int(o) + 4 * (W + 1)) for o in ol[0])
         nbytes += L * W * 4 + 4 * L
         lanes += L
     read_bytes = sum(_union(w, 0, math.inf) for w in windows.values())
-    nbytes += read_bytes
+    return calls, nbytes + int(read_bytes), lanes
+
+
+def time_raw(tag: str, calls: list, nbytes: int, lanes: int,
+             **meta) -> dict:
+    """``gather_raw`` over ``calls`` (one wrapper call a group) in both
+    orders, each held against the plain words (tolerance zero): card ms
+    (CUDA events) and device ms (profiler) of the words and of the bytes
+    the read path takes (the kernels of the call, less the L2 scrub's
+    fill: in a checkout without the byte-order mode, the gather and the
+    flip), the plain version once, the library call (advanced indexing
+    + shift) and the byte bound."""
     e = 0
     for img, ol, b in calls:
-        k = gather_cuda.gather_lanes_raw(img, ol, b)
-        e = max(e, max_err(k, library_raw(img, ol, b)))
-    check(e == 0, f"gather_raw: library call != kernel (max err {e})")
+        want = gather_cuda.gather_lanes_raw_plain(img, ol, b)
+        e = max(e, max_err(raw_lanes(img, ol, b, "words"), want),
+                max_err(library_raw(img, ol, b), want))
+        flipped = want.view(torch.uint8).view(want.shape[0], -1, 4).flip(-1)
+        e = max(e, max_err(raw_lanes(img, ol, b, "bytes").reshape(
+            flipped.shape[0], -1), flipped.reshape(flipped.shape[0], -1)))
+        del want, flipped
+    check(e == 0, f"TIMING gather_raw {tag}: kernel or library call != "
+                  f"plain (max err {e})")
 
-    def kernel():
-        return [gather_cuda.gather_lanes_raw(i, o, b) for i, o, b in calls]
+    def run(order):
+        return lambda: [raw_lanes(i, o, b, order) for i, o, b in calls]
 
     def library():
         return [library_raw(i, o, b) for i, o, b in calls]
     _, plain_ms = timed(lambda: [gather_cuda.gather_lanes_raw_plain(i, o, b)
                                  for i, o, b in calls])
     bd = bound(nbytes, 0)
-    row = {"block": bid, "bytes": n, "groups": len(calls), "lanes": lanes,
-           "window_bytes_read": int(read_bytes),
-           "ms": cuda_ms(kernel), "device_ms": device_ms(kernel,
-                                                         RAW_KERNELS),
+    row = {"read": tag, **meta, "groups": len(calls), "lanes": lanes,
+           "ms": cuda_ms(run("bytes")),
+           "device_ms": device_ms(run("bytes"), ("",), exclude=FILL_KERNELS),
+           "words_ms": cuda_ms(run("words")),
+           "words_device_ms": device_ms(run("words"), RAW_KERNELS),
            "plain_ms": plain_ms,
            "library_ms": cuda_ms(library, reps=5, warmup=1),
-           "bound_ms": bd[0], "bound_by": bd[1]}
+           "bound_ms": bd[0], "bound_by": bd[1], "bytes": nbytes}
     print("TIMING gather_raw " + json.dumps(row), flush=True)
     return row
+
+
+def read_groups(ctx, bid: int) -> dict:
+    """(container, bucket) -> chunk offsets of block ``bid``'s full read,
+    grouped as ``DeviceReconstructor.gather`` groups them."""
+    from hdrf_tpu_torch.ops import reconstruct
+    from hdrf_tpu_torch.server.read_plane import resolve_chunk_plan
+
+    groups: dict = {}
+    for cid, off, ln in resolve_chunk_plan(ctx.index, bid).wanted:
+        b = reconstruct._bucket_of(-(-ln // 64) + 1)
+        groups.setdefault((cid, b), []).append(off)
+    return groups
+
+
+def time_gather_raw(ctx, blocks: list) -> list:
+    """``gather_raw`` at the shapes of two 128 MiB reads: block 0 and the
+    block whose read makes the most (container, bucket) groups, every
+    group of its plan, images resident (``time_raw``)."""
+    groups = [read_groups(ctx, bid) for bid in range(len(blocks))]
+    most = max(range(len(blocks)), key=lambda i: len(groups[i]))
+    rows = []
+    for bid in dict.fromkeys((0, most)):
+        calls, nbytes, lanes = raw_calls(
+            groups[bid], lambda cid: ctx.recon._image(
+                cid, lambda c=cid: ctx.containers.read_container(c)))
+        rows.append(time_raw(f"block {bid}", calls, nbytes, lanes,
+                             block=bid, most_groups=bid == most,
+                             bytes_read=blocks[bid].size))
+        del calls
+    return rows
 
 
 # ------------------------------------------------------------------ EC
@@ -1811,6 +1886,7 @@ EC_K, EC_M = 6, 3            # the NameNode's RS(6,3) (hdrf_tpu/config.py:319)
 BALANCER_BANDWIDTH = 100 * MIB   # the DataNode's background-transfer cap
 RS_GEOMETRIES = ((6, 3), (10, 4), (1, 1), (24, 8))
 RS_LENGTHS = (1, 3, 15, 16, 17, 4097, -(-(SEAL_BYTES + 16) // EC_K))
+RS_EVERY_K_LENGTHS = (17, 4096, 65_541)     # k 1-24 x rows 1-8
 RS_KERNELS = ("rs_apply_kernel",)
 EC_KERNEL_NAMES = {**SCHEME_KERNEL_NAMES, "rs_apply_kernel": "rs"}
 P1_SLOTS = (1, 4, 7)         # holder p1's stripes: slot i on holder i % 3
@@ -1904,8 +1980,10 @@ def rs_kernel_phase(dev, errs: dict, sealed: list) -> None:
     """The GF(2^8) kernel against its plain version on the card,
     tolerance zero: the encode matrices of RS(6,3), (10,4), (1,1) and
     (24,8) at every length of ``RS_LENGTHS`` (the last a 32 MiB
-    container's stripe), rows aligned and at odd byte offsets; partial
-    sums on column slices with zeros, ones and 0xFF; every one of the 129
+    container's stripe), rows aligned and at odd byte offsets; every
+    shard count the kernel is instantiated for (1-24) at every row count
+    1-8 and the lengths of ``RS_EVERY_K_LENGTHS``; partial sums on
+    column slices with zeros, ones and 0xFF; every one of the 129
     erasure patterns of RS(6,3) through ``rs_decode`` (equal to the data
     and parity); and the parity of two sealed 32 MiB containers against
     ``encode_ref`` on the host."""
@@ -1929,6 +2007,11 @@ def rs_kernel_phase(dev, errs: dict, sealed: list) -> None:
             held(rs.rs_matrix(k, m)[k:], k, L, f"RS({k},{m})")
         torch.cuda.empty_cache()
     rng = np.random.default_rng(12)
+    for k in range(1, rs_cuda.MAX_K + 1):     # every instantiation
+        for nrows in range(1, rs_cuda.MAX_ROWS + 1):
+            for L in RS_EVERY_K_LENGTHS:
+                held(_edge_coeffs(rng, nrows, k), k, L,
+                     f"k {k} rows {nrows}")
     for nwant, ncol in ((3, 2), (3, 1), (2, 4), (8, 24), (1, 6)):
         c = _edge_coeffs(rng, nwant, ncol)
         for L in (17, 4097, RS_LENGTHS[-1]):
@@ -1955,26 +2038,30 @@ def rs_kernel_phase(dev, errs: dict, sealed: list) -> None:
                              rs.encode_ref(a, EC_M)),
               f"rs_encode of a {len(blob)}-byte container != encode_ref")
     torch.cuda.empty_cache()
-    print(f"KERNELS rs: RS{RS_GEOMETRIES} x L {RS_LENGTHS}, partial sums, "
+    print(f"KERNELS rs: RS{RS_GEOMETRIES} x L {RS_LENGTHS}, k 1-"
+          f"{rs_cuda.MAX_K} x rows 1-{rs_cuda.MAX_ROWS} x L "
+          f"{RS_EVERY_K_LENGTHS}, partial sums, "
           f"{n} erasure patterns, {len(sealed)} sealed containers vs "
           f"encode_ref, identical", flush=True)
 
 
 def time_rs(name: str, c: np.ndarray, L: int, dev,
-            launches: int | None = None) -> dict:
+            launches: int | None = None, offset: int = 0) -> dict:
     """One RS call at the main path's shapes, rows staged as ops/rs.py
-    stages them (16-byte aligned row stride): card ms (CUDA events),
-    device ms (profiler), the plain version once, the library call (the
-    reference's bit-plane product through torch.matmul in f32), the
-    bound, and ``launches``, the main path's launches of this kind of
-    call."""
+    stages them (16-byte aligned row stride; ``offset`` bytes later when
+    given, every row then as far from 16-byte alignment): card ms (CUDA
+    events), device ms (profiler), the plain version once, the library
+    call (the reference's bit-plane product through torch.matmul in
+    f32), the bound, and ``launches``, the main path's launches of this
+    kind of call."""
     from hdrf_tpu_torch.ops import rs, rs_cuda
 
     nrows, k = c.shape
     g = torch.Generator(device=dev).manual_seed(L + k)
-    buf = torch.randint(0, 256, (k, -(-L // 16) * 16), generator=g,
+    lp = -(-L // 16) * 16
+    buf = torch.randint(0, 256, (k * lp + 16,), generator=g,
                         dtype=torch.uint8, device=dev)
-    d = buf[:, :L]
+    d = buf[offset:offset + k * lp].view(k, lp)[:, :L]
     bm = torch.from_numpy(rs._bit_matrix(c)).to(dev)
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmul is on: the library call would not be full f32")
@@ -1991,7 +2078,7 @@ def time_rs(name: str, c: np.ndarray, L: int, dev,
     # bytes: k*L read, nrows*L written; operations: the bit matrix applied
     # bit-sliced, one 32-bit XOR per set entry per 32 positions
     bd = bound((k + nrows) * L, float(rs._bit_matrix(c).sum()) * -(-L // 32))
-    row = {"call": name, "k": k, "nrows": nrows, "L": L,
+    row = {"call": name, "k": k, "nrows": nrows, "L": L, "offset": offset,
            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel, RS_KERNELS),
            "plain_ms": plain_ms,
            "library_ms": cuda_ms(library, reps=5, warmup=1),
@@ -2274,7 +2361,7 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
             print(f"SCHEME restart: index reopened, {len(model)} chunks, "
                   f"refcounts equal the model; blocks 0-1 read back "
                   f"{again['ms_per_block']} ms", flush=True)
-            raw = time_gather_raw(ctx, 0, blocks[0].size)
+            raw = time_gather_raw(ctx, blocks)[0]     # block 0's read
             timing["gather_raw"] = {
                 "ms": raw["ms"], "plain_ms": raw["plain_ms"],
                 "library_ms": raw["library_ms"],

@@ -11,25 +11,45 @@
 //
 // Bound: bytes.  The call reads k*L bytes and writes nrows*L (an RS(6,3)
 // encode of a 32 MiB container reads 33.6 MB and writes 16.8 MB, ~15 us
-// at 3.35 TB/s); the least integer work, the bit matrix applied bit-sliced
-// (one 32-bit XOR per set bit-matrix entry per 32 positions), is ~1 XOR
-// a byte per coefficient, several times under the byte time.
+// at 3.35 TB/s).  The integer work is Horner over the coefficient bits,
+// high bit first, on four packed bytes a word: for each output row,
+// acc = xtime(acc) ^ XOR_j (shard j times bit b of C[r, j]), where xtime
+// is the SWAR doubling of four bytes mod 0x11D,
+// ((a & 0x7f7f7f7f) << 1) ^ (0x1d1d1d1d & the bytes whose top bit is
+// set, one PRMT in sign-replicate mode): rows * (8k + 28) integer ops a
+// word, ~320M for an RS(6,3) call, ~20 us on the INT32 pipe alone.
 //
-// Design: a thread owns 16 byte positions (4 words of 4 packed bytes).
-// It loads all k shards' 16 bytes once (one 16-byte load per row when
-// the row address is 16-byte aligned, otherwise five aligned words and a
-// funnel shift; the alignment is the same for every thread of a row, so
-// the branch never diverges), then for each output row runs Horner over
-// the coefficient bits, high bit first: acc = xtime(acc) ^ XOR of the
-// shards whose coefficient has that bit.  xtime is the SWAR doubling of
-// four bytes in GF(2^8) mod 0x11D, ((a & 0x7f7f7f7f) << 1) ^
-// (((a >> 7) & 0x01010101) * 0x1d).  The coefficients ride in the launch
-// parameters as bit masks (mask[r][b] has bit j set when bit b of
-// C[r, j] is), so their tests are uniform and no table sits in shared
-// memory.  Rows may start at any byte (stripe_len is ceil(length / k),
-// and partial sums stack survivors of odd length); the last unit of a
-// row shorter than 16 bytes is loaded and stored byte by byte, and
-// stores to a row that is not 16-byte aligned go out as words or bytes.
+// The first version unrolled every shard loop 24 wide, guarded each term
+// by a test of a bit mask, and kept a thread to one 16-byte unit: every
+// output row cost 8 x 24 tests whatever k was (a 2-shard partial sum took
+// as long as a 6-shard encode), and no load was in flight while a thread
+// computed.  This design does three things about that:
+//  - The kernel is a template on the shard count K (1..24, a switch in
+//    hdrf_rs_apply), so a row costs 8K terms, not 8 x 24.
+//  - A term is branch-free.  The launch parameters (up to 6 KB, within
+//    CUDA 12.1+'s 32 KB; `__grid_constant__`) carry each coefficient bit
+//    as a term operand m[r][b][j].  Up to kMulMaxK shards it is a 0/1
+//    multiplier, x_j * m: an IMAD with a constant-bank operand on the FMA
+//    pipe, and the XOR of two terms one LOP3 on the INT pipe, so the
+//    work splits between the two.  Above, it is an AND mask, 0 or ~0,
+//    x_j & m folded into one LOP3.  Up to kUnrollRowsMaxK shards the
+//    rows are an unrolled loop of kMaxRows guarded by a uniform test, so
+//    every operand is a constant-bank address; above, a row loop keeps
+//    the code small.  Both limits were set by measurement on the card
+//    (`kernel_times.py --only rs_terms`; PERF.md): the multiplier
+//    is the faster at few shards (k 2-6 by 3 rows, the EC tier's calls),
+//    the mask at 12 and 24 shards by 8 rows, and at 24 shards by 8 rows
+//    the unrolled rows took twice the row loop's time.
+//  - The grid is persistent (occupancy x SMs), each thread walks several
+//    16-byte units, and up to kPrefetchMaxK shards the next unit's loads
+//    are issued before the current unit's arithmetic (two register sets).
+//
+// Rows may start at any byte (stripe_len is ceil(length / k), and partial
+// sums stack survivors of odd length): a load from a row that is not
+// 16-byte aligned is five aligned words and a funnel shift (uniform per
+// row, so the branch never diverges); the last unit of a row shorter than
+// 16 bytes is loaded and stored byte by byte, and stores to a row that is
+// not 16-byte aligned go out as words or bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,13 +59,37 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxK = 24;
 constexpr int kMaxRows = 8;
+constexpr int kPrefetchMaxK = 10;   // two register sets of K x 4 words
+// the two choices measured against each other (kernel_times.py --only
+// rs_terms builds this source with other values)
+#ifndef HDRF_RS_UNROLL_ROWS_MAX_K
+#define HDRF_RS_UNROLL_ROWS_MAX_K 12
+#endif
+#ifndef HDRF_RS_MUL_MAX_K
+#define HDRF_RS_MUL_MAX_K 10
+#endif
+constexpr int kUnrollRowsMaxK = HDRF_RS_UNROLL_ROWS_MAX_K;
+constexpr int kMulMaxK = HDRF_RS_MUL_MAX_K;
 
-struct RsMasks {
-  uint32_t m[kMaxRows][8];   // [row][coefficient bit] -> bit j per shard
+// a term is x * m, m in {0, 1}, up to kMulMaxK shards; x & m, m in
+// {0, ~0}, above
+__host__ __device__ constexpr bool mul_terms(int k) { return k <= kMulMaxK; }
+
+// m[r][b][j]: bit b of C[r, j] as a term (rows >= nrows 0)
+template <int K>
+struct RsCoef {
+  uint32_t m[kMaxRows][8][K];
 };
 
+// 0xff in each byte of `a` whose top bit is set (prmt sign-replicate)
+__device__ __forceinline__ uint32_t msb_bytes(uint32_t a) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, 0xba98;" : "=r"(r) : "r"(a), "r"(0u));
+  return r;
+}
+
 __device__ __forceinline__ uint32_t xtime4(uint32_t a) {
-  return ((a << 1) & 0xfefefefeu) ^ (((a >> 7) & 0x01010101u) * 0x1du);
+  return ((a & 0x7f7f7f7fu) << 1) ^ (msb_bytes(a) & 0x1d1d1d1du);
 }
 
 __device__ __forceinline__ uint4 load16(const uint8_t *p) {
@@ -61,9 +105,37 @@ __device__ __forceinline__ uint4 load16(const uint8_t *p) {
                     __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
 }
 
-__device__ __forceinline__ void store16(uint8_t *p, const uint32_t v[4]) {
+// unit x0 of every shard row: 16 bytes, or the n < 16 bytes left
+template <int K>
+__device__ __forceinline__ void load_unit(uint32_t (&x)[K][4],
+                                          const uint8_t *in,
+                                          int64_t in_stride, int64_t x0,
+                                          int n) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const uint8_t *p = in + j * in_stride + x0;
+    if (n == 16) {
+      const uint4 v = load16(p);
+      x[j][0] = v.x; x[j][1] = v.y; x[j][2] = v.z; x[j][3] = v.w;
+    } else {
+      uint32_t t[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (i < n) t[i >> 2] |= static_cast<uint32_t>(p[i]) << (8 * (i & 3));
+#pragma unroll
+      for (int w = 0; w < 4; ++w) x[j][w] = t[w];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_unit(uint8_t *p, const uint32_t v[4],
+                                           int n) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if ((a & 15u) == 0) {
+  if (n < 16) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < n) p[i] = static_cast<uint8_t>(v[i >> 2] >> (8 * (i & 3)));
+  } else if ((a & 15u) == 0) {
     *reinterpret_cast<uint4 *>(p) = make_uint4(v[0], v[1], v[2], v[3]);
   } else if ((a & 3u) == 0) {
     uint32_t *w = reinterpret_cast<uint32_t *>(p);
@@ -76,60 +148,106 @@ __device__ __forceinline__ void store16(uint8_t *p, const uint32_t v[4]) {
   }
 }
 
+// one output row of one unit: Horner over the coefficient bits, m the
+// row's per-bit terms m[b][j]
+template <int K>
+__device__ __forceinline__ void apply_row(const uint32_t (&x)[K][4],
+                                          const uint32_t (&m)[8][K],
+                                          uint8_t *q, int n) {
+  uint32_t acc[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t a = 0u;
+#pragma unroll
+    for (int b = 7; b >= 0; --b) {
+      if (b < 7) a = xtime4(a);
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        a ^= mul_terms(K) ? x[j][w] * m[b][j] : x[j][w] & m[b][j];
+    }
+    acc[w] = a;
+  }
+  store_unit(q, acc, n);
+}
+
+// every output row of one unit
+template <int K>
+__device__ __forceinline__ void apply_unit(const uint32_t (&x)[K][4],
+                                           const RsCoef<K> &co, int nrows,
+                                           uint8_t *out, int64_t out_stride,
+                                           int64_t x0, int n) {
+  if (K <= kUnrollRowsMaxK) {
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r)
+      if (r < nrows) apply_row<K>(x, co.m[r], out + r * out_stride + x0, n);
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < nrows; ++r)
+      apply_row<K>(x, co.m[r], out + r * out_stride + x0, n);
+  }
+}
+
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-rs_apply_kernel(const uint8_t *__restrict__ in, int64_t in_stride, int k,
+rs_apply_kernel(const uint8_t *__restrict__ in, int64_t in_stride,
                 uint8_t *__restrict__ out, int64_t out_stride, int nrows,
-                int64_t L, RsMasks masks) {
+                int64_t L, const __grid_constant__ RsCoef<K> co) {
   const int64_t units = (L + 15) / 16;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       u < units; u += step) {
-    const int64_t x0 = u * 16;
-    const int n = static_cast<int>(L - x0 < 16 ? L - x0 : 16);
-    uint32_t x[kMaxK][4];
+  int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const auto len = [L](int64_t v) {
+    return static_cast<int>(L - v * 16 < 16 ? L - v * 16 : 16);
+  };
+  if (K <= kPrefetchMaxK) {
+    // the next unit's loads go out before this unit's arithmetic
+    uint32_t x[K][4], nx[K][4];
+    if (u < units) load_unit<K>(nx, in, in_stride, u * 16, len(u));
+    for (; u < units; u += step) {
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) {
-        const uint8_t *p = in + j * in_stride + x0;
-        if (n == 16) {
-          const uint4 v = load16(p);
-          x[j][0] = v.x; x[j][1] = v.y; x[j][2] = v.z; x[j][3] = v.w;
-        } else {
-          uint32_t t[4] = {0u, 0u, 0u, 0u};
+      for (int j = 0; j < K; ++j)
 #pragma unroll
-          for (int i = 0; i < 16; ++i)
-            if (i < n)
-              t[i >> 2] |= static_cast<uint32_t>(p[i]) << (8 * (i & 3));
-#pragma unroll
-          for (int w = 0; w < 4; ++w) x[j][w] = t[w];
-        }
-      }
+        for (int w = 0; w < 4; ++w) x[j][w] = nx[j][w];
+      if (u + step < units)
+        load_unit<K>(nx, in, in_stride, (u + step) * 16, len(u + step));
+      apply_unit<K>(x, co, nrows, out, out_stride, u * 16, len(u));
     }
-    for (int r = 0; r < nrows; ++r) {
-      uint32_t acc[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int b = 7; b >= 0; --b) {
-        const uint32_t mb = masks.m[r][b];
-#pragma unroll
-        for (int w = 0; w < 4; ++w) acc[w] = xtime4(acc[w]);
-#pragma unroll
-        for (int j = 0; j < kMaxK; ++j) {
-          if (j < k && ((mb >> j) & 1u)) {
-#pragma unroll
-            for (int w = 0; w < 4; ++w) acc[w] ^= x[j][w];
-          }
-        }
-      }
-      uint8_t *q = out + r * out_stride + x0;
-      if (n == 16) {
-        store16(q, acc);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if (i < n) q[i] = static_cast<uint8_t>(acc[i >> 2] >> (8 * (i & 3)));
-      }
+  } else {
+    for (; u < units; u += step) {
+      uint32_t x[K][4];
+      load_unit<K>(x, in, in_stride, u * 16, len(u));
+      apply_unit<K>(x, co, nrows, out, out_stride, u * 16, len(u));
     }
   }
+}
+
+template <int K>
+int launch(const uint8_t *in, int64_t in_stride, uint8_t *out,
+           int64_t out_stride, int nrows, int64_t L, const uint8_t *c,
+           cudaStream_t stream) {
+  RsCoef<K> co = {};
+  for (int r = 0; r < nrows; ++r)
+    for (int b = 0; b < 8; ++b)
+      for (int j = 0; j < K; ++j) {
+        const uint32_t bit = (c[r * K + j] >> b) & 1u;
+        co.m[r][b][j] = mul_terms(K) ? bit : 0u - bit;
+      }
+  // persistent grid: as many blocks as fit on the card (queried once)
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rs_apply_kernel<K>, kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t units = (L + 15) / 16;
+  int64_t blocks = (units + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > cap) blocks = cap;
+  rs_apply_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      in, in_stride, out, out_stride, nrows, L, co);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -143,18 +261,19 @@ extern "C" int hdrf_rs_apply(const void *in, int64_t in_stride, int32_t k,
   if (k < 1 || k > kMaxK || nrows < 1 || nrows > kMaxRows || L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (L == 0) return 0;
-  RsMasks masks = {};
-  const uint8_t *c = static_cast<const uint8_t *>(coef);
-  for (int r = 0; r < nrows; ++r)
-    for (int j = 0; j < k; ++j)
-      for (int b = 0; b < 8; ++b)
-        if ((c[r * k + j] >> b) & 1u) masks.m[r][b] |= 1u << j;
-  const int64_t units = (L + 15) / 16;
-  int64_t blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
-  rs_apply_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t *>(in), in_stride, k,
-      static_cast<uint8_t *>(out), out_stride, nrows, L, masks);
-  return static_cast<int>(cudaGetLastError());
+  const auto *i = static_cast<const uint8_t *>(in);
+  auto *o = static_cast<uint8_t *>(out);
+  const auto *c = static_cast<const uint8_t *>(coef);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+#define HDRF_RS_K(n) \
+    case n: return launch<n>(i, in_stride, o, out_stride, nrows, L, c, s);
+    HDRF_RS_K(1) HDRF_RS_K(2) HDRF_RS_K(3) HDRF_RS_K(4) HDRF_RS_K(5)
+    HDRF_RS_K(6) HDRF_RS_K(7) HDRF_RS_K(8) HDRF_RS_K(9) HDRF_RS_K(10)
+    HDRF_RS_K(11) HDRF_RS_K(12) HDRF_RS_K(13) HDRF_RS_K(14) HDRF_RS_K(15)
+    HDRF_RS_K(16) HDRF_RS_K(17) HDRF_RS_K(18) HDRF_RS_K(19) HDRF_RS_K(20)
+    HDRF_RS_K(21) HDRF_RS_K(22) HDRF_RS_K(23) HDRF_RS_K(24)
+#undef HDRF_RS_K
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "hdrf_cdc_shard_scan": [_P, _P, _I64, _I64, _U32, _P, _P, _P],
     # words, nw, offs, lens, L, W, out, stream
     "hdrf_gather_pad": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
-    # words, nw, offs, L, W, out, stream
-    "hdrf_gather_raw": [_P, _I64, _P, _I64, _I32, _P, _P],
+    # words, nw, offs, L, W, bytes, out, stream
+    "hdrf_gather_raw": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
     # per lane table (two): msgs, L, W, nblocks, order, out; then the
     # unit counter, stream
     "hdrf_sha256": [_P, _I64, _I32, _P, _P, _P] * 2 + [_P, _P],

@@ -23,16 +23,23 @@ once (about 0.4 GB per 128 MiB block at the default geometry, ~0.12 ms at
 3.35 TB/s).  Reads past the end of the image return zero, so the image
 needs no pad words.
 
-``gather_lanes_raw(words, ol, bucket)`` is the same funnel-shift loop
-without the pad: output word ``j`` of a lane is image words ``q + j`` and
+``gather_lanes_raw(words, ol, bucket)`` is the same funnel shift without
+the pad: output word ``j`` of a lane is image words ``q + j`` and
 ``q + j + 1`` shifted together, for all ``bucket * 16`` words (past the
 chunk's length they are the image's next bytes, not zeros; ``ol[1]`` is
-not read).  Its kernel is ``gather_raw_kernel`` in the same source.  The
+not read).  With ``order="bytes"`` it returns the lanes as bytes,
+u8[L, bucket*64]: each word byte-reversed, so a lane is the image's raw
+bytes from its offset (the reference swaps them on the host,
+hdrf_tpu/ops/reconstruct.py:159, ``lanes.byteswap()``).  Its kernel is
+``gather_raw_kernel`` in the same source: a flat grid over (lane, 4-word
+quad), one 16-byte load and one 16-byte store a thread, the neighbouring
+quad taken by shuffle, the byte order applied at the store.  The
 reference's ``dynamic_slice`` clamps a window that would run past the
 image; here loads past the image read zero.  The two agree inside the
 reconstructor's headroom contract (``bucket * 64 + 4 <= headroom``), which
-ops/reconstruct.py asserts.  Bound: bytes — each lane's ``W + 1`` image
-words read once and its ``W`` words written once.
+ops/reconstruct.py asserts.  Bound: bytes — the image bytes under the
+union of the lanes' ``W + 1`` word windows read once and the ``W`` words a
+lane written once.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -130,31 +137,44 @@ def gather_pad_messages(words: torch.Tensor, ol: torch.Tensor,
 
 
 def gather_lanes_raw_plain(words: torch.Tensor, ol: torch.Tensor,
-                           bucket: int) -> torch.Tensor:
+                           bucket: int, order: str = "words") -> torch.Tensor:
     """Plain version of :func:`gather_lanes_raw` (the arithmetic of
-    hdrf_tpu/ops/reconstruct.py:46-60)."""
-    return to_i32(_shifted_lanes(words, ol[0], bucket * 16))
+    hdrf_tpu/ops/reconstruct.py:46-60; in byte order, each word's bytes
+    flipped)."""
+    lanes = to_i32(_shifted_lanes(words, ol[0], bucket * 16))
+    if order == "words":
+        return lanes
+    L = lanes.shape[0]
+    return lanes.view(torch.uint8).view(L, -1, 4).flip(-1).reshape(L, -1)
 
 
-def gather_lanes_raw(words: torch.Tensor, ol: torch.Tensor,
-                     bucket: int) -> torch.Tensor:
-    """(L, bucket*16) int32 big-endian raw chunk lanes for one bucket.
+def gather_lanes_raw(words: torch.Tensor, ol: torch.Tensor, bucket: int,
+                     order: str = "words") -> torch.Tensor:
+    """Raw chunk lanes for one bucket: (L, bucket*16) int32 big-endian
+    words, or with ``order="bytes"`` (L, bucket*64) uint8, the chunks'
+    bytes in order.
 
     words: int32[NW] BE word image; ol: int32[2, L] — row 0 chunk byte
     offsets into the image (row 1, the lengths, is not read), each row
-    contiguous.
+    contiguous; bucket a power of two >= 16.
     """
+    if order not in ("words", "bytes"):
+        raise ValueError(f"gather_lanes_raw: order {order!r} is not "
+                         "'words' or 'bytes'")
     if words.device.type == "cpu":
-        return gather_lanes_raw_plain(words, ol, bucket)
+        return gather_lanes_raw_plain(words, ol, bucket, order)
     _check_args("gather_lanes_raw", words, ol)
+    if bucket < 16 or bucket & (bucket - 1):
+        raise ValueError(f"gather_lanes_raw: bucket {bucket} is not a power "
+                         "of two >= 16")
     L, W = ol.shape[1], bucket * 16
     out = torch.empty((L, W), dtype=torch.int32, device=words.device)
-    if L == 0:
-        return out
-    global raw_launches
-    _build.launch("hdrf_gather_raw", words.device, words.data_ptr(),
-                  words.numel(), ol[0].data_ptr(), L, W, out.data_ptr(),
-                  what="raw gather kernel")
-    with _launch_lock:
-        raw_launches += 1
-    return out
+    if L:
+        global raw_launches
+        _build.launch("hdrf_gather_raw", words.device, words.data_ptr(),
+                      words.numel(), ol[0].data_ptr(), L, W,
+                      int(order == "bytes"), out.data_ptr(),
+                      what="raw gather kernel")
+        with _launch_lock:
+            raw_launches += 1
+    return out if order == "words" else out.view(torch.uint8)

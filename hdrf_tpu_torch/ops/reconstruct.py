@@ -20,9 +20,9 @@ data[chunk.bbStart]`` :527-531) splits here:
 - **The chunk gather runs on the device.**  Chunks become lanes gathered
   from the resident image by the raw gather kernel (funnel shift, no SHA
   pad), grouped by (container, power-of-two bucket) and padded to a
-  multiple of 128 lanes.  The lanes' words are byte-swapped to raw bytes
-  on the device and copied to the host once a group; the host lays each
-  chunk's span into the output in one ordered pass.
+  multiple of 128 lanes.  The kernel stores the lanes as raw bytes (its
+  byte-order mode), which are copied to the host once a group; the host
+  lays each chunk's span into the output in one ordered pass.
 
 On a TPU the reference uses the padded Pallas gather where its DMA window
 fits the headroom (``gather_pad_messages``, reconstruct.py:148-157) and
@@ -140,10 +140,10 @@ class DeviceReconstructor:
                 ol[0, j] = wanted[i][1]
                 ol[1, j] = wanted[i][2]
             ol_dev = torch.from_numpy(ol).to(self._device)
-            lanes = gather_cuda.gather_lanes_raw(img, ol_dev, bucket)
-            # BE words -> raw bytes on the device, then one copy back
-            raw = lanes.view(torch.uint8).view(L, -1, 4).flip(-1)
-            lane_bytes = raw.reshape(-1).cpu().numpy()
+            # the lanes as raw bytes (byte order at the kernel's store),
+            # then one copy back
+            lane_bytes = gather_cuda.gather_lanes_raw(
+                img, ol_dev, bucket, order="bytes").reshape(-1).cpu().numpy()
             src = memoryview(lane_bytes)
             row = bucket * 64
             for j, i in enumerate(idxs):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's kernels of one checkout on one GPU: the CDC scan and
 select, the scan's words-only mode (``be_image``), the shard scan,
-SHA-256, the match deltas, the row sort and the Reed-Solomon kernel.
+SHA-256, the match deltas, the row sort, the Reed-Solomon kernel and the
+raw lane gather.
 
     python3 kernel_times.py [--tree DIR] [--only cdc_scan,be_image,...]
 
@@ -24,10 +25,23 @@ first held against its plain version); and ``sort_rows`` at each call
 site of the match scan of the ``source`` container at stride 2
 (``TIMING sort_rows`` lines; keys held against the plain sort); and the
 GF(2^8) Reed-Solomon kernel at a 32 MiB container's stripe length, as
-RS(6,3) encode, a decode of three data stripes and a two-survivor
-partial sum (``TIMING rs`` lines, each held against its plain version;
+RS(6,3) encode, a decode of three data stripes, a two-survivor partial
+sum, the encode with every row one byte past 16-byte alignment, and a
+sweep of the RS(k, rows) encode matrices over k 1, 2, 3, 6, 10, 24 and
+rows 1, 3, 8 (``TIMING rs`` lines, each held against its plain version;
 a checkout without ``ops/rs_cuda.py`` has no such kernel and is
-skipped).  ``--only`` times a subset.  The last line is one JSON object
+skipped); the RS kernel's compile-time choices against each other,
+the terms as 0/1 multipliers or AND masks and the rows unrolled or a
+loop, each form built from the tree's source (``--only rs_terms``,
+``TIMING rs_terms`` lines; a checkout whose ``csrc/rs.cu`` has no such
+choice is skipped); and the raw lane gather in both orders without the scheme: a
+random 32 MiB container staged as the reconstructor stages it, cut at
+``native.cdc_select`` cuts, one group a bucket padded to 128 lanes, and
+one 128-lane group of 3 chunks (``TIMING gather_raw`` lines "container"
+and "small"), then chip_smoke.py's ``reduce`` corpus written through the
+scheme and the groups of two of its reads, block 0 and the one with the
+most groups (a checkout without the byte-order mode times the words and
+the ``flip`` its reconstructor ran).  ``--only`` times a subset.  The last line is one JSON object
 of the times.  Two checkouts timed in one call on one card compare their
 kernels, e.g. an earlier commit unpacked with ``git archive`` into a
 directory that .gitignore lists:
@@ -46,7 +60,124 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GROUPS = ("cdc_scan", "cdc_select", "be_image", "shard_scan", "sha256",
-          "match_deltas", "sort_rows", "rs")
+          "match_deltas", "sort_rows", "rs", "rs_terms", "gather_raw")
+RS_SWEEP_K = (1, 2, 3, 6, 10, 24)
+RS_SWEEP_ROWS = (1, 3, 8)
+# csrc/rs.cu's two compile-time choices: name -> (HDRF_RS_MUL_MAX_K,
+# HDRF_RS_UNROLL_ROWS_MAX_K), the terms a 0/1 multiplier (24) or an AND
+# mask (0) at every k, the rows unrolled up to k 12 or at every k
+RS_TERM_FORMS = {"multiplier": (24, 12), "mask": (0, 12),
+                 "multiplier_rows_unrolled": (24, 24),
+                 "mask_rows_unrolled": (0, 24)}
+RS_TERM_SHAPES = ((2, 3), (6, 3), (10, 3), (12, 8), (24, 1), (24, 8))
+
+
+def time_rs_terms(cs, tree: Path, dev) -> list:
+    """csrc/rs.cu's compile-time choices against each other: the tree's
+    source built once a form of ``RS_TERM_FORMS`` (all in parallel, into
+    its build directory), each entry point called through ctypes on the
+    same rows, an RS(k, rows) encode at a 32 MiB container's stripe
+    length, held against the plain version; device ms (profiler)."""
+    import ctypes
+    import subprocess
+
+    import torch
+    from hdrf_tpu_torch.ops import _build, rs, rs_cuda
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (mul, unroll) in RS_TERM_FORMS.items():
+        so = _build.BUILD_DIR / f"rs_terms_{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC",
+             f"-DHDRF_RS_MUL_MAX_K={mul}",
+             f"-DHDRF_RS_UNROLL_ROWS_MAX_K={unroll}", "-o", str(so),
+             str(tree / "hdrf_tpu_torch/csrc/rs.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        cs.check(proc.returncode == 0, f"rs_terms {name}: nvcc failed\n{log}")
+        fn = ctypes.CDLL(str(so)).hdrf_rs_apply
+        fn.argtypes = _build._SIGNATURES["hdrf_rs_apply"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    L = cs.RS_LENGTHS[-1]
+    rows = []
+    for k, nrows in RS_TERM_SHAPES:
+        c = np.ascontiguousarray(rs.rs_matrix(k, nrows)[k:])
+        coef = (ctypes.c_uint8 * c.size).from_buffer_copy(c.tobytes())
+        lp = -(-L // 16) * 16     # rows 16-byte aligned, as ops/rs.py
+        d = torch.randint(0, 256, (k, lp), dtype=torch.uint8,
+                          device=dev)[:, :L]
+        out = torch.empty((nrows, lp), dtype=torch.uint8, device=dev)[:, :L]
+        want = rs_cuda.gf_apply_plain(c, d)
+        row = {"k": k, "nrows": nrows, "L": L}
+        for name, fn in fns.items():
+            def call(fn=fn):
+                _build.check(fn(d.data_ptr(), d.stride(0), k,
+                                out.data_ptr(), out.stride(0), nrows, L,
+                                ctypes.addressof(coef),
+                                torch.cuda.current_stream(dev).cuda_stream),
+                             f"rs_terms {name}")
+            out.zero_()
+            call()
+            cs.check(torch.equal(out, want),
+                     f"rs_terms {name} k {k} rows {nrows}: != plain")
+            row[name] = cs.device_ms(call, cs.RS_KERNELS)
+        print("TIMING rs_terms " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+SMALL_GROUP = 3          # real lanes of the one-group read (128 lanes)
+
+
+def time_scheme_gather(cs, cdc) -> list:
+    """``gather_raw`` at the shapes of chip_smoke.py's scheme reads: its
+    ``reduce`` corpus written through the tree's ``dedup_lz4`` scheme
+    (``scheme_context``, ``scheme_write``), then block 0's read and the
+    read with the most (container, bucket) groups (``time_gather_raw``)."""
+    import tempfile
+
+    blocks = cs.main_path_corpus(0, 8, 128)
+    want = [cs.oracle(b, cdc) for b in blocks]
+    with tempfile.TemporaryDirectory(prefix="kernel_times_") as root:
+        ctx = cs.scheme_context(root, {})
+        try:
+            cs.scheme_write(ctx, blocks, want)
+            return cs.time_gather_raw(ctx, blocks)
+        finally:
+            ctx.read_plane.close()
+            ctx.index.close()
+
+
+def time_container_gather(cs, dev, cdc) -> list:
+    """``gather_raw`` without the scheme: a random 32 MiB container
+    staged as the reconstructor stages it (its headroom, ``be_image``),
+    cut at ``native.cdc_select`` cuts, one group a bucket padded to 128
+    lanes as ``DeviceReconstructor.gather`` does (``TIMING gather_raw``
+    "container"), and one small group: the first 3 chunks of the
+    container's most common bucket in 128 lanes ("small")."""
+    from hdrf_tpu_torch.ops import reconstruct
+
+    a = np.random.default_rng(5).integers(0, 256, cs.SEAL_BYTES,
+                                          dtype=np.uint8)
+    img, _ = reconstruct.DeviceReconstructor(device=dev)._stage(a)
+    cuts = cs.native.cdc_select(cs.native.gear_candidates(
+        a, cs.gear_mask(cdc)), a.size, cdc.min_chunk, cdc.max_chunk)
+    starts = np.concatenate([[0], cuts[:-1]])
+    groups: dict = {}
+    for off, ln in zip(starts.tolist(), (cuts - starts).tolist()):
+        b = reconstruct._bucket_of(-(-ln // 64) + 1)
+        groups.setdefault((0, b), []).append(off)
+    common = max(groups, key=lambda g: len(groups[g]))
+    rows = []
+    for tag, gs in (("container", groups),
+                    ("small", {common: groups[common][:SMALL_GROUP]})):
+        calls, nbytes, lanes = cs.raw_calls(gs, lambda _: img)
+        rows.append(cs.time_raw(tag, calls, nbytes, lanes,
+                                chunks=sum(map(len, gs.values()))))
+    return rows
 
 
 def main(argv=None) -> int:
@@ -82,7 +213,8 @@ def main(argv=None) -> int:
         out = {"tree": str(tree), "card": cs.nvidia_smi(),
                "sha_chain_probe": chain, "cdc_scan": {}, "cdc_select": {},
                "be_image": {}, "shard_scan": [], "sha256": {},
-               "match_deltas": [], "sort_rows": {}, "rs": {}}
+               "match_deltas": [], "sort_rows": {}, "rs": {},
+               "gather_raw": []}
         for name, a in cs.big_blocks(0, 128 * cs.MIB, mask):
             if not only & {"cdc_scan", "cdc_select", "sha256", "be_image",
                            "shard_scan"}:
@@ -131,13 +263,23 @@ def main(argv=None) -> int:
         if "rs" in only and (tree / "hdrf_tpu_torch/ops/rs_cuda.py").exists():
             from hdrf_tpu_torch.ops import rs
             L, k, m = cs.RS_LENGTHS[-1], cs.EC_K, cs.EC_M
-            for name, c in (
-                    ("encode", rs.rs_matrix(k, m)[k:]),
+            enc = rs.rs_matrix(k, m)[k:]
+            for name, c, off in (
+                    ("encode", enc, 0),
                     ("decode", rs.repair_rows(k, m, (3, 4, 5, 6, 7, 8),
-                                              (0, 1, 2))),
+                                              (0, 1, 2)), 0),
                     ("partial_sums", rs.repair_rows(
-                        k, m, (0, 2, 3, 5, 6, 8), (1, 4, 7))[:, [1, 4]])):
-                out["rs"][name] = cs.time_rs(name, c, L, dev)
+                        k, m, (0, 2, 3, 5, 6, 8), (1, 4, 7))[:, [1, 4]], 0),
+                    ("encode_offset1", enc, 1),
+                    *((f"k{kk}_rows{r}", rs.rs_matrix(kk, r)[kk:], 0)
+                      for kk in RS_SWEEP_K for r in RS_SWEEP_ROWS)):
+                out["rs"][name] = cs.time_rs(name, c, L, dev, offset=off)
+        if "rs_terms" in only and "HDRF_RS_MUL_MAX_K" in (
+                tree / "hdrf_tpu_torch/csrc/rs.cu").read_text():
+            out["rs_terms"] = time_rs_terms(cs, tree, dev)
+        if "gather_raw" in only:
+            out["gather_raw"] = (time_container_gather(cs, dev, cdc)
+                                 + time_scheme_gather(cs, cdc))
         if "sort_rows" not in only:
             print(json.dumps(out), flush=True)
             return 0

@@ -664,6 +664,41 @@ def test_gather_raw_kernel_equals_plain(dev, bucket, fill):
         torch.from_numpy(img), torch.from_numpy(ol), bucket))
 
 
+@pytest.mark.parametrize("bucket", [16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_gather_raw_both_orders_equal_plain(dev, bucket):
+    """Both orders of the raw gather on the card equal their plain
+    versions, bit for bit: groups of 1, 127, 128 and 1,029 lanes, all
+    four byte alignments, windows ending at the image's edge and past it,
+    and images whose first word lies 0-3 words past a 16-byte boundary."""
+    W = bucket * 16
+    rng = np.random.default_rng(bucket + 1)
+    nw = W + 3 * 4096 + 7
+    full = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, nw + 4,
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+    for lanes in (1, 127, 128, 1029):
+        edge = (nw - W - 1) * 4
+        offs = rng.integers(0, edge, lanes)
+        offs[:min(lanes, 8)] = [edge, edge + 3, edge + 4, 0, 1, 2, 3,
+                                nw * 4 - 5][:min(lanes, 8)]
+        ol = torch.from_numpy(np.stack([offs, np.ones(lanes)]).astype(
+            np.int32)).to(dev)
+        for p in range(4):
+            words = full[p:p + nw]
+            for order in ("words", "bytes"):
+                n0 = gather_cuda.raw_launches
+                got = gather_cuda.gather_lanes_raw(words, ol, bucket, order)
+                assert gather_cuda.raw_launches == n0 + 1
+                want = gather_cuda.gather_lanes_raw_plain(words, ol, bucket,
+                                                          order)
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (lanes, p, order)
+            assert torch.equal(got.view(lanes, -1, 4), gather_cuda
+                               .gather_lanes_raw(words, ol, bucket)
+                               .view(torch.uint8).view(lanes, -1, 4)
+                               .flip(-1))
+
+
 def test_device_reconstructor_on_card_equals_cpu(dev):
     """Card and CPU reconstructors write the same bytes and leave the same
     counts over a sequence that evicts and hits."""
@@ -847,6 +882,27 @@ def test_rs_kernel_matches_plain(dev, L):
             torch.cuda.synchronize()
             assert rs_cuda.launches - n0 == -(-nrows // rs_cuda.MAX_ROWS)
             assert torch.equal(got, rs_cuda.gf_apply_plain(c, d)), (k, off)
+
+
+@pytest.mark.parametrize("k", range(1, rs_cuda.MAX_K + 1))
+def test_rs_kernel_every_k_and_rows(dev, k):
+    """Every instantiation of the kernel (shard count k) at every row
+    count 1-8 equals the plain version: rows aligned (L 16, offset 0)
+    and at byte offsets 1-3, 5 and 16, ragged lengths, coefficients with
+    zeros, ones and 0xFF."""
+    rng = np.random.default_rng(100 + k)
+    for L in (1, 15, 16, 17, 4097, 65_536 + 5):
+        flat = torch.from_numpy(rng.integers(0, 256, k * L + 19,
+                                             dtype=np.uint8)).to(dev)
+        for nrows in range(1, rs_cuda.MAX_ROWS + 1):
+            c = _edge_coeffs(rng, nrows, k)
+            for off in (0, 1, 2, 3, 5, 16):
+                d = flat[off:off + k * L].view(k, L)
+                n0 = rs_cuda.launches
+                got = rs_cuda.gf_apply(c, d)
+                assert rs_cuda.launches == n0 + 1
+                assert torch.equal(got, rs_cuda.gf_apply_plain(c, d)), \
+                    (L, nrows, off)
 
 
 def test_rs_entry_points_on_the_card(dev):

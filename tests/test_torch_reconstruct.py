@@ -5,7 +5,10 @@ reference's, on the CPU.
 equal the JAX ``reconstruct.gather_lanes_raw`` exactly, at every bucket
 from 16 to 256, all four byte alignments and random offsets inside the
 headroom contract (the reference's ``dynamic_slice`` clamps a window
-past the image, the port's loads read zero: they agree inside it).
+past the image, the port's loads read zero: they agree inside it); in
+byte order it must equal the reference's lanes byte-swapped, as the
+reference's ``gather`` swaps them on the host, at every bucket from 16
+to 2048.
 ``DeviceReconstructor(device="cpu").gather`` must write the same ``out``
 bytes as the reference's, and leave the same ``image_hits`` /
 ``images_staged`` / ``chunks_gathered`` counts and the same resident set
@@ -55,6 +58,34 @@ def test_gather_lanes_raw_plain_equals_jax(bucket):
     assert torch.equal(gather_cuda.gather_lanes_raw(
         torch.from_numpy(words.view(np.int32)), torch.from_numpy(ol),
         bucket), got)
+
+
+@pytest.mark.parametrize("bucket", [16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_gather_lanes_raw_bytes_plain_equals_jax_byteswap(bucket):
+    """The byte-order plain version is the reference's lanes with each
+    word's bytes swapped (hdrf_tpu/ops/reconstruct.py:159,
+    ``lanes.byteswap()``): all four byte alignments and windows ending at
+    the image's edge; the wrapper runs it on a CPU tensor."""
+    W = bucket * 16
+    rng = np.random.default_rng(bucket + 7)
+    nw = W + 600
+    words = rng.integers(0, 1 << 32, nw, dtype=np.uint64).astype(np.uint32)
+    edge = (nw - W - 1) * 4
+    offs = np.concatenate([rng.integers(0, edge, 12) // 4 * 4
+                           + np.arange(12) % 4,
+                           [0, 1, 2, 3, edge, edge + 1, edge + 2, edge + 3]])
+    ol = np.stack([offs, np.ones(offs.size)]).astype(np.int32)
+    want = np.asarray(ref.gather_lanes_raw(jnp.asarray(words),
+                                           jnp.asarray(ol), bucket)) \
+        .byteswap().view(np.uint8).reshape(offs.size, W * 4)
+    w_t, ol_t = torch.from_numpy(words.view(np.int32)), torch.from_numpy(ol)
+    got = gather_cuda.gather_lanes_raw_plain(w_t, ol_t, bucket, "bytes")
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(gather_cuda.gather_lanes_raw(w_t, ol_t, bucket,
+                                                    order="bytes"), got)
+    with pytest.raises(ValueError, match="order"):
+        gather_cuda.gather_lanes_raw(w_t, ol_t, bucket, order="le")
 
 
 def _workload(seed: int, ncid: int = 6, nchunks: int = 400):

@@ -167,6 +167,24 @@ def test_gf_apply_on_cpu_is_the_plain_version():
         rs_cuda.gf_apply(c[:, :3], torch.from_numpy(d))
 
 
+@pytest.mark.parametrize("nrows", [1, 3, 8])
+@pytest.mark.parametrize("k", range(1, rs_cuda.MAX_K + 1))
+def test_gf_apply_plain_equals_partial_sums_ref(k, nrows):
+    """The kernel's plain version at every shard count the kernel is
+    instantiated for and at 1, 3 and 8 rows, against the reference's
+    table oracle: coefficients holding zeros, ones and 0xFF, ragged
+    lengths."""
+    rng = np.random.default_rng(k * 10 + nrows)
+    c = rng.integers(0, 256, (nrows, k), dtype=np.uint8)
+    c.flat[::3] = 0
+    c.flat[1::4] = 1
+    c.flat[2::5] = 0xFF
+    for L in (1, 15, 16, 17, 4097):
+        d = rng.integers(0, 256, (k, L), dtype=np.uint8)
+        got = rs_cuda.gf_apply_plain(c, torch.from_numpy(d))
+        assert np.array_equal(got.numpy(), ref.partial_sums_ref(d, c)), L
+
+
 def test_coefficients_recovered_from_bit_matrix():
     rng = np.random.default_rng(9)
     c = rng.integers(0, 256, (3, 5), dtype=np.uint8)
