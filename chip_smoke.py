@@ -201,12 +201,11 @@ integer work).
 from __future__ import annotations
 
 import argparse
-import functools
 import hashlib
-import inspect
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1763,27 +1762,6 @@ def scheme_repeat(ctx, blk) -> dict:
     return {"first": counts[0], "repeat": counts[1]}
 
 
-@functools.cache
-def _raw_byte_order() -> bool:
-    return "order" in inspect.signature(
-        gather_cuda.gather_lanes_raw).parameters
-
-
-def raw_lanes(img: torch.Tensor, ol: torch.Tensor, bucket: int,
-              order: str) -> torch.Tensor:
-    """One group's lanes as the read path takes them: ``order="words"``
-    the kernel's big-endian words, ``"bytes"`` the chunk bytes.  A
-    checkout whose wrapper has no byte-order mode gathers words and
-    flips each word's bytes with ``torch.flip``, as its reconstructor
-    did."""
-    if order == "words":
-        return gather_cuda.gather_lanes_raw(img, ol, bucket)
-    if _raw_byte_order():
-        return gather_cuda.gather_lanes_raw(img, ol, bucket, order="bytes")
-    lanes = gather_cuda.gather_lanes_raw(img, ol, bucket)
-    return lanes.view(torch.uint8).view(lanes.shape[0], -1, 4).flip(-1)
-
-
 def raw_calls(groups: dict, image_of) -> tuple[list, int, int]:
     """(calls, bytes, lanes) of the raw gathers of ``groups`` ((image
     key, bucket) -> chunk offsets) as ``DeviceReconstructor.gather``
@@ -1814,23 +1792,24 @@ def time_raw(tag: str, calls: list, nbytes: int, lanes: int,
     orders, each held against the plain words (tolerance zero): card ms
     (CUDA events) and device ms (profiler) of the words and of the bytes
     the read path takes (the kernels of the call, less the L2 scrub's
-    fill: in a checkout without the byte-order mode, the gather and the
-    flip), the plain version once, the library call (advanced indexing
+    fill), the plain version once, the library call (advanced indexing
     + shift) and the byte bound."""
     e = 0
     for img, ol, b in calls:
         want = gather_cuda.gather_lanes_raw_plain(img, ol, b)
-        e = max(e, max_err(raw_lanes(img, ol, b, "words"), want),
+        e = max(e, max_err(gather_cuda.gather_lanes_raw(img, ol, b), want),
                 max_err(library_raw(img, ol, b), want))
         flipped = want.view(torch.uint8).view(want.shape[0], -1, 4).flip(-1)
-        e = max(e, max_err(raw_lanes(img, ol, b, "bytes").reshape(
-            flipped.shape[0], -1), flipped.reshape(flipped.shape[0], -1)))
-        del want, flipped
+        got = gather_cuda.gather_lanes_raw(img, ol, b, order="bytes")
+        e = max(e, max_err(got.reshape(flipped.shape[0], -1),
+                           flipped.reshape(flipped.shape[0], -1)))
+        del want, flipped, got
     check(e == 0, f"TIMING gather_raw {tag}: kernel or library call != "
                   f"plain (max err {e})")
 
     def run(order):
-        return lambda: [raw_lanes(i, o, b, order) for i, o, b in calls]
+        return lambda: [gather_cuda.gather_lanes_raw(i, o, b, order=order)
+                        for i, o, b in calls]
 
     def library():
         return [library_raw(i, o, b) for i, o, b in calls]
@@ -2397,6 +2376,40 @@ def print_timing(timing: dict) -> None:
               f"bound_ms={t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
 
 
+def _kernel_name(mangled: str) -> str:
+    """``rs_apply_kernel<6>`` of an Itanium-mangled kernel name: its last
+    name and its first template argument, if an integer or a bool."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    names, i = [], 0
+    while (m := re.match(r"\d+", s[i:])):
+        n, i = int(m.group()), i + m.end()
+        names.append(s[i:i + n])
+        i += n
+    if not names:
+        return mangled
+    t = re.match(r"IL[a-z](\d+)E", s[i:])
+    return f"{names[-1]}<{t.group(1)}>" if t else names[-1]
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One entry a kernel of nvcc's ``-Xptxas -v`` log (``== source``
+    lines between files): its name, registers, and its stack frame and
+    spill stores/loads in bytes where it has any."""
+    rows, name, spill = [], "", ""
+    for ln in log.splitlines():
+        if ln.startswith("=="):
+            rows.append(ln.strip())
+        elif m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name, spill = _kernel_name(m.group(1)), ""
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                             r"stores, (\d+) bytes spill loads", ln)) \
+                and any(map(int, m.groups())):
+            spill = " stack {} spill {}/{}".format(*m.groups())
+        elif m := re.search(r"Used (\d+) registers", ln):
+            rows.append(f"{name} {m.group(1)} regs{spill}")
+    return rows
+
+
 def run(args) -> int:
     t_start = time.perf_counter()
     info = probe()
@@ -2406,10 +2419,8 @@ def run(args) -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.read_text().splitlines()
-             if "registers" in ln or "==" in ln]
-    print(f"BUILD {time.perf_counter() - t0:.1f}s " + " | ".join(ptxas),
-          flush=True)
+    print(f"BUILD {time.perf_counter() - t0:.1f}s " + " | ".join(
+        ptxas_report(_build.BUILD_LOG.read_text())), flush=True)
     warmup_probe(t_start)
 
     errs = {k: 0 for k in KERNELS}

@@ -28,21 +28,18 @@
 //    hdrf_rs_apply), so a row costs 8K terms, not 8 x 24.
 //  - A term is branch-free.  The launch parameters (up to 6 KB, within
 //    CUDA 12.1+'s 32 KB; `__grid_constant__`) carry each coefficient bit
-//    as a term operand m[r][b][j].  Up to kMulMaxK shards it is a 0/1
-//    multiplier, x_j * m: an IMAD with a constant-bank operand on the FMA
-//    pipe, and the XOR of two terms one LOP3 on the INT pipe, so the
-//    work splits between the two.  Above, it is an AND mask, 0 or ~0,
-//    x_j & m folded into one LOP3.  Up to kUnrollRowsMaxK shards the
-//    rows are an unrolled loop of kMaxRows guarded by a uniform test, so
-//    every operand is a constant-bank address; above, a row loop keeps
-//    the code small.  Both limits were set by measurement on the card
-//    (`kernel_times.py --only rs_terms`; PERF.md): the multiplier
-//    is the faster at few shards (k 2-6 by 3 rows, the EC tier's calls),
-//    the mask at 12 and 24 shards by 8 rows, and at 24 shards by 8 rows
-//    the unrolled rows took twice the row loop's time.
+//    as a 0/1 multiplier m[r][b][j]: x_j * m is an IMAD on the FMA pipe
+//    and the XOR of two terms one LOP3 on the INT pipe, so the work
+//    splits between the two.  The rows are a loop at every K.
 //  - The grid is persistent (occupancy x SMs), each thread walks several
 //    16-byte units, and up to kPrefetchMaxK shards the next unit's loads
 //    are issued before the current unit's arithmetic (two register sets).
+// The forms were chosen on the card (kernel_times.py on variants of this
+// source; PERF.md): the multiplier beat an AND mask (x_j & m, m 0 or ~0)
+// by 11-14 % at k 2-6 by 3 rows; rows unrolled took 1.9-3x the loop's
+// time at k 24 by 8 rows and spilled with the prefetch from k 20; the
+// prefetch saved 8-12 % at k 6 and 10 by 3 rows (RS(6,3), RS(10,4)),
+// cost up to 5 % at k 24 and spilled at k 19, 21, 23.
 //
 // Rows may start at any byte (stripe_len is ceil(length / k), and partial
 // sums stack survivors of odd length): a load from a row that is not
@@ -60,22 +57,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxK = 24;
 constexpr int kMaxRows = 8;
 constexpr int kPrefetchMaxK = 10;   // two register sets of K x 4 words
-// the two choices measured against each other (kernel_times.py --only
-// rs_terms builds this source with other values)
-#ifndef HDRF_RS_UNROLL_ROWS_MAX_K
-#define HDRF_RS_UNROLL_ROWS_MAX_K 12
-#endif
-#ifndef HDRF_RS_MUL_MAX_K
-#define HDRF_RS_MUL_MAX_K 10
-#endif
-constexpr int kUnrollRowsMaxK = HDRF_RS_UNROLL_ROWS_MAX_K;
-constexpr int kMulMaxK = HDRF_RS_MUL_MAX_K;
 
-// a term is x * m, m in {0, 1}, up to kMulMaxK shards; x & m, m in
-// {0, ~0}, above
-__host__ __device__ constexpr bool mul_terms(int k) { return k <= kMulMaxK; }
-
-// m[r][b][j]: bit b of C[r, j] as a term (rows >= nrows 0)
+// m[r][b][j]: bit b of C[r, j], 0 or 1 (rows >= nrows 0)
 template <int K>
 struct RsCoef {
   uint32_t m[kMaxRows][8][K];
@@ -163,7 +146,7 @@ __device__ __forceinline__ void apply_row(const uint32_t (&x)[K][4],
       if (b < 7) a = xtime4(a);
 #pragma unroll
       for (int j = 0; j < K; ++j)
-        a ^= mul_terms(K) ? x[j][w] * m[b][j] : x[j][w] & m[b][j];
+        a ^= x[j][w] * m[b][j];
     }
     acc[w] = a;
   }
@@ -176,15 +159,9 @@ __device__ __forceinline__ void apply_unit(const uint32_t (&x)[K][4],
                                            const RsCoef<K> &co, int nrows,
                                            uint8_t *out, int64_t out_stride,
                                            int64_t x0, int n) {
-  if (K <= kUnrollRowsMaxK) {
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < nrows) apply_row<K>(x, co.m[r], out + r * out_stride + x0, n);
-  } else {
 #pragma unroll 1
-    for (int r = 0; r < nrows; ++r)
-      apply_row<K>(x, co.m[r], out + r * out_stride + x0, n);
-  }
+  for (int r = 0; r < nrows; ++r)
+    apply_row<K>(x, co.m[r], out + r * out_stride + x0, n);
 }
 
 template <int K>
@@ -220,6 +197,19 @@ rs_apply_kernel(const uint8_t *__restrict__ in, int64_t in_stride,
   }
 }
 
+// SMs x resident blocks of rs_apply_kernel<K>: queried at the first
+// launch of each K (a function-local static, initialised once and
+// thread-safely; the port drives one kind of card)
+template <int K>
+int64_t grid_cap() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_apply_kernel<K>,
+                                                kThreads, 0);
+  return static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+}
+
 template <int K>
 int launch(const uint8_t *in, int64_t in_stride, uint8_t *out,
            int64_t out_stride, int nrows, int64_t L, const uint8_t *c,
@@ -227,23 +217,11 @@ int launch(const uint8_t *in, int64_t in_stride, uint8_t *out,
   RsCoef<K> co = {};
   for (int r = 0; r < nrows; ++r)
     for (int b = 0; b < 8; ++b)
-      for (int j = 0; j < K; ++j) {
-        const uint32_t bit = (c[r * K + j] >> b) & 1u;
-        co.m[r][b][j] = mul_terms(K) ? bit : 0u - bit;
-      }
-  // persistent grid: as many blocks as fit on the card (queried once)
-  static int per_sm = 0;
-  if (per_sm == 0) {
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rs_apply_kernel<K>, kThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      for (int j = 0; j < K; ++j) co.m[r][b][j] = (c[r * K + j] >> b) & 1u;
+  // persistent grid: as many blocks as fit on the card
+  static const int64_t cap = grid_cap<K>();
   const int64_t units = (L + 15) / 16;
   int64_t blocks = (units + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > cap) blocks = cap;
   rs_apply_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       in, in_stride, out, out_stride, nrows, L, co);

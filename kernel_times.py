@@ -30,19 +30,15 @@ sum, the encode with every row one byte past 16-byte alignment, and a
 sweep of the RS(k, rows) encode matrices over k 1, 2, 3, 6, 10, 24 and
 rows 1, 3, 8 (``TIMING rs`` lines, each held against its plain version;
 a checkout without ``ops/rs_cuda.py`` has no such kernel and is
-skipped); the RS kernel's compile-time choices against each other,
-the terms as 0/1 multipliers or AND masks and the rows unrolled or a
-loop, each form built from the tree's source (``--only rs_terms``,
-``TIMING rs_terms`` lines; a checkout whose ``csrc/rs.cu`` has no such
-choice is skipped); and the raw lane gather in both orders without the scheme: a
+skipped); and the raw lane gather in both orders without the scheme: a
 random 32 MiB container staged as the reconstructor stages it, cut at
 ``native.cdc_select`` cuts, one group a bucket padded to 128 lanes, and
 one 128-lane group of 3 chunks (``TIMING gather_raw`` lines "container"
 and "small"), then chip_smoke.py's ``reduce`` corpus written through the
 scheme and the groups of two of its reads, block 0 and the one with the
 most groups (a checkout without the byte-order mode times the words and
-the ``flip`` its reconstructor ran).  ``--only`` times a subset.  The last line is one JSON object
-of the times.  Two checkouts timed in one call on one card compare their
+the ``flip`` its reconstructor ran, ``adapt_raw_order``).  ``--only``
+times a subset.  The last line is one JSON object of the times.  Two checkouts timed in one call on one card compare their
 kernels, e.g. an earlier commit unpacked with ``git archive`` into a
 directory that .gitignore lists:
 
@@ -52,6 +48,7 @@ directory that .gitignore lists:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -60,76 +57,27 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GROUPS = ("cdc_scan", "cdc_select", "be_image", "shard_scan", "sha256",
-          "match_deltas", "sort_rows", "rs", "rs_terms", "gather_raw")
+          "match_deltas", "sort_rows", "rs", "gather_raw")
 RS_SWEEP_K = (1, 2, 3, 6, 10, 24)
 RS_SWEEP_ROWS = (1, 3, 8)
-# csrc/rs.cu's two compile-time choices: name -> (HDRF_RS_MUL_MAX_K,
-# HDRF_RS_UNROLL_ROWS_MAX_K), the terms a 0/1 multiplier (24) or an AND
-# mask (0) at every k, the rows unrolled up to k 12 or at every k
-RS_TERM_FORMS = {"multiplier": (24, 12), "mask": (0, 12),
-                 "multiplier_rows_unrolled": (24, 24),
-                 "mask_rows_unrolled": (0, 24)}
-RS_TERM_SHAPES = ((2, 3), (6, 3), (10, 3), (12, 8), (24, 1), (24, 8))
-
-
-def time_rs_terms(cs, tree: Path, dev) -> list:
-    """csrc/rs.cu's compile-time choices against each other: the tree's
-    source built once a form of ``RS_TERM_FORMS`` (all in parallel, into
-    its build directory), each entry point called through ctypes on the
-    same rows, an RS(k, rows) encode at a 32 MiB container's stripe
-    length, held against the plain version; device ms (profiler)."""
-    import ctypes
-    import subprocess
-
-    import torch
-    from hdrf_tpu_torch.ops import _build, rs, rs_cuda
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (mul, unroll) in RS_TERM_FORMS.items():
-        so = _build.BUILD_DIR / f"rs_terms_{name}.so"
-        procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC",
-             f"-DHDRF_RS_MUL_MAX_K={mul}",
-             f"-DHDRF_RS_UNROLL_ROWS_MAX_K={unroll}", "-o", str(so),
-             str(tree / "hdrf_tpu_torch/csrc/rs.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"rs_terms {name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(so)).hdrf_rs_apply
-        fn.argtypes = _build._SIGNATURES["hdrf_rs_apply"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    L = cs.RS_LENGTHS[-1]
-    rows = []
-    for k, nrows in RS_TERM_SHAPES:
-        c = np.ascontiguousarray(rs.rs_matrix(k, nrows)[k:])
-        coef = (ctypes.c_uint8 * c.size).from_buffer_copy(c.tobytes())
-        lp = -(-L // 16) * 16     # rows 16-byte aligned, as ops/rs.py
-        d = torch.randint(0, 256, (k, lp), dtype=torch.uint8,
-                          device=dev)[:, :L]
-        out = torch.empty((nrows, lp), dtype=torch.uint8, device=dev)[:, :L]
-        want = rs_cuda.gf_apply_plain(c, d)
-        row = {"k": k, "nrows": nrows, "L": L}
-        for name, fn in fns.items():
-            def call(fn=fn):
-                _build.check(fn(d.data_ptr(), d.stride(0), k,
-                                out.data_ptr(), out.stride(0), nrows, L,
-                                ctypes.addressof(coef),
-                                torch.cuda.current_stream(dev).cuda_stream),
-                             f"rs_terms {name}")
-            out.zero_()
-            call()
-            cs.check(torch.equal(out, want),
-                     f"rs_terms {name} k {k} rows {nrows}: != plain")
-            row[name] = cs.device_ms(call, cs.RS_KERNELS)
-        print("TIMING rs_terms " + json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
 SMALL_GROUP = 3          # real lanes of the one-group read (128 lanes)
+
+
+def adapt_raw_order(cs) -> None:
+    """Give a checkout whose ``gather_lanes_raw`` has no byte-order mode
+    one, as its reconstructor took the bytes: the words, then each
+    word's bytes reversed with ``torch.flip`` (u8[L, W, 4])."""
+    gc = cs.gather_cuda
+    if "order" in inspect.signature(gc.gather_lanes_raw).parameters:
+        return
+    words = gc.gather_lanes_raw
+
+    def gather_lanes_raw(img, ol, bucket, order="words"):
+        lanes = words(img, ol, bucket)
+        if order == "words":
+            return lanes
+        return lanes.view(cs.torch.uint8).view(lanes.shape[0], -1, 4).flip(-1)
+    gc.gather_lanes_raw = gather_lanes_raw
 
 
 def time_scheme_gather(cs, cdc) -> list:
@@ -274,10 +222,8 @@ def main(argv=None) -> int:
                     *((f"k{kk}_rows{r}", rs.rs_matrix(kk, r)[kk:], 0)
                       for kk in RS_SWEEP_K for r in RS_SWEEP_ROWS)):
                 out["rs"][name] = cs.time_rs(name, c, L, dev, offset=off)
-        if "rs_terms" in only and "HDRF_RS_MUL_MAX_K" in (
-                tree / "hdrf_tpu_torch/csrc/rs.cu").read_text():
-            out["rs_terms"] = time_rs_terms(cs, tree, dev)
         if "gather_raw" in only:
+            adapt_raw_order(cs)
             out["gather_raw"] = (time_container_gather(cs, dev, cdc)
                                  + time_scheme_gather(cs, cdc))
         if "sort_rows" not in only:
