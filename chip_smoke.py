@@ -174,7 +174,44 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ec_demote`` / ``ec_read``: SCHEME's profiled block demoted and read
    back degraded under the profiler.  ``rs``'s launch count is that of
    (b) to (d).
-11. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+11. DATANODE, the port's DataNode (hdrf_tpu_torch/server/datanode.py) on
+   ``cuda:0`` through its wire entry points: a stand-in NameNode over the
+   port's RPC frames (``register_datanode`` without block keys,
+   ``block_report``, ``heartbeat`` without commands, ``block_received``
+   recorded) and a wire client on the port's datatransfer (64 KiB
+   packets, its acks read as they come), at ``DataNodeConfig()`` /
+   ``ReductionConfig()`` defaults (dedup_lz4, 32 MiB lz4 containers,
+   ``pipeline_depth`` 4, a 2 ms group commit, 4 write slots).  (a) Three
+   DataNodes, replication 3 (DN1 with targets DN2 and DN3: reduced
+   mirroring, the chunk delta down the chain): the ``reduce`` corpus
+   over 4 concurrent streams (the reference harness's ``dfs --pipeline-ab
+   --streams 4``).  The write kernels' launches (zeroed before) are > 0,
+   the coalescer ran groups, no seal fell back to the host codec
+   (``worker_fallbacks`` 0); every block is read back from all three
+   with ``READ_BLOCK`` and equals the bytes written, ``BLOCK_CHECKSUM``
+   equals ``native.crc32c_chunks`` of them, and each DataNode's IBRs
+   equal the blocks and lengths (``DATANODE write``: ms a block on the
+   client clock, aggregate MiB/s, the phase ms a block from the
+   BlockTimelines of the primary and of each mirror's ingest, the dedup
+   ratio, each mirror leg's chunk-delta bytes against the logical, the
+   coalescer's groups and mean size, launches a block).  Two more blocks
+   under the profiler (``PROFILE datanode_write``), then their IBRs on
+   all three and a read from DN3.  A failed mirror leg still acks the
+   client (pipeline recovery), so every pass also holds the DataNodes'
+   failure counters (``DN_FAULTS``: failed legs, worker fallbacks, op
+   and IBR errors, blocks lost at start, coded fallbacks, segment and
+   assemble failures) to no change, and (b) to its one refused leg.
+   DN1 restarted on its directory with
+   ``device_recon``: the index reopens, no block is dropped, every block
+   reads back through ``gather_raw`` (``DATANODE read``).  (b) Four fresh
+   DataNodes at ``mirror_parity`` 1 (DN1 with targets DN2-DN4: k 2, m 1):
+   two blocks, the second with its leg to DN3 refused so that the parity
+   leg is hedged in; the mirrors hold their segments (partial IBRs), DN2
+   assembles the second block through the RS decode, and it reads back
+   equal (``DATANODE mirror``).  (c) ``pipeline_depth`` 4 beside 1 on
+   fresh single DataNodes, 4 blocks over 4 streams (``DATANODE ab``,
+   information only).  Each pass's directories are deleted when it ends.
+12. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
@@ -2369,6 +2406,492 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
     return out
 
 
+# -------------------------------------------------------------- datanode
+
+DN_WRITE_KERNELS = ("cdc_scan", "cdc_select", "gather_pad", "sha256",
+                    "be_image", "match_deltas", "sort_rows")
+DN_PHASES = ("recv", "checksum", "pipeline_submit", "device_wait",
+             "dedup_lookup", "wal_commit", "container_io", "mirror_stream",
+             "ack")
+DN_STREAMS = 4          # the reference harness's dfs --pipeline-ab --streams 4
+DN_AB_BLOCKS = 4
+# counters of work a DataNode lost or degraded while answering success (a
+# mirror leg that failed still acks the client, as pipeline recovery does)
+DN_FAULTS = {"block_receiver": ("mirror_failures", "worker_fallbacks",
+                                "degraded_writes", "stale_gen_rejected"),
+             "datanode": ("worker_fallbacks", "op_errors", "op_io_errors",
+                          "op_auth_failures", "ibr_failures",
+                          "startup_lost_container_blocks"),
+             "mirror": ("coded_fallbacks", "segment_ingest_failures",
+                        "assemble_failures")}
+
+
+class SmokeNN:
+    """Stand-in NameNode over the port's RPC frames (``[req_id, method,
+    kwargs]`` -> ``[req_id, 0, result]``): registration without block
+    keys, block reports, heartbeats without commands, and the IBRs,
+    recorded per DataNode."""
+
+    def __init__(self) -> None:
+        import socketserver
+        import threading
+
+        from hdrf_tpu_torch.proto.rpc import recv_frame, send_frame
+
+        self.lock = threading.Lock()
+        self.ibrs: dict[str, list] = {}
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self) -> None:
+                self.request.settimeout(600)
+                try:
+                    while True:
+                        rid, method, kw = recv_frame(self.request)
+                        send_frame(self.request,
+                                   [rid, 0, outer.answer(method, kw)])
+                except (ConnectionError, OSError):
+                    return
+
+        class Server(socketserver.ThreadingTCPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+        self._server = Server(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def addr(self):
+        return self._server.server_address
+
+    def answer(self, method: str, kw: dict):
+        if method == "register_datanode":
+            return {"heartbeat_interval_s": 1.0, "block_keys": None,
+                    "nameservice_id": "ns0", "block_pool_index": 0}
+        if method == "heartbeat":
+            return {"commands": []}
+        if method == "block_received":
+            with self.lock:
+                self.ibrs.setdefault(kw["dn_id"], []).append(
+                    (kw["block_id"], kw["length"], bool(kw["partial"])))
+        return {}
+
+    def ibrs_of(self, dn_id: str) -> list:
+        with self.lock:
+            return sorted(self.ibrs.get(dn_id, []))
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def start_dn(root: str, nn, dn_id: str, **red):
+    """A port DataNode on ``cuda:0`` at DataNodeConfig() /
+    ReductionConfig() defaults (dedup_lz4, 32 MiB lz4 containers,
+    pipeline_depth 4, a 2 ms group commit, 64 KiB packets, 4 write
+    slots) unless ``red`` says otherwise."""
+    from hdrf_tpu_torch.config import DataNodeConfig
+    from hdrf_tpu_torch.server.datanode import DataNode
+
+    cfg = DataNodeConfig(data_dir=os.path.join(root, dn_id))
+    cfg.reduction.backend = "cuda"
+    for k, v in red.items():
+        setattr(cfg.reduction, k, v)
+    return DataNode(cfg, nn.addr, dn_id=dn_id).start()
+
+
+def dn_write(addr, bid: int, blk: np.ndarray, targets=()) -> float:
+    """WRITE_BLOCK of ``blk`` in 64 KiB packets on a fresh connection, the
+    acks read by a second thread as they come (the reference client's
+    response processor: a writer that left them unread would stall the
+    DataNode's ack pump on a full window); every packet and the LAST one
+    acked, the last with status 0.  Returns ms from the first packet to
+    the final ack (client clock)."""
+    import socket
+    import threading
+
+    from hdrf_tpu_torch.proto import datatransfer as dt
+
+    npkt = -(-blk.size // DEFAULT_PACKET)
+    acks: list = []
+    s = socket.create_connection(tuple(addr), timeout=600)
+    try:
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        dt.send_op(s, dt.WRITE_BLOCK, block_id=bid, gen_stamp=1,
+                   scheme="dedup_lz4", targets=list(targets),
+                   _client="smoke")
+
+        def responder():
+            try:
+                for _ in range(npkt + 1):
+                    acks.append(dt.read_ack(s))
+            except (ConnectionError, OSError):
+                pass
+        rt = threading.Thread(target=responder, daemon=True)
+        t0 = time.perf_counter()
+        rt.start()
+        seq = 0
+        for pkt in packets(blk):
+            dt.write_packet(s, seq, pkt)
+            seq += 1
+        dt.write_packet(s, seq, b"", last=True)
+        rt.join(timeout=600)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        s.close()
+    check(len(acks) == npkt + 1 and acks[-1] == (npkt, 0)
+          and all(st == 0 for _, st in acks),
+          f"block {bid}: write not acked {acks[-3:]}")
+    return ms
+
+
+def dn_read(addr, bid: int, offset: int = 0, length: int = -1):
+    """READ_BLOCK -> (header, bytes); BLOCK_CHECKSUM -> reply."""
+    import socket
+
+    from hdrf_tpu_torch.proto import datatransfer as dt
+    from hdrf_tpu_torch.proto.rpc import recv_frame
+
+    s = socket.create_connection(tuple(addr), timeout=600)
+    try:
+        dt.send_op(s, dt.READ_BLOCK, block_id=bid, offset=offset,
+                   length=length)
+        hdr = recv_frame(s)
+        check(hdr["status"] == 0, f"block {bid}: read refused {hdr}")
+        return hdr, dt.collect_packets(s)
+    finally:
+        s.close()
+
+
+def dn_checksum(addr, bid: int) -> dict:
+    import socket
+
+    from hdrf_tpu_torch.proto import datatransfer as dt
+    from hdrf_tpu_torch.proto.rpc import recv_frame
+
+    s = socket.create_connection(tuple(addr), timeout=600)
+    try:
+        dt.send_op(s, dt.BLOCK_CHECKSUM, block_id=bid)
+        return recv_frame(s)
+    finally:
+        s.close()
+
+
+def _target(dn) -> dict:
+    return {"dn_id": dn.dn_id, "addr": list(dn.addr)}
+
+
+def _dn_faults() -> dict:
+    return {f"{r}.{k}": metrics.registry(r).counter(k)
+            for r, ks in DN_FAULTS.items() for k in ks}
+
+
+def check_faults(f0: dict, what: str, allowed: dict | None = None) -> dict:
+    """The DN_FAULTS counters that moved since ``f0`` must be exactly
+    ``allowed`` (what a pass injected); returns them."""
+    moved = {k: v - f0[k] for k, v in _dn_faults().items() if v != f0[k]}
+    check(moved == (allowed or {}),
+          f"DATANODE {what}: failure counters moved {moved}, "
+          f"want {allowed or {}}")
+    return moved
+
+
+def _wait_ibrs(nn, dn_id: str, want: list) -> None:
+    """The IBRs ``nn`` recorded from ``dn_id`` equal ``want`` (sorted
+    (block, length, partial)); IBRs are sent by a DataNode thread after
+    the ack, so they are waited for up to 60 s."""
+    t_end = time.monotonic() + 60
+    while nn.ibrs_of(dn_id) != want and time.monotonic() < t_end:
+        time.sleep(0.05)
+    check(nn.ibrs_of(dn_id) == want,
+          f"{dn_id}: IBRs {nn.ibrs_of(dn_id)} != the blocks written {want}")
+
+
+def _drain(dns) -> None:
+    for dn in dns:
+        dn.containers.drain_seals()
+
+
+def _write_streams(dn, blocks, first_id: int, targets=()) -> tuple:
+    """``blocks`` over DN_STREAMS concurrent client streams; returns (ms a
+    block on the client clock, wall s, the host cores this process used
+    meanwhile: its user + system CPU s, every thread's, over the wall)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    c0, t0 = os.times(), time.perf_counter()
+    with ThreadPoolExecutor(DN_STREAMS) as pool:
+        ms = list(pool.map(
+            lambda i: dn_write(dn.addr, first_id + i, blocks[i], targets),
+            range(len(blocks))))
+    wall, c1 = time.perf_counter() - t0, os.times()
+    return ms, wall, (c1.user - c0.user + c1.system - c0.system) / wall
+
+
+def _write_phases(first_id: int, n: int, hops: tuple) -> dict:
+    """Phase ms a block of each hop's timeline, exclusive as the overlap
+    accountant partitions each block's wall: a block's timelines in order
+    of start are the primary's write (the one with a ``pipeline_submit``
+    span), then each mirror's ingest down the chain.  A hop's
+    ``mirror_stream`` holds its push to the next hop, which returns only
+    after the whole rest of the chain has stored the block."""
+    by_block: dict = {}
+    for t in profiler.timelines_snapshot():
+        if first_id <= t["block_id"] < first_id + n:
+            by_block.setdefault(t["block_id"], []).append(t)
+    check(sorted(by_block) == list(range(first_id, first_id + n))
+          and all(len(v) == len(hops) for v in by_block.values()),
+          f"write timelines {[len(v) for v in by_block.values()]}, want "
+          f"{len(hops)} for each of {n} blocks")
+    out = {h: {p: 0.0 for p in DN_PHASES} for h in hops}
+    for tls in by_block.values():
+        tls.sort(key=lambda t: t["t0"])
+        check(any(s[0] == "pipeline_submit" for s in tls[0]["spans"]),
+              "a block's first timeline is not the primary's write")
+        for h, t in zip(hops, tls):
+            for p, v in t["profile"]["phases"].items():
+                out[h][p] = out[h].get(p, 0.0) + v * 1e3 / n
+            out[h]["wall"] = out[h].get("wall", 0.0) \
+                + t["profile"]["wall_s"] * 1e3 / n
+    return out
+
+
+def _stats(xs) -> dict:
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def datanode_main(root: str, nn, blocks: list, extra: list) -> dict:
+    """Three DataNodes, replication 3: DN1 with targets DN2, DN3; the
+    corpus over four concurrent streams; every block read back from all
+    three, checksums and IBRs held; DN1 restarted with device_recon and
+    every block read again through the raw gather."""
+    dns = [start_dn(root, nn, f"dn{i}") for i in range(1, 4)]
+    tg = [_target(d) for d in dns[1:]]
+    wp = metrics.registry("write_pipeline")
+    g0 = wp.counter("device_batches")
+    hist0 = wp.snapshot()["histograms"].get("device_batch_blocks",
+                                            {"count": 0, "sum": 0.0})
+    profiler.reset()
+    _zero_launch_counts()
+    faults0 = _dn_faults()
+    ms, wall, cores = _write_streams(dns[0], blocks, 1000, tg)
+    _drain(dns)
+    launches = _scheme_launch_counts()
+    for kname in DN_WRITE_KERNELS:
+        check(launches[kname] > 0,
+              f"DATANODE write never launched the {kname} kernel")
+    groups = wp.counter("device_batches") - g0
+    hist = wp.snapshot()["histograms"]["device_batch_blocks"]
+    check(groups > 0, "DATANODE write: the coalescer ran no group")
+    # no failed leg, no seal fell back to the host codec (worker_fallbacks)
+    faults = check_faults(faults0, "write")
+    phases = _write_phases(1000, len(blocks), tuple(d.dn_id for d in dns))
+    acc = [d.index.accounting() for d in dns]
+    logical = sum(b.size for b in blocks)
+    out = {"write": {
+        "blocks": len(blocks), "block_mib": blocks[0].size / MIB,
+        "streams": DN_STREAMS, "replication": 3,
+        "ms_per_block": _stats(ms), "ms_all": ms,
+        "aggregate_mib_s": logical / MIB / wall,
+        "host_cores_used": cores, "host_cores": os.cpu_count(),
+        "phase_ms_per_block": phases["dn1"],
+        # the mirrors' ingest timelines: dn2's mirror_stream is its relay
+        # to dn3
+        "mirror_phase_ms_per_block": {h: phases[h] for h in ("dn2", "dn3")},
+        "dedup_ratio": acc[0]["logical_bytes"] / acc[0]["unique_chunk_bytes"],
+        # a mirror leg carries the chunk delta: the chunks the mirror lacked
+        "mirror_leg_wire_bytes": [a["unique_chunk_bytes"] for a in acc[1:]],
+        "mirror_leg_wire_ratio": [a["unique_chunk_bytes"] / logical
+                                  for a in acc[1:]],
+        "logical_bytes": logical,
+        "coalescer_groups": groups,
+        "mean_group_blocks": (hist["sum"] - hist0["sum"])
+        / max(hist["count"] - hist0["count"], 1),
+        "worker_fallbacks": sum(faults.get(f"{r}.worker_fallbacks", 0)
+                                for r in ("datanode", "block_receiver")),
+        "launches": launches,
+        "launches_per_block": {k: v / len(blocks)
+                               for k, v in launches.items()}}}
+    print("DATANODE write " + json.dumps(out["write"]), flush=True)
+    reads = {}
+    want_ibr = sorted((1000 + i, b.size, False) for i, b in enumerate(blocks))
+    for dn in dns:
+        _wait_ibrs(nn, dn.dn_id, want_ibr)
+        lat = []
+        for i, b in enumerate(blocks):
+            t0 = time.perf_counter()
+            _, got = dn_read(dn.addr, 1000 + i)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(got == b.tobytes(), f"{dn.dn_id} block {i}: read != written")
+            ck = dn_checksum(dn.addr, 1000 + i)
+            check(ck["checksums"] == [int(c) for c in native.crc32c_chunks(
+                b, ck["checksum_chunk"])] and ck["logical_len"] == b.size,
+                f"{dn.dn_id} block {i}: BLOCK_CHECKSUM != crc32c")
+        reads[dn.dn_id] = _stats(lat)
+    _, part = dn_read(dns[1].addr, 1003, 12_345_677, 3_000_001)
+    check(part == blocks[3][12_345_677:15_345_678].tobytes(),
+          "ranged read != slice")
+    pw = profile_window(
+        "datanode_write", lambda: [dn_write(dns[0].addr, 1100 + i, b, tg)
+                                   for i, b in enumerate(extra)],
+        len(extra), SCHEME_KERNEL_NAMES)
+    _drain(dns)
+    # the profiled blocks landed on every replica, as the first eight did
+    want_ibr += [(1100 + i, b.size, False) for i, b in enumerate(extra)]
+    for dn in dns:
+        _wait_ibrs(nn, dn.dn_id, want_ibr)
+    for i, b in enumerate(extra):
+        _, got = dn_read(dns[2].addr, 1100 + i)
+        check(got == b.tobytes(), f"dn3 profiled block {i}: read != written")
+    check_faults(faults0, "reads and the profiled write")
+    for dn in dns:
+        dn.stop()
+    # restart DN1 on its directory with the device reconstructor
+    lost0 = metrics.registry("datanode").counter(
+        "startup_lost_container_blocks")
+    dn1 = start_dn(root, nn, "dn1", device_recon=True)
+    try:
+        check(dn1.reduction_ctx.recon is not None, "no reconstructor")
+        check(metrics.registry("datanode").counter(
+            "startup_lost_container_blocks") == lost0,
+            "restart dropped blocks")
+        _zero_launch_counts()
+        faults0 = _dn_faults()
+        lat = []
+        for i, b in enumerate(blocks):
+            t0 = time.perf_counter()
+            _, got = dn_read(dn1.addr, 1000 + i)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(got == b.tobytes(), f"recon read of block {i} != written")
+        recon_launches = _scheme_launch_counts()
+        check(recon_launches["gather_raw"] > 0,
+              "device_recon reads never launched gather_raw")
+        check_faults(faults0, "device_recon reads")
+    finally:
+        dn1.stop()
+    out["read"] = {"ms_per_block": reads,
+                   "device_recon_ms_per_block": _stats(lat),
+                   "device_recon_launches": {
+                       k: recon_launches[k] for k in SCHEME_READ_KERNELS},
+                   "gather_raw_per_block":
+                       recon_launches["gather_raw"] / len(blocks)}
+    print("DATANODE read " + json.dumps(out["read"]), flush=True)
+    out["profile"] = pw
+    return out
+
+
+def datanode_coded(root: str, nn, blocks: list) -> dict:
+    """mirror_parity 1 over four fresh DataNodes: DN1 with targets
+    DN2-DN4 (k 2, m 1).  The first block's data legs land; the second
+    block's leg to DN3 is refused, so the parity leg to DN4 is hedged in.
+    Each mirror that took a leg holds a segment (partial IBRs); DN2
+    assembles the second block through the RS decode of the parity."""
+    from hdrf_tpu_torch.ops import rs_cuda
+    from hdrf_tpu_torch.utils import fault_injection
+
+    dns = [start_dn(root, nn, f"dc{i}", mirror_parity=1)
+           for i in range(1, 5)]
+    m0 = metrics.registry("mirror").snapshot()["counters"]
+    faults0 = _dn_faults()
+    try:
+        tg = [_target(d) for d in dns[1:]]
+        rs_cuda.launches = 0
+        ms = [dn_write(dns[0].addr, 2000, blocks[0], tg)]
+
+        def refuse(**kw):
+            if kw.get("peer") == dns[2].dn_id:
+                raise IOError("leg refused")
+        with fault_injection.inject("mirror_plane.leg", refuse):
+            ms.append(dn_write(dns[0].addr, 2001, blocks[1], tg))
+        t_end = time.monotonic() + 60
+        while dns[3].mirror.report()["segments_held"] < 1 \
+                and time.monotonic() < t_end:
+            time.sleep(0.05)
+        held = [d.mirror.report()["segments_held"] for d in dns[1:]]
+        check(held[0] == 2 and held[1] == 1 and held[2] >= 1,
+              f"segments held {held}")
+        enc = rs_cuda.launches
+        t0 = time.perf_counter()
+        dns[1]._execute({"cmd": "mirror_assemble", "block_id": 2001})
+        asm_ms = (time.perf_counter() - t0) * 1e3
+        check(rs_cuda.launches > enc, "assemble ran no RS decode")
+        _, got = dn_read(dns[1].addr, 2001)
+        check(got == blocks[1].tobytes(), "assembled replica != written")
+        partial = [r for r in nn.ibrs_of(dns[1].dn_id) if r[2]]
+        check([r[0] for r in partial] == [2000, 2001],
+              f"partial IBRs {partial}")
+        c = metrics.registry("mirror").snapshot()["counters"]
+        delta = {k: c.get(k, 0) - m0.get(k, 0) for k in c}
+        check(delta.get("coded_pushes", 0) == 2
+              and delta.get("coded_fallbacks", 0) == 0,
+              f"coded pushes {delta}")
+        # the one refused leg is the only failure the pass may show
+        faults = check_faults(faults0, "coded mirror",
+                              {"block_receiver.mirror_failures": 1})
+        out = {"k": 2, "m": 1, "write_ms": ms, "segments_held": held,
+               "assemble_ms": asm_ms, "rs_launches": rs_cuda.launches,
+               "rs_encode_launches": enc, "mirror": delta, "faults": faults}
+    finally:
+        for dn in dns:
+            dn.stop()
+    print("DATANODE mirror " + json.dumps(out), flush=True)
+    return out
+
+
+def datanode_ab(root: str, nn, blocks: list) -> dict:
+    """pipeline_depth 1 beside 4 on fresh single DataNodes, the same
+    blocks over four streams (information, not a claim)."""
+    out = {}
+    faults0 = _dn_faults()
+    for depth in (4, 1):
+        dn = start_dn(root, nn, f"ab{depth}", pipeline_depth=depth)
+        try:
+            ms, wall, cores = _write_streams(dn, blocks, 3000)
+            dn.containers.drain_seals()
+        finally:
+            dn.stop()
+        out[f"depth{depth}"] = {
+            "ms_per_block": _stats(ms),
+            "aggregate_mib_s": sum(b.size for b in blocks) / MIB / wall,
+            "host_cores_used": cores}
+    check_faults(faults0, "depth A/B")
+    print("DATANODE ab " + json.dumps(out), flush=True)
+    return out
+
+
+def datanode_phase(args) -> dict:
+    """DATANODE: the port's DataNode on the card through its wire entry
+    points (a stand-in NameNode; a wire client on the port's
+    datatransfer): the main pass, the coded mirror, the depth A/B.  Each
+    pass's directories are deleted when it ends."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
+    extra = main_path_corpus(args.seed + 9, 2, args.block_mib)
+    nn = SmokeNN()
+    out = {}
+    try:
+        for name, run_pass in (
+                ("main", lambda r: datanode_main(r, nn, blocks, extra)),
+                ("mirror", lambda r: datanode_coded(r, nn, blocks)),
+                ("ab", lambda r: datanode_ab(r, nn,
+                                             blocks[:DN_AB_BLOCKS]))):
+            root = tempfile.mkdtemp(prefix=f"smoke_dn_{name}_")
+            try:
+                out[name] = run_pass(root)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        nn.stop()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"DATANODE done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -2477,6 +3000,8 @@ def run(args) -> int:
     ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
     torch.cuda.empty_cache()
     sc = scheme_phase(args, dev, cdc, errs, timing)
+    torch.cuda.empty_cache()
+    datanode_phase(args)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],

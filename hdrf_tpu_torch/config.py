@@ -1,5 +1,6 @@
-"""Chunking and reduction configuration (port of hdrf_tpu/config.py:27-46
-``CdcConfig`` and :50-230 ``ReductionConfig``).
+"""Chunking, reduction and DataNode configuration (port of
+hdrf_tpu/config.py:27-46 ``CdcConfig``, :50-230 ``ReductionConfig`` and
+:343-439 ``DataNodeConfig``).
 
 Copies of the reference dataclasses with the same field names and
 defaults, so a reference ``dataclasses.asdict(CdcConfig)`` dict maps onto
@@ -7,11 +8,16 @@ the port's field for field (``ops.dispatch.from_reference_cdc``).  Of
 ``ReductionConfig`` the scheme layer reads ``container_size``,
 ``container_codec``, ``backend``, ``device_recon``, ``chunk_cache_mb``,
 ``read_batch_window_ms``, ``read_max_inflight``, the ``qos_*`` and
-``shed_p95_mult`` fields and ``cdc``; the rest are carried for field
-parity (the write pipeline, worker supervision, the mirror and EC planes
-are later slices).  ``backend`` takes the reference's names: ``auto`` and
-``tpu`` select the card, ``native`` the host C++ library
-(ops/dispatch.resolve_backend).
+``shed_p95_mult`` fields and ``cdc``; the DataNode (server/datanode.py)
+reads the rest.  ``backend`` takes the reference's names: ``auto`` and
+``tpu`` select the card, ``native`` the host C++ library, ``cpu`` the
+kernels' plain versions (ops/dispatch.resolve_backend).
+
+``DataNodeConfig`` has every field and default of the reference's.  The
+DataNode refuses, with ``NotImplementedError``, the settings that turn on
+a plane the port does not have yet: ``status_port``,
+``simulated_dataset``, ``flight_archive_dir``, ``scrub_interval_s`` > 0,
+and of the reduction config ``worker_spawn`` and ``cdc_adaptive``.
 """
 
 from __future__ import annotations
@@ -215,3 +221,89 @@ class ReductionConfig:
     # healthy; 13 reproduces the shipped 2048/65536 geometry exactly.
     cdc_target_mask_bits: int = 13
     cdc: CdcConfig = field(default_factory=CdcConfig)
+
+
+@dataclass
+class DataNodeConfig:
+    host: str = "127.0.0.1"
+    port: int = 0
+    data_dir: str = "/tmp/hdrf/data"
+    # Topology label for rack-aware placement (net.topology mapping analog).
+    rack: str = "/default-rack"
+    # This DN's default storage type (StorageType enum analog: DISK/SSD/
+    # ARCHIVE/RAM_DISK); storage POLICIES on paths select across nodes
+    # and, with multiple volumes, across a node's volumes.
+    storage_type: str = "DISK"
+    # Per-volume storage types (dfs.datanode.data.dir's [SSD]/path list
+    # analog): each entry creates volumes/vol-i of that type under
+    # data_dir.  None = one volume of ``storage_type``.
+    volume_types: list | None = None
+    # Packet size on the data-transfer wire (reference default 64 KB).
+    packet_size: int = 64 * 1024
+    # Pinned replica cache budget (dfs.datanode.max.locked.memory analog).
+    cache_capacity: int = 64 * 1024 * 1024
+    heartbeat_interval_s: float = 1.0
+    block_report_interval_s: float = 30.0
+    # Rolling replica verification cadence (BlockScanner analog); one block
+    # verified per tick, 0 disables.
+    scan_interval_s: float = 30.0
+    # Volume health probe cadence (DatasetVolumeChecker analog); 0 disables.
+    volume_check_interval_s: float = 15.0
+    # RAM-backed fake dataset for protocol tests at scale
+    # (SimulatedFSDataset analog).
+    simulated_dataset: bool = False
+    # Require + speak the encrypted data-transfer handshake
+    # (dfs.encrypt.data.transfer): plaintext ops are refused, and this DN's
+    # own outgoing legs (mirroring, transfers, reconstruction) encrypt.
+    encrypt_data_transfer: bool = False
+    # Cap on BACKGROUND transfer legs — balancer moves, NN-commanded
+    # re-replication, EC reconstruction fan-in — in bytes/s
+    # (dfs.datanode.balance.bandwidthPerSec analog; the reference defaults
+    # to 100 MB/s).  0 disables.  Live-reconfigurable, and settable
+    # cluster-wide via ``dfsadmin -setBalancerBandwidth``.
+    balancer_bandwidth: int = 100 * 1024 * 1024
+    # Lazy-persist (RAM_DISK) machinery: the lazy writer copies RAM
+    # replicas to DISK every this many seconds (0 disables; the loop only
+    # starts when a RAM_DISK volume is configured), and evicts persisted
+    # RAM copies once the RAM volume exceeds the capacity budget
+    # (dfs.datanode.ram.disk.low.watermark analog, expressed as a cap).
+    lazy_writer_interval_s: float = 3.0
+    ram_disk_capacity: int = 64 * 1024 * 1024
+    # Provided-storage mount root: ``alias_add`` file:// URIs must resolve
+    # inside this directory or the region is rejected (without it, anyone
+    # holding a write token could alias a block to an arbitrary DN-local
+    # file — /etc/passwd disclosure through the ordinary read path).
+    # Empty = provided storage disabled for file:// URIs; "/" opts out of
+    # confinement explicitly.
+    provided_mount_root: str = ""
+    # Observability status HTTP server (/prom, /traces, /stacks — the
+    # HttpServer2 servlet-set analog); None = disabled.  0 = ephemeral port.
+    status_port: int | None = None
+    # Watchdog budget for in-flight data-transfer ops (utils/watchdog.py):
+    # flags ops outliving this many seconds.
+    stall_budget_s: float = 30.0
+    # Flight recorder (utils/flight_recorder.py): fixed-cadence gauge
+    # snapshots into a bounded ring, served as /timeseries.  interval <= 0
+    # disables the sampler thread.
+    flight_interval_s: float = 1.0
+    flight_capacity: int = 512
+    # Flight archive (utils/flight_archive.py): crash-safe JSONL
+    # persistence of flight samples (restart-surviving /timeseries).
+    # Empty dir disables; a relative dir resolves under data_dir.
+    flight_archive_dir: str = ""
+    flight_archive_max_mb: int = 64
+    # Continuous integrity scrub (server/scrubber.py): background cycle
+    # re-verifying sealed containers / EC stripes / replica invariants and
+    # taking the garbage census.  interval <= 0 disables the loop (the
+    # default: tests and operators opt in); the rate cap bounds scrub disk
+    # reads (VolumeScanner's dfs.block.scanner.volume.bytes.per.second
+    # analog); sample_frac is the fraction of a container's live chunks
+    # digest-verified per cycle (1.0 = every chunk).
+    scrub_interval_s: float = 0.0
+    scrub_rate_mb_s: float = 8.0
+    scrub_sample_frac: float = 0.25
+    # Crashed tmp+fsync+replace writes (container seal, stripe put,
+    # mirror-segment put) leave *.tmp orphans; the scrubber reclaims ones
+    # older than this (young tmps may still be mid-replace).
+    scrub_tmp_age_s: float = 300.0
+    reduction: ReductionConfig = field(default_factory=ReductionConfig)

@@ -1,8 +1,9 @@
-"""Host native helpers: CRC32C, the LZ4 codec, the Gear candidate scan,
-the min/max cut select, SHA-256 of byte ranges and the byte-range gather
-(port of hdrf_tpu/native/__init__.py:123-166, 180-263, 307, 320 over its
-``crc32c.cpp``, ``lz4.cpp``, ``cdc.cpp``, ``sha256.cpp`` and
-``ranges.cpp``).
+"""Host native helpers: CRC32C (whole and per checksum chunk), the LZ4
+codec, the Gear candidate scan, the min/max cut select, SHA-256 of byte
+ranges, the byte-range gather and ChaCha20 / ChaCha20-Poly1305 (port of
+hdrf_tpu/native/__init__.py:123-166, 180-320 over its ``crc32c.cpp``,
+``lz4.cpp``, ``cdc.cpp``, ``sha256.cpp``, ``ranges.cpp`` and
+``chacha20.cpp``).
 
 The port keeps its own copies of those sources in ``native/src`` and
 builds every ``src/*.cpp`` with ``g++`` into one library,
@@ -13,8 +14,9 @@ host half of the LZ4 seal (the serial encoder, its tail-reporting form
 for segmented compression, the emit over device match records, the
 packed-record unpack and the decoder), the sharded reduction's host cut
 select, the host candidate scan and SHA-256 (the ``native`` backend, and
-what ``chip_smoke.py`` holds the kernels to), and the container store's
-chunk-byte gather.
+what ``chip_smoke.py`` holds the kernels to), the container store's
+chunk-byte gather, the DataNode's per-chunk replica checksums and the
+encrypted data-transfer channel's cipher (security.py).
 """
 
 from __future__ import annotations
@@ -39,6 +41,13 @@ _U64P = ctypes.POINTER(ctypes.c_uint64)
 # C entry points: name -> (argtypes, restype).
 _SIGNATURES = {
     "hdrf_crc32c": ([_U32, _P, _U64], _U32),
+    # data, len, chunk_size, out
+    "hdrf_crc32c_chunks": ([_P, _U64, _U64, _P], None),
+    # key, nonce, counter, src, n, dst
+    "hdrf_chacha20_xor": ([_P, _P, _U32, _P, _U64, _P], None),
+    # key, nonce, aad, aad_len, src, n, dst
+    "hdrf_aead_seal": ([_P, _P, _P, _U64, _P, _U64, _P], None),
+    "hdrf_aead_open": ([_P, _P, _P, _U64, _P, _U64, _P], ctypes.c_int),
     "hdrf_lz4_compress_bound": ([_U64], _U64),
     "hdrf_lz4_compress": ([_P, _U64, _P, _U64], _U64),
     "hdrf_lz4_compress_tail": ([_P, _U64, _P, _U64, _U64P, _U64P], _U64),
@@ -108,6 +117,58 @@ def crc32c(data: bytes | bytearray | memoryview | np.ndarray,
     """CRC32C (Castagnoli) of ``data``, chained from ``crc``."""
     a = _as_u8(data)
     return _load().hdrf_crc32c(crc & 0xFFFFFFFF, a.ctypes.data, a.size)
+
+
+def crc32c_chunks(data, chunk_size: int) -> np.ndarray:
+    """CRC32C of every ``chunk_size`` slice of ``data`` (the last may be
+    short), u32[ceil(len / chunk_size)]."""
+    a = _as_u8(data)
+    n = (a.size + chunk_size - 1) // chunk_size
+    out = np.empty(max(n, 1), dtype=np.uint32)
+    _load().hdrf_crc32c_chunks(a.ctypes.data, a.size, chunk_size,
+                               out.ctypes.data)
+    return out[:n]
+
+
+def _key_nonce(key: bytes, nonce: bytes) -> tuple[np.ndarray, np.ndarray]:
+    if len(key) != 32 or len(nonce) != 12:
+        raise ValueError("ChaCha20 needs a 32-byte key and a 12-byte nonce")
+    return np.frombuffer(key, np.uint8), np.frombuffer(nonce, np.uint8)
+
+
+def chacha20_xor(key: bytes, nonce: bytes, data, counter: int = 1) -> bytes:
+    """Raw ChaCha20 keystream XOR (RFC 8439)."""
+    k, n = _key_nonce(key, nonce)
+    a = _as_u8(data)
+    out = np.empty(a.size, dtype=np.uint8)
+    _load().hdrf_chacha20_xor(k.ctypes.data, n.ctypes.data, counter,
+                              a.ctypes.data, a.size, out.ctypes.data)
+    return out.tobytes()
+
+
+def aead_seal(key: bytes, nonce: bytes, aad: bytes, plaintext) -> bytes:
+    """ChaCha20-Poly1305 seal: ciphertext || 16-byte tag."""
+    k, n = _key_nonce(key, nonce)
+    a = _as_u8(plaintext)
+    ad = np.frombuffer(aad, np.uint8) if aad else np.empty(0, np.uint8)
+    out = np.empty(a.size + 16, dtype=np.uint8)
+    _load().hdrf_aead_seal(k.ctypes.data, n.ctypes.data, ad.ctypes.data,
+                           ad.size, a.ctypes.data, a.size, out.ctypes.data)
+    return out.tobytes()
+
+
+def aead_open(key: bytes, nonce: bytes, aad: bytes, sealed) -> bytes | None:
+    """ChaCha20-Poly1305 open; None if authentication fails."""
+    k, n = _key_nonce(key, nonce)
+    a = _as_u8(sealed)
+    if a.size < 16:
+        return None
+    ad = np.frombuffer(aad, np.uint8) if aad else np.empty(0, np.uint8)
+    out = np.empty(a.size - 16, dtype=np.uint8)
+    ok = _load().hdrf_aead_open(k.ctypes.data, n.ctypes.data, ad.ctypes.data,
+                                ad.size, a.ctypes.data, a.size - 16,
+                                out.ctypes.data)
+    return out.tobytes() if ok else None
 
 
 def lz4_compress(data) -> bytes:

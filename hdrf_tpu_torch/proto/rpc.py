@@ -1,5 +1,14 @@
-"""Length-prefixed msgpack frames (port of hdrf_tpu/proto/rpc.py:58-92
-``RpcError``/``recv_exact``/``send_frame``/``recv_frame``).
+"""Length-prefixed msgpack frames and the blocking RPC client (port of
+hdrf_tpu/proto/rpc.py:54-92 ``MAX_FRAME``/``RpcError``/``recv_exact``/
+``send_frame``/``recv_frame``, :453 ``normalize_addrs`` and :669-742
+``RpcClient``).
+
+An RPC is one frame ``[req_id, method, kwargs]`` answered by
+``[req_id, status, payload, *extra]`` (status 0: payload is the result;
+otherwise ``{"error", "message"}``, raised as :class:`RpcError`), the
+reference's wire shape, so the port's DataNode talks to a reference
+NameNode unchanged.  The server side (``RpcServer``, ``HaRpcClient``)
+comes with the NameNode.
 
 One frame = ``[u32 len][msgpack body]``.  The card's machine has no
 ``msgpack`` package, so this module carries its own encoder/decoder of
@@ -16,7 +25,10 @@ from __future__ import annotations
 
 import socket
 import struct
+import threading
 from typing import Any
+
+from hdrf_tpu_torch.utils import retry, tracing
 
 _LEN = struct.Struct("<I")
 MAX_FRAME = 64 * 1024 * 1024
@@ -235,3 +247,88 @@ def recv_frame(sock: socket.socket) -> Any:
     if n > MAX_FRAME:
         raise ConnectionError(f"oversized frame: {n}")
     return unpackb(recv_exact(sock, n))
+
+
+def normalize_addrs(addr) -> list[tuple[str, int]]:
+    """One (host, port) pair or any sequence of pairs -> list of tuples."""
+    if (isinstance(addr, (list, tuple)) and addr
+            and isinstance(addr[0], (list, tuple))):
+        return [(a[0], int(a[1])) for a in addr]
+    return [(addr[0], int(addr[1]))]
+
+
+class RpcClient:
+    """Blocking RPC client; one socket, requests serialized by a lock.
+    Reconnects on the next call after a connection failure."""
+
+    def __init__(self, addr: tuple[str, int], timeout: float = 30.0):
+        self._addr = (addr[0], addr[1])
+        self._timeout = timeout
+        self._lock = threading.Lock()
+        self._sock: socket.socket | None = None
+        self._req_id = 0
+        # the last reply's state stamp and the high-water journal txid seen
+        self.last_state: dict | None = None
+        self.last_seen_txid = 0
+
+    @property
+    def addr(self) -> tuple[str, int]:
+        return self._addr
+
+    def _connect(self) -> socket.socket:
+        s = socket.create_connection(
+            self._addr, timeout=retry.effective_budget(self._timeout))
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return s
+
+    def call(self, method: str, **kwargs: Any) -> Any:
+        tr = tracing.current_context()
+        if tr is not None:
+            kwargs["_trace"] = list(tr)
+        # Ambient deadline: refuse a spent budget before touching the
+        # socket, stamp the remaining seconds as the hop-by-hop header,
+        # and clamp this call's socket timeout to the remainder.
+        dl = retry.current()
+        if dl is not None:
+            dl.check(f"rpc {method}")
+            kwargs[retry.DEADLINE_KEY] = dl.header()
+        with self._lock:
+            self._req_id += 1
+            req_id = self._req_id
+            try:
+                if self._sock is None:
+                    self._sock = self._connect()
+                self._sock.settimeout(
+                    dl.timeout(self._timeout) if dl is not None
+                    else self._timeout)
+                send_frame(self._sock, [req_id, method, kwargs])
+                resp = recv_frame(self._sock)
+            except (ConnectionError, OSError):
+                self.close()
+                raise
+        rid, status, payload, *extra = resp
+        if rid != req_id:
+            self.close()
+            raise ConnectionError(
+                f"rpc response id mismatch: {rid} != {req_id}")
+        if extra and isinstance(extra[0], dict):
+            self.last_state = extra[0]
+            txid = extra[0].get("txid")
+            if isinstance(txid, int) and txid > self.last_seen_txid:
+                self.last_seen_txid = txid
+        if status != 0:
+            raise RpcError(payload["error"], payload["message"])
+        return payload
+
+    def close(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            finally:
+                self._sock = None
+
+    def __enter__(self) -> "RpcClient":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()

@@ -1,8 +1,8 @@
 """Reduction-effectiveness accounting — the paper's headline metric, kept
 (port of hdrf_tpu/reduction/accounting.py: the write, worker and read
-observation points, the EC stripe tier's stamps and the geometry gauges;
-the adaptive chunk controller and the utilization histogram come with
-their callers, later slices).
+observation points, the EC stripe tier's stamps, the geometry gauges and
+the DataNode's container-utilization histogram; the adaptive chunk
+controller comes with its caller, a later slice).
 
 The reference computes its dedup/compression effectiveness offline from the
 Redis tables (SURVEY.md §5); nothing in the running system can answer "how
@@ -168,6 +168,19 @@ def dedup_ratio(logical_bytes: int, unique_chunk_bytes: int) -> float:
     """logical / unique-chunk bytes, 1.0 for an empty index — the exact
     ground-truth ratio the chunk index defines."""
     return (logical_bytes / unique_chunk_bytes) if unique_chunk_bytes else 1.0
+
+
+def utilization_hist(live_bytes: dict, sizes: dict) -> dict:
+    """Container-utilization decile histogram: live referenced bytes over
+    bytes on disk, per container.  Sealed (compressed) containers can
+    exceed 1.0; dead weight shows up as low deciles.  Buckets: 0..9 =
+    [i/10, (i+1)/10), 10 = >= 1.0."""
+    out: dict[int, int] = {}
+    for cid, sz in sizes.items():
+        u = (live_bytes.get(cid, 0) / sz) if sz else 0.0
+        b = min(int(u * 10), 10)
+        out[b] = out.get(b, 0) + 1
+    return out
 
 
 def note_geometry(cdc) -> None:

@@ -1,0 +1,510 @@
+"""Coded mirror plane: k-of-n reduced mirroring with hedged parity legs
+(port of hdrf_tpu/server/mirror_plane.py, whole).
+
+The reference forwards the raw packet stream serially down the pipeline
+(DataStreamer.java:765 sets up one downstream socket; BlockReceiver.java:
+635-641 ``mirrorPacketTo`` relays hop by hop), so one dead or straggling
+mirror stalls the whole write — SURVEY.md §0 fact 3.  The serial
+``push_reduced`` relay (server/block_receiver.py) keeps that shape: a
+single all-or-nothing leg through ``targets[0]``.
+
+This module applies the coded-distributed-computing construction
+(Compressed Coded Distributed Computing, arXiv 1805.01993; Cascaded CDC
+via Placement Delivery Arrays, arXiv 2001.04194) to the mirror stream:
+
+- the reduced chunk-delta payload is split into k data segments plus m
+  Cauchy-RS parity segments (ops/rs.py:181-188 ``rs_encode``, the same
+  bit-matmul code the EC cold tier stripes with, storage/stripe_store.py);
+- the k data legs fan out CONCURRENTLY; the m parity legs are the hedge,
+  launched when a data leg fails fast (dead peer, open breaker —
+  utils/retry.py ``CircuitBreaker``) or when the rolling-window p95 leg
+  deadline elapses (utils/rollwin.py summaries of the per-peer latency
+  windows, scaled by ``mirror_hedge_p95_mult``);
+- the write acks as soon as ANY k legs land (utils/retry.py
+  ``hedged_quorum``) — a straggler costs m/k extra bytes, never a stall.
+
+A mirror that received only a segment registers a ``partial_replica``
+with the NN (DataNode.notify_block_received partial=True riding the IBR,
+IncrementalBlockReportManager.java:42 analog); the NN's reconciliation
+monitor (server/namenode.py ``_check_partial_replicas``, alongside
+``_check_stripe_repair``) schedules background ``push_reduced`` re-pushes
+from a full-replica holder to upgrade it — or, when no full replica
+survives, commands a holder to ``assemble`` the payload from any k
+segments gathered off its peers (the transferBlock role,
+DataNode.java:2361, served without ever reconstructing full bytes twice).
+
+``mirror_parity = 0`` (the default) bypasses this module's coded path
+entirely and calls the serial ``push_reduced`` verbatim.
+
+Every RS encode and decode runs where the DataNode's EC tier runs RS
+(``EcTier.device``: the card for ``cuda``, the plain version on the CPU
+otherwise); segment files are packed with the port's own msgpack codec
+(proto/rpc.packb), byte-identical to the reference's.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import TYPE_CHECKING
+
+import numpy as np
+
+from hdrf_tpu_torch import native
+from hdrf_tpu_torch.ops import rs
+from hdrf_tpu_torch.proto import datatransfer as dt
+from hdrf_tpu_torch.proto.rpc import (MAX_FRAME, packb, recv_frame,
+                                      send_frame, unpackb)
+from hdrf_tpu_torch.server.block_receiver import _connect
+from hdrf_tpu_torch.utils import fault_injection, log, metrics, retry, tracing
+
+if TYPE_CHECKING:
+    from hdrf_tpu_torch.server.datanode import DataNode
+
+_M = metrics.registry("mirror")
+_LOG = log.get_logger("mirror_plane")
+
+#: per-segment frame overhead guard: header fields + msgpack framing must
+#: fit MAX_FRAME beside the segment bytes
+_FRAME_SLACK = 1 << 20
+
+
+class MirrorPushFailed(IOError):
+    """The coded fan-out missed its k-of-n quorum.  Per-leg failures were
+    already attributed to the actual broken peers (``already_attributed``
+    tells ``_store_and_mirror`` not to re-blame ``targets[0]``)."""
+
+    already_attributed = True
+
+
+# ------------------------------------------------------------- segment codec
+
+def encode_segments(payload: bytes, k: int, m: int,
+                    device="cuda") -> tuple[list[bytes], int]:
+    """Split ``payload`` into k data + m RS parity segments.
+
+    Data segment i is the i-th ``seg_len`` slice of the zero-padded
+    payload; parity rides ops/rs.py:181 ``rs_encode`` (Cauchy generator —
+    any k of the k+m segments reconstruct).  Returns (segments, seg_len).
+    """
+    if k < 1 or m < 0:
+        raise ValueError(f"bad coded-mirror geometry k={k} m={m}")
+    seg_len = max(1, -(-len(payload) // k))
+    padded = payload.ljust(k * seg_len, b"\0")
+    data = np.frombuffer(padded, dtype=np.uint8).reshape(k, seg_len)
+    segments = [data[i].tobytes() for i in range(k)]
+    if m > 0:
+        parity = rs.rs_encode(data, k, m, device=device)
+        segments += [parity[i].tobytes() for i in range(m)]
+    return segments, seg_len
+
+
+def assemble_payload(segments: dict[int, bytes], k: int, m: int,
+                     payload_len: int, device="cuda") -> bytes:
+    """Rebuild the payload from ANY k of the k+m segments
+    (ops/rs.py:191 ``rs_decode`` recovers missing data segments from the
+    Cauchy survivors; indices 0..k-1 data, k..k+m-1 parity)."""
+    shards = {int(i): np.frombuffer(s, dtype=np.uint8)
+              for i, s in segments.items() if 0 <= int(i) < k + m}
+    if len(shards) < k:
+        raise ValueError(f"need {k} segments, have {len(shards)}")
+    missing = [i for i in range(k) if i not in shards]
+    if missing:
+        shards.update(rs.rs_decode(shards, k, m, want=missing,
+                                   device=device))
+    return b"".join(shards[i].tobytes() for i in range(k))[:payload_len]
+
+
+# ------------------------------------------------------------- segment store
+
+class SegmentStore:
+    """Durable per-DN store for mirror segments awaiting reconciliation.
+
+    One file per (block, segment) under ``<data_dir>/mirror_segments``
+    (tmp-write + rename, the storage/container_store.py seal discipline)
+    so a partial replica survives a DN restart and the census the
+    heartbeat ships stays honest."""
+
+    def __init__(self, root: str):
+        self._root = root
+        self._lock = threading.Lock()
+        self._segs: dict[int, dict[int, str]] = {}
+        os.makedirs(root, exist_ok=True)
+        for fn in sorted(os.listdir(root)):
+            if not fn.endswith(".seg"):
+                continue
+            try:
+                bid_s, idx_s, _ = fn.split(".")
+                self._segs.setdefault(int(bid_s), {})[int(idx_s)] = \
+                    os.path.join(root, fn)
+            except ValueError:
+                continue
+
+    def put(self, block_id: int, idx: int, header: dict,
+            data: bytes) -> None:
+        path = os.path.join(self._root, f"{block_id}.{idx}.seg")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(packb([header, data]))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        with self._lock:
+            self._segs.setdefault(block_id, {})[idx] = path
+
+    def get(self, block_id: int) -> tuple[dict, dict[int, bytes]] | None:
+        """(header, {seg_index: bytes}) or None when nothing is held."""
+        with self._lock:
+            paths = dict(self._segs.get(block_id) or {})
+        header, segs = None, {}
+        for idx, path in paths.items():
+            try:
+                with open(path, "rb") as f:
+                    h, d = unpackb(f.read())
+            except (OSError, ValueError):
+                continue  # torn file: treat as an erasure, parity covers it
+            header = header or h
+            segs[idx] = bytes(d)
+        return None if header is None else (header, segs)
+
+    def drop(self, block_id: int) -> bool:
+        with self._lock:
+            paths = self._segs.pop(block_id, None)
+        if not paths:
+            return False
+        for path in paths.values():
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        return True
+
+    def count(self) -> int:
+        with self._lock:
+            return sum(len(v) for v in self._segs.values())
+
+    def blocks(self) -> list[int]:
+        with self._lock:
+            return sorted(self._segs)
+
+
+# -------------------------------------------------------------- mirror plane
+
+class MirrorPlane:
+    """Push side (coded fan-out) + serve side (segment ingest, peer
+    gather, full-replica assembly) of the coded mirror plane."""
+
+    def __init__(self, dn: "DataNode"):
+        self._dn = dn
+        self._store = SegmentStore(
+            os.path.join(dn.config.data_dir, "mirror_segments"))
+
+    # ------------------------------------------------------------ push side
+
+    def push(self, block_id: int, gen_stamp: int, scheme_name: str,
+             logical_len: int, stored: bytes, crcs: list[int],
+             targets: list, throttler=None):
+        """Mirror the reduced form to ``targets``.
+
+        ``mirror_parity = 0`` or a single target falls through to the
+        serial relay (server/block_receiver.py:521 push_reduced) verbatim;
+        otherwise the payload is coded across the mirror set and the call
+        returns once any k legs land.  Returns the downstream failing
+        dn_id propagated by the serial relay (None on the coded path —
+        per-leg attribution happens inline here)."""
+        dn = self._dn
+        receiver = dn._receiver
+        m_cfg = int(dn.config.reduction.mirror_parity)
+        if m_cfg <= 0 or len(targets) < 2:
+            return receiver.push_reduced(block_id, gen_stamp, scheme_name,
+                                         logical_len, stored, crcs, targets,
+                                         throttler=throttler)
+        n = len(targets)
+        m = min(m_cfg, n - 1)
+        k = n - m
+        payload, hashes, chunk_lens = self._build_payload(
+            block_id, scheme_name, stored)
+        if len(payload) // k + _FRAME_SLACK > MAX_FRAME:
+            # segment would not fit one DT frame: serial relay fallback
+            _M.incr("coded_fallbacks")
+            return receiver.push_reduced(block_id, gen_stamp, scheme_name,
+                                         logical_len, stored, crcs, targets,
+                                         throttler=throttler)
+        segments, seg_len = encode_segments(payload, k, m,
+                                            device=dn.ec.device)
+        common = dict(
+            block_id=block_id, gen_stamp=gen_stamp, scheme=scheme_name,
+            logical_len=logical_len, checksums=list(crcs),
+            checksum_chunk=dn.checksum_chunk, hashes=hashes,
+            chunk_lens=chunk_lens, k=k, m=m, seg_len=seg_len,
+            payload_len=len(payload),
+            payload_crc=int(native.crc32c(payload)),
+            peers=[[t.get("dn_id"), t["addr"][0], t["addr"][1], i]
+                   for i, t in enumerate(targets)])
+
+        def make_leg(i: int):
+            tgt, seg = targets[i], segments[i]
+
+            def leg():
+                fault_injection.point("mirror_plane.leg", dn_id=dn.dn_id,
+                                      peer=tgt.get("dn_id"),
+                                      block_id=block_id, seg_index=i)
+                # same per-edge breaker the EC gather legs key
+                # (server/ec_tier.py _gather): shared broken-peer evidence
+                br = retry.breaker(f"{dn.dn_id}->{tgt.get('dn_id')}")
+                br.check()
+                leg_t0 = time.perf_counter()
+                try:
+                    if throttler is not None:
+                        throttler.throttle(len(seg))
+                    self._send_segment(tgt, i, seg, common)
+                except Exception:
+                    br.record_failure()
+                    raise
+                br.record_success()
+                receiver._note_peer(tgt, time.perf_counter() - leg_t0,
+                                    len(seg))
+                _M.incr("segments_sent")
+                if i >= k:
+                    _M.incr("parity_bytes", len(seg))
+                return i
+
+            return leg
+
+        push_t0 = time.perf_counter()
+        try:
+            _wins, errors, _hedged = retry.hedged_quorum(
+                [make_leg(i) for i in range(k)],
+                [make_leg(i) for i in range(k, n)],
+                k, self._hedge_after_s(targets[:k], seg_len),
+                timeout_s=retry.effective_budget(60.0),
+                on_hedge=lambda: _M.incr("hedges_fired"))
+        except retry.QuorumFailed as e:
+            for idx, err in e.errors:
+                receiver._note_mirror_failure(targets[idx], block_id, err)
+            raise MirrorPushFailed(str(e)) from e
+        for idx, err in errors:
+            # quorum landed, but this leg is genuinely broken: attribute
+            # the ACTUAL peer (never targets[0]) for the NN outlier feed
+            receiver._note_mirror_failure(targets[idx], block_id, err)
+        _M.observe("ack_us", (time.perf_counter() - push_t0) * 1e6)
+        _M.incr("coded_pushes")
+        return None
+
+    def _build_payload(self, block_id: int, scheme_name: str,
+                       stored: bytes) -> tuple[bytes, list | None,
+                                               list | None]:
+        """The byte stream the segments code over: the block's UNIQUE
+        chunk bytes in first-occurrence order for the dedup family (the
+        chunk-delta's superset — every leg is self-describing, no need
+        negotiation per leg), the stored bytes otherwise."""
+        dn = self._dn
+        scheme = dn.scheme(scheme_name)
+        if getattr(scheme, "container_codec", None) is None:
+            return stored, None, None
+        entry = dn.index.get_block(block_id)
+        if entry is None:
+            raise IOError(f"block {block_id} missing from chunk index")
+        uniq = list(dict.fromkeys(entry.hashes))
+        locs = dn.index.lookup_chunks(uniq)
+        chunk_locs = [(locs[h].container_id, locs[h].offset, locs[h].length)
+                      for h in uniq]
+        chunks = dn.containers.read_chunks(chunk_locs)
+        return (b"".join(chunks), list(entry.hashes),
+                [len(c) for c in chunks])
+
+    def _hedge_after_s(self, data_targets: list, seg_len: int) -> float:
+        """Hedge deadline: p95 of the per-peer latency windows (s/MB,
+        utils/rollwin.py summaries via DataNode.peer_latency_summaries)
+        scaled to this segment size and ``mirror_hedge_p95_mult``, floored
+        so a cold window never hedges at ~0 s."""
+        red = self._dn.config.reduction
+        summaries = self._dn.peer_latency_summaries()
+        p95s = [summaries[t.get("dn_id")]["p95"] for t in data_targets
+                if t.get("dn_id") in summaries]
+        if not p95s:
+            return float(red.mirror_hedge_floor_s)
+        return max(float(red.mirror_hedge_floor_s),
+                   float(red.mirror_hedge_p95_mult) * max(p95s)
+                   * max(seg_len / 2**20, 1e-3))
+
+    def _send_segment(self, target: dict, idx: int, seg: bytes,
+                      common: dict) -> None:
+        """One segment leg.  With ``mirror_compress_segments`` the wire
+        payload rides coded_exchange's smaller-of LZ4 negotiation
+        (``seg_enc``/``seg_usize``; ``seg_crc`` always covers the RAW
+        segment, so the stored bytes and their check are knob-invariant —
+        the knob pins the old raw path for A/B)."""
+        from hdrf_tpu_torch.server import coded_exchange
+
+        dn = self._dn
+        red = dn.config.reduction
+        wire, extra = seg, {}
+        if getattr(red, "mirror_compress_segments", True):
+            payload, enc = coded_exchange.pack(
+                seg, coded_exchange.backend_for(red))
+            if enc:
+                wire = payload
+                extra = {"seg_enc": 1, "seg_usize": len(seg)}
+                _M.incr("segments_compressed")
+        _M.incr("segment_raw_bytes", len(seg))
+        _M.incr("segment_wire_bytes", len(wire))
+        sock = _connect(target["addr"], dn, common["block_id"])
+        try:
+            dt.send_op(sock, "mirror_segment", **common, seg_index=idx,
+                       seg_crc=int(native.crc32c(seg)), **extra,
+                       token=dn.tokens.mint(common["block_id"], "w"),
+                       data=wire)
+            resp = recv_frame(sock)
+            if not resp.get("ok"):
+                raise IOError(f"segment leg refused: "
+                              f"{resp.get('error', 'unknown')}")
+        finally:
+            sock.close()
+
+    # ----------------------------------------------------------- serve side
+
+    def serve_segment(self, sock, fields: dict) -> None:
+        """Mirror side of a coded leg: store the segment durably, register
+        a partial replica with the NN (IBR partial=True), ack the leg."""
+        dn = self._dn
+        block_id, idx = fields["block_id"], fields["seg_index"]
+        try:
+            fault_injection.point("mirror_plane.segment", dn_id=dn.dn_id,
+                                  block_id=block_id, seg_index=idx)
+            data = bytes(fields["data"])
+            if int(fields.get("seg_enc", 0)):
+                from hdrf_tpu_torch.server import coded_exchange
+
+                data = coded_exchange.unpack(data, 1,
+                                             int(fields["seg_usize"]))
+            if int(native.crc32c(data)) != fields["seg_crc"]:
+                raise IOError(f"segment {idx} of block {block_id} "
+                              f"failed CRC")
+            header = {key: fields[key] for key in (
+                "block_id", "gen_stamp", "scheme", "logical_len",
+                "checksums", "checksum_chunk", "hashes", "chunk_lens",
+                "k", "m", "seg_len", "payload_len", "payload_crc", "peers")}
+            self._store.put(block_id, idx, header, data)
+            _M.incr("segments_ingested")
+            dn.notify_block_received(block_id, fields["logical_len"],
+                                     fields["gen_stamp"], partial=True)
+            send_frame(sock, {"ok": True})
+        except (OSError, ValueError, RuntimeError) as e:
+            _M.incr("segment_ingest_failures")
+            _LOG.warning("segment ingest failed", dn_id=dn.dn_id,
+                         block_id=block_id, seg_index=idx,
+                         trace=tracing.current_context(),
+                         error=f"{type(e).__name__}: {e}")
+            send_frame(sock, {"ok": False,
+                              "error": f"{type(e).__name__}: {e}"})
+
+    def serve_segment_read(self, sock, fields: dict) -> None:
+        """Peer gather leg of ``assemble``: ship every locally-held
+        segment of the block."""
+        held = self._store.get(fields["block_id"])
+        if held is None:
+            send_frame(sock, {"ok": False, "error": "no segments held"})
+            return
+        _header, segs = held
+        send_frame(sock, {"ok": True, "segments": segs})
+
+    def assemble(self, block_id: int) -> None:
+        """Upgrade this partial replica to a FULL one from any k segments:
+        local holdings first, then peer gather over the leg map stored in
+        the segment header — the no-full-replica-survives path of the NN
+        reconciliation monitor."""
+        dn = self._dn
+        held = self._store.get(block_id)
+        if held is None:
+            raise IOError(f"no segments held for block {block_id}")
+        header, segs = held
+        k, m = int(header["k"]), int(header["m"])
+        if len(segs) < k:
+            token = dn.tokens.mint(block_id, "r")
+            for dn_id, host, port, _idx in header["peers"]:
+                if len(segs) >= k:
+                    break
+                if dn_id == dn.dn_id:
+                    continue
+                try:
+                    resp = dn._peer_call((host, port), "mirror_segment_read",
+                                         block_id=block_id, token=token)
+                except (OSError, ConnectionError):
+                    continue  # dead peer: parity slack absorbs it
+                if resp.get("ok"):
+                    for i, d in resp["segments"].items():
+                        segs.setdefault(int(i), bytes(d))
+        if len(segs) < k:
+            _M.incr("assemble_failures")
+            raise IOError(f"only {len(segs)} of {k} segments reachable "
+                          f"for block {block_id}")
+        payload = assemble_payload(segs, k, m, int(header["payload_len"]),
+                                   device=dn.ec.device)
+        if int(native.crc32c(payload)) != header["payload_crc"]:
+            _M.incr("assemble_failures")
+            raise IOError(f"assembled payload for block {block_id} "
+                          f"failed CRC")
+        self._commit_full(block_id, header, payload)
+        self._store.drop(block_id)
+        _M.incr("assembles")
+        _M.incr("reconciliations")
+
+    def _commit_full(self, block_id: int, header: dict,
+                     payload: bytes) -> None:
+        """Commit the assembled payload exactly as a full reduced ingest
+        would (block_receiver._ingest_reduced_inner's container/index/
+        replica sequence, minus the need negotiation)."""
+        dn = self._dn
+        stored = b""
+        if header.get("hashes") is not None:
+            hashes = [bytes(h) for h in header["hashes"]]
+            uniq = list(dict.fromkeys(hashes))
+            chunk_lens = [int(c) for c in header["chunk_lens"]]
+            if len(chunk_lens) != len(uniq):
+                raise IOError(f"segment header corrupt for block "
+                              f"{block_id}: {len(chunk_lens)} chunk lens "
+                              f"for {len(uniq)} unique hashes")
+            chunks, off = [], 0
+            for ln in chunk_lens:
+                chunks.append(payload[off:off + ln])
+                off += ln
+            known = dn.index.lookup_chunks(uniq)
+            need = [i for i, h in enumerate(uniq) if known[h] is None]
+            locs = dn.containers.append_chunks(
+                [chunks[i] for i in need], on_seal=dn.index.seal_container)
+            dn.index.commit_block(block_id, int(header["logical_len"]),
+                                  hashes,
+                                  {uniq[i]: loc
+                                   for i, loc in zip(need, locs)})
+        else:
+            stored = payload
+        writer = dn.replicas.create_rbw(block_id, int(header["gen_stamp"]))
+        try:
+            if stored:
+                writer.write(stored)
+            meta = writer.finalize(int(header["logical_len"]),
+                                   header["scheme"],
+                                   [int(c) for c in header["checksums"]],
+                                   int(header["checksum_chunk"]))
+        except (OSError, ValueError):
+            if dn._crashed:
+                writer.detach()
+            else:
+                writer.abort()
+            raise
+        dn.notify_block_received(block_id, meta.logical_len, meta.gen_stamp)
+
+    # ---------------------------------------------------------- bookkeeping
+
+    def on_full_replica(self, block_id: int) -> None:
+        """A full replica just landed locally (re-push upgrade): drop the
+        now-redundant segments and account the reconciliation."""
+        if self._store.drop(block_id):
+            _M.incr("reconciliations")
+
+    def report(self) -> dict:
+        """Heartbeat census: what this DN still holds only partially."""
+        return {"segments_held": self._store.count(),
+                "partial_blocks": len(self._store.blocks())}

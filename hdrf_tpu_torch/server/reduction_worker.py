@@ -1,5 +1,7 @@
 """Co-located reduction worker on the card (port of
-hdrf_tpu/server/reduction_worker.py:52-259, 264-536).
+hdrf_tpu/server/reduction_worker.py:52-536: the worker, its client and
+``main``; ``WorkerSupervisor`` and ``spawn_local_worker`` are a later
+slice).
 
 A separate process that owns the device and speaks the reference's framed
 protocol, so an unmodified ``hdrf_tpu`` DataNode drives it through
@@ -21,10 +23,19 @@ ops) a packet run, then one reply frame.  Ops:
 
 Every data op stamps its bytes into ``reduction/accounting``
 (``record_worker_bytes``), as the reference does.  Requests may carry
-``_trace`` (resumed as the span parent) and ``_deadline``; the deadline
-budget is accepted and ignored, and there is no stall watchdog (both
-later slices).  The ``compress`` payloads are collected on the host
-before the seal, as in the reference (reduction_worker.py:223).
+``_trace`` (resumed as the span parent) and ``_deadline``: the remaining
+budget is rebound around the op (``retry.bind_remaining``), so the op's
+sub-calls inherit what is left of it, and every data op is tracked by a
+``StallWatchdog`` (utils/watchdog.py), as in the reference
+(reduction_worker.py:86-121).
+The ``compress`` payloads are collected on the host before the seal, as
+in the reference (reduction_worker.py:223).
+
+``WorkerClient`` is the reference's DataNode-side handle whole: a
+payload-scaled deadline budget per op (``deadline_s`` + ``deadline_s_per_mb``
+per streamed MiB, clamped by any ambient deadline), an optional circuit
+breaker (``retry.CircuitBreaker``) checked before connecting, and
+``set_addr`` to repoint at a respawned worker.
 
 Backends (``--backend``, the reference spawner's names): ``auto``,
 ``tpu`` and ``cuda`` run on the card, ``cpu`` the plain versions,
@@ -61,7 +72,9 @@ from hdrf_tpu_torch.ops.resident import ResidentReducer
 from hdrf_tpu_torch.proto import datatransfer as dt
 from hdrf_tpu_torch.proto.rpc import recv_frame, send_frame
 from hdrf_tpu_torch.reduction import accounting
-from hdrf_tpu_torch.utils import device_ledger, metrics, profiler, tracing
+from hdrf_tpu_torch.utils import (device_ledger, metrics, profiler, retry,
+                                  tracing)
+from hdrf_tpu_torch.utils.watchdog import StallWatchdog
 
 _M = metrics.registry("reduction_worker")
 _TR = tracing.tracer("reduction_worker")
@@ -166,6 +179,7 @@ class ReductionWorker:
 
         self._server = Server((host, port), Handler)
         self._thread: threading.Thread | None = None
+        self.watchdog = StallWatchdog("reduction_worker", registry=_M)
 
     @property
     def addr(self) -> tuple[str, int]:
@@ -175,9 +189,11 @@ class ReductionWorker:
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         name="reduction-worker", daemon=True)
         self._thread.start()
+        self.watchdog.start()
         return self
 
     def stop(self) -> None:
+        self.watchdog.stop()
         self._server.shutdown()
         self._server.server_close()
         if self._thread is not None:
@@ -190,8 +206,13 @@ class ReductionWorker:
         trace = req.get("_trace")
         try:
             if op in ("reduce", "compress", "compress_batch"):
-                with _TR.span(f"worker.{op}",
-                              parent=tuple(trace) if trace else None) as sp:
+                # Rebind the caller's remaining deadline budget (the same
+                # transport slot as _trace): a spent budget is refused here,
+                # and sub-calls inherit what is left.
+                with retry.bind_remaining(req.get(retry.DEADLINE_KEY)), \
+                        self.watchdog.track(f"worker.{op}"), \
+                        _TR.span(f"worker.{op}",
+                                 parent=tuple(trace) if trace else None) as sp:
                     sp.annotate("backend", self.backend)
                     if op == "reduce":
                         self._op_reduce(sock, req)
@@ -308,29 +329,80 @@ class ReductionWorker:
 
 
 class WorkerError(IOError):
-    """Worker-side failure (connect/protocol/compute)."""
+    """Worker-side failure (connect/protocol/compute).  DISTINCT from the
+    caller's own stream errors: a DN forwarding client packets must treat a
+    dead worker as 'fall back to in-process compute' but a dead CLIENT as a
+    failed write — conflating them would commit truncated blocks."""
 
 
 class WorkerClient:
-    """Minimal handle on a worker: ``reduce``, ``reduce_stream``,
-    ``compress``, ``compress_batch``, ``ping``, ``stats`` over pooled
-    connections.  (The reference client's deadline
-    budgets and circuit breaker stay with the reference DataNode.)"""
+    """DN-side handle on the co-located worker.  One pooled connection per
+    concurrent job (connections are cheap on loopback; the pool bound comes
+    from the DN's admission slots holding across the round trip).
 
-    def __init__(self, addr, timeout: float = 600.0):
+    Resilience contract (utils/retry.py): every data-path op runs under a
+    payload-scaled deadline budget — ``deadline_s`` base plus
+    ``deadline_s_per_mb`` accrued per streamed MiB, clamped by any ambient
+    end-to-end deadline — so a HUNG worker costs at most the remaining
+    budget, not the reference's fixed 600 s socket timeout.  When a
+    ``breaker`` (retry.CircuitBreaker) is attached, data-path ops check it
+    BEFORE connecting: a DEAD worker costs zero connect attempts while the
+    breaker is open, and the half-open probe re-admits the edge when the
+    worker returns.  Worker-side failures record breaker outcomes; errors
+    from the caller's own packet iterator never touch the breaker (they
+    are not evidence about the worker).  ping/stats/traces stay outside
+    the breaker so observability polls never consume the half-open probe.
+    """
+
+    def __init__(self, addr, timeout: float = 600.0,
+                 deadline_s: float | None = None,
+                 deadline_s_per_mb: float = 0.0,
+                 breaker: "retry.CircuitBreaker | None" = None):
         self._addr = (addr[0], int(addr[1]))
-        self._timeout = timeout
+        self._timeout = timeout if deadline_s is None else deadline_s
+        self._per_mb = float(deadline_s_per_mb)
+        self._breaker = breaker
         self._pool: list[socket.socket] = []
         self._lock = threading.Lock()
 
-    def _conn(self) -> socket.socket:
+    def set_addr(self, addr) -> None:
+        """Repoint at a respawned worker (it lands on a fresh ephemeral
+        port); pooled connections to the old incarnation are dropped."""
+        with self._lock:
+            self._addr = (addr[0], int(addr[1]))
+            for s in self._pool:
+                s.close()
+            self._pool.clear()
+
+    def _deadline(self, nbytes: int = 0) -> retry.Deadline:
+        budget = self._timeout + self._per_mb * (nbytes / float(1 << 20))
+        return retry.Deadline(retry.effective_budget(budget))
+
+    def _conn(self, dl: retry.Deadline,
+              gated: bool = True) -> socket.socket:
+        if gated and self._breaker is not None \
+                and not self._breaker.allow():
+            e = WorkerError(
+                f"worker breaker '{self._breaker.name}' open: "
+                "skipping connect")
+            e.breaker_open = True  # not evidence of a NEW failure
+            raise e
         with self._lock:
             if self._pool:
-                return self._pool.pop()
+                s = self._pool.pop()
+                s.settimeout(dl.timeout())
+                return s
         try:
-            s = socket.create_connection(self._addr, timeout=self._timeout)
+            _M.incr("connect_attempts")
+            s = socket.create_connection(self._addr, timeout=dl.timeout())
         except OSError as e:
-            raise WorkerError(f"worker unreachable: {e}") from e
+            err = WorkerError(f"worker unreachable: {e}")
+            if gated:
+                # connect refusal is the clearest dead-worker evidence, and
+                # it raises BEFORE the callers' try/except-_fail blocks —
+                # record it here (ungated observability polls stay outside)
+                self._fail(err)
+            raise err from e
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         return s
 
@@ -341,89 +413,187 @@ class WorkerClient:
                 return
         s.close()
 
-    @staticmethod
-    def _checked(resp: dict) -> dict:
+    def _ok(self) -> None:
+        if self._breaker is not None:
+            self._breaker.record_success()
+
+    def _fail(self, e: BaseException) -> None:
+        if self._breaker is not None \
+                and not getattr(e, "breaker_open", False):
+            self._breaker.record_failure()
+
+    def _checked(self, resp: dict) -> dict:
         if "error" in resp:
-            raise WorkerError(f"worker: {resp['error']}: {resp['message']}")
+            raise WorkerError(
+                f"worker: {resp['error']}: {resp['message']}")
         return resp
 
-    def _call(self, req: dict) -> dict:
-        s = self._conn()
-        try:
-            send_frame(s, req)
-            out = self._checked(recv_frame(s))
-        except BaseException:
-            s.close()
-            raise
-        self._release(s)
-        return out
-
-    def _send_run(self, req: dict, packets) -> dict:
-        """One request frame, ``packets`` as one packet run, the reply.
-        Errors the ``packets`` iterator raises propagate unchanged;
-        worker-side failures raise WorkerError."""
+    def _stamped(self, req: dict,
+                 dl: "retry.Deadline | None" = None) -> dict:
+        """Stamp the caller's span context (and remaining deadline budget)
+        into the request frame (same contract as dt.send_op headers /
+        RpcClient.call), so the worker's span nests under the DN pipeline
+        span that drove it and its sub-calls inherit the budget."""
         tr = tracing.current_context()
         if tr is not None:
             req["_trace"] = list(tr)
-        s = self._conn()
-        try:
-            try:
-                send_frame(s, req)
-                seq = 0
-                for data in packets:
-                    if data:
-                        dt.write_packet(s, seq, data)
-                        seq += 1
-                dt.write_packet(s, seq, b"", last=True)
-                resp = self._checked(recv_frame(s))
-            except (OSError, ConnectionError) as e:
-                if isinstance(e, WorkerError):
-                    raise
-                raise WorkerError(f"worker failed: {e}") from e
-        except BaseException:
-            s.close()
-            raise
-        self._release(s)
-        return resp
+        hdr = dl.header() if dl is not None else retry.remaining_header()
+        if hdr is not None:
+            req[retry.DEADLINE_KEY] = hdr
+        return req
 
     def reduce_stream(self, packets, cdc: CdcConfig):
-        """Forward an iterator of byte packets; returns (cuts int64,
-        digests u8[n, 32])."""
-        resp = self._send_run({"op": "reduce", "mask_bits": cdc.mask_bits,
-                               "min_chunk": cdc.min_chunk,
-                               "max_chunk": cdc.max_chunk}, packets)
-        return (np.frombuffer(resp["cuts"], np.int64),
-                np.frombuffer(resp["digests"], np.uint8).reshape(-1, 32))
+        """Forward an iterator of byte packets; returns (cuts, digests).
+        This is the true streaming path: the DN calls it from inside its
+        packet-receive loop, so client->DN->worker->HBM is one pipeline.
+        The deadline budget accrues ``deadline_s_per_mb`` per streamed MiB
+        (payload size is only known as it arrives).
+
+        Exception taxonomy: worker-side failures raise :class:`WorkerError`;
+        anything the ``packets`` iterator itself raises (the caller's OWN
+        stream — e.g. the DN's client connection dying) propagates
+        unchanged, so the caller can tell the two apart."""
+        dl = self._deadline()
+        s = self._conn(dl)
+        try:
+            try:
+                send_frame(s, self._stamped(
+                    {"op": "reduce", "mask_bits": cdc.mask_bits,
+                     "min_chunk": cdc.min_chunk,
+                     "max_chunk": cdc.max_chunk}, dl))
+            except OSError as e:
+                raise WorkerError(f"worker send failed: {e}") from e
+            seq = 0
+            it = iter(packets)
+            while True:
+                try:
+                    data = next(it)  # caller errors propagate UNWRAPPED
+                except StopIteration:
+                    break
+                if not data:
+                    continue
+                try:
+                    dl.extend(self._per_mb * len(data) / float(1 << 20))
+                    dl.check("worker reduce stream")
+                    s.settimeout(dl.timeout())
+                    dt.write_packet(s, seq, data)
+                except OSError as e:
+                    raise WorkerError(f"worker send failed: {e}") from e
+                seq += 1
+            try:
+                dl.check("worker reduce")
+                s.settimeout(dl.timeout())
+                # the final drain IS the wait on device compute: the worker
+                # answers only after its device reduce completes, so the DN-side
+                # timeline books it as device_wait (its own ledger records
+                # nothing — the dispatches live in the worker process)
+                with profiler.phase("device_wait"):
+                    dt.write_packet(s, seq, b"", last=True)
+                    resp = self._checked(recv_frame(s))
+            except (OSError, ConnectionError) as e:
+                raise WorkerError(f"worker failed: {e}") from e
+            cuts = np.frombuffer(resp["cuts"], np.int64)
+            digs = np.frombuffer(resp["digests"],
+                                 np.uint8).reshape(-1, 32)
+            self._release(s)
+            self._ok()
+            return cuts, digs
+        except BaseException as e:
+            s.close()
+            if isinstance(e, (WorkerError, retry.DeadlineExceeded)):
+                self._fail(e)
+            raise
 
     def reduce(self, data: bytes, cdc: CdcConfig):
         return self.reduce_stream([data], cdc)
 
-    @staticmethod
-    def _packets(datas):
-        """Seal payloads as one run of 1 MiB packets (the reference
-        client's packet size for ``compress``)."""
-        for d in datas:
-            for off in range(0, len(d), 1 << 20):
-                yield d[off:off + (1 << 20)]
-
     def compress(self, codec: str, data: bytes) -> bytes:
-        """One payload sealed by the worker's codec path."""
-        return bytes(self._send_run({"op": "compress", "codec": codec},
-                                    self._packets([data]))["data"])
+        dl = self._deadline(len(data))
+        s = self._conn(dl)
+        try:
+            try:
+                send_frame(s, self._stamped({"op": "compress",
+                                             "codec": codec}, dl))
+                dt.stream_bytes(s, data, 1 << 20)
+                dl.check("worker compress")
+                s.settimeout(dl.timeout())
+                out = bytes(self._checked(recv_frame(s))["data"])
+            except (OSError, ConnectionError) as e:
+                raise WorkerError(f"worker failed: {e}") from e
+            self._release(s)
+            self._ok()
+            return out
+        except BaseException as e:
+            s.close()
+            if isinstance(e, (WorkerError, retry.DeadlineExceeded)):
+                self._fail(e)
+            raise
 
     def compress_batch(self, codec: str, datas: list) -> list:
-        """Several payloads in one round trip (one device batch for
-        equal-length ``lz4`` payloads)."""
-        resp = self._send_run({"op": "compress_batch", "codec": codec,
-                               "sizes": [len(d) for d in datas]},
-                              self._packets(datas))
-        return [bytes(v) for v in resp["datas"]]
+        """Batched compress: one round trip, one worker-side device program
+        for the group (see ReductionWorker._op_compress_batch)."""
+        dl = self._deadline(sum(len(d) for d in datas))
+        s = self._conn(dl)
+        try:
+            try:
+                send_frame(s, self._stamped(
+                    {"op": "compress_batch", "codec": codec,
+                     "sizes": [len(d) for d in datas]}, dl))
+                seq = 0
+                for d in datas:
+                    if d:
+                        dt.write_packet(s, seq, d)
+                        seq += 1
+                dt.write_packet(s, seq, b"", last=True)
+                dl.check("worker compress_batch")
+                s.settimeout(dl.timeout())
+                outs = [bytes(v)
+                        for v in self._checked(recv_frame(s))["datas"]]
+            except (OSError, ConnectionError) as e:
+                raise WorkerError(f"worker failed: {e}") from e
+            self._release(s)
+            self._ok()
+            return outs
+        except BaseException as e:
+            s.close()
+            if isinstance(e, (WorkerError, retry.DeadlineExceeded)):
+                self._fail(e)
+            raise
 
     def ping(self) -> dict:
-        return self._call({"op": "ping"})
+        s = self._conn(self._deadline(), gated=False)
+        try:
+            send_frame(s, {"op": "ping"})
+            out = self._checked(recv_frame(s))
+            self._release(s)
+            return out
+        except BaseException:
+            s.close()
+            raise
 
     def stats(self) -> dict:
-        return self._call({"op": "stats"})
+        s = self._conn(self._deadline(), gated=False)
+        try:
+            send_frame(s, {"op": "stats"})
+            out = self._checked(recv_frame(s))
+            self._release(s)
+            return out
+        except BaseException:
+            s.close()
+            raise
+
+    def traces(self) -> dict:
+        """Worker-process spans + device-ledger events (the DN proxies this
+        through its own trace_spans op for the gateway merge)."""
+        s = self._conn(self._deadline(), gated=False)
+        try:
+            send_frame(s, {"op": "traces"})
+            out = self._checked(recv_frame(s))
+            self._release(s)
+            return out
+        except BaseException:
+            s.close()
+            raise
 
     def close(self) -> None:
         with self._lock:

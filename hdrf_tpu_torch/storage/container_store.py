@@ -485,8 +485,15 @@ class ContainerStore:
             # file only *after* the sealed file is in place, so on ENOENT the
             # sealed path below is guaranteed readable.
             with open(self._raw_path(cid), "rb") as f:
-                magic = _SEAL_HDR.unpack(f.read(_SEAL_HDR.size))[0]
-                if magic != _RAW_MAGIC:
+                magic, _usize, codec_id = _SEAL_HDR.unpack(
+                    f.read(_SEAL_HDR.size))
+                if magic == _SEAL_MAGIC and \
+                        codecs.CODEC_NAMES.get(codec_id) == "none":
+                    # an incompressible seal stamped this file in place
+                    # and is renaming it: the bytes behind the header are
+                    # the payload either way (the reference raises here)
+                    pass
+                elif magic != _RAW_MAGIC:
                     raise IOError(f"container {cid}: bad raw magic {magic:#x}")
                 data = f.read()
                 accounting.record_container_decode(len(data))
@@ -709,11 +716,21 @@ class ContainerStore:
                 ids.add(int(stem))
         return sorted(ids)
 
+    def _size_or_zero(self, name: str) -> int:
+        """Size of a container file, 0 when it vanished after the listing
+        (an async seal removes the ``.raw`` once its ``.sealed`` is in
+        place; the reference's stat here races it and raises, failing
+        the write that asked for a volume's free space)."""
+        try:
+            return os.path.getsize(os.path.join(self._dir, name))
+        except FileNotFoundError:
+            return 0
+
     def physical_bytes(self) -> int:
         total = 0
         for name in os.listdir(self._dir):
             if name.endswith(".raw") or name.endswith(".sealed"):
-                total += os.path.getsize(os.path.join(self._dir, name))
+                total += self._size_or_zero(name)
         return total
 
     def container_sizes(self) -> dict[int, int]:
@@ -727,6 +744,5 @@ class ContainerStore:
             if stem.isdigit() and (name.endswith(".raw")
                                    or name.endswith(".sealed")):
                 cid = int(stem)
-                out[cid] = out.get(cid, 0) + os.path.getsize(
-                    os.path.join(self._dir, name))
+                out[cid] = out.get(cid, 0) + self._size_or_zero(name)
         return out

@@ -1,9 +1,8 @@
 """Write-path critical-path profiler: phase-attributed block timelines
 (port of hdrf_tpu/utils/profiler.py, over the port's ``utils/tracing``:
 phases, block and read timelines, the overlap accountant, counter
-tracks; the per-packet ``timed_iter``, the watchdog's ``thread_phase``
-probe and the device-ledger hooks come with their callers, later
-slices).
+tracks, the per-packet ``timed_iter`` and the watchdog's
+``thread_phase`` probe; the device ledger records its own waits).
 
 The reference measures its write path with coarse per-op rate counters
 (DataNodeMetrics.java:553-560 ``addWriteBlockOp``/``addPacketAckRoundTripTimeNanos``)
@@ -126,6 +125,7 @@ _span_ring: deque[tuple] = deque(maxlen=_SPAN_RING_MAX)
 _counter_ring: deque[dict[str, Any]] = deque(maxlen=_COUNTER_RING_MAX)
 _counters: dict[str, float] = {}
 _counter_id = [0]
+_thread_phase: dict[int, list[str]] = {}
 
 _current: contextvars.ContextVar["BlockTimeline | None"] = \
     contextvars.ContextVar("hdrf_block_timeline", default=None)
@@ -367,11 +367,55 @@ def phase(name: str) -> Iterator[None]:
     """Record a named phase span (ambient timeline + global ring).  Cost is
     two clock reads, one list append and one deque append — safe on the
     per-packet path."""
+    tid = threading.get_ident()
+    stack = _thread_phase.setdefault(tid, [])
+    stack.append(name)
     t0 = _now()
     try:
         yield
     finally:
-        _record(name, t0, _now(), threading.get_ident())
+        t1 = _now()
+        try:
+            stack.pop()
+        except IndexError:
+            pass
+        _record(name, t0, t1, tid)
+
+
+def timed_iter(name: str, it: Iterable) -> Iterator:
+    """Wrap an iterator so each ``next()`` wait becomes one phase span —
+    the per-packet ``recv`` attribution of the client-stream wait."""
+    src = iter(it)
+    tid = threading.get_ident()
+    stack = _thread_phase.setdefault(tid, [])
+    while True:
+        stack.append(name)
+        t0 = _now()
+        try:
+            item = next(src)
+        except StopIteration:
+            return
+        finally:
+            try:
+                stack.pop()
+            except IndexError:
+                pass
+        _record(name, t0, _now(), tid)
+        yield item
+
+
+def thread_phase(thread_id: int | None = None) -> str | None:
+    """Innermost phase currently open on a thread — the watchdog's
+    cross-thread stall attribution probe."""
+    if thread_id is None:
+        thread_id = threading.get_ident()
+    stack = _thread_phase.get(thread_id)
+    if not stack:
+        return None
+    try:
+        return stack[-1]
+    except IndexError:
+        return None
 
 
 # ------------------------------------------------------------ counter tracks

@@ -781,6 +781,73 @@ def test_dedup_scheme_on_card(dev, tmp_path):
 
 
 
+def test_datanode_on_card_concurrent_writes(dev, tmp_path):
+    """A port DataNode on ``cuda`` takes four concurrent 8 MiB writes:
+    every block's chunks are the native backend's cuts with hashlib
+    digests, the coalescer ran (groups counted), no seal fell back to the
+    host, and a read through the device reconstructor (``device_recon``,
+    after a restart on the same directory) equals the bytes written."""
+    import threading
+
+    from _dn_standin import StandInNN, port_dn, read_block, write_block, \
+        write_ok
+    from hdrf_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(73)
+    base = rng.integers(0, 256, 8 << 20, dtype=np.uint8).tobytes()
+    blocks = [base] + [rng.integers(0, 256, 3 << 20, dtype=np.uint8)
+                       .tobytes() + base[3 << 20:] for _ in range(3)]
+    wp = metrics.registry("write_pipeline")
+    fallbacks = (metrics.registry("datanode").counter("worker_fallbacks")
+                 + metrics.registry("block_receiver")
+                 .counter("worker_fallbacks"))
+    g0 = wp.counter("device_batches")
+    red = {"container_size": 4 << 20}
+    root = str(tmp_path / "dn")
+    nn = StandInNN()
+    try:
+        dn = port_dn(root, nn.addr, "dn-card", backend="cuda", red=red)
+        try:
+            acks = [None] * 4
+
+            def go(i):
+                acks[i] = write_block(dn.addr, 10 + i, blocks[i])
+            ts = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join(timeout=300)
+            assert all(write_ok(a, b) for a, b in zip(acks, blocks))
+            cdc = dn.reduction_ctx.config.cdc
+            for i, b in enumerate(blocks):
+                cuts, digs = dispatch.chunk_and_fingerprint(b, cdc, "native")
+                hashes = dn.index.get_block(10 + i).hashes
+                assert hashes == [bytes(d) for d in digs]
+                starts = np.concatenate([[0], cuts[:-1]]).astype(np.int64)
+                assert hashes == [hashlib.sha256(b[s:e]).digest()
+                                  for s, e in zip(starts, cuts.astype(
+                                      np.int64))]
+                assert read_block(dn.addr, 10 + i)[1] == b
+        finally:
+            dn.stop()
+        assert wp.counter("device_batches") > g0
+        assert (metrics.registry("datanode").counter("worker_fallbacks")
+                + metrics.registry("block_receiver")
+                .counter("worker_fallbacks")) == fallbacks
+        n0 = gather_cuda.raw_launches
+        dn = port_dn(root, nn.addr, "dn-card", backend="cuda",
+                     red={**red, "device_recon": True})
+        try:
+            assert dn.reduction_ctx.recon is not None
+            for i, b in enumerate(blocks):
+                assert read_block(dn.addr, 10 + i)[1] == b
+            assert gather_cuda.raw_launches > n0
+        finally:
+            dn.stop()
+    finally:
+        nn.stop()
+
+
 # ------------------------------------------------- meshes over several cards
 
 @pytest.fixture

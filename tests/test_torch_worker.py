@@ -310,7 +310,13 @@ def test_port_imports_no_jax_and_no_reference():
             "          'server.read_plane', 'ops.reconstruct',\n"
             "          'ops.gather_cuda', 'ops.rs', 'ops.rs_cuda',\n"
             "          'storage.stripe_store', 'server.coded_exchange',\n"
-            "          'server.ec_tier', 'utils.throttler'):\n"
+            "          'server.ec_tier', 'utils.throttler',\n"
+            "          'server.datanode', 'server.block_receiver',\n"
+            "          'server.block_sender', 'server.write_pipeline',\n"
+            "          'server.mirror_plane', 'storage.replica_store',\n"
+            "          'storage.volumes', 'storage.version', 'security',\n"
+            "          'utils.watchdog', 'utils.log',\n"
+            "          'utils.flight_recorder'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
@@ -456,3 +462,92 @@ def test_card_entry_points_fail_without_a_card():
     assert r.returncode != 0 and '"ok"' not in r.stdout
     r = _py(["kernel_times.py"])
     assert r.returncode != 0 and '"cdc_select"' not in r.stdout
+
+
+def test_worker_binds_deadline_and_tracks_ops_like_reference(worker,
+                                                             monkeypatch):
+    """A request's ``_deadline`` is rebound around the op and the op is
+    tracked by the worker's StallWatchdog, as in the reference worker
+    (reduction_worker.py:86-121); before the repair the port accepted the
+    header and ignored it, with no watchdog."""
+    from hdrf_tpu.server import reduction_worker as ref_rw
+    from hdrf_tpu.utils import retry as ref_retry
+    from hdrf_tpu_torch.server import reduction_worker as rw
+    from hdrf_tpu_torch.utils import retry
+
+    ref_worker = ref_rw.ReductionWorker(backend="native").start()
+    seen = []
+    try:
+        for w, mod, rt in ((worker, rw, retry),
+                           (ref_worker, ref_rw, ref_retry)):
+            def spy(codec, data, backend, w=w, rt=rt):
+                d = rt.current()
+                seen.append((None if d is None else round(d.remaining()),
+                             [e["op"] for e in w.watchdog.inflight()]))
+                return data
+            monkeypatch.setattr(mod.ops_dispatch if mod is rw else
+                                __import__("hdrf_tpu.ops.dispatch",
+                                           fromlist=["x"]),
+                                "block_compress", spy)
+            s = socket.create_connection(w.addr, timeout=30)
+            try:
+                rpc.send_frame(s, {"op": "compress", "codec": "lz4",
+                                   "_deadline": 30.0})
+                dt.stream_bytes(s, b"q" * 1000)
+                assert rpc.recv_frame(s) == {"data": b"q" * 1000}
+                rpc.send_frame(s, {"op": "compress", "codec": "lz4"})
+                dt.stream_bytes(s, b"r" * 10)
+                assert rpc.recv_frame(s) == {"data": b"r" * 10}
+            finally:
+                s.close()
+    finally:
+        ref_worker.stop()
+    assert seen[:2] == seen[2:] == [(30, ["worker.compress"]),
+                                    (None, ["worker.compress"])]
+
+
+def test_worker_client_deadline_and_breaker_like_reference(worker):
+    """The client's payload-scaled deadline budget refuses a request
+    under a spent ambient deadline (its connect gets no time), as the
+    reference's WorkerClient does — the port's served it — its circuit
+    breaker opens after three
+    worker failures and then skips the connect, and ``set_addr``
+    repoints it at a live worker."""
+    from hdrf_tpu.server import reduction_worker as ref_rw
+    from hdrf_tpu.utils import retry as ref_retry
+    from hdrf_tpu_torch.server import reduction_worker as rw
+    from hdrf_tpu_torch.utils import retry
+
+    data = _bytes(5000)
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_addr = dead.getsockname()
+    dead.close()
+    outcomes = []
+    port_cdc = dispatch.from_reference_cdc(dataclasses.asdict(SMALL))
+    for mod, rt, cdc in ((rw, retry, port_cdc), (ref_rw, ref_retry, SMALL)):
+        c = mod.WorkerClient(worker.addr, deadline_s=60,
+                             deadline_s_per_mb=1.0)
+        with rt.bind(rt.Deadline(0.0)):
+            with pytest.raises((rt.DeadlineExceeded, mod.WorkerError)) as e0:
+                c.reduce(data, cdc)
+        refused = type(e0.value).__name__
+        cuts, _ = c.reduce(data, cdc)
+        br = rt.CircuitBreaker(f"test-{mod.__name__}", failure_threshold=3,
+                               reset_s=60.0)
+        c2 = mod.WorkerClient(dead_addr, deadline_s=5, breaker=br)
+        kinds = []
+        for _ in range(4):
+            with pytest.raises(mod.WorkerError) as ei:
+                c2.compress("lz4", b"x" * 100)
+            kinds.append(getattr(ei.value, "breaker_open", False))
+        c2.set_addr(worker.addr)
+        br.reset_s = 0.0
+        out = c2.compress("lz4", data)
+        outcomes.append((refused, int(cuts[-1]), kinds, br.state,
+                         native.lz4_decompress(out, len(data)) == data))
+        c.close()
+        c2.close()
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][1:] == (5000, [False, False, False, True], "closed",
+                               True)
