@@ -211,7 +211,40 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    equal (``DATANODE mirror``).  (c) ``pipeline_depth`` 4 beside 1 on
    fresh single DataNodes, 4 blocks over 4 streams (``DATANODE ab``,
    information only).  Each pass's directories are deleted when it ends.
-12. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+12. NAMENODE, the port's NameNode (hdrf_tpu_torch/server/namenode.py) at
+   ``NameNodeConfig()`` defaults (replication 3, 128 MiB blocks, 1 s
+   heartbeats, 6 s dead-node detection; its meta dir under a
+   ``tempfile`` root, on a fixed port so that it restarts there) and
+   four port DataNodes on ``cuda:0`` at ``DataNodeConfig()`` /
+   ``ReductionConfig()`` defaults registered with it; a writer on the
+   port's ``RpcClient`` calls ``create(scheme="dedup_lz4")``,
+   ``add_block`` (streaming each block down the pipeline it chose, in
+   its order), ``complete(block_lengths)`` and ``get_block_locations``.
+   (a) Two files of 2 blocks and 1 block of the ``reduce`` corpus by two
+   concurrent writers: every replica listed reads back equal with
+   ``READ_BLOCK``, ``BLOCK_CHECKSUM`` equals ``native.crc32c_chunks``,
+   ``stat`` lengths are right, the CDC, SHA-256 and seal kernels
+   launched (``NAMENODE write``).  (b) The NameNode stopped and
+   restarted on its meta dir: the same namespace and counters after the
+   replay, startup safemode cleared by the DataNodes' reports, the same
+   locations (``NAMENODE restart``).  (c) A replica holder stopped: it
+   is declared dead, ``replicate`` commands copy its blocks to the
+   fourth DataNode, whose new replicas read back equal; the holder
+   restarted: its excess replicas are pruned through ``invalidate``
+   until every block's listed holders are exactly the DataNodes that
+   hold it (``NAMENODE rereplicate``).  (d) ``ec_demote_after_s`` set to
+   1 s: ``stripe_demote`` of every block (``rs`` launches > 0),
+   ``stripe_complete`` counted by ``ec_status``, the other replicas
+   invalidated, every block read back from its owner; a stripe holder
+   that owns no block stopped: ``stripe_repair`` re-decodes its stripes
+   (``rs`` launches > 0) until no manifest names it, and every block
+   reads back equal again (``NAMENODE ec``).  (e) 2,000 empty-file
+   ``create`` + ``complete`` pairs over 8 threads, as Hadoop's
+   ``NNThroughputBenchmark`` does: ops/s, client p50/p99 and the
+   ``rpc.namenode`` p99 (``NAMENODE meta``, information only).  Every
+   step holds ``DN_FAULTS``; ``NAMENODE launches`` sums the kernels'
+   launches over the steps.
+13. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
@@ -2502,7 +2535,8 @@ def start_dn(root: str, nn, dn_id: str, **red):
     return DataNode(cfg, nn.addr, dn_id=dn_id).start()
 
 
-def dn_write(addr, bid: int, blk: np.ndarray, targets=()) -> float:
+def dn_write(addr, bid: int, blk: np.ndarray, targets=(),
+             gen_stamp: int = 1) -> float:
     """WRITE_BLOCK of ``blk`` in 64 KiB packets on a fresh connection, the
     acks read by a second thread as they come (the reference client's
     response processor: a writer that left them unread would stall the
@@ -2519,7 +2553,7 @@ def dn_write(addr, bid: int, blk: np.ndarray, targets=()) -> float:
     s = socket.create_connection(tuple(addr), timeout=600)
     try:
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        dt.send_op(s, dt.WRITE_BLOCK, block_id=bid, gen_stamp=1,
+        dt.send_op(s, dt.WRITE_BLOCK, block_id=bid, gen_stamp=gen_stamp,
                    scheme="dedup_lz4", targets=list(targets),
                    _client="smoke")
 
@@ -2892,6 +2926,352 @@ def datanode_phase(args) -> dict:
     return out
 
 
+# -------------------------------------------------------------- namenode
+
+NN_DATANODES = 4
+NN_META_PAIRS = 2000     # NNThroughputBenchmark-style create + complete
+NN_META_THREADS = 8
+NN_WAIT_S = 180.0
+NN_WATCH = ("repair", "demot", "stripe", "replicat", "dead", "fail",
+            "error", "invalid", "gather")
+
+
+def _wait_for(pred, what: str, timeout: float = NN_WAIT_S) -> float:
+    """Poll ``pred`` until true; returns the seconds it took, fails the
+    smoke after ``timeout`` with the NameNode's and the EC tier's
+    scheduling counters in the message."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 >= timeout:
+            counters = {r: {k: v for k, v in metrics.registry(r).snapshot()[
+                "counters"].items() if any(w in k for w in NN_WATCH)}
+                for r in ("namenode", "ec", "datanode")}
+            check(False, f"NAMENODE: timed out after {timeout:.0f}s waiting "
+                  f"for {what}; {json.dumps(counters)}")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nn_start(meta_dir: str, port: int):
+    """The port NameNode at NameNodeConfig() defaults (replication 3,
+    128 MiB blocks, 1 s heartbeats, 6 s dead-node detection) on
+    ``meta_dir`` and a fixed port."""
+    from hdrf_tpu_torch.config import NameNodeConfig
+    from hdrf_tpu_torch.server.namenode import NameNode
+
+    return NameNode(NameNodeConfig(meta_dir=meta_dir, port=port)).start()
+
+
+def _nn_write_file(addr, path: str, blocks: list) -> dict:
+    """A writer on the port's RpcClient: create(dedup_lz4), then per block
+    add_block and the block streamed down the pipeline the NameNode chose,
+    in its order; complete(block_lengths) once the IBRs are in."""
+    from hdrf_tpu_torch.proto.rpc import RpcClient
+
+    ms, lengths = [], {}
+    with RpcClient(addr, timeout=600) as c:
+        c.call("create", path=path, client="smoke", scheme="dedup_lz4")
+        for b in blocks:
+            a = c.call("add_block", path=path, client="smoke")
+            tg = a["targets"]
+            check(len(tg) == 3, f"{path}: add_block chose {tg}")
+            ms.append(dn_write(tg[0]["addr"], a["block_id"], b,
+                               [{"dn_id": t["dn_id"], "addr": t["addr"]}
+                                for t in tg[1:]], a["gen_stamp"]))
+            lengths[a["block_id"]] = b.size
+        _wait_for(lambda: c.call("complete", path=path, client="smoke",
+                                 block_lengths=lengths),
+                  f"{path} complete (its IBRs)")
+    return {"ms": ms, "block_ids": list(lengths)}
+
+
+def _locations(nn, path: str) -> dict:
+    return {b["block_id"]: sorted(loc["dn_id"] for loc in b["locations"])
+            for b in nn.rpc_get_block_locations(path)["blocks"]}
+
+
+def _nn_counts() -> dict:
+    from hdrf_tpu_torch.ops import rs_cuda
+
+    return {**_scheme_launch_counts(), "rs": rs_cuda.launches}
+
+
+def _nn_zero() -> None:
+    from hdrf_tpu_torch.ops import rs_cuda
+
+    _zero_launch_counts()
+    rs_cuda.launches = 0
+
+
+def _nn_counter(key: str) -> int:
+    return metrics.registry("namenode").counter(key)
+
+
+def _read_back(dns: dict, where: dict, data: dict, what: str,
+               checksums: bool = False) -> list:
+    """Every listed replica read with READ_BLOCK equals the bytes written
+    (and with ``checksums``, BLOCK_CHECKSUM equals their CRC32C); returns
+    the read ms."""
+    lat = []
+    for bid, holders in where.items():
+        check(holders, f"{what}: block {bid} has no location")
+        for d in holders:
+            t0 = time.perf_counter()
+            _, got = dn_read(dns[d].addr, bid)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(got == data[bid], f"{what}: {d} block {bid} != written")
+            if checksums:
+                ck = dn_checksum(dns[d].addr, bid)
+                check(ck["checksums"] == [int(c) for c in native.crc32c_chunks(
+                    np.frombuffer(data[bid], np.uint8), ck["checksum_chunk"])]
+                    and ck["logical_len"] == len(data[bid]),
+                    f"{what}: {d} block {bid}: BLOCK_CHECKSUM != crc32c")
+    return lat
+
+
+def namenode_phase(args) -> dict:
+    """NAMENODE: the port's NameNode at NameNodeConfig() defaults running
+    four port DataNodes on ``cuda:0``, driven by a writer on the port's
+    RpcClient: (a) write and read, (b) NameNode restart, (c) re-replication
+    and excess pruning, (d) demotion and stripe repair, (e) metadata ops."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from hdrf_tpu_torch.proto.rpc import RpcClient, packb
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="smoke_nn_")
+    meta, port = os.path.join(root, "name"), _free_port()
+    addr = ("127.0.0.1", port)
+    nn_ref = SimpleNamespace(addr=addr)
+    corpus = main_path_corpus(args.seed, 3, args.block_mib)
+    files = {"/nn/f2": corpus[:2], "/nn/f1": corpus[2:3]}
+    out: dict = {"launches": {}}
+    nn = _nn_start(meta, port)
+    dns: dict = {}
+    try:
+        dns = {f"nd{i}": start_dn(root, nn_ref, f"nd{i}")
+               for i in range(1, NN_DATANODES + 1)}
+        _wait_for(lambda: len(nn._datanodes) == NN_DATANODES,
+                  "DataNode registration")
+
+        # ---- (a) write and read ------------------------------------------
+        t0 = time.perf_counter()
+        _nn_zero()
+        faults0 = _dn_faults()
+        with ThreadPoolExecutor(len(files)) as pool:
+            wrote = dict(zip(files, pool.map(
+                lambda p: _nn_write_file(addr, p, files[p]), files)))
+        for dn in dns.values():
+            dn.containers.drain_seals()
+        launches = _nn_counts()
+        for kname in DN_WRITE_KERNELS:
+            check(launches[kname] > 0,
+                  f"NAMENODE write never launched the {kname} kernel")
+        data = {bid: b.tobytes() for p in files
+                for bid, b in zip(wrote[p]["block_ids"], files[p])}
+        where = {}
+        for p, blocks in files.items():
+            st = nn.rpc_stat(p)
+            check(st["length"] == sum(b.size for b in blocks)
+                  and st["complete"], f"NAMENODE stat {p}: {st}")
+            where.update(_locations(nn, p))
+        check(all(len(h) == 3 for h in where.values()),
+              f"NAMENODE: replicas {where}")
+        read_ms = _read_back(dns, where, data, "NAMENODE (a)", True)
+        check_faults(faults0, "NAMENODE write and read")
+        out["a"] = {"seconds": time.perf_counter() - t0,
+                    "files": {p: len(b) for p, b in files.items()},
+                    "block_mib": args.block_mib,
+                    "write_ms_per_block": _stats(
+                        [m for w in wrote.values() for m in w["ms"]]),
+                    "read_ms_per_replica": _stats(read_ms),
+                    "locations": {str(b): h for b, h in where.items()},
+                    "launches": launches}
+        out["launches"]["a"] = launches
+        print("NAMENODE write " + json.dumps(out["a"]), flush=True)
+
+        # ---- (b) restart the NameNode on its meta dir --------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        before = (packb(nn._snapshot()), nn._next_inode, nn._next_block_id,
+                  nn._gen_stamp, nn.rpc_listing("/nn"))
+        seq = nn._editlog.seq
+        nn.stop()
+        nn = _nn_start(meta, port)
+        after = (packb(nn._snapshot()), nn._next_inode, nn._next_block_id,
+                 nn._gen_stamp, nn.rpc_listing("/nn"))
+        check(after == before and nn._editlog.seq == seq,
+              "NAMENODE restart: namespace differs after replay")
+        check(nn.rpc_safemode("get"), "NAMENODE restart: no startup safemode")
+        safe_s = _wait_for(lambda: not nn.rpc_safemode("get"),
+                           "safemode exit after the block reports")
+        locs_s = _wait_for(lambda: {b: h for p in files
+                                    for b, h in _locations(nn, p).items()}
+                           == where, "locations after the restart")
+        check_faults(faults0, "NAMENODE restart")
+        out["b"] = {"seconds": time.perf_counter() - t0,
+                    "editlog_seq": seq, "safemode_exit_s": safe_s,
+                    "locations_s": locs_s}
+        print("NAMENODE restart " + json.dumps(out["b"]), flush=True)
+
+        # ---- (c) re-replication, then excess pruning ---------------------
+        t0 = time.perf_counter()
+        _nn_zero()
+        faults0 = _dn_faults()
+        repl0 = _nn_counter("replications_scheduled")
+        victim = where[wrote["/nn/f2"]["block_ids"][0]][0]
+        dns[victim].stop()
+        dead_s = _wait_for(lambda: victim not in nn._datanodes,
+                           f"{victim} declared dead")
+
+        def rereplicated():
+            now = {b: h for p in files for b, h in _locations(nn, p).items()}
+            return now if all(len(h) == 3 and victim not in h
+                              for h in now.values()) else None
+        repl_s = _wait_for(rereplicated, "re-replication")
+        check(_nn_counter("replications_scheduled") > repl0,
+              "NAMENODE: no replicate command scheduled")
+        moved = {b: [d for d in h if d not in where[b]]
+                 for b, h in rereplicated().items() if victim in where[b]}
+        check(moved and all(len(v) == 1 for v in moved.values()),
+              f"NAMENODE re-replication: new holders {moved}")
+        _read_back(dns, moved, data, "NAMENODE (c) new replicas")
+        excess0 = _nn_counter("excess_replicas_pruned")
+        dns[victim] = start_dn(root, nn_ref, victim)
+
+        def pruned():
+            now = {b: h for p in files for b, h in _locations(nn, p).items()}
+            held = {b: sorted(d for d, dn in dns.items()
+                              if b in dn.replicas.block_ids()) for b in now}
+            return now if all(len(h) == 3 and held[b] == h
+                              for b, h in now.items()) else None
+        prune_s = _wait_for(lambda: _nn_counter("excess_replicas_pruned")
+                            > excess0 and pruned(),
+                            "excess replicas pruned by invalidate")
+        where = pruned()
+        _read_back(dns, where, data, "NAMENODE (c) after pruning")
+        check_faults(faults0, "NAMENODE re-replication")
+        out["c"] = {"seconds": time.perf_counter() - t0, "victim": victim,
+                    "dead_after_s": dead_s, "rereplicated_s": repl_s,
+                    "rereplicated_blocks": len(moved),
+                    "s_per_block": repl_s / len(moved),
+                    "excess_pruned": _nn_counter("excess_replicas_pruned")
+                    - excess0, "pruned_s": prune_s,
+                    "launches": _nn_counts()}
+        out["launches"]["c"] = out["c"]["launches"]
+        print("NAMENODE rereplicate " + json.dumps(out["c"]), flush=True)
+
+        # ---- (d) demotion, then repair of a lost stripe holder -----------
+        t0 = time.perf_counter()
+        _nn_zero()
+        faults0 = _dn_faults()
+        ec = metrics.registry("ec")
+        nn.config.ec_demote_after_s = 1.0
+        demote_s = _wait_for(
+            lambda: nn.rpc_ec_status()["demoted_blocks"] == len(data),
+            "stripe_demote of every block and its stripe_complete")
+        _wait_for(lambda: nn.rpc_ec_status()["striped_containers"] > 0,
+                  "the striped-container census")
+        _wait_for(lambda: all(len(h) == 1 for p in files
+                              for h in _locations(nn, p).values()),
+                  "the full replicas invalidated down to the owner")
+        owners = {b: h[0] for p in files
+                  for b, h in _locations(nn, p).items()}
+        enc = _nn_counts()
+        check(enc["rs"] > 0, "NAMENODE demote launched no rs kernel")
+        _read_back(dns, {b: [o] for b, o in owners.items()}, data,
+                   "NAMENODE (d) demoted")
+        status = nn.rpc_ec_status()
+        lost = next(d for d in sorted(dns) if d not in owners.values())
+        check(any(h[0] == lost for dn in dns.values()
+                  for m in dn.index.stripe_manifests().values()
+                  for h in m["holders"]), f"{lost} holds no stripe")
+        _nn_zero()
+        rep0 = ec.counter("stripes_repaired")
+        sched0 = _nn_counter("stripe_repairs_scheduled")
+        t1 = time.perf_counter()
+        dns[lost].stop()
+        del dns[lost]
+        repair_s = _wait_for(
+            lambda: ec.counter("stripes_repaired") > rep0 and all(
+                h[0] != lost for dn in dns.values()
+                for m in dn.index.stripe_manifests().values()
+                for h in m["holders"]), "stripe_repair of every group")
+        dec = _nn_counts()
+        check(_nn_counter("stripe_repairs_scheduled") > sched0,
+              "NAMENODE: no stripe_repair scheduled")
+        check(dec["rs"] > 0, "NAMENODE repair launched no rs kernel")
+        _read_back(dns, {b: [o] for b, o in owners.items()}, data,
+                   "NAMENODE (d) repaired")
+        check_faults(faults0, "NAMENODE demote and repair")
+        out["d"] = {"seconds": time.perf_counter() - t0,
+                    "demote_s": demote_s, "ec_status": status,
+                    "lost_holder": lost, "repair_s": repair_s,
+                    "repair_wall_s": time.perf_counter() - t1,
+                    "stripes_repaired": ec.counter("stripes_repaired")
+                    - rep0, "demote_launches": enc,
+                    "repair_launches": dec}
+        out["launches"]["d_demote"] = enc
+        out["launches"]["d_repair"] = dec
+        print("NAMENODE ec " + json.dumps(out["d"]), flush=True)
+
+        # ---- (e) metadata ops, for information ---------------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        lat: list = []
+
+        def bench(t: int) -> list:
+            mine = []
+            with RpcClient(addr) as c:
+                for i in range(t, NN_META_PAIRS, NN_META_THREADS):
+                    p = f"/nnbench/t{t}/f{i}"
+                    for method, kw in (("create", {}),
+                                       ("complete", {"block_lengths": {}})):
+                        s0 = time.perf_counter()
+                        got = c.call(method, path=p, client=f"b{t}", **kw)
+                        mine.append((time.perf_counter() - s0) * 1e3)
+                    check(got is True, f"NAMENODE bench: complete {p}")
+            return mine
+        with ThreadPoolExecutor(NN_META_THREADS) as pool:
+            for part in pool.map(bench, range(NN_META_THREADS)):
+                lat += part
+        wall = time.perf_counter() - t0
+        lat.sort()
+        out["e"] = {"seconds": wall, "pairs": NN_META_PAIRS,
+                    "threads": NN_META_THREADS,
+                    "ops_per_s": 2 * NN_META_PAIRS / wall,
+                    "client_ms_p50": lat[len(lat) // 2],
+                    "client_ms_p99": lat[int(len(lat) * 0.99)],
+                    "rpc_namenode_p99_ms": nn._rpc.rpc_p99_ms()}
+        check(len(nn.rpc_listing("/nnbench")) == NN_META_THREADS,
+              "NAMENODE bench: files missing")
+        check_faults(faults0, "NAMENODE metadata ops")
+        print("NAMENODE meta " + json.dumps(out["e"]), flush=True)
+    finally:
+        for dn in dns.values():
+            dn.stop()
+        nn.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    total = {k: sum(v.get(k, 0) for v in out["launches"].values())
+             for k in _nn_counts()}
+    out["seconds"] = time.perf_counter() - t_phase
+    print("NAMENODE launches " + json.dumps(total), flush=True)
+    print(f"NAMENODE done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -3002,6 +3382,7 @@ def run(args) -> int:
     sc = scheme_phase(args, dev, cdc, errs, timing)
     torch.cuda.empty_cache()
     datanode_phase(args)
+    namenode_phase(args)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],

@@ -1,6 +1,6 @@
-"""Chunking, reduction and DataNode configuration (port of
-hdrf_tpu/config.py:27-46 ``CdcConfig``, :50-230 ``ReductionConfig`` and
-:343-439 ``DataNodeConfig``).
+"""Chunking, reduction, NameNode and DataNode configuration (port of
+hdrf_tpu/config.py:27-46 ``CdcConfig``, :50-230 ``ReductionConfig``,
+:232-338 ``NameNodeConfig`` and :343-439 ``DataNodeConfig``).
 
 Copies of the reference dataclasses with the same field names and
 defaults, so a reference ``dataclasses.asdict(CdcConfig)`` dict maps onto
@@ -13,10 +13,11 @@ reads the rest.  ``backend`` takes the reference's names: ``auto`` and
 ``tpu`` select the card, ``native`` the host C++ library, ``cpu`` the
 kernels' plain versions (ops/dispatch.resolve_backend).
 
-``DataNodeConfig`` has every field and default of the reference's.  The
+``NameNodeConfig`` and ``DataNodeConfig`` have every field and default of
+the reference's.  The NameNode refuses ``status_port``.  The
 DataNode refuses, with ``NotImplementedError``, the settings that turn on
 a plane the port does not have yet: ``status_port``,
-``simulated_dataset``, ``flight_archive_dir``, ``scrub_interval_s`` > 0,
+``simulated_dataset``, ``scrub_interval_s`` > 0,
 and of the reduction config ``worker_spawn`` and ``cdc_adaptive``.
 """
 
@@ -221,6 +222,117 @@ class ReductionConfig:
     # healthy; 13 reproduces the shipped 2048/65536 geometry exactly.
     cdc_target_mask_bits: int = 13
     cdc: CdcConfig = field(default_factory=CdcConfig)
+
+
+@dataclass
+class NameNodeConfig:
+    host: str = "127.0.0.1"
+    port: int = 0  # 0 = ephemeral
+    # Namespace persistence (FSImage.java:85 + FSEditLog.java:124 equivalents).
+    meta_dir: str = "/tmp/hdrf/name"
+    # Default replication factor & block size (hdfs-default.xml equivalents).
+    replication: int = 3
+    block_size: int = 128 * 1024 * 1024
+    # Heartbeat bookkeeping (HeartbeatManager.java:44).
+    heartbeat_interval_s: float = 1.0
+    dead_node_interval_s: float = 6.0
+    # How long a scheduled re-replication may stay in flight before the
+    # monitor re-queues it (PendingReconstructionBlocks timeout analog).
+    pending_replication_timeout_s: float = 30.0
+    editlog_checkpoint_every: int = 1000  # ops between auto-checkpoints
+    # Federation (multiple nameservices over one DN set,
+    # BPOfferService.java:57): this NN's nameservice id and block-pool
+    # index.  The block pool is an ID RANGE — block ids are allocated as
+    # (pool_index << 48) | seq — so pools never collide and a DataNode
+    # partitions its reports per nameservice with a shift (the role
+    # BPOfferService's per-pool bookkeeping plays in the reference; chunk
+    # containers stay DN-wide, so dedup even spans namespaces).
+    nameservice_id: str = "ns0"
+    block_pool_index: int = 0
+    # HA: "active" serves + writes the journal; "standby" tails it read-only
+    # and answers (possibly slightly stale) reads until failover; "observer"
+    # tails like a standby but serves the read-only RPC set to clients with
+    # a staleness bound (ObserverReadProxyProvider analog) and is never a
+    # failover candidate.
+    role: str = "active"
+    # Standby journal catch-up cadence (EditLogTailer interval analog).
+    tail_interval_s: float = 0.5
+    # Observer read plane (design decision 19).  A read carrying a client
+    # state-id the observer hasn't applied yet waits at most
+    # observer_wait_s for the tailer to catch up, then bounces the call
+    # back to the active (typed ObserverStaleError — never silently
+    # stale).  Independently, reads are refused whenever the last
+    # successful tail pass is older than observer_max_lag_s (the hard
+    # staleness bound, dfs.ha.tail-edits.period + observer staleness
+    # check analog).  observer_msync_wait_s bounds a parameterless
+    # rpc_msync barrier.
+    observer_wait_s: float = 0.25
+    observer_max_lag_s: float = 5.0
+    observer_msync_wait_s: float = 5.0
+    # Block access tokens (dfs.block.access.token.enable analog): NN mints
+    # HMAC tokens, DNs verify; keys ride heartbeat responses.
+    block_tokens: bool = False
+    # Enforce owner/group/mode + ACLs on namespace RPCs
+    # (dfs.permissions.enabled analog).  The superuser (NN process owner)
+    # and in-process callers always bypass.
+    permissions_enabled: bool = True
+    # Require a valid delegation token on client namespace RPCs
+    # (hadoop.security.authentication=token analog; DN-protocol and
+    # token-acquisition methods stay open — kerberos has no analog here).
+    require_token_auth: bool = False
+    # Startup safemode: hold mutations until this fraction of known blocks
+    # has a reported replica (dfs.namenode.safemode.threshold-pct analog).
+    safemode_threshold: float = 0.999
+    # Quorum journal (dfs.namenode.shared.edits.dir=qjournal://... analog):
+    # when set, edits live on this list of JournalNode (host, port) addrs
+    # with majority-ack durability and only the fsimage stays in meta_dir;
+    # when None, meta_dir is the (possibly NFS-shared) journal directory.
+    journal_addrs: list | None = None
+    # Peer NameNode control addrs — a quorum-mode standby that fell behind
+    # the journal's purge horizon bootstraps its fsimage from a peer
+    # (the standby-checkpointer image-transfer analog).
+    peers: list | None = None
+    # Observability status HTTP server (/prom, /traces, /stacks — the
+    # HttpServer2 servlet-set analog); None = disabled.  0 = ephemeral port.
+    status_port: int | None = None
+    # Watchdog budget for in-flight RPCs (utils/watchdog.py).
+    stall_budget_s: float = 30.0
+    # Control-plane contention observatory (utils/lockprof.py): cap on
+    # concurrent RPC handler connections — past it the accept loop parks
+    # and a metadata storm backs up into the TCP listen queue instead of
+    # spawning threads without bound (None = unbounded, the reference's
+    # thread-per-connection default) — and the instrumented namesystem
+    # lock's long-hold budget (stack captured + lockprof.long_hold fired
+    # for any hold past it; the write-lock-reporting-threshold analog).
+    rpc_max_handlers: int | None = None
+    lock_long_hold_s: float = 0.5
+    # EC cold tier (storage/stripe_store.py): sealed-container striping
+    # geometry (ErasureCodingPolicy RS-k-m analog, default RS(6,3)) and
+    # the demotion age: a complete, fully-replicated block whose file has
+    # been idle this long is demoted from ``replication``x full copies to
+    # (k+m)/k x stripes.  <= 0 disables demotion (default: the cold tier
+    # is opt-in, like dfs.namenode.ec.system.default.policy being unset).
+    ec_data_shards: int = 6
+    ec_parity_shards: int = 3
+    ec_demote_after_s: float = 0.0
+    # Partial-replica reconciliation (coded mirror plane): how long a
+    # scheduled upgrade re-push may stay in flight before the monitor
+    # re-schedules it (the pending_replication_timeout_s analog for the
+    # partial_replica -> full-replica lifecycle).
+    partial_reconcile_timeout_s: float = 15.0
+    # Flight recorder (utils/flight_recorder.py): fixed-cadence gauge
+    # snapshots into a bounded ring, served as /timeseries.  interval <= 0
+    # disables the sampler thread (the ring still answers, just empty
+    # until sample_once is driven).
+    flight_interval_s: float = 1.0
+    flight_capacity: int = 512
+    # Flight archive (utils/flight_archive.py): crash-safe JSONL
+    # persistence of every flight sample, so daemon restarts keep the
+    # long-horizon curve.  Empty dir disables; a relative dir resolves
+    # under the metadata dir.  max_mb bounds the on-disk history (oldest
+    # sealed segments GC'd first).
+    flight_archive_dir: str = ""
+    flight_archive_max_mb: int = 64
 
 
 @dataclass

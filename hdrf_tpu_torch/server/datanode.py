@@ -36,10 +36,11 @@ failed worker seal falls back to the host codec and counts
 Planes of the reference that the port does not have yet are refused, not
 skipped: a config that turns one on raises ``NotImplementedError`` at
 construction (``status_port``, ``simulated_dataset``,
-``flight_archive_dir``, ``scrub_interval_s`` > 0,
+``scrub_interval_s`` > 0,
 ``reduction.worker_spawn``, ``reduction.cdc_adaptive``), and their ops
-(``alias_add``, ``reconfigure``, ``get_reconfigurable``,
-``flight_timeseries``) count as ``unknown_ops``, as any unknown op does.
+(``alias_add``, ``reconfigure``, ``get_reconfigurable``) count as
+``unknown_ops``, as any unknown op does.  The flight archive
+(``flight_archive_dir``) and its ``flight_timeseries`` op are ported.
 Short-circuit reads are not offered (registration carries no
 ``sc_path``, so clients read over the wire), and block reports carry no
 PROVIDED replicas.  The block scanner (``scan_interval_s``) is ported.
@@ -72,8 +73,9 @@ from hdrf_tpu_torch.server.block_receiver import BlockReceiver
 from hdrf_tpu_torch.server.block_sender import BlockSender
 from hdrf_tpu_torch.reduction import accounting
 from hdrf_tpu_torch.utils import (device_ledger, fault_injection,
-                                  flight_recorder, log, metrics, profiler,
-                                  qos, retry, rollwin, tenants, tracing)
+                                  flight_archive, flight_recorder, log,
+                                  metrics, profiler, qos, retry, rollwin,
+                                  tenants, tracing)
 from hdrf_tpu_torch.utils.watchdog import StallWatchdog
 
 _M = metrics.registry("datanode")
@@ -84,8 +86,6 @@ _TR = tracing.tracer("datanode")
 _WAITING_PLANES = (
     ("status_port", lambda c: c.status_port is not None,
      "status_http + prom (ROADMAP Queue A #9e)"),
-    ("flight_archive_dir", lambda c: bool(c.flight_archive_dir),
-     "flight_archive (ROADMAP Queue A #9e)"),
     ("scrub_interval_s", lambda c: c.scrub_interval_s > 0,
      "scrubber (ROADMAP Queue A #9f)"),
     ("simulated_dataset", lambda c: c.simulated_dataset,
@@ -96,8 +96,7 @@ _WAITING_PLANES = (
      "WorkerSupervisor / worker_spawn (ROADMAP Queue A #9j)"),
 )
 # ... and their xceiver ops, counted as unknown_ops like any unknown op
-_WAITING_OPS = frozenset({"alias_add", "reconfigure", "get_reconfigurable",
-                          "flight_timeseries"})
+_WAITING_OPS = frozenset({"alias_add", "reconfigure", "get_reconfigurable"})
 
 
 def refuse_waiting_planes(config: DataNodeConfig) -> None:
@@ -430,11 +429,20 @@ class DataNode:
                                       budget_s=config.stall_budget_s,
                                       registry=_M)
         # Flight recorder: over-time curve of this DN's key gauges
-        # (utils/flight_recorder.py), in memory.
+        # (utils/flight_recorder.py); optionally backed by a crash-safe
+        # archive so the curve survives restarts (utils/flight_archive.py).
+        self.flight_archive = None
+        if config.flight_archive_dir:
+            arch_dir = config.flight_archive_dir
+            if not os.path.isabs(arch_dir):
+                arch_dir = os.path.join(config.data_dir, arch_dir)
+            self.flight_archive = flight_archive.FlightArchive(
+                arch_dir, max_bytes=config.flight_archive_max_mb << 20)
         self.flight = flight_recorder.FlightRecorder(
             self.dn_id, self._flight_sample,
             interval_s=config.flight_interval_s,
-            capacity=config.flight_capacity)
+            capacity=config.flight_capacity,
+            archive=self.flight_archive)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -501,6 +509,8 @@ class DataNode:
         self._stop.set()
         self.watchdog.stop()
         self.flight.stop()
+        if self.flight_archive is not None:
+            self.flight_archive.close()
         self._server.shutdown()
         self._server.server_close()
         self._sever_connections()
@@ -650,6 +660,17 @@ class DataNode:
                 # worker's so callers never need the worker addr.  Served
                 # OUTSIDE the xceiver span so polling never pollutes traces.
                 self._serve_trace_spans(sock)
+                return
+            if op == "flight_timeseries":
+                # Long-horizon poll (gateway /timeseries?scope=cluster
+                # fan-out): ring + archive merged, filtered, tail-limited
+                # (utils/flight_archive.py query).  Same no-span rule as
+                # trace_spans — polling must not pollute observability.
+                send_frame(sock, flight_archive.query(
+                    self.flight, self.flight_archive,
+                    metric=fields.get("metric"),
+                    since=fields.get("since"),
+                    limit=int(fields.get("limit") or 2048)))
                 return
             if op in _WAITING_OPS:
                 # a plane not ported yet: answered as any unknown op
@@ -1016,6 +1037,13 @@ class DataNode:
             # whether hints track the actual recovery horizon
             "sheds_total": self.qos.sheds_total(),
             "shed_retry_after_p50_ms": self.qos.shed_retry_after_p50_ms(),
+            # integrity-drift curve: the scrubber's garbage census and
+            # corruption count.  The scrubber is not ported and a port
+            # DataNode never runs one (scrub_interval_s > 0 is refused),
+            # so both read 0, as the reference's do with its scrubber off;
+            # the archive keeps the reference's gauge set.
+            "garbage_bytes": 0,
+            "scrub_corrupt_total": 0,
         }
 
     def _stats(self) -> dict:

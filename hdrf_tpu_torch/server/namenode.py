@@ -1,0 +1,4638 @@
+"""NameNode: the metadata plane (port of hdrf_tpu/server/namenode.py
+``NameNode``, ``LeaseManager`` and the block/datanode/group records, whole
+but for the status HTTP server).
+
+Port notes.  The edit-log records and the fsimage are packed by the port's
+codec (proto/rpc.packb via server/editlog.py), byte for byte the
+reference's, so each package replays the other's meta dir.  The
+encryption-zone EDEK xattr is packed the same way and sealed with the
+port's ChaCha20-Poly1305 (native.aead_seal / aead_open); EC policies are
+parsed by ops/rs.parse_policy; block and delegation tokens come from the
+port's security module.  ``status_port`` (the status HTTP server,
+server/status_http.py in the reference) is refused at construction with
+``NotImplementedError``, as the DataNode refuses its waiting planes.
+One reference fault is repaired: ``rpc_block_report`` does not make a
+live block's replica a location again while its ``invalidate`` is still
+queued for that DataNode (the reference re-adds it, and its monitor may
+then prune the copy that was to stay).
+
+Re-expression of the reference's NameNode stack — FSNamesystem (namespace +
+lease manager, FSNamesystem.java, 8 kLoC), FSDirectory (INode tree),
+BlockManager (block->location map, replication scheduling,
+BlockManager.java:158), DatanodeManager + HeartbeatManager
+(HeartbeatManager.java:44 dead-node detection), NameNodeRpcServer — collapsed
+into one clean daemon with the same responsibilities:
+
+- namespace ops (mkdir/create/addBlock/complete/delete/rename/listing)
+- per-file **reduction scheme** attribute, chosen at create time: the explicit
+  policy that replaces the reference's hardcoded ``compressor`` static
+  (DataNode.java:438) and MapReduce-header sniffing (BlockReceiver.java:800-820)
+- lease management with expiry recovery (LeaseManager analog)
+- block map rebuilt from block reports; never persisted (HDFS invariant)
+- heartbeat-driven command delivery: replicate / invalidate
+  (DNA_TRANSFER / DNA_INVALIDATE)
+- durability via EditLog + fsimage (server/editlog.py)
+- observer read plane: a third role serving the read-only RPC set with a
+  bounded-staleness guarantee and an msync barrier — the
+  ObserverReadProxyProvider.java:60 / GlobalStateIdContext.java:40 state-id
+  protocol re-expressed on the msgpack reply envelope
+
+Locking: one namesystem lock (the reference's FSNamesystem global lock) —
+correct first, sharded later if metadata ops ever become the bottleneck.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+from hdrf_tpu_torch import native
+from hdrf_tpu_torch.config import NameNodeConfig
+from hdrf_tpu_torch.proto.rpc import RpcError, RpcServer, packb, unpackb
+from hdrf_tpu_torch.server import permissions as perm
+from hdrf_tpu_torch.server.editlog import EditLog
+from hdrf_tpu_torch.server.permissions import Attrs, DirNode
+from hdrf_tpu_torch.utils import (fault_injection, flight_archive,
+                            flight_recorder, lockprof, log, metrics, outlier,
+                            retry, tenants, tracing)
+from hdrf_tpu_torch.utils.watchdog import StallWatchdog
+
+_M = metrics.registry("namenode")
+
+
+@dataclass
+class FileNode:
+    replication: int
+    scheme: str
+    blocks: list[int] = field(default_factory=list)  # block ids, or group
+    # leader ids for EC files (groups resolved via NameNode._groups)
+    complete: bool = False
+    mtime: float = 0.0
+    ec: str | None = None  # EC policy name ("rs-6-3-64k") or None
+    attrs: Attrs = field(default_factory=lambda: Attrs(
+        "hdrf", "supergroup", 0o644))
+    # stable inode id (INodeId analog): assigned at creation from a
+    # journaled counter, persisted through fsimage and snapshot freezes —
+    # what lets snapshot diff distinguish a rename from delete+create
+    inode_id: int = 0
+
+
+@dataclass
+class BlockInfo:
+    block_id: int
+    gen_stamp: int
+    length: int  # logical; -1 until the client reports it at complete()
+    path: str
+    # serving replicas: DNs holding the CURRENT generation
+    locations: set[str] = field(default_factory=set)  # dn_ids
+    # the allocation's intended pipeline (BlockInfoUnderConstruction
+    # .expectedLocations): lease recovery queries these DNs DIRECTLY
+    # instead of racing their asynchronous IBRs — soft state, rebuilt
+    # from reports after an NN restart
+    expected: list[str] = field(default_factory=list)
+    # every live replica ever reported, any generation: dn_id ->
+    # (gen_stamp, length).  This is what lease recovery consults — an IBR
+    # must never fix a UC block's length (first-reporter-wins would violate
+    # the min-CRC-verified-prefix invariant), and a stale-generation replica
+    # that is the block's only copy must never be destroyed (the reference's
+    # commitBlockSynchronization restamps it instead).
+    reported: dict[str, tuple[int, int]] = field(default_factory=dict)
+    # per-replica storage type from reports (DatanodeStorageInfo analog):
+    # dn_id -> "DISK"/"SSD"/...; absent for DNs that report untyped
+    storage_of: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class SymNode:
+    """Symbolic link inode (INodeSymlink analog).  Resolution is
+    CLIENT-side, as in the reference: the NN answers a path touching a
+    symlink with a SymlinkRedirect error carrying the resolved path, and
+    the client retries (UnresolvedPathException / FileContext retry)."""
+
+    target: str
+    attrs: Attrs = field(default_factory=lambda: Attrs(
+        "hdrf", "supergroup", 0o777))
+    inode_id: int = 0
+
+
+class SymlinkRedirect(Exception):
+    """Raised mid-resolution; the message IS the resolved path."""
+
+
+def _frozen_inode_id(node: list) -> int:
+    """Inode id embedded in a frozen-tree node (0 = pre-inode-id legacy)."""
+    if node[0] == "f":
+        return node[8] if len(node) > 8 else 0
+    return node[3] if len(node) > 3 else 0   # "d" and "l" share the slot
+
+
+def _index_frozen(tree: list) -> dict:
+    """Flatten a frozen tree into {identity_key: record}.  The key is the
+    inode id when present; legacy id-0 nodes fall back to path identity
+    (diff then degrades to delete+create for their renames — exactly the
+    pre-inode-id information content)."""
+    idx: dict = {}
+
+    def walk(node: list, path: str, parent_key, name: str):
+        nid = _frozen_inode_id(node)
+        key = nid if nid else f"p:{path or '/'}"
+        rec = {"path": path or "/", "parent": parent_key, "name": name,
+               "kind": node[0]}
+        if node[0] == "d":
+            # content signature = attrs only; membership is tracked via
+            # the children map (a changed map marks the DIR as modified,
+            # HDFS's "containing directory is reported modified" rule)
+            rec["sig"] = repr(node[2] if len(node) > 2 else None)
+            kids = {}
+            for cname, child in node[1].items():
+                ck = walk(child, f"{path}/{cname}", key, cname)
+                kids[cname] = ck
+            rec["children"] = kids
+        else:
+            rec["sig"] = repr(node[:8] if node[0] == "f" else node[:3])
+        idx[key] = rec
+        return key
+
+    walk(tree, "", None, "")
+    return idx
+
+
+def _diff_trees(a: list, b: list) -> list[dict]:
+    """SnapshotDiffInfo's delta computation over two frozen trees: a node
+    present in both counts as RENAMEd iff its (parent, name) changed, and
+    MODIFYd iff its content signature (or, for dirs, child membership)
+    changed; unmatched nodes are CREATE/DELETE."""
+    ia, ib = _index_frozen(a), _index_frozen(b)
+    entries: list[dict] = []
+    for k, rb in ib.items():
+        ra = ia.get(k)
+        if ra is None:
+            entries.append({"type": "CREATE", "path": rb["path"]})
+            continue
+        if (ra["parent"], ra["name"]) != (rb["parent"], rb["name"]):
+            entries.append({"type": "RENAME", "path": ra["path"],
+                            "target": rb["path"]})
+        changed = ra["sig"] != rb["sig"] or (
+            rb["kind"] == "d" and ra.get("children") != rb.get("children"))
+        if changed:
+            entries.append({"type": "MODIFY", "path": rb["path"]})
+    for k, ra in ia.items():
+        if k not in ib:
+            entries.append({"type": "DELETE", "path": ra["path"]})
+    entries.sort(key=lambda e: (e["path"], e["type"]))
+    return entries
+
+
+@dataclass
+class GroupInfo:
+    """EC block group: k+m internal blocks striped over distinct DNs
+    (the BlockInfoStriped / block-group analog)."""
+    group_id: int              # == bids[0]
+    bids: list[int]
+    logical_len: int = -1      # group's logical bytes; -1 until complete()
+
+
+@dataclass
+class DatanodeInfo:
+    dn_id: str
+    addr: tuple[str, int]  # data-transfer endpoint
+    last_heartbeat: float = 0.0
+    blocks: set[int] = field(default_factory=set)
+    commands: list[dict] = field(default_factory=list)  # queued for next heartbeat
+    stats: dict = field(default_factory=dict)
+    sc_path: str | None = None  # short-circuit unix socket (co-located reads)
+    rack: str = "/default-rack"
+    storage_type: str = "DISK"  # primary StorageType (first volume's)
+    # every type this DN has a volume of (multi-volume DNs report a list;
+    # the reference models this as one DatanodeStorageInfo per storage)
+    storage_types: tuple = ("DISK",)
+    cached: set[int] = field(default_factory=set)  # pinned block ids
+
+
+class LeaseManager:
+    """File-write leases (LeaseManager analog): one writer per file, renewed
+    by client heartbeat, expired leases recovered by the monitor."""
+
+    def __init__(self, expiry_s: float = 60.0):
+        self.expiry_s = expiry_s
+        self._leases: dict[str, tuple[str, float]] = {}  # path -> (client, deadline)
+
+    def clear(self) -> None:
+        """Demotion hygiene: a standby holds no leases (the active owns
+        lease management; stale entries would block creates after a later
+        promotion)."""
+        self._leases.clear()
+
+    def check_available(self, path: str, client: str) -> None:
+        """Raise iff another client holds a live lease (non-mutating — safe
+        to call before the op is durably logged)."""
+        holder = self._leases.get(path)
+        if holder and holder[0] != client and holder[1] > time.monotonic():
+            raise PermissionError(f"{path} leased by {holder[0]}")
+
+    def acquire(self, path: str, client: str) -> None:
+        self.check_available(path, client)
+        self._leases[path] = (client, time.monotonic() + self.expiry_s)
+
+    def check(self, path: str, client: str) -> None:
+        holder = self._leases.get(path)
+        if holder is None or holder[0] != client:
+            raise PermissionError(f"{client} does not hold the lease on {path}")
+
+    def release(self, path: str, client: str) -> None:
+        self.check(path, client)
+        del self._leases[path]
+
+    def renew_all(self, client: str) -> None:
+        now = time.monotonic()
+        for path, (holder, _) in list(self._leases.items()):
+            if holder == client:
+                self._leases[path] = (client, now + self.expiry_s)
+
+    def expired(self) -> list[str]:
+        now = time.monotonic()
+        return [p for p, (_, dl) in self._leases.items() if dl <= now]
+
+    def force_expire(self, path: str) -> None:
+        """Mark ``path``'s lease expired NOW (recoverLease): the recovery
+        monitor keeps retrying finalization each tick until the file closes,
+        while an expired lease no longer blocks other writers.  The holder
+        becomes the recovery placeholder UNCONDITIONALLY — keeping the
+        original writer's name would let a still-alive writer's renew_all
+        resurrect the lease and silently cancel the forced recovery."""
+        self._leases[path] = ("<recovery>", 0.0)
+
+    def drop(self, path: str) -> None:
+        self._leases.pop(path, None)
+
+    def drop_subtree(self, prefix: str) -> None:
+        """Release leases on ``prefix`` and everything under it (directory
+        delete must not leave stale leases blocking re-creation)."""
+        p = prefix.rstrip("/")
+        for path in list(self._leases):
+            if path == p or path.startswith(p + "/"):
+                del self._leases[path]
+
+
+class StandbyError(Exception):
+    """Mutating RPC hit a standby NameNode (StandbyException analog) — the
+    HA client proxy fails over to the next NN on this."""
+
+
+class ObserverStaleError(Exception):
+    """Observer read refused because the tailer hasn't caught up — either
+    to the caller's piggybacked state-id within ``observer_wait_s``, or at
+    all within the hard ``observer_max_lag_s`` staleness bound
+    (ObserverRetryOnActiveException analog).  The HA client proxy bounces
+    the read to the active on this; it is counted, never silently stale."""
+
+
+# The read-only RPC set an observer serves (ClientProtocol methods marked
+# @ReadOnly in the reference; GlobalStateIdContext.isCoordinatedCall
+# analog).  Everything else — mutations, admin transitions — is refused
+# with StandbyError unless it is DN-protocol/HA plumbing (_AUTH_EXEMPT):
+# observers consume DN registrations/heartbeats/block reports so their
+# block map stays warm enough to answer get_block_locations.
+_OBSERVER_READS = frozenset({
+    "get_block_locations", "stat", "listing", "ec_status",
+    "content_summary", "get_xattrs", "get_acl", "get_storage_policy",
+    "list_snapshots", "snapshot_diff", "list_cache_pools",
+    "list_cache_directives", "list_encryption_zones", "get_ez",
+    "datanode_report", "cluster_status", "decommission_status",
+    "slow_nodes_report", "slow_peers", "policy_violations",
+    "datanode_blocks", "get_events", "fsck", "metrics", "contention",
+    "flight_timeseries", "flight_query", "trace_spans",
+    "check_delegation_token", "msync", "ha_state",
+})
+
+
+def refuse_waiting_planes(config: NameNodeConfig) -> None:
+    """Raise ``NotImplementedError`` naming the queue item when ``config``
+    turns on a plane the port does not have yet (the status HTTP server)."""
+    if config.status_port is not None:
+        raise NotImplementedError(
+            "NameNodeConfig.status_port turns on a plane not ported yet: "
+            "status_http + prom (ROADMAP Queue A4)")
+
+
+class NameNode:
+    def __init__(self, config: NameNodeConfig | None = None):
+        self.config = config or NameNodeConfig()
+        refuse_waiting_planes(self.config)
+        self.role = self.config.role  # "active" | "standby" | "observer"
+        # Observer staleness bookkeeping: monotonic time of the last
+        # successful tail pass (lag_s = now - this on non-active roles)
+        # and the highest client state-id ever presented — the demand-side
+        # txid horizon that observer_lag_txids is measured against (an
+        # observer can't cheaply see the journal end, but it knows what
+        # clients have proven to exist).
+        self._tail_ok_t = time.monotonic()
+        self._max_seen_sid = 0
+        # The FSNamesystem lock analog — instrumented (utils/lockprof.py):
+        # per-RPC-method wait/hold books, saturation, long-hold stacks.
+        self._lock = lockprof.InstrumentedRLock(
+            "nn_lock", registry=_M,
+            long_hold_s=self.config.lock_long_hold_s)
+        # The superuser is the NN process owner (dfs.permissions.superusergroup
+        # / UGI of the NN, FSPermissionChecker semantics); in-process callers
+        # (no wire identity) also act as superuser.
+        import getpass
+
+        self._superuser = getpass.getuser()
+        # namespace: nested DirNode tree; leaves are FileNode
+        self._root: DirNode = DirNode(
+            attrs=Attrs(self._superuser, "supergroup", 0o755))
+        # inode ids: deterministic across replay (assignment order follows
+        # the edit log), persisted in the fsimage; root is always 0
+        self._next_inode = 1
+        self._blocks: dict[int, BlockInfo] = {}
+        self._groups: dict[int, GroupInfo] = {}  # EC group_id -> group
+        self._datanodes: dict[str, DatanodeInfo] = {}
+        self._leases = LeaseManager()
+        self._pending_repl: dict[int, float] = {}  # block_id -> retry deadline
+        self._under_replicated = 0  # cached by _check_replication
+        # balancer moves in flight: block -> {"from", "to", "deadline"}
+        self._pending_moves: dict[int, dict] = {}
+        self._pending_ibr: dict[int, list] = {}    # standby: IBRs ahead of tail
+        self._alloc_charge: dict[int, tuple[str, int]] = {}  # bid -> (path, bytes)
+        self._events: list[dict] = []   # inotify ring (active only)
+        self._events_cap = 10_000
+        self._decommissioning: set[str] = set()
+        self._safemode_forced = False
+        # auto safemode on startup when a non-empty namespace was loaded:
+        # hold mutations until enough replicas have reported in
+        self._safemode_auto = False
+        self._events_trimmed = 0        # events up to this seq were dropped
+        self._pending_space: dict[str, int] = {}   # quota root -> charged bytes
+        self._pending_recovery: dict[int, float] = {}  # bid -> retry deadline
+        self._recovery_grace: dict[int, float] = {}    # bid -> IBR-wait deadline
+        # EC cold tier: blocks demoted to (k+m)/k stripes (editlog-durable
+        # "ec_demote" records; demoted blocks want ONE full replica, the
+        # stripe owner).  Stripe groups are SOFT state — the WAL-durable
+        # copy lives in each owner DN's chunk index; this cache is rebuilt
+        # from stripe_complete RPCs + heartbeat manifest reports.
+        self._ec_demoted: set[int] = set()
+        self._stripe_groups: dict[tuple[str, int], dict] = {}
+        self._pending_demote: dict[int, float] = {}       # bid -> deadline
+        self._pending_stripe_repair: dict[tuple[str, int], float] = {}
+        # scrub-confirmed corrupt stripes on LIVE holders (rpc_bad_stripe):
+        # (owner, cid) -> stripe indices needing re-decode.  The stripe-
+        # repair monitor unions these into its dead-holder `missing` set so
+        # one scheduler handles both loss modes; cleared when the owner's
+        # stripe_complete report lands (repair done) or the group vanishes.
+        self._corrupt_stripes: dict[tuple[str, int], set[int]] = {}
+        # last invariant-census result (_check_fsck monitor pass) — what
+        # rpc_cluster_status and the gateway /health verdict read without
+        # re-walking the block map per page load
+        self._last_fsck: dict | None = None
+        # Stripe manifests journaled at demote/repair time (editlog +
+        # fsimage durable, unlike the soft _stripe_groups cache) so
+        # owner-loss repair can rebuild a container's stripes after the
+        # owner DN — and its WAL-durable chunk index — is gone for good.
+        self._stripe_manifests: dict[tuple[str, int], dict] = {}
+        # Coded mirror plane: blocks where some DN holds only a k-of-n
+        # SEGMENT of the reduced payload (server/mirror_plane.py), not a
+        # full replica.  bid -> dn_id -> first-seen monotonic time.  These
+        # never count toward info.locations; the reconciliation monitor
+        # upgrades them to full replicas in the background.
+        self._partial_replicas: dict[int, dict[str, float]] = {}
+        self._pending_partial: dict[int, float] = {}      # bid -> retry deadline
+        # Snapshots: frozen subtree images per snapshottable dir
+        # (namenode/snapshot analog; blocks are immutable once complete, so a
+        # structural freeze IS a consistent point-in-time view).
+        self._snapshottable: set[str] = set()
+        self._snapshots: dict[str, dict[str, dict]] = {}  # dir -> name -> tree
+        self._quotas: dict[str, tuple[int, int]] = {}  # dir -> (ns, space)
+        # Encryption zones (EncryptionZoneManager.java:71 analog): zone
+        # root -> key name; zone keys live WITH the metadata (the owned
+        # KeyProvider replacing the reference's external KMS — key custody
+        # equals metadata custody here, documented trade).
+        self._ezones: dict[str, str] = {}
+        self._ezkeys: dict[str, bytes] = {}
+        # Centralized cache management (CacheManager.java:103 analog):
+        # pools bound directives; directives pin paths' blocks in DN RAM.
+        self._cache_pools: dict[str, dict] = {}   # name -> {owner, limit}
+        self._cache_dirs: dict[int, dict] = {}    # id -> {path, pool}
+        self._next_cache_id = 1
+        self._pending_cache: dict[tuple[int, str], float] = {}
+        # Cached usage per quota root: [entries, bytes]; None = recompute on
+        # next check (the reference maintains counts on the quota INode for
+        # the same reason: O(subtree) walks per create don't scale).
+        self._qusage: dict[str, list | None] = {}
+        # block ids live in this NN's block-pool range (federation):
+        # (pool_index << 48) | seq — disjoint across nameservices
+        self._pool_base = self.config.block_pool_index << 48
+        self._next_block_id = self._pool_base + 1
+        self._gen_stamp = 1
+        from hdrf_tpu_torch.security import (BlockTokenSecretManager,
+                                       DelegationTokenManager)
+        self._tokens = (BlockTokenSecretManager()
+                        if self.config.block_tokens else None)
+        self._dtokens = DelegationTokenManager()
+        # layout check/upgrade before the edit log opens the meta dir
+        # (Storage.analyzeStorage; a future-layout dir refuses to load)
+        from hdrf_tpu_torch.storage import version as storage_version
+
+        storage_version.ensure_layout(self.config.meta_dir, "namenode",
+                                      storage_version.NN_UPGRADERS)
+        self._editlog = EditLog(self.config.meta_dir,
+                                self.config.editlog_checkpoint_every,
+                                journal_addrs=self.config.journal_addrs)
+        self._load()
+        self._load_decommissioning()
+        self._safemode_auto = bool(self._blocks) and self.role == "active"
+        # Group commit (FSEditLog.logSync design): rpc_* handlers buffer
+        # edits under the namesystem lock and sync AFTER releasing it, so
+        # one fsync / quorum round covers every concurrent handler's
+        # records.  Wrapping the bound methods (instance attrs shadow the
+        # class) covers the RPC server and direct in-process callers alike.
+        self._sync_ctx = threading.local()
+        for _name in dir(type(self)):
+            if _name.startswith("rpc_"):
+                setattr(self, _name, self._sync_wrap(getattr(self, _name)))
+        # Stall watchdog over in-flight RPC handlers (the VM's write-burst
+        # throttling can wedge any fsync-bearing handler ~35 s).
+        self.watchdog = StallWatchdog("namenode",
+                                      budget_s=self.config.stall_budget_s,
+                                      registry=_M, lock=self._lock)
+        self._rpc = RpcServer(self.config.host, self.config.port, self,
+                              "namenode", watchdog=self.watchdog,
+                              max_handlers=self.config.rpc_max_handlers)
+        # Cluster-level flight recorder (utils/flight_recorder.py): exists
+        # even without a status port — the gateway pulls its ring over the
+        # flight_timeseries RPC.  Optionally archive-backed so the curve
+        # survives NN restarts (utils/flight_archive.py).
+        self.flight_archive = None
+        if self.config.flight_archive_dir:
+            arch_dir = self.config.flight_archive_dir
+            if not os.path.isabs(arch_dir):
+                arch_dir = os.path.join(self.config.meta_dir, arch_dir)
+            self.flight_archive = flight_archive.FlightArchive(
+                arch_dir,
+                max_bytes=self.config.flight_archive_max_mb << 20)
+        self.flight = flight_recorder.FlightRecorder(
+            "namenode", self._flight_sample,
+            interval_s=self.config.flight_interval_s,
+            capacity=self.config.flight_capacity,
+            archive=self.flight_archive)
+        self._status = None
+        self._monitor_stop = threading.Event()
+        self._monitor: threading.Thread | None = None
+        self._logger = log.get_logger("namenode")
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> "NameNode":
+        self._rpc.start()
+        self.watchdog.start()
+        if self.config.flight_interval_s > 0:
+            self.flight.start()
+        if self._status is not None:
+            self._status.start()
+        target = (self._monitor_loop if self.role == "active"
+                  else self._tailer_loop)
+        self._monitor = threading.Thread(target=target, name="nn-monitor",
+                                         daemon=True)
+        self._monitor.start()
+        self._logger.info("namenode started", role=self.role,
+                       addr=f"{self.addr[0]}:{self.addr[1]}",
+                       blocks=len(self._blocks))
+        return self
+
+    def stop(self) -> None:
+        self._monitor_stop.set()
+        self.flight.stop()
+        if self.flight_archive is not None:
+            self.flight_archive.close()
+        self.watchdog.stop()
+        if self._status is not None:
+            self._status.stop()
+        if self._monitor:
+            self._monitor.join(timeout=5)
+        self._rpc.stop()
+        self._editlog.close()
+
+    @property
+    def addr(self) -> tuple[str, int]:
+        return self._rpc.addr
+
+    # ---------------------------------------------------------- persistence
+
+    def _load(self) -> None:
+        snap = self._editlog.load_image()
+        if snap is not None:
+            self._restore(snap)
+        if self.role != "active":
+            from hdrf_tpu_torch.server.editlog import JournalGapError
+
+            # standby/observer: tail-only — never truncate or append to the
+            # active's journal, and never apply past the committed floor
+            try:
+                self._editlog.replay(self._apply_tolerant, readonly=True)
+            except JournalGapError:
+                # quorum purged past our (possibly absent) image: the tailer
+                # loop bootstraps a newer image from the active peer
+                pass
+        else:
+            # Claim BEFORE replaying: the claim fences older writers and (in
+            # quorum mode) runs segment recovery, so the replay reads a
+            # consistent, committed log.  Replaying first could apply a
+            # minority-only record that recovery then drops.
+            self._editlog.claim_epoch()
+            self._editlog.replay(self._apply_tolerant)
+            self._editlog.open_for_append(self._snapshot)
+
+    def _reload_image(self, snap: dict) -> None:
+        """Standby-side fsimage reload (the active checkpointed): _restore
+        rebuilds BlockInfos with empty location sets, so re-seed them from
+        the DN-report-built map — the warm block map is the whole point of
+        a hot standby."""
+        old_locs = {bid: info.locations for bid, info in self._blocks.items()}
+        self._restore(snap)
+        for bid, locs in old_locs.items():
+            info = self._blocks.get(bid)
+            if info is not None:
+                info.locations |= locs
+
+    def _apply_tolerant(self, rec: list) -> None:
+        """Replay-path apply: a record that no longer applies (e.g. the WAL
+        tail diverged because an append failed mid-crash) is skipped with a
+        count rather than crash-looping the NameNode on startup."""
+        try:
+            self._apply(rec)
+        except Exception:  # noqa: BLE001 — startup must make progress
+            _M.incr("replay_records_skipped")
+
+    def _alloc_inode(self) -> int:
+        i = self._next_inode
+        self._next_inode += 1
+        return i
+
+    def _snapshot(self) -> dict:
+        def walk(node: dict) -> dict:
+            out = {}
+            for name, child in node.items():
+                if isinstance(child, FileNode):
+                    out[name] = ["f", child.replication, child.scheme,
+                                 child.blocks, child.complete, child.mtime,
+                                 child.ec, child.attrs.pack(),
+                                 child.inode_id]
+                elif isinstance(child, SymNode):
+                    out[name] = ["l", child.target, child.attrs.pack(),
+                                 child.inode_id]
+                else:
+                    out[name] = ["d", walk(child),
+                                 child.attrs.pack()
+                                 if isinstance(child, DirNode) else None,
+                                 getattr(child, "inode_id", 0)]
+            return out
+
+        return {
+            "tree": walk(self._root),
+            "next_inode": self._next_inode,
+            "root_attrs": self._root.attrs.pack(),
+            "blocks": {b.block_id: [b.gen_stamp, b.length, b.path]
+                       for b in self._blocks.values()},
+            "groups": {g.group_id: [g.bids, g.logical_len]
+                       for g in self._groups.values()},
+            "next_block_id": self._next_block_id,
+            "gen_stamp": self._gen_stamp,
+            "snapshottable": sorted(self._snapshottable),
+            "snapshots": self._snapshots,
+            "quotas": {p: list(q) for p, q in self._quotas.items()},
+            "ezones": dict(self._ezones),
+            "ezkeys": {k: bytes(v) for k, v in self._ezkeys.items()},
+            "cache_pools": self._cache_pools,
+            "cache_dirs": {i: [d["path"], d["pool"]]
+                           for i, d in self._cache_dirs.items()},
+            "next_cache_id": self._next_cache_id,
+            "dtokens": self._dtokens.snapshot(),
+            "ec_demoted": sorted(self._ec_demoted),
+            "stripe_manifests": [[owner, cid, man] for (owner, cid), man
+                                 in sorted(self._stripe_manifests.items())],
+        }
+
+    def _restore(self, snap: dict) -> None:
+        def walk(m: dict) -> DirNode:
+            out = DirNode()
+            for name, v in m.items():
+                if v[0] == "f":
+                    out[name] = FileNode(
+                        v[1], v[2], list(v[3]), v[4], v[5],
+                        v[6] if len(v) > 6 else None,
+                        Attrs.unpack(v[7] if len(v) > 7 else None,
+                                     mode=0o644),
+                        inode_id=v[8] if len(v) > 8 else 0)
+                elif v[0] == "l":
+                    out[name] = SymNode(v[1], Attrs.unpack(v[2]),
+                                        inode_id=v[3] if len(v) > 3 else 0)
+                else:
+                    d = walk(v[1])
+                    d.attrs = Attrs.unpack(v[2] if len(v) > 2 else None)
+                    d.inode_id = v[3] if len(v) > 3 else 0
+                    out[name] = d
+            return out
+
+        self._root = walk(snap["tree"])
+        self._next_inode = snap.get("next_inode", 1)
+        self._root.attrs = Attrs.unpack(
+            snap.get("root_attrs"), owner=self._superuser)
+        self._blocks = {bid: BlockInfo(bid, gs, ln, path)
+                        for bid, (gs, ln, path) in snap["blocks"].items()}
+        self._groups = {gid: GroupInfo(gid, list(bids), ln)
+                        for gid, (bids, ln) in snap.get("groups", {}).items()}
+        self._snapshottable = set(snap.get("snapshottable", []))
+        self._snapshots = snap.get("snapshots", {})
+        self._quotas = {p: tuple(q)
+                        for p, q in snap.get("quotas", {}).items()}
+        self._next_block_id = snap["next_block_id"]
+        self._gen_stamp = snap["gen_stamp"]
+        self._ezones = dict(snap.get("ezones", {}))
+        self._ezkeys = {k: bytes(v)
+                        for k, v in snap.get("ezkeys", {}).items()}
+        self._cache_pools = {k: dict(v) for k, v in
+                             snap.get("cache_pools", {}).items()}
+        self._cache_dirs = {i: {"path": v[0], "pool": v[1]}
+                            for i, v in snap.get("cache_dirs", {}).items()}
+        self._next_cache_id = snap.get("next_cache_id", 1)
+        if "dtokens" in snap:
+            self._dtokens.restore(snap["dtokens"])
+        self._ec_demoted = set(snap.get("ec_demoted", []))
+        self._stripe_manifests = {(owner, int(cid)): man for owner, cid, man
+                                  in snap.get("stripe_manifests", [])}
+
+    def _apply(self, rec: list) -> None:
+        """Apply one edit record (replay path and live path share this)."""
+        op = rec[0]
+        if op == "mkdir":
+            self._mkdir_apply(rec[1], user=rec[2] if len(rec) > 2 else None,
+                              mode=rec[3] if len(rec) > 3 else None)
+        elif op == "create":
+            _, path, replication, scheme, mtime, *rest = rec
+            user = rest[1] if len(rest) > 1 else None
+            mode = rest[2] if len(rest) > 2 else None
+            parent, name = self._parent_of(path, create=True, user=user)
+            attrs = perm.inherit_attrs(
+                self._dir_attrs(parent), user or self._superuser, None,
+                is_dir=False, umode=mode)
+            node = FileNode(replication, scheme, mtime=mtime,
+                            ec=rest[0] if rest else None, attrs=attrs)
+            node.inode_id = self._alloc_inode()
+            parent[name] = node
+        elif op == "add_block_group":
+            _, path, bids, gs = rec
+            node = self._file(path)
+            node.blocks.append(bids[0])
+            self._groups[bids[0]] = GroupInfo(bids[0], list(bids))
+            for bid in bids:
+                self._blocks[bid] = BlockInfo(bid, gs, -1, path)
+            self._next_block_id = max(self._next_block_id, max(bids) + 1)
+            self._gen_stamp = max(self._gen_stamp, gs + 1)
+        elif op == "add_block":
+            _, path, bid, gs = rec
+            node = self._file(path)
+            node.blocks.append(bid)
+            self._blocks[bid] = BlockInfo(bid, gs, -1, path)
+            self._next_block_id = max(self._next_block_id, bid + 1)
+            self._gen_stamp = max(self._gen_stamp, gs + 1)
+        elif op == "abandon_block":
+            _, path, bid = rec
+            node = self._file(path)
+            if bid in node.blocks:
+                node.blocks.remove(bid)
+            self._blocks.pop(bid, None)
+            self._uncharge_alloc(bid)
+        elif op == "append":
+            node = self._file(rec[1])
+            node.complete = False
+            node.mtime = rec[2]
+        elif op == "bump_block":
+            _, path, bid, gs = rec
+            info = self._blocks[bid]
+            info.gen_stamp = gs
+            info.length = -1        # being rewritten; synced at complete
+            # the new-generation pipeline repopulates locations via IBRs;
+            # leaving the old-generation holders here would hand readers
+            # stale bytes right after an append (they stay in `reported`
+            # until the post-supersede block report invalidates them)
+            info.locations.clear()
+            self._gen_stamp = max(self._gen_stamp, gs + 1)
+        elif op == "truncate":
+            _, path, new_len, mtime = rec
+            node = self._file(path)
+            node.mtime = mtime
+            pos = 0
+            keep: list[int] = []
+            for bid in node.blocks:
+                info = self._blocks[bid]
+                ln = max(info.length, 0)
+                if pos >= new_len:
+                    # dropping the BlockInfo orphans the replicas; the next
+                    # block report invalidates them (deleted-file path)
+                    self._blocks.pop(bid, None)
+                    self._uncharge_alloc(bid)
+                    continue
+                if pos + ln > new_len:
+                    info.length = new_len - pos
+                keep.append(bid)
+                pos += ln
+            node.blocks = keep
+        elif op == "provide":
+            _, path, uri, length, bids, mtime = rec
+            parent, name = self._parent_of(path, create=True)
+            bs = self.config.block_size
+            node = FileNode(1, "direct", list(bids), True, mtime,
+                            inode_id=self._alloc_inode())
+            parent[name] = node
+            p = "/" + "/".join(self._parts(path))
+            for i, bid in enumerate(bids):
+                self._blocks[bid] = BlockInfo(
+                    bid, 0, min(bs, length - i * bs), p)
+            if bids:
+                self._next_block_id = max(self._next_block_id,
+                                          max(bids) + 1)
+        elif op == "fsync":
+            # hflush/hsync visible-length persist (FSNamesystem.fsync):
+            # only ever grows — a lagging retry must not shrink it
+            _, _path, bid, ln = rec
+            finfo = self._blocks.get(bid)
+            if finfo is not None and ln > finfo.length:
+                finfo.length = ln
+        elif op == "complete":
+            _, path, lengths, mtime = rec
+            node = self._file(path)
+            node.complete = True
+            node.mtime = mtime
+            for bid, ln in lengths.items():
+                self._uncharge_alloc(bid)
+                if bid in self._groups:
+                    self._groups[bid].logical_len = ln
+                elif bid in self._blocks:
+                    self._blocks[bid].length = ln
+        elif op == "delete":
+            self._delete_apply(rec[1])
+        elif op == "rename":
+            self._rename_apply(rec[1], rec[2])
+        elif op == "allow_snapshot":
+            path = "/" + "/".join(self._parts(rec[1]))
+            self._snapshottable.add(path)
+            self._snapshots.setdefault(path, {})
+        elif op == "create_snapshot":
+            _, path, name = rec
+            path = "/" + "/".join(self._parts(path))
+            node = self._resolve(path)
+            self._snapshots.setdefault(path, {})[name] = self._freeze(node)
+        elif op == "delete_snapshot":
+            self._delete_snapshot_apply(rec[1], rec[2])
+        elif op == "dt_key":
+            self._dtokens.apply_key(rec[1], rec[2],
+                                    rec[3] if len(rec) > 3 else 0.0)
+        elif op == "dt_issue":
+            self._dtokens.apply_issue(rec[1], rec[2])
+        elif op == "dt_renew":
+            self._dtokens.apply_renew(rec[1], rec[2])
+        elif op == "dt_cancel":
+            self._dtokens.apply_cancel(rec[1])
+        elif op == "setpolicy":
+            self._node_attrs(self._resolve(rec[1])).policy = rec[2] or None
+        elif op == "setrepl":
+            node = self._file(rec[1])
+            node.replication = rec[2]
+        elif op == "settimes":
+            node = self._file(rec[1])
+            if rec[2] >= 0:
+                node.mtime = rec[2]
+        elif op == "concat":
+            _, dst, srcs, *_rest = rec
+            dnode = self._file(dst)
+            for sp in srcs:
+                snode = self._file(sp)
+                dnode.blocks.extend(snode.blocks)
+                dpath = "/" + "/".join(self._parts(dst))
+                for bid in snode.blocks:
+                    if bid in self._blocks:
+                        self._blocks[bid].path = dpath
+                    grp = self._groups.get(bid)
+                    if grp is not None:
+                        for b in grp.bids:
+                            if b in self._blocks:
+                                self._blocks[b].path = dpath
+                snode.blocks = []
+                parent, name = self._parent_of(sp)
+                parent.pop(name, None)
+                self._leases.drop(sp)
+            dnode.mtime = rec[3] if len(rec) > 3 else 0.0
+        elif op == "symlink":
+            _, link, target, *rest = rec
+            parent, name = self._parent_of(link, create=True,
+                                           user=rest[0] if rest else None)
+            parent[name] = SymNode(target, perm.inherit_attrs(
+                self._dir_attrs(parent), rest[0] if rest
+                else self._superuser, None, is_dir=False, umode=0o777),
+                inode_id=self._alloc_inode())
+        elif op == "ezkey":
+            self._ezkeys[rec[1]] = bytes(rec[2])
+        elif op == "ez":
+            self._ezones["/" + "/".join(self._parts(rec[1]))] = rec[2]
+        elif op == "cachepool":
+            self._cache_pools[rec[1]] = {"owner": rec[2], "limit": rec[3]}
+        elif op == "rmcachepool":
+            self._cache_pools.pop(rec[1], None)
+            self._cache_dirs = {i: d for i, d in self._cache_dirs.items()
+                                if d["pool"] != rec[1]}
+        elif op == "cachedir":
+            self._cache_dirs[rec[1]] = {"path": rec[2], "pool": rec[3]}
+            self._next_cache_id = max(self._next_cache_id, rec[1] + 1)
+        elif op == "rmcachedir":
+            self._cache_dirs.pop(rec[1], None)
+        elif op == "setperm":
+            self._node_attrs(self._resolve(rec[1])).mode = rec[2]
+        elif op == "setowner":
+            a = self._node_attrs(self._resolve(rec[1]))
+            if rec[2]:
+                a.owner = rec[2]
+            if rec[3]:
+                a.group = rec[3]
+        elif op == "setacl":
+            a = self._node_attrs(self._resolve(rec[1]))
+            a.acl = [list(e) for e in rec[2]]
+            a.dacl = [list(e) for e in rec[3]]
+        elif op == "setxattr":
+            self._node_attrs(self._resolve(rec[1])).xattrs[rec[2]] = \
+                bytes(rec[3])
+        elif op == "rmxattr":
+            self._node_attrs(self._resolve(rec[1])).xattrs.pop(rec[2], None)
+        elif op == "set_quota":
+            _, path, ns_q, sp_q = rec
+            path = "/" + "/".join(self._parts(path))
+            if ns_q < 0 and sp_q < 0:  # clrQuota form
+                self._quotas.pop(path, None)
+                self._qusage.pop(path, None)
+            else:
+                # -1 on one axis keeps the existing limit: -setQuota and
+                # -setSpaceQuota must compose, as the HDFS commands do
+                old = self._quotas.get(path, (-1, -1))
+                self._quotas[path] = (ns_q if ns_q >= 0 else old[0],
+                                      sp_q if sp_q >= 0 else old[1])
+                self._qusage[path] = None  # seed lazily
+        elif op == "ec_demote":
+            # [op, block_id, owner_dn, manifests?] — block's containers
+            # demoted to the EC stripe tier; from here the block wants ONE
+            # full replica (the stripe owner) and redundancy lives in the
+            # (k+m)/k stripes.  Grown records carry the stripe manifests
+            # (cid -> {k, m, holders, crcs, ...}) so owner-loss repair can
+            # rebuild stripes after the owner DN's WAL-durable index is
+            # gone; block_id is None when a repair re-journals manifests
+            # for an already-demoted block.  Two-field seed records (no
+            # owner/manifests) still replay.
+            if rec[1] is not None:
+                self._ec_demoted.add(rec[1])
+            if len(rec) >= 4:
+                for cid_s, man in (rec[3] or {}).items():
+                    self._stripe_manifests[(rec[2], int(cid_s))] = man
+
+    def _account(self, rec: list) -> None:
+        """Keep cached quota usage in sync with an applied edit.  Cheap ops
+        adjust incrementally; structural ops (delete/rename/snapshots) mark
+        affected roots dirty for lazy recount."""
+        if not self._quotas:
+            return
+        op = rec[0]
+        if op == "mkdir":
+            for r, _ in self._quota_roots_of(rec[1]):
+                self._qusage[r] = None  # created-count unknown: recount lazily
+        elif op == "create":
+            for r, _ in self._quota_roots_of(rec[1]):
+                u = self._qusage.get(r)
+                if u is not None:
+                    u[0] += 1
+                else:
+                    self._qusage[r] = None
+        elif op == "complete":
+            # delta vs lengths already known (an IBR may have set a block's
+            # length before complete — don't double count)
+            add = rec[-1]  # precomputed by _log before apply
+            for r, _ in self._quota_roots_of(rec[1]):
+                u = self._qusage.get(r)
+                if u is not None:
+                    u[1] += add
+        elif op == "symlink":
+            for r, _ in self._quota_roots_of(rec[1]):
+                u = self._qusage.get(r)
+                if u is not None:
+                    u[0] += 1
+                else:
+                    self._qusage[r] = None
+        elif op == "concat":
+            for path in [rec[1], *rec[2]]:
+                for r, _ in self._quota_roots_of(path):
+                    self._qusage[r] = None
+        elif op in ("delete", "rename", "delete_snapshot", "truncate",
+                    "fsync"):
+            # truncate included: it SHRINKS usage (dropped whole blocks +
+            # the cut boundary block), which the incremental paths never
+            # subtract — a stale high value would falsely reject writes.
+            # fsync included: it sets a UC block length early, which would
+            # skew complete's incremental delta — recount lazily instead
+            for path in (rec[1], rec[2] if op == "rename" else rec[1]):
+                if isinstance(path, str):
+                    for r, _ in self._quota_roots_of(path):
+                        self._qusage[r] = None
+
+    def _sync_wrap(self, fn):
+        """Bound-method wrapper giving every entry point group-commit
+        semantics: edits buffered by ``_log`` during the call are synced
+        (durably journaled) after the namesystem lock is released, before
+        the caller sees the result — the reference's handler shape
+        (mutate under lock, ``logSync`` outside it, FSEditLog.java:124).
+        Depth-tracked so nested rpc_* calls sync once, at the top."""
+        import functools
+
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            ctx = self._sync_ctx
+            ctx.depth = getattr(ctx, "depth", 0) + 1
+            try:
+                out = fn(*a, **kw)
+                if ctx.depth == 1:
+                    self._sync_pending()
+                return out
+            except BaseException:
+                if ctx.depth == 1:
+                    try:
+                        self._sync_pending()
+                    except Exception:  # noqa: BLE001 — original error wins
+                        pass
+                raise
+            finally:
+                ctx.depth -= 1
+        return wrapped
+
+    def _sync_pending(self) -> None:
+        """Make this thread's buffered edits durable; on a fencing or
+        quorum-loss failure the NN stops acking and demotes."""
+        from hdrf_tpu_torch.server.editlog import FencedError, QuorumLostError
+
+        seq = getattr(self._sync_ctx, "pending", None)
+        if seq is None:
+            return
+        self._sync_ctx.pending = None
+        try:
+            self._editlog.sync(seq)
+        except FencedError:
+            self._demote()
+            raise StandbyError("namenode fenced: now standby") from None
+        except QuorumLostError:
+            self._demote()
+            raise StandbyError(
+                "journal quorum lost: namenode demoted") from None
+
+    def _log(self, rec: list) -> None:
+        """Validate, then append, then apply.  Validation (non-mutating)
+        rejects bad ops — mkdir over a file, rename onto an existing dst —
+        before anything reaches the WAL, so a rejected op cannot poison
+        replay; appending before applying keeps the log-before-apply
+        durability discipline (editlog.py): if the append raises, memory is
+        untouched and the client sees the error; if apply then raises, WAL
+        and memory agree again after a restart replays the record.
+
+        The append is BUFFERED (group commit): inside an rpc_* call the
+        sync happens after the namesystem lock is released (_sync_wrap);
+        background callers (lease monitor, scanners) sync inline."""
+        from hdrf_tpu_torch.server.editlog import FencedError
+
+        if self.role != "active":
+            raise StandbyError("namenode is standby")
+        self._check_safemode()
+        self._validate(rec)
+        try:
+            seq = self._editlog.append_async(rec)
+        except FencedError:
+            # another NN claimed the journal: demote (old-active fencing)
+            self._demote()
+            raise StandbyError("namenode fenced: now standby") from None
+        self._sync_ctx.pending = seq
+        if getattr(self._sync_ctx, "depth", 0) == 0:
+            self._sync_pending()  # background caller: durable before return
+        if rec[0] == "complete" and self._quotas:
+            delta = 0
+            for bid, ln in rec[2].items():
+                if bid in self._groups:
+                    prev = self._groups[bid].logical_len
+                elif bid in self._blocks:
+                    prev = self._blocks[bid].length
+                else:
+                    continue
+                delta += ln - max(prev, 0)
+            self._apply(rec)
+            self._account(rec + [delta])
+            self._emit_event(rec)
+        else:
+            self._apply(rec)
+            self._account(rec)
+            self._emit_event(rec)
+
+    def _demote(self) -> None:
+        """Fenced/quorum-lost active -> standby.  With group commit the
+        in-memory namespace may contain applied-but-never-durable edits
+        (the sync that failed), so the namespace is RELOADED from the
+        durable image + journal — a demoted NN must converge to what the
+        new active replays, not to its own unacked leftovers."""
+        with self._lock:
+            if self.role == "standby":
+                return
+            self.role = "standby"
+            self._editlog.close()
+            self._editlog = EditLog(self.config.meta_dir,
+                                    self.config.editlog_checkpoint_every,
+                                    journal_addrs=self.config.journal_addrs)
+            old_locs = {bid: info.locations
+                        for bid, info in self._blocks.items()}
+            self._restore({"tree": {}, "blocks": {}, "groups": {},
+                           "next_block_id": 1, "gen_stamp": 1})
+            self._leases.clear()
+            snap = self._editlog.load_image()
+            if snap is not None:
+                self._restore(snap)
+            try:
+                self._editlog.replay(self._apply_tolerant, readonly=True)
+            except Exception:  # noqa: BLE001 — tailer keeps retrying
+                _M.incr("tail_errors")
+            # re-seed block locations from the DN-report-built map (the
+            # whole point of a warm standby)
+            for bid, locs in old_locs.items():
+                info = self._blocks.get(bid)
+                if info is not None:
+                    info.locations |= locs
+        tailer = threading.Thread(target=self._tailer_loop,
+                                  name="nn-tailer", daemon=True)
+        tailer.start()  # the running monitor loop exits on its role check
+        _M.incr("demotions")
+
+    @staticmethod
+    def _link_redirect(target: str, at: list[str], rest: list[str]):
+        """Raise SymlinkRedirect for a link hit at path prefix ``at`` with
+        remaining components ``rest``.  Relative targets resolve against
+        the LINK'S PARENT directory (POSIX), not the root.  The message
+        carries "original\nresolved" so a client retrying a MULTI-path op
+        (rename src/dst, concat srcs) can tell which argument redirected."""
+        tgt = target.rstrip("/")
+        if not tgt.startswith("/"):
+            tgt = "/" + "/".join(at[:-1] + [tgt]) if len(at) > 1 \
+                else "/" + tgt
+        orig = "/" + "/".join(at + rest)
+        raise SymlinkRedirect(
+            orig + "\n"
+            + tgt + ("/" + "/".join(rest) if rest else ""))
+
+    def _peek_parent(self, path: str) -> tuple[dict | None, str]:
+        """Non-mutating walk to ``path``'s parent: raises if a component is a
+        file; returns (None, name) when intermediate dirs don't exist yet
+        (the apply will create them)."""
+        parts = self._parts(path)
+        node: Any = self._root
+        for i, p in enumerate(parts[:-1]):
+            child = node.get(p)
+            if child is None:
+                return None, parts[-1]
+            if isinstance(child, SymNode):
+                self._link_redirect(child.target, parts[:i + 1],
+                                    parts[i + 1:])
+            if isinstance(child, FileNode):
+                raise NotADirectoryError(f"{p} in {path} is a file")
+            node = child
+        return node, parts[-1]
+
+    def _validate(self, rec: list) -> None:
+        """Raise iff applying ``rec`` to the current state would raise,
+        without mutating anything."""
+        op = rec[0]
+        if op == "mkdir":
+            try:
+                parent, name = self._peek_parent(rec[1])
+            except NotADirectoryError as e:  # match _mkdir_apply's type
+                raise FileExistsError(str(e)) from None
+            if parent is not None and isinstance(parent.get(name), FileNode):
+                raise FileExistsError(f"{rec[1]}: {name} is a file")
+        elif op == "create":
+            self._peek_parent(rec[1])
+        elif op == "provide":
+            parent, name = self._peek_parent(rec[1])
+            if parent is not None and name in parent:
+                raise FileExistsError(rec[1])
+        elif op in ("add_block", "add_block_group", "abandon_block",
+                    "complete", "fsync"):
+            self._file(rec[1])
+        elif op == "delete":
+            self._parent_of(rec[1])
+            self._resolve(rec[1], follow_leaf=False)
+        elif op == "rename":
+            self._resolve(rec[1], follow_leaf=False)
+            dparent, dname = self._peek_parent(rec[2])
+            if dparent is not None and dname in dparent:
+                raise FileExistsError(rec[2])
+        elif op == "allow_snapshot":
+            if not isinstance(self._resolve(rec[1]), dict):
+                raise NotADirectoryError(rec[1])
+        elif op == "create_snapshot":
+            p = "/" + "/".join(self._parts(rec[1]))
+            if p not in self._snapshottable:
+                raise PermissionError(f"{p} is not snapshottable")
+            if rec[2] in self._snapshots.get(p, {}):
+                raise FileExistsError(f"snapshot {rec[2]} exists")
+        elif op == "delete_snapshot":
+            p = "/" + "/".join(self._parts(rec[1]))
+            if rec[2] not in self._snapshots.get(p, {}):
+                raise FileNotFoundError(f"no snapshot {rec[2]} of {p}")
+        elif op == "set_quota":
+            if not isinstance(self._resolve(rec[1]), dict):
+                raise NotADirectoryError(rec[1])
+        elif op in ("setperm", "setowner", "setacl", "setxattr", "rmxattr",
+                    "setpolicy"):
+            self._resolve(rec[1])
+        elif op == "ezkey":
+            if rec[1] in self._ezkeys:
+                raise FileExistsError(f"encryption key {rec[1]} exists")
+        elif op == "ez":
+            node = self._resolve(rec[1])
+            if not isinstance(node, dict):
+                raise NotADirectoryError(rec[1])
+            if len(node):
+                raise IOError(f"{rec[1]} is not empty (zones are created "
+                              "on empty directories, as in the reference)")
+            if rec[2] not in self._ezkeys:
+                raise KeyError(f"no encryption key {rec[2]}")
+            p = "/" + "/".join(self._parts(rec[1]))
+            for z in self._ezones:
+                if p == z or p.startswith(z + "/") or z.startswith(p + "/"):
+                    raise IOError(f"nested encryption zones: {z}")
+        elif op == "cachepool":
+            if rec[1] in self._cache_pools:
+                raise FileExistsError(f"cache pool {rec[1]} exists")
+        elif op == "cachedir":
+            if rec[3] not in self._cache_pools:
+                raise FileNotFoundError(f"no cache pool {rec[3]}")
+            self._resolve(rec[2])
+        elif op == "rmcachedir":
+            if rec[1] not in self._cache_dirs:
+                raise FileNotFoundError(f"no cache directive {rec[1]}")
+        elif op in ("setrepl", "settimes"):
+            self._file(rec[1])
+        elif op == "concat":
+            dnode = self._file(rec[1])
+            if not dnode.complete or dnode.ec:
+                raise IOError(f"concat target {rec[1]} must be a complete "
+                              "non-EC file")
+            seen = {"/" + "/".join(self._parts(rec[1]))}
+            for sp in rec[2]:
+                p = "/" + "/".join(self._parts(sp))
+                if p in seen:
+                    raise ValueError(f"duplicate path {sp} in concat")
+                seen.add(p)
+                snode = self._file(sp)
+                if not snode.complete or snode.ec:
+                    raise IOError(f"concat source {sp} must be a complete "
+                                  "non-EC file")
+                if snode.scheme != dnode.scheme:
+                    raise IOError("concat across reduction schemes")
+        elif op == "symlink":
+            parent, name = self._peek_parent(rec[1])
+            if parent is not None and name in parent:
+                raise FileExistsError(rec[1])
+
+    # ------------------------------------------------------- tree utilities
+
+    @staticmethod
+    def _parts(path: str) -> list[str]:
+        parts = [p for p in path.split("/") if p]
+        if not parts:
+            raise ValueError("root path not allowed here")
+        return parts
+
+    def _parent_of(self, path: str, create: bool = False,
+                   user: str | None = None) -> tuple[dict, str]:
+        parts = self._parts(path)
+        node = self._root
+        for i, p in enumerate(parts[:-1]):
+            child = node.get(p)
+            if child is None:
+                if not create:
+                    raise FileNotFoundError(f"parent of {path} does not exist")
+                child = node[p] = DirNode(attrs=perm.inherit_attrs(
+                    self._dir_attrs(node), user or self._superuser, None,
+                    is_dir=True), inode_id=self._alloc_inode())
+            if isinstance(child, SymNode):
+                self._link_redirect(child.target, parts[:i + 1],
+                                    parts[i + 1:])
+            if isinstance(child, FileNode):
+                raise NotADirectoryError(f"{p} in {path} is a file")
+            node = child
+        return node, parts[-1]
+
+    @staticmethod
+    def _dir_attrs(node: Any) -> Attrs:
+        return node.attrs if isinstance(node, DirNode) else Attrs(
+            "hdrf", "supergroup", 0o755)
+
+    @staticmethod
+    def _node_attrs(node: Any) -> Attrs:
+        if isinstance(node, (FileNode, DirNode)):
+            return node.attrs
+        raise FileNotFoundError("node has no attributes")
+
+    # ---------------------------------------------------------- permissions
+
+    def _check_access(self, path: str, want: int = 0, parent_want: int = 0,
+                      owner_only: bool = False,
+                      super_only: bool = False) -> None:
+        """FSPermissionChecker.java:49 analog: EXECUTE on every ancestor,
+        ``parent_want`` on the parent directory, ``want`` on the target (if
+        it exists), ``owner_only`` for attribute changes, ``super_only``
+        for admin ops.  The superuser — and in-process callers, which carry
+        no wire identity — bypass, matching the reference."""
+        user, groups = perm.caller()
+        if user is None or user == self._superuser \
+                or not self.config.permissions_enabled:
+            return
+        if super_only:
+            raise PermissionError(f"{user} is not the superuser")
+        raw_parts = [p for p in path.split("/") if p]
+        snapshot_path = ".snapshot" in raw_parts
+        parts = [p for p in raw_parts if p != ".snapshot"]
+        if snapshot_path:
+            # checks walk the LIVE ancestors up to the snapshottable dir;
+            # the frozen target itself is resolved snapshot-aware below
+            parts = raw_parts[:raw_parts.index(".snapshot")]
+        node: Any = self._root
+        chain: list[Any] = [node]
+        for i, p in enumerate(parts):
+            if not isinstance(node, (DirNode, dict)):
+                break
+            attrs = self._dir_attrs(node)
+            if not perm.allows(attrs, user, groups, perm.EXECUTE):
+                raise PermissionError(
+                    f"permission denied: user={user} needs EXECUTE on "
+                    f"/{'/'.join(parts[:i])}")
+            node = node.get(p) if isinstance(node, dict) else None
+            chain.append(node)
+        parent = chain[-2] if len(chain) >= 2 else self._root
+        target = chain[-1] if len(chain) == len(parts) + 1 else None
+        if snapshot_path:
+            # the frozen inode carries the attrs it had at snapshot time;
+            # enforce the target check against those (a 0600 file does not
+            # become readable through /dir/.snapshot/name/...)
+            try:
+                target = self._resolve(path)
+            except (FileNotFoundError, NotADirectoryError):
+                target = None
+            parent = None
+        if parent_want and isinstance(parent, (DirNode, dict)):
+            if not perm.allows(self._dir_attrs(parent), user, groups,
+                               parent_want):
+                raise PermissionError(
+                    f"permission denied: user={user} needs "
+                    f"{'WRITE' if parent_want & 2 else 'READ'} on the "
+                    f"parent of {path}")
+        if target is not None and isinstance(target, (FileNode, DirNode)):
+            attrs = self._node_attrs(target)
+            if owner_only and user != attrs.owner:
+                raise PermissionError(
+                    f"permission denied: {user} is not the owner of {path}")
+            if want and not perm.allows(attrs, user, groups, want):
+                raise PermissionError(
+                    f"permission denied: user={user} on {path}")
+
+    def _resolve(self, path: str, follow_leaf: bool = True) -> Any:
+        parts = [p for p in path.split("/") if p]
+        if ".snapshot" in parts:
+            return self._resolve_snapshot(parts)
+        node: Any = self._root
+        for i, p in enumerate(parts):
+            if isinstance(node, (FileNode, SymNode)):
+                raise NotADirectoryError(path)
+            if p not in node:
+                raise FileNotFoundError(path)
+            node = node[p]
+            if isinstance(node, SymNode) and (follow_leaf
+                                              or i < len(parts) - 1):
+                self._link_redirect(node.target, parts[:i + 1],
+                                    parts[i + 1:])
+        return node
+
+    def _resolve_snapshot(self, parts: list[str]) -> Any:
+        """Resolve ``<dir>/.snapshot[/<name>[/rest...]]`` through the frozen
+        trees (the /.snapshot virtual-directory convention)."""
+        i = parts.index(".snapshot")
+        droot = "/" + "/".join(parts[:i])
+        snaps = self._snapshots.get(droot)
+        if snaps is None:
+            raise FileNotFoundError(f"{droot} is not snapshottable")
+        rest = parts[i + 1:]
+        if not rest:  # listing /dir/.snapshot -> one dir per snapshot name
+            return {name: self._thaw(tree) for name, tree in snaps.items()}
+        if rest[0] not in snaps:
+            raise FileNotFoundError(f"no snapshot {rest[0]} of {droot}")
+        node = self._thaw(snaps[rest[0]])
+        for p in rest[1:]:
+            if isinstance(node, (FileNode, SymNode)):
+                raise NotADirectoryError("/".join(parts))
+            if p not in node:
+                raise FileNotFoundError("/".join(parts))
+            node = node[p]
+        return node
+
+    def _file(self, path: str) -> FileNode:
+        node = self._resolve(path)
+        if not isinstance(node, FileNode):
+            raise IsADirectoryError(path)
+        return node
+
+    def _mkdir_apply(self, path: str, user: str | None = None,
+                     mode: int | None = None) -> None:
+        node = self._root
+        parts = self._parts(path)
+        for i, p in enumerate(parts):
+            child = node.get(p)
+            if child is None:
+                child = node[p] = DirNode(attrs=perm.inherit_attrs(
+                    self._dir_attrs(node), user or self._superuser, None,
+                    is_dir=True,
+                    umode=mode if i == len(parts) - 1 else None),
+                    inode_id=self._alloc_inode())
+            if isinstance(child, FileNode):
+                raise FileExistsError(f"{path}: {p} is a file")
+            node = child
+
+    def _delete_apply(self, path: str) -> None:
+        dp = "/" + "/".join(self._parts(path))
+        for z in list(self._ezones):  # deleting a zone (or its ancestor)
+            if z == dp or z.startswith(dp + "/"):
+                del self._ezones[z]
+        parent, name = self._parent_of(path)
+        node = parent.pop(name, None)
+        kept = self._snapshot_referenced()  # (block ids, group ids) to keep
+        for fn in self._iter_files(node):
+            for gb in fn.blocks:
+                grp = self._groups.get(gb)
+                if grp is not None:
+                    if gb in kept[1]:
+                        continue  # a snapshot still references this group
+                    self._groups.pop(gb)
+                    bids = grp.bids
+                else:
+                    bids = [gb]
+                for bid in bids:
+                    if bid in kept[0]:
+                        continue
+                    self._drop_block(bid)
+        # in-flight writes anywhere under the deleted path lose their leases
+        self._leases.drop_subtree(path)
+
+    def _drop_block(self, bid: int) -> None:
+        self._uncharge_alloc(bid)
+        info = self._blocks.pop(bid, None)
+        if info:
+            for dn_id in info.locations:
+                dn = self._datanodes.get(dn_id)
+                if dn:
+                    dn.commands.append({"cmd": "invalidate",
+                                        "block_ids": [bid]})
+
+    # ------------------------------------------------------------ snapshots
+
+    @staticmethod
+    def _freeze(node: Any) -> Any:
+        """Live subtree -> the serialized tree form (same layout as the
+        fsimage walk): a consistent point-in-time view, since completed
+        blocks are immutable."""
+        if isinstance(node, FileNode):
+            return ["f", node.replication, node.scheme, list(node.blocks),
+                    node.complete, node.mtime, node.ec, node.attrs.pack(),
+                    node.inode_id]
+        if isinstance(node, SymNode):
+            return ["l", node.target, node.attrs.pack(), node.inode_id]
+        return ["d", {name: NameNode._freeze(child)
+                      for name, child in node.items()},
+                node.attrs.pack() if isinstance(node, DirNode) else None,
+                getattr(node, "inode_id", 0)]
+
+    def _thaw(self, v: Any) -> Any:
+        """Frozen form -> read-only live-form objects (for resolution through
+        ``/dir/.snapshot/name/...`` paths)."""
+        if v[0] == "f":
+            return FileNode(v[1], v[2], list(v[3]), v[4], v[5],
+                            v[6] if len(v) > 6 else None,
+                            Attrs.unpack(v[7] if len(v) > 7 else None,
+                                         mode=0o644),
+                            inode_id=v[8] if len(v) > 8 else 0)
+        if v[0] == "l":
+            return SymNode(v[1], Attrs.unpack(v[2]),
+                           inode_id=v[3] if len(v) > 3 else 0)
+        d = DirNode({name: self._thaw(child) for name, child in v[1].items()})
+        d.attrs = Attrs.unpack(v[2] if len(v) > 2 else None)
+        d.inode_id = v[3] if len(v) > 3 else 0
+        return d
+
+    def _tree_blocks(self, v: Any) -> tuple[set[int], set[int]]:
+        """(block ids, group ids) referenced by a frozen tree."""
+        bids: set[int] = set()
+        gids: set[int] = set()
+        if v[0] == "l":
+            return bids, gids
+        if v[0] == "f":
+            for gb in v[3]:
+                grp = self._groups.get(gb)
+                if grp is not None:
+                    gids.add(gb)
+                    bids.update(grp.bids)
+                else:
+                    bids.add(gb)
+        else:
+            for child in v[1].values():
+                b, g = self._tree_blocks(child)
+                bids |= b
+                gids |= g
+        return bids, gids
+
+    def _snapshot_referenced(self) -> tuple[set[int], set[int]]:
+        bids: set[int] = set()
+        gids: set[int] = set()
+        for snaps in self._snapshots.values():
+            for tree in snaps.values():
+                b, g = self._tree_blocks(tree)
+                bids |= b
+                gids |= g
+        return bids, gids
+
+    def _delete_snapshot_apply(self, path: str, name: str) -> None:
+        path = "/" + "/".join(self._parts(path))
+        tree = self._snapshots.get(path, {}).pop(name)
+        dead_b, dead_g = self._tree_blocks(tree)
+        live_b, live_g = self._snapshot_referenced()
+        # blocks still reachable from the live namespace also stay
+        for fn in self._iter_files(self._root):
+            for gb in fn.blocks:
+                grp = self._groups.get(gb)
+                if grp is not None:
+                    live_g.add(gb)
+                    live_b.update(grp.bids)
+                else:
+                    live_b.add(gb)
+        for gid in dead_g - live_g:
+            self._groups.pop(gid, None)
+        for bid in dead_b - live_b:
+            self._drop_block(bid)
+
+    def _rename_apply(self, src: str, dst: str) -> None:
+        sp = "/" + "/".join(self._parts(src))
+        dp = "/" + "/".join(self._parts(dst))
+        # a renamed ZONE ROOT (or an ancestor of one) carries its zone entry
+        for z in list(self._ezones):
+            if z == sp or z.startswith(sp + "/"):
+                self._ezones[dp + z[len(sp):]] = self._ezones.pop(z)
+        sparent, sname = self._parent_of(src)
+        node = sparent[sname]
+        dparent, dname = self._parent_of(dst, create=True)
+        if dname in dparent:
+            raise FileExistsError(dst)
+        del sparent[sname]
+        dparent[dname] = node
+        # fix block back-pointers
+        prefix_old, prefix_new = src.rstrip("/"), dst.rstrip("/")
+        for info in self._blocks.values():
+            if info.path == prefix_old or info.path.startswith(prefix_old + "/"):
+                info.path = prefix_new + info.path[len(prefix_old):]
+
+    @staticmethod
+    def _iter_files(node: Any):
+        if isinstance(node, FileNode):
+            yield node
+        elif isinstance(node, dict):
+            for child in node.values():
+                yield from NameNode._iter_files(child)
+
+    # ------------------------------------------------------ client RPC: fs ops
+
+    def rpc_mkdir(self, path: str, mode: int | None = None) -> bool:
+        with self._lock:
+            self._check_access(path, parent_want=perm.WRITE)
+            self._check_ns_quota(path)
+            self._log(["mkdir", path,
+                       perm.caller()[0] or self._superuser, mode])
+            _M.incr("mkdir")
+            return True
+
+    def rpc_create(self, path: str, client: str, replication: int | None = None,
+                   scheme: str | None = None, ec: str | None = None,
+                   mode: int | None = None) -> dict:
+        with self._lock:
+            self._check_access(path, parent_want=perm.WRITE)
+            replication = replication or self.config.replication
+            scheme = scheme or "direct"
+            if ec is not None:
+                from hdrf_tpu_torch.ops import rs
+                rs.parse_policy(ec)  # validate before logging
+            parent, name = self._parent_of(path, create=True)
+            existing = parent.get(name)
+            if existing is not None:
+                if isinstance(existing, dict):
+                    raise IsADirectoryError(path)
+                if existing.complete:
+                    raise FileExistsError(path)
+            self._check_ns_quota(path)
+            # Check (non-mutating) before logging, acquire only after: _log
+            # raises StandbyError/FencedError on a non-active NN, and a lease
+            # granted before that check would sit un-expirable on the standby
+            # (lease recovery only runs on the active), spuriously blocking
+            # creates after a promotion.
+            self._leases.check_available(path, client)
+            zone = self._zone_of(path)
+            if zone is not None and ec is not None:
+                # validated BEFORE the overwrite delete below: a rejected
+                # create must not destroy the existing file
+                raise IOError("EC files inside encryption zones are not "
+                              "supported")
+            if existing is not None:
+                # Overwriting an abandoned incomplete file: drop it first so
+                # its allocated blocks are invalidated on DNs rather than
+                # leaking in the block map forever.
+                self._log(["delete", path])
+            self._log(["create", path, replication, scheme, time.time(), ec,
+                       perm.caller()[0] or self._superuser, mode])
+            enc = None
+            if zone is not None:
+                # per-file DEK wrapped by the zone key; the EDEK persists
+                # as a raw.* xattr (FSDirEncryptionZoneOp semantics), the
+                # RAW dek returns only to this creator (who holds WRITE)
+                import os as _os
+
+                key_name = self._ezones[zone]
+                dek, iv = _os.urandom(32), _os.urandom(12)
+                edek = native.aead_seal(self._ezkeys[key_name], iv,
+                                      self._EZ_AAD, dek)
+                self._log(["setxattr", path, self._EZ_XATTR,
+                           packb([key_name, iv, edek])])
+                enc = {"dek": dek, "iv": iv}
+            self._leases.acquire(path, client)
+            _M.incr("create")
+            return {"block_size": self.config.block_size, "scheme": scheme,
+                    "replication": replication, "ec": ec,
+                    "encryption": enc}
+
+    def rpc_add_block(self, path: str, client: str) -> dict:
+        """Allocate the next block + choose target DNs (addBlock RPC ->
+        BlockManager placement, DataStreamer.java:1655's nextBlockOutputStream)."""
+        with self._lock:
+            node = self._file(path)  # resolves symlinks (redirect) FIRST —
+            # the lease is keyed by the resolved path the create used
+            self._leases.check(path, client)
+            self._check_space_quota(path, self.config.block_size)
+            bid, gs = self._next_block_id, self._gen_stamp
+            slots: list = []
+            targets = self._choose_targets(node.replication, exclude=set(),
+                                           policy=self._policy_of(path),
+                                           slots=slots)
+            if not targets:
+                raise IOError("no datanodes available")
+            self._log(["add_block", path, bid, gs])
+            self._blocks[bid].expected = [d.dn_id for d in targets]
+            self._charge_alloc(path, bid, self.config.block_size)
+            _M.incr("add_block")
+            return {"block_id": bid, "gen_stamp": gs, "scheme": node.scheme,
+                    "token": (self._tokens.mint(bid, "w")
+                              if self._tokens else None),
+                    "targets": [{"dn_id": d.dn_id, "addr": list(d.addr),
+                                 "storage_type": st}
+                                for d, st in zip(targets, slots)]}
+
+    def rpc_add_block_group(self, path: str, client: str) -> dict:
+        """Allocate one EC block group: k+m internal blocks on k+m distinct
+        DNs (DFSStripedOutputStream's block-group allocation analog)."""
+        from hdrf_tpu_torch.ops import rs
+
+        with self._lock:
+            node = self._file(path)
+            self._leases.check(path, client)
+            if not node.ec:
+                raise ValueError(f"{path} is not an EC file")
+            k, m, cell = rs.parse_policy(node.ec)
+            self._check_space_quota(path, k * self.config.block_size)
+            targets = self._choose_targets(k + m, exclude=set(),
+                                           policy=self._policy_of(path))
+            if len(targets) < k + m:
+                # fewer DNs than shards: wrap around (degraded placement;
+                # real deployments require >= k+m racks/nodes)
+                if not targets:
+                    raise IOError("no datanodes available")
+                targets = [targets[i % len(targets)] for i in range(k + m)]
+            bids = list(range(self._next_block_id, self._next_block_id + k + m))
+            gs = self._gen_stamp
+            self._log(["add_block_group", path, bids, gs])
+            self._charge_alloc(path, bids[0], k * self.config.block_size)
+            _M.incr("add_block_group")
+            return {"group_id": bids[0], "gen_stamp": gs, "k": k, "m": m,
+                    "cell": cell,
+                    "blocks": [{"block_id": b,
+                                "token": (self._tokens.mint(b, "w")
+                                          if self._tokens else None),
+                                "target": {"dn_id": t.dn_id,
+                                           "addr": list(t.addr)}}
+                               for b, t in zip(bids, targets)]}
+
+    def rpc_append(self, path: str, client: str) -> dict:
+        """Reopen a complete file for appending (FSNamesystem.appendFile
+        analog).  The file's last partial block is rewritten by the client
+        under a bumped generation stamp (block-granular copy-on-append —
+        the clean fit for reduced storage, where in-place mutation of a
+        deduplicated block has no meaning; CDC makes the re-reduction of
+        the rewritten block dedup against its own old chunks)."""
+        with self._lock:
+            self._check_access(path, want=perm.WRITE)
+            node = self._file(path)
+            if not node.complete:
+                raise IOError(f"{path} is already open for writing")
+            if node.ec:
+                raise IOError("append to EC files is not supported "
+                              "(matches the reference)")
+            if self._EZ_XATTR in node.attrs.xattrs:
+                raise IOError("append to encrypted files is not supported "
+                              "(rewrite-under-new-DEK is the workaround)")
+            self._leases.check_available(path, client)
+            self._log(["append", path, time.time()])
+            self._leases.acquire(path, client)
+            last = None
+            if node.blocks:
+                info = self._blocks[node.blocks[-1]]
+                if 0 < info.length < self.config.block_size:
+                    last = {"block_id": info.block_id,
+                            "gen_stamp": info.gen_stamp,
+                            "length": info.length}
+            _M.incr("appends")
+            return {"block_size": self.config.block_size, "last_block": last,
+                    "file_length": self._file_len(node)}
+
+    def rpc_append_block(self, path: str, client: str) -> dict:
+        """Targets + bumped gen stamp for rewriting the last partial block.
+        Old-generation replicas are superseded: block reports carrying a
+        stale gen stamp are invalidated (the reference's gen-stamp
+        supersede after pipeline recovery)."""
+        with self._lock:
+            node = self._file(path)
+            self._leases.check(path, client)
+            bid = node.blocks[-1]
+            info = self._blocks[bid]
+            new_gs = self._gen_stamp + 1
+            targets = self._choose_targets(node.replication, exclude=set(),
+                                           policy=self._policy_of(path))
+            if not targets:
+                raise IOError("no datanodes available")
+            self._log(["bump_block", path, bid, new_gs])
+            info.expected = [d.dn_id for d in targets]
+            return {"block_id": bid, "gen_stamp": new_gs,
+                    "scheme": node.scheme,
+                    "token": (self._tokens.mint(bid, "w")
+                              if self._tokens else None),
+                    "targets": [{"dn_id": d.dn_id, "addr": list(d.addr)}
+                                for d in targets]}
+
+    def rpc_truncate(self, path: str, new_length: int) -> bool:
+        """Namespace-level truncate (FSNamesystem.truncate analog): whole
+        blocks beyond the cut are dropped (their replicas invalidate like a
+        delete), and the boundary block's logical length is reduced — reads
+        clamp to it, so no replica rewrite is needed; the surplus physical
+        bytes are reclaimed when the block is next copied (re-replication /
+        balancer), the same deferred-trim the reference's truncate recovery
+        performs."""
+        with self._lock:
+            self._check_access(path, want=perm.WRITE)
+            node = self._file(path)
+            if not node.complete:
+                raise IOError(f"{path} is open for writing")
+            if node.ec:
+                raise IOError("truncate of EC files is not supported")
+            cur = self._file_len(node)
+            if new_length > cur:
+                raise ValueError(f"truncate to {new_length} > length {cur}")
+            if new_length == cur:
+                return True
+            self._log(["truncate", path, new_length, time.time()])
+            _M.incr("truncates")
+            return True
+
+    def rpc_abandon_block(self, path: str, client: str, block_id: int) -> bool:
+        with self._lock:
+            self._file(path)  # symlink redirect before the lease check
+            self._leases.check(path, client)
+            self._log(["abandon_block", path, block_id])
+            return True
+
+    def rpc_complete(self, path: str, client: str,
+                     block_lengths: dict[int, int]) -> bool:
+        """False = not yet: some block has no reported location (IBRs are
+        asynchronous); the client retries — completeFile's retry loop in the
+        reference (DFSClient) exists for exactly this, with the NN holding
+        completion until minimal replication is met."""
+        with self._lock:
+            self._file(path)  # symlink redirect before the lease check
+            self._leases.check(path, client)
+            for bid in block_lengths:
+                bids = (self._groups[bid].bids if bid in self._groups
+                        else [bid])
+                for b in bids:
+                    info = self._blocks.get(b)
+                    if info is None or not (info.locations & set(self._datanodes)):
+                        _M.incr("complete_waiting_ibr")
+                        return False
+            self._log(["complete", path, dict(block_lengths), time.time()])
+            self._leases.release(path, client)
+            _M.incr("complete")
+            return True
+
+    def rpc_recover_lease(self, path: str) -> bool:
+        """Force lease recovery on ``path`` (DFSAdmin recoverLease /
+        DistributedFileSystem.recoverLease analog).  The writer's lease is
+        force-expired — NOT dropped — so the recovery monitor keeps driving
+        the (asynchronous, possibly multi-step) recovery even if the caller
+        stops polling.  Returns True when the file is closed afterwards."""
+        with self._lock:
+            node = self._file(path)
+            p = "/" + "/".join(self._parts(path))
+            self._leases.drop(path)  # un-normalized alias, if any
+            if node.complete:
+                self._leases.drop(p)
+                return True
+            self._leases.force_expire(p)
+            if self._finalize_abandoned(p, node):
+                self._leases.drop(p)
+                return True
+            return False
+
+    def rpc_renew_lease(self, client: str) -> bool:
+        with self._lock:
+            self._leases.renew_all(client)
+            return True
+
+    def rpc_fsync(self, path: str, client: str, block_id: int,
+                  length: int) -> bool:
+        """Persist the visible length of an under-construction block after a
+        client hflush/hsync (ClientProtocol.fsync, FSNamesystem.fsync:
+        updateBlockForPipeline's length persist) — a reader calling
+        get_block_locations from now on sees the flushed bytes.  Length can
+        only grow (a lagging retry must not shrink a longer flush)."""
+        with self._lock:
+            self._file(path)
+            self._leases.check(path, client)
+            info = self._blocks.get(block_id)
+            if info is None:
+                raise KeyError(f"block {block_id} is not allocated")
+            if info.path != "/" + "/".join(self._parts(path)):
+                # the lease only covers the caller's own file: without this
+                # check a writer could inflate ANY under-construction
+                # block's recorded length in the namespace
+                raise PermissionError(
+                    f"block {block_id} does not belong to {path}")
+            if length > info.length:
+                self._log(["fsync", path, block_id, length])
+            self._leases.renew_all(client)
+            _M.incr("fsyncs")
+            return True
+
+    def rpc_get_block_locations(self, path: str) -> dict:
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            node = self._file(path)
+            _M.incr("get_block_locations")
+            if node.ec:
+                groups = []
+                for gid in node.blocks:
+                    grp = self._groups[gid]
+                    groups.append({
+                        "group_id": gid,
+                        "gen_stamp": self._blocks[gid].gen_stamp,
+                        "length": grp.logical_len,
+                        "blocks": [{"block_id": b,
+                                    "token": (self._tokens.mint(b, "r")
+                                              if self._tokens else None),
+                                    "locations": self._locs_of(b)}
+                                   for b in grp.bids]})
+                return {"ec": node.ec, "groups": groups, "scheme": node.scheme,
+                        "length": sum(max(g["length"], 0) for g in groups),
+                        "complete": node.complete}
+            blocks = []
+            for bid in node.blocks:
+                info = self._blocks[bid]
+                locs = self._locs_of(bid)
+                if not locs and not node.complete and info.length > 0:
+                    # under-construction block with an hflush'd visible
+                    # length: no replica has finalized yet, so serve the
+                    # intended pipeline DNs (the reference returns the UC
+                    # block's expected locations to readers of open files)
+                    locs = [{"dn_id": d,
+                             "addr": list(self._datanodes[d].addr),
+                             "sc_path": self._datanodes[d].sc_path}
+                            for d in info.expected if d in self._datanodes]
+                blocks.append({"block_id": bid, "gen_stamp": info.gen_stamp,
+                               "length": info.length,
+                               "token": (self._tokens.mint(bid, "r")
+                                         if self._tokens else None),
+                               "locations": locs})
+            enc = None
+            if self._EZ_XATTR in node.attrs.xattrs:
+                # FileEncryptionInfo-in-LocatedBlocks: the decrypted DEK
+                # rides the same READ-gated response, sparing the client a
+                # second NN round trip per read
+                enc = self._decrypt_edek_locked(node)
+            return {"blocks": blocks, "scheme": node.scheme, "ec": None,
+                    "length": sum(max(b["length"], 0) for b in blocks),
+                    "complete": node.complete,
+                    "encrypted": enc is not None,
+                    "encryption": enc}
+
+    def _locs_of(self, bid: int) -> list[dict]:
+        info = self._blocks[bid]
+        return [{"dn_id": d, "addr": list(self._datanodes[d].addr),
+                 "sc_path": self._datanodes[d].sc_path}
+                for d in info.locations if d in self._datanodes]
+
+    def rpc_delete(self, path: str) -> bool:
+        with self._lock:
+            self._check_access(path, parent_want=perm.WRITE)
+            try:
+                self._resolve(path, follow_leaf=False)  # delete the LINK
+            except FileNotFoundError:
+                return False
+            self._log(["delete", path])
+            _M.incr("delete")
+            return True
+
+    def rpc_rename(self, src: str, dst: str) -> bool:
+        with self._lock:
+            self._check_access(src, parent_want=perm.WRITE)
+            self._check_access(dst, parent_want=perm.WRITE)
+            if self._zone_of(src) != self._zone_of(dst):
+                # crossing an encryption-zone boundary would detach files
+                # from their zone key (the reference rejects this too)
+                raise IOError("renames across encryption-zone boundaries "
+                              "are not supported")
+            self._resolve(src, follow_leaf=False)
+            s = "/" + "/".join(self._parts(src))
+            d = "/" + "/".join(p for p in dst.split("/") if p)
+            if d == s or d.startswith(s + "/"):
+                raise ValueError(f"cannot rename {src} into its own subtree {dst}")
+            self._log(["rename", src, dst])
+            return True
+
+    def rpc_listing(self, path: str) -> list[dict]:
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            node = self._resolve(path)
+            if isinstance(node, FileNode):
+                return [self._stat_entry(path.rstrip("/").rsplit("/", 1)[-1], node)]
+            return [self._stat_entry(name, child)
+                    for name, child in sorted(node.items())]
+
+    def rpc_stat(self, path: str) -> dict:
+        with self._lock:
+            self._check_access(path)  # traverse (getFileInfo semantics)
+            node = self._resolve(path)
+            name = path.rstrip("/").rsplit("/", 1)[-1] or "/"
+            return self._stat_entry(name, node)
+
+    def _stat_entry(self, name: str, node: Any) -> dict:
+        if isinstance(node, FileNode):
+            if node.ec:
+                length = sum(max(self._groups[g].logical_len, 0)
+                             for g in node.blocks if g in self._groups)
+            else:
+                length = sum(max(self._blocks[b].length, 0)
+                             for b in node.blocks if b in self._blocks)
+            a = node.attrs
+            return {"name": name, "type": "file", "length": length,
+                    "replication": node.replication, "scheme": node.scheme,
+                    "complete": node.complete, "blocks": len(node.blocks),
+                    "mtime": node.mtime, "ec": node.ec,
+                    "owner": a.owner, "group": a.group, "mode": a.mode}
+        if isinstance(node, SymNode):
+            a = node.attrs
+            return {"name": name, "type": "symlink", "target": node.target,
+                    "owner": a.owner, "group": a.group, "mode": a.mode}
+        a = self._dir_attrs(node)
+        return {"name": name, "type": "dir", "children": len(node),
+                "owner": a.owner, "group": a.group, "mode": a.mode}
+
+    # ----------------------------------------------------- encryption zones
+
+    _EZ_XATTR = "raw.hdrf.crypto"
+    _EZ_AAD = b"hdrf-ez-edek"
+
+    def _zone_of(self, path: str) -> str | None:
+        p = "/" + "/".join(x for x in path.split("/") if x)
+        for z in self._ezones:
+            if p == z or p.startswith(z + "/"):
+                return z
+        return None
+
+    def rpc_create_encryption_key(self, name: str) -> bool:
+        """Key-provider create (the ``hadoop key create`` role).  Keys are
+        journaled: a promoted standby must decrypt EDEKs too."""
+        import os as _os
+
+        with self._lock:
+            self._check_access("/", super_only=True)
+            self._log(["ezkey", name, _os.urandom(32)])
+            _M.incr("ez_keys_created")
+            return True
+
+    def rpc_create_encryption_zone(self, path: str, key_name: str) -> bool:
+        """crypto -createZone (EncryptionZoneManager.java:71): an EMPTY
+        directory becomes a zone; every file created under it gets a
+        per-file DEK wrapped by the zone key."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            self._log(["ez", path, key_name])
+            _M.incr("ez_created")
+            return True
+
+    def rpc_list_encryption_zones(self) -> dict:
+        """listEncryptionZones is superuser-only, as in the reference —
+        zone roots + key names leak namespace structure otherwise."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            return dict(self._ezones)
+
+    def rpc_get_ez(self, path: str) -> dict:
+        with self._lock:
+            self._check_access(path)  # traverse
+            z = self._zone_of(path)
+            return {"zone": z, "key": self._ezones.get(z) if z else None}
+
+    def _decrypt_edek_locked(self, node) -> dict | None:
+        blob = self._node_attrs(node).xattrs.get(self._EZ_XATTR)
+        if blob is None:
+            return None
+        key_name, iv, edek = unpackb(bytes(blob))
+        zkey = self._ezkeys.get(key_name)
+        if zkey is None:
+            raise KeyError(f"zone key {key_name} is gone")
+        dek = native.aead_open(zkey, bytes(iv), self._EZ_AAD, bytes(edek))
+        if dek is None:
+            raise IOError("EDEK failed authentication")
+        return {"dek": dek, "iv": bytes(iv)}
+
+    def rpc_decrypt_edek(self, path: str) -> dict:
+        """The KMS-decrypt role: a reader with READ permission on the file
+        gets the file's raw DEK + IV (the zone key itself never leaves the
+        NN)."""
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            out = self._decrypt_edek_locked(self._resolve(path))
+            if out is None:
+                raise KeyError(f"{path} is not encrypted")
+            return out
+
+    # ------------------------------------------------------ cache directives
+
+    def rpc_add_cache_pool(self, name: str, limit: int = -1) -> bool:
+        """cacheadmin -addPool (CacheManager.java:103 analog)."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            self._log(["cachepool", name,
+                       perm.caller()[0] or self._superuser, limit])
+            _M.incr("cache_pools_added")
+            return True
+
+    def rpc_remove_cache_pool(self, name: str) -> bool:
+        with self._lock:
+            self._check_access("/", super_only=True)
+            if name not in self._cache_pools:
+                return False
+            self._log(["rmcachepool", name])
+            return True
+
+    def rpc_list_cache_pools(self) -> dict:
+        with self._lock:
+            return {n: dict(p) for n, p in self._cache_pools.items()}
+
+    def rpc_add_cache_directive(self, path: str, pool: str) -> int:
+        """cacheadmin -addDirective: pin ``path``'s blocks (a file, or every
+        file under a directory) in DN memory; the cache monitor drives
+        DNA_CACHE commands until the DNs report the blocks pinned."""
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            did = self._next_cache_id
+            self._log(["cachedir", did, path, pool])
+            _M.incr("cache_directives_added")
+            return did
+
+    def rpc_remove_cache_directive(self, directive_id: int) -> bool:
+        with self._lock:
+            d = self._cache_dirs.get(directive_id)
+            if d is not None:
+                # the directive path's owner (or the superuser) controls it
+                self._check_access(d["path"], owner_only=True)
+            self._log(["rmcachedir", directive_id])
+            return True
+
+    def rpc_list_cache_directives(self) -> list[dict]:
+        with self._lock:
+            out = []
+            for did, d in sorted(self._cache_dirs.items()):
+                bids = self._directive_blocks(d["path"])
+                cached = sum(1 for b in bids
+                             if any(b in dn.cached
+                                    for dn in self._datanodes.values()))
+                out.append({"id": did, "path": d["path"], "pool": d["pool"],
+                            "blocks": len(bids), "blocks_cached": cached})
+            return out
+
+    def _directive_blocks(self, path: str) -> set[int]:
+        try:
+            node = self._resolve(path)
+        except (FileNotFoundError, NotADirectoryError, SymlinkRedirect):
+            return set()
+        out: set[int] = set()
+        files = [node] if isinstance(node, FileNode) \
+            else list(self._iter_files(node))
+        for fn in files:
+            if fn.complete and not fn.ec:
+                out.update(fn.blocks)
+        return out
+
+    CACHE_RETRY_S = 10.0
+
+    def _check_cache(self) -> None:
+        """Cache monitor (CacheReplicationMonitor analog): command one
+        holder of each directive-covered block to pin it; uncache pinned
+        blocks no directive covers anymore."""
+        with self._lock:
+            wanted: set[int] = set()
+            for d in self._cache_dirs.values():
+                wanted |= self._directive_blocks(d["path"])
+            now = time.monotonic()
+            # expire dead bookkeeping: entries for satisfied/removed
+            # directives or past their retry deadline (unbounded growth
+            # otherwise), and rotate holders so one full cache doesn't pin
+            # a directive unsatisfied forever
+            self._pending_cache = {k: v for k, v in
+                                   self._pending_cache.items()
+                                   if v > now and k[0] in wanted}
+            cached_anywhere: set[int] = set()
+            for dn in self._datanodes.values():
+                cached_anywhere |= dn.cached
+            for bid in wanted - cached_anywhere:
+                info = self._blocks.get(bid)
+                if info is None:
+                    continue
+                holders = sorted(d for d in info.locations
+                                 if d in self._datanodes)
+                target = next((d for d in holders
+                               if (bid, d) not in self._pending_cache),
+                              None)
+                if target is None:
+                    continue  # every holder tried recently; retry later
+                self._pending_cache[(bid, target)] = now + self.CACHE_RETRY_S
+                self._datanodes[target].commands.append(
+                    {"cmd": "cache", "block_ids": [bid]})
+                _M.incr("cache_commands_sent")
+            for dn in self._datanodes.values():
+                extra = dn.cached - wanted
+                if extra:
+                    dn.commands.append({"cmd": "uncache",
+                                        "block_ids": sorted(extra)})
+
+    # ---------------------- storage policies / replication / times / concat
+
+    def rpc_set_storage_policy(self, path: str, policy: str) -> bool:
+        """setStoragePolicy (FSDirAttrOp analog): per-path policy selecting
+        replica storage types; '' clears (inherit)."""
+        with self._lock:
+            if policy and policy not in self.STORAGE_POLICIES:
+                raise ValueError(f"unknown storage policy {policy!r}; "
+                                 f"known: {sorted(self.STORAGE_POLICIES)}")
+            self._check_access(path, owner_only=True)
+            self._resolve(path)
+            self._log(["setpolicy", path, policy])
+            _M.incr("setpolicy")
+            return True
+
+    def rpc_get_storage_policy(self, path: str) -> dict:
+        with self._lock:
+            self._check_access(path)
+            node = self._resolve(path)
+            a = getattr(node, "attrs", None)
+            return {"policy": a.policy if a else None,
+                    "effective": self._policy_of(path)}
+
+    def rpc_set_replication(self, path: str, replication: int) -> bool:
+        """setReplication (FSDirAttrOp.setReplication): the redundancy
+        monitor converges live replica counts to the new target (adds via
+        re-replication, trims via excess pruning)."""
+        with self._lock:
+            if replication < 1:
+                raise ValueError("replication must be >= 1")
+            self._check_access(path, want=perm.WRITE)
+            node = self._file(path)
+            if node.ec:
+                raise ValueError("EC files carry no replication factor")
+            self._log(["setrepl", path, replication])
+            _M.incr("setrepl")
+            return True
+
+    def rpc_set_times(self, path: str, mtime: float = -1.0) -> bool:
+        """setTimes analog (atime tracking is not kept — the reference
+        only persists atime at precision intervals; we document mtime)."""
+        with self._lock:
+            self._check_access(path, want=perm.WRITE)
+            self._file(path)
+            self._log(["settimes", path, float(mtime)])
+            return True
+
+    def rpc_concat(self, dst: str, srcs: list[str]) -> bool:
+        """concat (FSDirConcatOp.java:49): move srcs' blocks onto dst and
+        delete the src inodes — pure namespace surgery, no data motion.
+        Unlike the reference, interior partial blocks are legal here: reads
+        walk per-block logical lengths, so no full-block constraint."""
+        with self._lock:
+            self._check_access(dst, want=perm.WRITE)
+            for sp in srcs:
+                self._check_access(sp, want=perm.WRITE,
+                                   parent_want=perm.WRITE)
+            for pth in [dst, *srcs]:
+                node = self._file(pth)
+                if self._EZ_XATTR in node.attrs.xattrs \
+                        or self._zone_of(pth) is not None:
+                    # per-file DEKs make concatenated ciphertexts
+                    # undecipherable as one stream; the reference forbids
+                    # concat inside encryption zones too
+                    raise IOError("concat of encrypted files / inside "
+                                  "encryption zones is not supported")
+            self._log(["concat", dst, list(srcs), time.time()])
+            _M.incr("concat")
+            return True
+
+    def rpc_create_symlink(self, link: str, target: str) -> bool:
+        """createSymlink (FSDirSymlinkOp.java:34).  Resolution is client
+        side: any path through a link answers SymlinkRedirect and the
+        client retries with the resolved path."""
+        with self._lock:
+            self._check_access(link, parent_want=perm.WRITE)
+            self._check_ns_quota(link)
+            self._log(["symlink", link, target,
+                       perm.caller()[0] or self._superuser])
+            _M.incr("symlinks_created")
+            return True
+
+    def rpc_policy_violations(self, limit: int = 100) -> list[dict]:
+        """Mover support (Mover.java:70 analog): blocks whose live replica
+        storage types don't satisfy their path's effective policy, each
+        with a proposed (from_dn, to_dn) migration.  The mover executes
+        them via rpc_move_block and re-polls until empty."""
+        with self._lock:
+            out: list[dict] = []
+            now = time.monotonic()
+            live_dns = {d.dn_id: d for d in self._datanodes.values()
+                        if now - d.last_heartbeat
+                        < self.config.dead_node_interval_s}
+            for info in self._blocks.values():
+                if len(out) >= limit:
+                    break
+                node = self._try_file(info.path)
+                if node is None or not node.complete or info.length < 0:
+                    continue
+                if info.block_id in self._pending_moves:
+                    continue
+                policy = self._policy_of(info.path)
+                locs = [d for d in info.locations if d in live_dns]
+                if not locs:
+                    continue
+                want = self._types_for(policy, len(locs))
+                # multiset matching: each replica consumes one want slot of
+                # its type; replicas that find no slot are SURPLUS (wrong),
+                # and the unconsumed slots are what's still needed — a
+                # plain membership test misses multi-type policies (warm
+                # with every replica on DISK has need but no "not in want"
+                # replica)
+                need = list(want)
+                wrong = []
+                for d in locs:
+                    # the replica's ACTUAL volume type when the DN reports
+                    # per-storage; the node's primary type otherwise
+                    t = info.storage_of.get(d, live_dns[d].storage_type)
+                    if t in need:
+                        need.remove(t)
+                    else:
+                        wrong.append(d)
+                if not need:
+                    continue
+                cands = [d for d in live_dns.values()
+                         if need[0] in d.storage_types
+                         and d.dn_id not in info.locations
+                         and d.dn_id not in self._decommissioning]
+                if wrong and cands:
+                    out.append({"block_id": info.block_id,
+                                "from_dn": wrong[0],
+                                "to_dn": cands[0].dn_id,
+                                "policy": policy})
+            return out
+
+    # ------------------------------------------- permissions / ACLs / xattrs
+
+    def rpc_set_permission(self, path: str, mode: int) -> bool:
+        """chmod (FSDirAttrOp.setPermission): owner or superuser only."""
+        with self._lock:
+            self._check_access(path, owner_only=True)
+            self._resolve(path)
+            self._log(["setperm", path, int(mode) & 0o7777])
+            _M.incr("setperm")
+            return True
+
+    def rpc_set_owner(self, path: str, owner: str = "",
+                      group: str = "") -> bool:
+        """chown/chgrp.  Changing the OWNER is superuser-only (HDFS
+        semantics); the owner may change the group — but only to a group
+        they belong to (FSDirAttrOp rejects foreign-group attribution)."""
+        with self._lock:
+            if owner:
+                self._check_access(path, super_only=True)
+            else:
+                self._check_access(path, owner_only=True)
+                user, groups = perm.caller()
+                if group and user is not None \
+                        and user != self._superuser \
+                        and self.config.permissions_enabled \
+                        and group not in groups:
+                    raise PermissionError(
+                        f"{user} is not a member of group {group}")
+            self._resolve(path)
+            self._log(["setowner", path, owner, group])
+            _M.incr("setowner")
+            return True
+
+    def rpc_get_acl(self, path: str) -> dict:
+        """getfacl (FSDirAclOp.getAclStatus analog)."""
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            a = self._node_attrs(self._resolve(path))
+            return {"owner": a.owner, "group": a.group, "mode": a.mode,
+                    "entries": perm.acl_to_strings(a),
+                    "acl": [list(e) for e in a.acl],
+                    "default_acl": [list(e) for e in a.dacl]}
+
+    def rpc_set_acl(self, path: str, spec: str = "",
+                    default_spec: str = "", remove_all: bool = False,
+                    remove_default: bool = False) -> bool:
+        """setfacl: ``spec``/``default_spec`` use the setfacl entry syntax
+        ('user:alice:rwx,group::r-x'); modify semantics (entries merge by
+        (kind, name)); ``remove_all``/``remove_default`` mirror -b / -k.
+        Persisted through the editlog like every namespace mutation
+        (AclStorage.java:65 stores ACL features on the inode the same way)."""
+        with self._lock:
+            self._check_access(path, owner_only=True)
+            a = self._node_attrs(self._resolve(path))
+            if remove_all:
+                acl, dacl = [], []
+            elif remove_default:
+                acl, dacl = [list(e) for e in a.acl], []
+            else:
+                def merge(cur: list, new: list) -> list:
+                    out = {(k, n): [k, n, p] for k, n, p in cur}
+                    for k, n, p in new:
+                        out[(k, n)] = [k, n, p]
+                    return list(out.values())
+
+                def remask(entries: list, group_bits: int,
+                           explicit_mask: bool) -> list:
+                    """POSIX setfacl: unless THIS spec set a mask
+                    explicitly, the mask recalculates to the union of the
+                    group class (named users/groups + owning-group bits) —
+                    a stale mask must not silently limit a fresh grant."""
+                    if not entries or explicit_mask:
+                        return entries
+                    entries = [e for e in entries if e[0] != "mask"]
+                    u = group_bits
+                    for k, n, p in entries:
+                        if k in ("user", "group") and n:
+                            u |= p
+                    return entries + [["mask", "", u]]
+
+                gbits = (a.mode >> 3) & 7
+                new_a = perm.acl_spec_parse(spec) if spec else []
+                acl = remask(merge(a.acl, new_a), gbits,
+                             any(e[0] == "mask" for e in new_a))
+                new_d = perm.acl_spec_parse(default_spec) \
+                    if default_spec else []
+                if new_d and not isinstance(self._resolve(path), DirNode):
+                    raise ValueError("default ACLs apply to directories only")
+                dacl = remask(merge(a.dacl, new_d), gbits,
+                              any(e[0] == "mask" for e in new_d))
+            self._log(["setacl", path, acl, dacl])
+            _M.incr("setacl")
+            return True
+
+    def rpc_set_xattr(self, path: str, name: str, value: bytes) -> bool:
+        """setfattr (FSDirXAttrOp.java:46 analog).  Namespaces: ``user.``
+        needs WRITE on the inode; ``trusted.`` is superuser-only."""
+        with self._lock:
+            self._check_xattr_ns(path, name, writing=True)
+            self._resolve(path)
+            self._log(["setxattr", path, name, bytes(value)])
+            _M.incr("setxattr")
+            return True
+
+    def rpc_get_xattrs(self, path: str,
+                       names: list[str] | None = None) -> dict:
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            a = self._node_attrs(self._resolve(path))
+            user, _ = perm.caller()
+            out = {}
+            for k, v in a.xattrs.items():
+                if names is not None and k not in names:
+                    continue
+                # trusted.*, raw.* (wrapped EDEKs live here) and system.*
+                # are confined to the superuser, like the reference's
+                # XAttrPermissionFilter namespace rules
+                if (k.startswith(("trusted.", "raw.", "system."))
+                        and user is not None
+                        and user != self._superuser
+                        and self.config.permissions_enabled):
+                    continue
+                out[k] = bytes(v)
+            return out
+
+    def rpc_remove_xattr(self, path: str, name: str) -> bool:
+        with self._lock:
+            self._check_xattr_ns(path, name, writing=True)
+            self._resolve(path)
+            self._log(["rmxattr", path, name])
+            return True
+
+    def _check_xattr_ns(self, path: str, name: str, writing: bool) -> None:
+        ns = name.split(".", 1)[0] if "." in name else ""
+        if ns not in ("user", "trusted", "system", "raw"):
+            raise ValueError(f"xattr {name!r} lacks a valid namespace "
+                             "(user./trusted./system./raw.)")
+        if ns in ("trusted", "system", "raw"):
+            self._check_access(path, super_only=True)
+        else:
+            self._check_access(path, want=perm.WRITE)
+
+    # ----------------------------------------------------- snapshots & quotas
+
+    def rpc_allow_snapshot(self, path: str) -> bool:
+        """Superuser-only, like dfsadmin -allowSnapshot."""
+        with self._lock:
+            self._check_access(path, super_only=True)
+            self._log(["allow_snapshot", path])
+            return True
+
+    def rpc_create_snapshot(self, path: str, name: str) -> bool:
+        """Requires ownership of the snapshottable dir (HDFS semantics)."""
+        with self._lock:
+            self._check_access(path, owner_only=True)
+            self._log(["create_snapshot", path, name])
+            _M.incr("snapshots_created")
+            return True
+
+    def rpc_delete_snapshot(self, path: str, name: str) -> bool:
+        with self._lock:
+            self._check_access(path, owner_only=True)
+            self._log(["delete_snapshot", path, name])
+            return True
+
+    def rpc_list_snapshots(self, path: str) -> list[str]:
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            p = "/" + "/".join(self._parts(path))
+            if p not in self._snapshots:
+                raise FileNotFoundError(f"{p} is not snapshottable")
+            return sorted(self._snapshots[p])
+
+    def rpc_snapshot_diff(self, path: str, from_snap: str,
+                          to_snap: str = "") -> dict:
+        """Created/deleted/modified/renamed deltas between two snapshots of
+        a snapshottable root (SnapshotManager.getSnapshotDiffReport,
+        SnapshotDiffInfo.java:44) — renames are matched by inode id, so a
+        moved file reports RENAME instead of delete+create (what makes
+        snapshots usable for incremental distcp).  Empty ``to_snap`` diffs
+        against the CURRENT tree ('.' in the reference CLI).  Paths in the
+        report are relative to the snapshot root."""
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            p = "/" + "/".join(self._parts(path))
+            snaps = self._snapshots.get(p)
+            if snaps is None:
+                raise FileNotFoundError(f"{p} is not snapshottable")
+
+            def tree_of(name: str):
+                if not name:
+                    return self._freeze(self._resolve(p))
+                if name not in snaps:
+                    raise FileNotFoundError(f"no snapshot {name} of {p}")
+                return snaps[name]
+
+            entries = _diff_trees(tree_of(from_snap), tree_of(to_snap))
+            _M.incr("snapshot_diffs")
+            return {"path": p, "from": from_snap, "to": to_snap,
+                    "entries": entries}
+
+    def rpc_set_quota(self, path: str, namespace_quota: int = -1,
+                      space_quota: int = -1) -> bool:
+        """-1/-1 clears (setQuota/clrQuota analog).  Superuser-only."""
+        with self._lock:
+            self._check_access(path, super_only=True)
+            self._log(["set_quota", path, namespace_quota, space_quota])
+            return True
+
+    def rpc_content_summary(self, path: str) -> dict:
+        """du -s analog (getContentSummary)."""
+        with self._lock:
+            self._check_access(path, want=perm.READ)
+            node = self._resolve(path)
+            files = dirs = length = 0
+            if isinstance(node, FileNode):
+                files, length = 1, self._file_len(node)
+            else:
+                dirs = 1
+                for fn in self._iter_files(node):
+                    files += 1
+                    length += self._file_len(fn)
+                dirs += sum(1 for _ in self._iter_dirs(node))
+            p = "/" + "/".join(self._parts(path)) if path.strip("/") else "/"
+            q = self._quotas.get(p, (-1, -1))
+            return {"files": files, "dirs": dirs, "length": length,
+                    "namespace_quota": q[0], "space_quota": q[1]}
+
+    def _file_len(self, fn: FileNode) -> int:
+        if fn.ec:
+            return sum(max(self._groups[g].logical_len, 0)
+                       for g in fn.blocks if g in self._groups)
+        return sum(max(self._blocks[b].length, 0)
+                   for b in fn.blocks if b in self._blocks)
+
+    @staticmethod
+    def _iter_dirs(node: Any):
+        if isinstance(node, dict):
+            for child in node.values():
+                if isinstance(child, dict):
+                    yield child
+                    yield from NameNode._iter_dirs(child)
+
+    def _quota_roots_of(self, path: str) -> list[tuple[str, tuple[int, int]]]:
+        parts = self._parts(path)
+        out = []
+        for i in range(len(parts)):
+            p = "/" + "/".join(parts[:i + 1])
+            if p in self._quotas:
+                out.append((p, self._quotas[p]))
+        return out
+
+    def _usage(self, root: str) -> list:
+        """[namespace entries incl. the root dir, completed logical bytes],
+        cached; recomputed only after structural mutations."""
+        u = self._qusage.get(root)
+        if u is None:
+            node = self._try_dir(root)
+            if node is None:
+                u = [0, 0]
+            else:
+                files = list(self._iter_files(node))
+                u = [1 + len(files) + sum(1 for _ in self._iter_dirs(node)),
+                     sum(self._file_len(fn) for fn in files)]
+            self._qusage[root] = u
+        return u
+
+    def _check_ns_quota(self, path: str) -> None:
+        """One new namespace entry at ``path``: every enclosing quota dir
+        must have headroom (QuotaExceededException analog; HDFS semantics —
+        the quota'd directory itself counts)."""
+        for p, (ns_q, _) in self._quota_roots_of(path):
+            if ns_q < 0:
+                continue
+            count = self._usage(p)[0]
+            if count + 1 > ns_q:
+                raise OSError(f"namespace quota of {p} exceeded: "
+                              f"{count}+1 > {ns_q}")
+
+    def _check_space_quota(self, path: str, additional: int) -> None:
+        for p, (_, sp_q) in self._quota_roots_of(path):
+            if sp_q < 0:
+                continue
+            used = self._usage(p)[1] + self._pending_space.get(p, 0)
+            if used + additional > sp_q:
+                raise OSError(f"space quota of {p} exceeded: "
+                              f"{used}+{additional} > {sp_q}")
+
+    def _try_dir(self, path: str) -> Any | None:
+        try:
+            node = self._resolve(path)
+            return node if isinstance(node, dict) else None
+        except (FileNotFoundError, NotADirectoryError):
+            return None
+
+    # --------------------------------------------------- datanode RPC: control
+
+    def rpc_register_datanode(self, dn_id: str, addr: list,
+                              sc_path: str | None = None,
+                              rack: str = "/default-rack",
+                              storage_type: str = "DISK",
+                              storage_types: list | None = None) -> dict:
+        with self._lock:
+            self._datanodes[dn_id] = DatanodeInfo(
+                dn_id, (addr[0], addr[1]), last_heartbeat=time.monotonic(),
+                sc_path=sc_path, rack=rack, storage_type=storage_type,
+                storage_types=tuple(storage_types or [storage_type]))
+            _M.incr("dn_registered")
+            self._logger.info("datanode registered", dn_id=dn_id,
+                           addr=f"{addr[0]}:{addr[1]}", rack=rack)
+            keys = None
+            if self._tokens is not None:
+                # keys ship WITH registration (the reference's
+                # DatanodeRegistration carries ExportedBlockKeys) — a DN must
+                # be able to verify tokens before its first heartbeat
+                self._tokens.maybe_roll()
+                keys = self._tokens.keys()
+            return {"heartbeat_interval_s": self.config.heartbeat_interval_s,
+                    "block_keys": keys,
+                    # block-pool identity (federation): the DN partitions
+                    # its reports/IBRs per nameservice by this id range
+                    "nameservice_id": self.config.nameservice_id,
+                    "block_pool_index": self.config.block_pool_index}
+
+    def rpc_lifeline(self, dn_id: str) -> dict:
+        """DatanodeLifelineProtocol analog: touch ONLY the liveness clock.
+        No stats, no commands, no key rolls — the whole point is staying
+        cheap while the DN (or this NN) is too loaded for full
+        heartbeats, so an overloaded-but-alive node is not declared dead
+        and mass re-replicated."""
+        with self._lock:
+            dn = self._datanodes.get(dn_id)
+            if dn is None:
+                return {"reregister": True}
+            dn.last_heartbeat = time.monotonic()
+            _M.incr("lifelines")
+            return {}
+
+    def rpc_heartbeat(self, dn_id: str, stats: dict | None = None) -> dict:
+        with self._lock:
+            dn = self._datanodes.get(dn_id)
+            if dn is None:
+                return {"reregister": True, "commands": []}
+            dn.last_heartbeat = time.monotonic()
+            dn.stats = stats or {}
+            if "cached_blocks" in dn.stats:
+                dn.cached = set(dn.stats["cached_blocks"])
+            if "ec" in dn.stats:
+                self._refresh_stripe_groups(dn_id, dn.stats["ec"])
+            # refresh health intelligence on every stats delivery so the
+            # slow-peer/slow-volume gauges are never older than one
+            # heartbeat interval (SlowPeerTracker's report-driven update)
+            self._health_report()
+            keys = None
+            if self._tokens is not None:
+                self._tokens.maybe_roll()
+                keys = self._tokens.keys()
+            if self.role != "active":  # standby never commands DNs
+                return {"reregister": False, "commands": [],
+                        "role": self.role, "block_keys": keys}
+            cmds, dn.commands = dn.commands, []
+            return {"reregister": False, "commands": cmds,
+                    "role": self.role, "block_keys": keys}
+
+    def rpc_block_report(self, dn_id: str, blocks: list) -> bool:
+        """Full report: authoritative sync of this DN's replica set
+        (BlockManager.processReport analog)."""
+        with self._lock:
+            dn = self._datanodes.get(dn_id)
+            if dn is None:
+                raise KeyError(f"unregistered datanode {dn_id}")
+            # A live block's replica this DN is already commanded to
+            # delete (a command not yet handed out) is not a location: a
+            # report sent before the DN runs the invalidate would
+            # otherwise re-add it, and the monitor could then prune the
+            # copy that stays (for a demoted block, the stripe owner's)
+            # as excess, leaving none (HDFS's InvalidateBlocks rule; the
+            # reference re-adds it).
+            doomed = {b for c in dn.commands if c["cmd"] == "invalidate"
+                      for b in c["block_ids"] if b in self._blocks}
+            reported = set()
+            for row in blocks:
+                # rows are (bid, gs, len) or (bid, gs, len, storage_type) —
+                # multi-volume DNs report each replica's volume type
+                # (per-storage reports, DatanodeStorageInfo analog)
+                bid, gs, length = row[0], row[1], row[2]
+                if bid >> 48 != self.config.block_pool_index:
+                    continue  # another nameservice's pool: not ours to
+                    # track OR to invalidate (federation guard)
+                if bid in doomed:
+                    continue
+                stype = row[3] if len(row) > 3 else None
+                info = self._blocks.get(bid)
+                if stype is not None and info is not None:
+                    info.storage_of[dn_id] = stype
+                if info is None:
+                    # replica for a deleted file: drop it (only the active
+                    # may command — a lagging standby would invalidate
+                    # replicas it just hasn't heard about yet)
+                    if self.role == "active":
+                        dn.commands.append({"cmd": "invalidate",
+                                            "block_ids": [bid]})
+                    continue
+                if gs >= info.gen_stamp:
+                    if 0 <= length < info.length:
+                        # a SHORT replica of a completed block cannot serve
+                        # it (corrupt-on-length-mismatch, BlockManager
+                        # semantics).  With healthy copies elsewhere it is
+                        # invalidated outright — left in `reported` it would
+                        # later act as a length candidate in lease recovery
+                        # and min-sync healthy replicas down to it.  Only
+                        # while it is the block's last copy is it preserved.
+                        others = {d for d in info.locations
+                                  if d in self._datanodes} - {dn_id}
+                        if others:
+                            if self.role == "active":
+                                dn.commands.append({"cmd": "invalidate",
+                                                    "block_ids": [bid]})
+                            info.reported.pop(dn_id, None)
+                            info.storage_of.pop(dn_id, None)
+                            info.locations.discard(dn_id)
+                        else:
+                            reported.add(bid)
+                            info.reported[dn_id] = (gs, length)
+                            info.locations.discard(dn_id)
+                        continue
+                    reported.add(bid)
+                    info.reported[dn_id] = (gs, length)
+                    info.locations.add(dn_id)
+                    continue
+                # Stale generation (append/recovery supersede).  NEVER
+                # destroy it while the block is under construction or it is
+                # the only live copy — a client crash right after an append's
+                # bump_block would otherwise let the NN invalidate every
+                # old-generation replica before any new-generation byte
+                # lands (silent data loss); lease recovery restamps the
+                # survivors instead (commitBlockSynchronization semantics).
+                others = {d for d in info.locations
+                          if d in self._datanodes} - {dn_id}
+                if info.length < 0 or not others:
+                    reported.add(bid)
+                    info.reported[dn_id] = (gs, length)
+                    # kept alive but NOT in locations: a stale replica must
+                    # not serve reads of the superseded block
+                    info.locations.discard(dn_id)
+                else:
+                    if self.role == "active":
+                        dn.commands.append({"cmd": "invalidate",
+                                            "block_ids": [bid]})
+                    info.reported.pop(dn_id, None)
+                    info.storage_of.pop(dn_id, None)
+                    info.locations.discard(dn_id)
+            for bid in dn.blocks - reported:
+                info = self._blocks.get(bid)
+                if info:
+                    info.locations.discard(dn_id)
+                    info.reported.pop(dn_id, None)
+                    info.storage_of.pop(dn_id, None)
+            dn.blocks = reported
+            _M.incr("block_reports")
+            return True
+
+    def rpc_block_received(self, dn_id: str, block_id: int, length: int,
+                           gen_stamp: int = -1,
+                           storage_type: str | None = None,
+                           partial: bool = False) -> bool:
+        """Incremental block report on pipeline finalize (IBR analog).
+
+        An IBR records the replica but never fixes a UC block's length:
+        first-reporter-wins would let the file complete at whatever length
+        that one replica has, violating the min-CRC-verified-prefix
+        invariant lease recovery guarantees — only ``complete`` and
+        ``commit_block_sync`` resolve lengths.
+
+        ``partial=True`` reports a coded mirror SEGMENT (a k-of-n slice
+        of the reduced payload, server/mirror_plane.py), not a replica:
+        it is tracked in ``_partial_replicas`` — never ``info.locations``,
+        never ``info.reported`` (segment lengths would poison lease
+        recovery) — until the reconciliation monitor upgrades the holder
+        to a full replica and a normal IBR clears the partial entry."""
+        with self._lock:
+            if block_id >> 48 != self.config.block_pool_index:
+                return False   # another nameservice's pool (federation)
+            dn = self._datanodes.get(dn_id)
+            info = self._blocks.get(block_id)
+            if dn is None:
+                return False
+            if partial:
+                if info is None:
+                    return False
+                self._partial_replicas.setdefault(block_id, {}).setdefault(
+                    dn_id, time.monotonic())
+                _M.incr("partial_replicas_reported")
+                return True
+            if info is None:
+                if self.role == "standby":
+                    # IBR raced ahead of the journal tail: queue it (the
+                    # reference's PendingDataNodeMessages on the standby)
+                    self._pending_ibr.setdefault(block_id, []).append(
+                        (dn_id, length, gen_stamp, storage_type))
+                    if len(self._pending_ibr) > 100_000:
+                        self._pending_ibr.pop(next(iter(self._pending_ibr)))
+                return False
+            if 0 <= gen_stamp < info.gen_stamp:
+                # a superseded pipeline finalizing late (fenced by the
+                # append/recovery gen-stamp bump): keep the bytes visible to
+                # recovery, but never serve the stale generation
+                info.reported[dn_id] = (gen_stamp, length)
+                return False
+            dn.blocks.add(block_id)
+            if storage_type is not None:
+                # PROVIDED arrives here too (alias_add IBRs), so the
+                # replication monitor's shared-storage accounting never
+                # sees a provided replica as a local disk copy in the
+                # window before the next full block report.
+                info.storage_of[dn_id] = storage_type
+            info.reported[dn_id] = (
+                gen_stamp if gen_stamp >= 0 else info.gen_stamp, length)
+            if 0 <= length < info.length:
+                # short replica of a completed block: cannot serve it
+                info.locations.discard(dn_id)
+            else:
+                info.locations.add(dn_id)
+            pr = self._partial_replicas.get(block_id)
+            if pr is not None and pr.pop(dn_id, None) is not None:
+                # a segment holder finished reconciling into a full replica
+                _M.incr("partial_upgrades")
+                if not pr:
+                    self._partial_replicas.pop(block_id, None)
+                    self._pending_partial.pop(block_id, None)
+            return True
+
+    def _charge_alloc(self, path: str, bid: int, size: int) -> None:
+        """Conservative full-block space charge at allocation time (HDFS does
+        the same): async IBRs would otherwise let back-to-back add_block
+        calls race past the quota."""
+        if not self._quotas:
+            return
+        self._alloc_charge[bid] = (path, size)
+        for r, _ in self._quota_roots_of(path):
+            self._pending_space[r] = self._pending_space.get(r, 0) + size
+
+    def _uncharge_alloc(self, bid: int) -> None:
+        ch = self._alloc_charge.pop(bid, None)
+        if ch is None:
+            return
+        path, size = ch
+        for r, _ in self._quota_roots_of(path):
+            left = self._pending_space.get(r, 0) - size
+            if left > 0:
+                self._pending_space[r] = left
+            else:
+                self._pending_space.pop(r, None)
+
+    def _drain_pending_ibr(self) -> None:
+        """Apply queued IBRs whose blocks the journal tail has now created."""
+        for bid in [b for b in self._pending_ibr if b in self._blocks]:
+            for dn_id, length, gen_stamp, stype in self._pending_ibr.pop(bid):
+                info = self._blocks[bid]
+                dn = self._datanodes.get(dn_id)
+                if dn is not None:
+                    info.reported[dn_id] = (
+                        gen_stamp if gen_stamp >= 0 else info.gen_stamp,
+                        length)
+                    if not (0 <= gen_stamp < info.gen_stamp):
+                        dn.blocks.add(bid)
+                        if stype is not None:
+                            info.storage_of[dn_id] = stype
+                        # same short-replica guard as rpc_block_received:
+                        # the tailed batch may have completed the block
+                        if not 0 <= length < info.length:
+                            info.locations.add(dn_id)
+
+    # ------------------------------------------------------------- admin RPC
+
+    def rpc_provide_file(self, path: str, uri: str, length: int) -> dict:
+        """Register a PROVIDED file: a complete namespace entry whose
+        blocks' bytes live in an external store (the provided-storage
+        half of aliasmap/InMemoryAliasMapProtocol; the reference builds
+        this mapping offline with the fsimage image-writer).  Returns the
+        FileRegions the caller pushes to DataNodes (``alias_add``), which
+        then report PROVIDED replicas.  Superuser-only."""
+        with self._lock:
+            self._check_access(path, super_only=True)
+            if length < 0:
+                raise ValueError("length must be >= 0")
+            bs = self.config.block_size
+            nblocks = max(-(-length // bs), 1) if length else 0
+            bids = list(range(self._next_block_id,
+                              self._next_block_id + nblocks))
+            self._log(["provide", path, uri, length, bids, time.time()])
+            _M.incr("provided_files")
+            return {"regions": [
+                [bid, uri, i * bs, min(bs, length - i * bs)]
+                for i, bid in enumerate(bids)],
+                # per-region WRITE tokens gate the DN-side alias_add push
+                "tokens": ([self._tokens.mint(bid, "w") for bid in bids]
+                           if self._tokens else None)}
+
+    def rpc_set_balancer_bandwidth(self, bytes_per_s: int) -> int:
+        """Broadcast a background-transfer bandwidth cap to every DataNode
+        via its next heartbeat (DFSAdmin setBalancerBandwidth ->
+        BalancerBandwidthCommand).  Returns the number of DNs queued."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            for d in self._datanodes.values():
+                d.commands.append({"cmd": "balancer_bandwidth",
+                                   "bytes_per_s": int(bytes_per_s)})
+            _M.incr("set_balancer_bandwidth")
+            return len(self._datanodes)
+
+    def rpc_datanode_report(self) -> list[dict]:
+        with self._lock:
+            now = time.monotonic()
+            return [{"dn_id": d.dn_id, "addr": list(d.addr),
+                     "alive": now - d.last_heartbeat < self.config.dead_node_interval_s,
+                     "blocks": len(d.blocks), "stats": d.stats}
+                    for d in self._datanodes.values()]
+
+    def rpc_cluster_status(self) -> dict:
+        """Cluster overview backing the dfshealth web UI — the aggregate
+        fields of the reference's webapps/hdfs/dfshealth.html and
+        NameNodeMXBean (capacity, DN liveness buckets, block totals,
+        safemode, journal wiring)."""
+        with self._lock:
+            now = time.monotonic()
+            live = dead = decom = 0
+            logical = physical = cached = 0
+            ded_logical = ded_unique = 0
+            ec_striped = ec_logical = ec_physical = 0
+            scrub_corrupt = scrub_garbage = scrub_repairs = 0
+            qos_sheds = 0
+            for d in self._datanodes.values():
+                alive = (now - d.last_heartbeat
+                         < self.config.dead_node_interval_s)
+                if d.dn_id in self._decommissioning:
+                    decom += 1
+                elif alive:
+                    live += 1
+                else:
+                    dead += 1
+                st = d.stats or {}
+                logical += int(st.get("logical_bytes", 0))
+                physical += int(st.get("physical_bytes", 0))
+                cached += int(st.get("cache_used", 0))
+                idx = st.get("index") or {}
+                ded_logical += int(idx.get("logical_bytes", 0))
+                ded_unique += int(idx.get("unique_chunk_bytes", 0))
+                ec = st.get("ec") or {}
+                ec_striped += int(ec.get("striped_containers", 0))
+                ec_logical += int(ec.get("stripe_logical_bytes", 0))
+                ec_physical += int(ec.get("stripe_physical_bytes", 0))
+                sc = st.get("scrub") or {}
+                scrub_corrupt += int(sc.get("corrupt_total", 0))
+                scrub_garbage += int(sc.get("garbage_bytes", 0))
+                scrub_repairs += int(sc.get("repairs_triggered", 0))
+                qo = st.get("qos") or {}
+                qos_sheds += int(qo.get("sheds_total", 0))
+            # The under-replicated count is the redundancy monitor's own
+            # (cached each _check_replication tick) — recomputing it here
+            # would both duplicate the want/counted semantics and walk
+            # every block under the namesystem lock per page load.
+            under = self._under_replicated
+            health = self._health_report()
+            from hdrf_tpu_torch.reduction import accounting as _acc
+
+            return {
+                "role": self.role,
+                "safemode": self._in_safemode(),
+                "blocks": len(self._blocks),
+                "under_replicated": under,
+                "pending_replication": len(self._pending_repl),
+                "live": live, "dead": dead, "decommissioning": decom,
+                "logical_bytes": logical, "physical_bytes": physical,
+                "cache_used": cached,
+                # cluster-wide reduction effectiveness: the chunk-index
+                # aggregates every DN ships in its heartbeat, summed —
+                # exactly the recompute-from-index ground truth
+                "dedup_logical_bytes": ded_logical,
+                "dedup_unique_bytes": ded_unique,
+                "dedup_ratio": _acc.dedup_ratio(ded_logical, ded_unique),
+                # EC cold tier: demoted census + stripe-tier footprint
+                # (the dfshealth page's "storage ratio" row pairs this
+                # against the replicated tier's factor)
+                "ec_demoted_blocks": len(self._ec_demoted),
+                "striped_containers": ec_striped,
+                "stripe_logical_bytes": ec_logical,
+                "stripe_physical_bytes": ec_physical,
+                # coded mirror plane: segment holders awaiting upgrade to
+                # full replicas (the reconciliation monitor's backlog)
+                "partial_replicas": sum(
+                    len(v) for v in self._partial_replicas.values()),
+                "slow_peers": len(health["slow_peers"]),
+                "slow_volumes": len(health["slow_volumes"]),
+                "reduction_degraded": len(health["degraded_nodes"]),
+                "degraded_nodes": health["degraded_nodes"],
+                # integrity plane: DN heartbeat scrub aggregates + the
+                # cached invariant-census verdict (the /health gateway
+                # extends its degraded expression with these)
+                "scrub_corrupt_total": scrub_corrupt,
+                "garbage_bytes": scrub_garbage,
+                "scrub_repairs_triggered": scrub_repairs,
+                # overload plane: cluster-wide admission sheds
+                # from DN heartbeats — intentional refusals under overload,
+                # NOT a degraded-verdict input (shedding is the system
+                # working; breakers/deadline failures flag separately)
+                "qos_sheds_total": qos_sheds,
+                "fsck_violations": (self._last_fsck or {}).get(
+                    "violations", 0),
+                "editlog_seq": self._editlog.seq,
+                "journal_addrs": [list(a) for a in
+                                  (self.config.journal_addrs or [])],
+            }
+
+    def _refresh_stripe_groups(self, dn_id: str, ec: dict) -> None:
+        """Rebuild this owner's slice of the soft-state stripe-group cache
+        from its heartbeat manifest report (the WAL-durable copy is the
+        owner DN's chunk index; an NN restart or failover re-learns every
+        group within one heartbeat).  Caller holds self._lock."""
+        reported = {}
+        for cid_s, g in (ec.get("manifests") or {}).items():
+            reported[int(cid_s)] = {
+                "holders": [list(h) for h in g["holders"]],
+                "length": int(g.get("length", 0))}
+        for cid, grp in reported.items():
+            cur = self._stripe_groups.get((dn_id, cid))
+            grp["block_id"] = cur.get("block_id") if cur else None
+            self._stripe_groups[(dn_id, cid)] = grp
+        for key in [kk for kk in self._stripe_groups
+                    if kk[0] == dn_id and kk[1] not in reported]:
+            # owner dropped the manifest (container deleted/promoted)
+            del self._stripe_groups[key]
+            self._pending_stripe_repair.pop(key, None)
+            self._corrupt_stripes.pop(key, None)
+
+    def rpc_stripe_complete(self, dn_id: str, block_id=None,
+                            containers: list | None = None,
+                            owner: str | None = None) -> bool:
+        """Owner-DN report closing a stripe demotion (or refreshing holder
+        maps after a repair): journal the block's demotion (``ec_demote``
+        edit — from here the redundancy monitor wants ONE full replica),
+        invalidate the other full replicas, and cache the stripe groups
+        for the repair scheduler.  ``owner`` keys the groups when a
+        deputized agent reports a dead owner's repair — the stripes (and
+        the group identity) keep the original owner's name.  First
+        accepting NN wins — a standby refuses, the same contract as
+        commit_block_sync."""
+        with self._lock:
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            own = owner or dn_id
+            # full stripe manifests riding the report become editlog/fsimage
+            # durable (owner-loss repair input — the owner's WAL copy dies
+            # with the owner); repairs re-journal so holders stay current.
+            # Journal BEFORE touching the soft group cache: if _log raises
+            # (safemode right after a restart, a standby demotion), a cache
+            # already showing the repaired holders would tell the repair
+            # monitor "missing = []" forever while the durable manifests
+            # still name the dead DNs — the report must fail atomically so
+            # the DN-side repair gets re-scheduled and re-reported.
+            manifests = {str(int(c["cid"])): c["manifest"]
+                         for c in containers or [] if c.get("manifest")}
+
+            def _cache_groups() -> None:
+                for c in containers or []:
+                    key = (own, int(c["cid"]))
+                    self._stripe_groups[key] = {
+                        "holders": [list(h) for h in c["holders"]],
+                        "length": int(c.get("logical", 0)),
+                        "block_id": block_id}
+                    self._pending_stripe_repair.pop(key, None)
+                    self._corrupt_stripes.pop(key, None)
+
+            if block_id is None:
+                # repair of an unmapped group: re-journal + cache manifests
+                if manifests:
+                    self._log(["ec_demote", None, own, manifests])
+                    _M.incr("stripe_manifests_journaled")
+                _cache_groups()
+                return True
+            bid = int(block_id)
+            info = self._blocks.get(bid)
+            if info is None:
+                self._pending_demote.pop(bid, None)
+                return True
+            if bid not in self._ec_demoted:
+                self._log(["ec_demote", bid, own, manifests])
+                _M.incr("blocks_ec_demoted")
+                if manifests:
+                    _M.incr("stripe_manifests_journaled")
+            elif manifests:
+                self._log(["ec_demote", None, own, manifests])
+                _M.incr("stripe_manifests_journaled")
+            _cache_groups()
+            self._pending_demote.pop(bid, None)
+            if own != dn_id:
+                # deputized-agent report: the agent holds no full replica,
+                # so the single-holder invalidation below must not run
+                return True
+            # the owner is now the single full-replica holder; the other
+            # copies are excess (redundancy rides the stripes)
+            for d in sorted(info.locations - {dn_id}):
+                other = self._datanodes.get(d)
+                if other is not None:
+                    other.commands.append({"cmd": "invalidate",
+                                           "block_ids": [bid]})
+                    other.blocks.discard(bid)
+                info.reported.pop(d, None)
+                info.storage_of.pop(d, None)
+            info.locations &= {dn_id}
+            self._pending_repl.pop(bid, None)
+            return True
+
+    def rpc_ec_status(self) -> dict:
+        """Cold-tier census backing ``dfsadmin -ecStatus`` and the
+        gateway's /status and /health EC rows: striped vs replicated
+        container counts, the tier's physical/logical expansion (~(k+m)/k)
+        against the replicated tier's factor, and the schedulers' queue
+        depths — aggregated from the DNs' heartbeat ``ec`` stats."""
+        from hdrf_tpu_torch.reduction import accounting as _acc
+
+        with self._lock:
+            striped = sealed = 0
+            logical = physical = 0
+            for d in self._datanodes.values():
+                ec = (d.stats or {}).get("ec") or {}
+                striped += int(ec.get("striped_containers", 0))
+                logical += int(ec.get("stripe_logical_bytes", 0))
+                physical += int(ec.get("stripe_physical_bytes", 0))
+                idx = (d.stats or {}).get("index") or {}
+                sealed += int(idx.get("sealed_containers", 0))
+            return {
+                "policy": (f"rs-{self.config.ec_data_shards}"
+                           f"-{self.config.ec_parity_shards}"),
+                "demote_after_s": self.config.ec_demote_after_s,
+                "demoted_blocks": len(self._ec_demoted),
+                "pending_demotions": len(self._pending_demote),
+                "pending_stripe_repairs": len(self._pending_stripe_repair),
+                "stripe_groups": len(self._stripe_groups),
+                "striped_containers": striped,
+                "replicated_containers": max(0, sealed - striped),
+                "stripe_logical_bytes": logical,
+                "stripe_physical_bytes": physical,
+                "storage_ratio_striped": _acc.stripe_ratio(logical,
+                                                           physical),
+                "storage_ratio_replicated": float(self.config.replication),
+            }
+
+    def _fsck_census(self) -> dict:
+        """Invariant reconciliation over the whole namesystem (NamenodeFsck
+        analog, §blockIdCK): block map vs live DN membership, reported
+        replica lengths, stripe-group decodability, and partial-replica
+        coverage.  Caller holds ``self._lock``.  Classes:
+
+        - ``missing``: a COMPLETE block with zero live full replicas and no
+          other byte source (no partial mirror segments awaiting upgrade,
+          no stripe demotion, not an EC-group internal block).
+        - ``extra``: a DN claims a block the map no longer knows (missed
+          invalidation — the reference's invalidateBlocks backlog).
+        - ``length_mismatch``: a live current-generation replica reports a
+          length different from the committed block length (the torn-
+          finalize class the shadow-block design stopped checking).
+        - ``unrepairable_stripe``: a stripe group (or EC block group) with
+          fewer than k intact+live members — any-k decode is dead and only
+          re-replication from outside sources could help.
+        """
+        now = time.monotonic()
+        dead_after = self.config.dead_node_interval_s
+
+        def _alive(dn_id: str) -> bool:
+            d = self._datanodes.get(dn_id)
+            return (d is not None
+                    and now - d.last_heartbeat < dead_after)
+
+        ec_bids = {b for g in self._groups.values() for b in g.bids}
+        striped_bids = {g.get("block_id")
+                        for g in self._stripe_groups.values()}
+        missing: list[int] = []
+        length_mismatch: list[int] = []
+        partial_covered = 0
+        for bid, info in self._blocks.items():
+            node = self._try_file(info.path)
+            if node is None or not node.complete:
+                continue
+            live = {d for d in info.locations if _alive(d)}
+            if not live and bid not in ec_bids:
+                if self._partial_replicas.get(bid):
+                    partial_covered += 1  # upgrade monitor's problem
+                elif not (bid in self._ec_demoted and bid in striped_bids):
+                    missing.append(bid)
+            if info.length >= 0:
+                for d in live:
+                    rep = info.reported.get(d)
+                    if (rep is not None and rep[0] == info.gen_stamp
+                            and rep[1] != info.length):
+                        length_mismatch.append(bid)
+                        break
+        extra: list[int] = []
+        for d in self._datanodes.values():
+            if not _alive(d.dn_id):
+                continue
+            for bid in d.blocks:
+                if bid not in self._blocks:
+                    extra.append(bid)
+        unrepairable: list[list] = []
+        for (owner, cid), grp in self._stripe_groups.items():
+            man = self._stripe_manifests.get((owner, cid)) or {}
+            k = int(man.get("k", self.config.ec_data_shards))
+            corrupt = self._corrupt_stripes.get((owner, cid), set())
+            intact = sum(1 for i, h in enumerate(grp["holders"])
+                         if i not in corrupt and _alive(h[0]))
+            if intact < k:
+                unrepairable.append([owner, cid])
+        for gid, g in self._groups.items():
+            k = self.config.ec_data_shards
+            live_members = sum(
+                1 for b in g.bids
+                if any(_alive(d)
+                       for d in (self._blocks.get(b).locations
+                                 if self._blocks.get(b) else ())))
+            if live_members < k:
+                unrepairable.append(["ec_group", gid])
+        classes = {"missing": sorted(missing),
+                   "extra": sorted(set(extra)),
+                   "length_mismatch": sorted(length_mismatch),
+                   "unrepairable_stripe": sorted(unrepairable)}
+        counts = {c: len(v) for c, v in classes.items()}
+        violations = sum(counts.values())
+        return {
+            "healthy": violations == 0,
+            "violations": violations,
+            "counts": counts,
+            # per-class ids, capped so a mass-failure fsck stays shippable
+            # over the RPC (the counts above are exact)
+            **{c: v[:50] for c, v in classes.items()},
+            "blocks_checked": len(self._blocks),
+            "partial_covered": partial_covered,
+            "corrupt_stripes_pending": sum(
+                len(v) for v in self._corrupt_stripes.values()),
+        }
+
+    def rpc_fsck(self) -> dict:
+        """dfsadmin -fsck / gateway /fsck: run the invariant census NOW and
+        return the verdict (also refreshing the cached copy /health and
+        cluster_status read)."""
+        with self._lock:
+            census = self._fsck_census()
+            self._last_fsck = census
+            return census
+
+    def _check_fsck(self) -> None:
+        """Monitor pass: refresh the invariant census each tick and export
+        the violation gauges (the fsck analog of _check_replication's
+        cached under-replication count)."""
+        with self._lock:
+            census = self._fsck_census()
+            self._last_fsck = census
+            _M.gauge("fsck_violations", census["violations"])
+            for cls, n in census["counts"].items():
+                _M.gauge(f"fsck_{cls}", n)
+
+    def rpc_finalize_upgrade(self) -> dict:
+        """dfsadmin -finalizeUpgrade: drop this NameNode's rollback
+        snapshot and queue a finalize command to every DataNode (the
+        reference propagates finalization through heartbeat responses)."""
+        from hdrf_tpu_torch.storage import version as storage_version
+
+        with self._lock:
+            self._check_access("/", super_only=True)
+            nn = storage_version.finalize_upgrade(self.config.meta_dir)
+            queued = 0
+            for d in self._datanodes.values():
+                d.commands.append({"cmd": "finalize_upgrade"})
+                queued += 1
+            return {"namenode_finalized": nn, "datanodes_queued": queued}
+
+    def rpc_save_namespace(self) -> bool:
+        with self._lock:
+            self._check_access("/", super_only=True)
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            self._editlog.checkpoint()
+            return True
+
+    def rpc_bad_block(self, dn_id: str, block_id: int) -> bool:
+        """A DN's scanner found a corrupt replica: drop the location so the
+        redundancy monitor re-replicates from a good copy
+        (BlockManager.markBlockAsCorrupt analog)."""
+        with self._lock:
+            info = self._blocks.get(block_id)
+            dn = self._datanodes.get(dn_id)
+            if info is None:
+                return False
+            info.locations.discard(dn_id)
+            info.reported.pop(dn_id, None)
+            info.storage_of.pop(dn_id, None)
+            if dn is not None:
+                dn.blocks.discard(block_id)
+            self._pending_repl.pop(block_id, None)  # reschedule immediately
+            _M.incr("corrupt_replicas_reported")
+            self._logger.warning("corrupt replica reported", dn_id=dn_id,
+                              block_id=block_id)
+            return True
+
+    def rpc_bad_stripe(self, dn_id: str, owner: str, cid: int,
+                       idx: int) -> bool:
+        """A DN's scrubber found a corrupt EC stripe it does NOT own (no
+        local manifest to repair against): record the index so the stripe-
+        repair monitor schedules the owner's any-k re-decode — the
+        markBlockAsCorrupt path applied to the cold tier's stripes."""
+        with self._lock:
+            key = (owner, int(cid))
+            self._corrupt_stripes.setdefault(key, set()).add(int(idx))
+            # clear the repair backoff: a corruption report should not
+            # wait out a prior schedule's deadline
+            self._pending_stripe_repair.pop(key, None)
+            _M.incr("corrupt_stripes_reported")
+            self._logger.warning("corrupt stripe reported", dn_id=dn_id,
+                                 owner=owner, cid=int(cid), idx=int(idx))
+            return True
+
+    def rpc_datanode_blocks(self, dn_id: str, limit: int = 100) -> list[int]:
+        """Balancer support: a sample of non-EC block ids hosted by ``dn_id``
+        that have at least one other live replica source."""
+        with self._lock:
+            dn = self._datanodes.get(dn_id)
+            if dn is None:
+                return []
+            ec_bids = {b for g in self._groups.values() for b in g.bids}
+            out = []
+            for bid in dn.blocks:
+                if bid in ec_bids or bid in self._pending_moves:
+                    continue
+                out.append(bid)
+                if len(out) >= limit:
+                    break
+            return out
+
+    def rpc_move_block(self, block_id: int, from_dn: str, to_dn: str) -> bool:
+        """Balancer support: copy a replica to ``to_dn`` (reduced-form push),
+        then invalidate on ``from_dn`` once the new location reports in
+        (the Dispatcher/replaceBlock analog of the reference's Balancer)."""
+        with self._lock:
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            info = self._blocks.get(block_id)
+            src = self._datanodes.get(from_dn)
+            dst = self._datanodes.get(to_dn)
+            if info is None or src is None or dst is None:
+                return False
+            if from_dn not in info.locations or to_dn in info.locations:
+                return False
+            src.commands.append({
+                "cmd": "replicate", "block_id": block_id,
+                "gen_stamp": info.gen_stamp,
+                "targets": [{"dn_id": dst.dn_id, "addr": list(dst.addr)}]})
+            self._pending_moves[block_id] = {
+                "from": from_dn, "to": to_dn,
+                "deadline": time.monotonic() + self.MOVE_TIMEOUT_S}
+            return True
+
+    MOVE_TIMEOUT_S = 120.0  # abandon a move whose target never reports
+
+    def _settle_moves(self) -> None:
+        """Finish balancer moves: only when the REQUESTED target has reported
+        its copy does the source replica get invalidated — "some other
+        replica exists" is not enough, since with replication>=2 that would
+        drop redundancy below target the moment the command is queued.
+        A move whose target never shows up is abandoned at its deadline (the
+        source replica simply stays where it was)."""
+        with self._lock:
+            now = time.monotonic()
+            for bid, mv in list(self._pending_moves.items()):
+                info = self._blocks.get(bid)
+                if info is None or mv["from"] not in info.locations:
+                    self._pending_moves.pop(bid)
+                    continue
+                if mv["to"] in info.locations and mv["to"] in self._datanodes:
+                    dn = self._datanodes.get(mv["from"])
+                    if dn is not None:
+                        dn.commands.append({"cmd": "invalidate",
+                                            "block_ids": [bid]})
+                    info.locations.discard(mv["from"])
+                    self._pending_moves.pop(bid)
+                elif now > mv["deadline"]:
+                    self._pending_moves.pop(bid)
+
+    def rpc_metrics(self) -> dict:
+        return metrics.all_snapshots()
+
+    def rpc_contention(self) -> dict:
+        """Control-plane contention observatory: the RPC
+        server's per-method service table (calls, p99, phase means,
+        attribution) merged with the instrumented namesystem lock's books
+        — each method row gains its share of total lock hold time.  Served
+        as ``/contention`` on the NN status server and the gateway, and as
+        ``dfsadmin -contention``."""
+        out = self._rpc.contention_summary()
+        lock = self._lock.contention_summary()
+        out["lock"] = lock
+        by_method = lock["by_method"]
+        for m, row in out["methods"].items():
+            lk = by_method.get(m)
+            row["lock_share"] = lk["hold_share"] if lk else 0.0
+            row["lock_hold_s"] = lk["hold_s"] if lk else 0.0
+        return out
+
+    def _flight_sample(self) -> dict:
+        """Cluster-level flight-recorder gauges: namespace size, replication
+        backlogs, live DN population, safemode, per-tenant population and
+        breaker states — the numbers an operator plots first."""
+        with self._lock:
+            now = time.monotonic()
+            live = sum(1 for dn in self._datanodes.values()
+                       if now - dn.last_heartbeat
+                       < self.config.dead_node_interval_s)
+            sample = {
+                "blocks": len(self._blocks),
+                "datanodes": len(self._datanodes),
+                "datanodes_live": live,
+                "under_replicated": self._under_replicated,
+                "pending_replication": len(self._pending_repl),
+                "pending_recovery": len(self._pending_recovery),
+                "safemode": int(self._safemode_forced or self._safemode_auto),
+                # integrity drift: the cached invariant-census verdict plus
+                # the DN heartbeats' scrub aggregates, so corruption and
+                # garbage growth show in the /timeseries regression table
+                "fsck_violations": (self._last_fsck or {}).get(
+                    "violations", 0),
+                "garbage_bytes": sum(
+                    int(((d.stats or {}).get("scrub") or {})
+                        .get("garbage_bytes", 0))
+                    for d in self._datanodes.values()),
+                "scrub_corrupt_total": sum(
+                    int(((d.stats or {}).get("scrub") or {})
+                        .get("corrupt_total", 0))
+                    for d in self._datanodes.values()),
+            }
+        states = [b.state for b in retry.all_breakers().values()]
+        sample["breakers_open"] = sum(1 for s in states if s == "open")
+        sample["tenant_count"] = tenants.tenant_count()
+        # Metadata-plane latency health: rolling
+        # p99 over every RPC the server dispatched in the last window,
+        # plus the namesystem lock's contention gauges — saturation,
+        # rolling wait p99 and the hold p99 of the heaviest holders —
+        # so a creeping lock convoy shows in /timeseries and slo_report
+        # before it becomes an outage.
+        sample["nn_rpc_p99_ms"] = self._rpc.rpc_p99_ms()
+        sample["nn_lock_saturation"] = self._lock.saturation()
+        sample["nn_lock_wait_p99_us"] = self._lock.wait_p99_us()
+        for m, p99 in self._lock.top_methods(3):
+            sample[f"nn_lock_hold_p99_us|method={m}"] = p99
+        # Observer staleness (design decision 19): how far this replica's
+        # applied txid trails the demand horizon, in seconds and txids —
+        # the curve slo_report regresses on (REGRESS_UP observer_lag_s).
+        if self.role != "active":
+            sample["observer_lag_s"] = round(self._tail_lag_s(), 3)
+            sample["observer_lag_txids"] = max(
+                0, self._max_seen_sid - self._editlog.seq)
+        return sample
+
+    def rpc_flight_timeseries(self) -> dict:
+        """The NN flight recorder's bounded ring, for the gateway's
+        /timeseries endpoint (same pull model as rpc_trace_spans)."""
+        return self.flight.snapshot()
+
+    def rpc_flight_query(self, metric=None, since=None,
+                         limit: int = 2048) -> dict:
+        """Long-horizon flight query: ring + crash-safe archive merged,
+        de-duplicated, ``metric``/``since`` filtered and tail-limited
+        (utils/flight_archive.py query) — the restart-surviving sibling
+        of rpc_flight_timeseries the gateway's cluster scope pulls."""
+        return flight_archive.query(self.flight, self.flight_archive,
+                                    metric=metric, since=since,
+                                    limit=int(limit or 2048))
+
+    def rpc_trace_spans(self) -> dict:
+        """This process's finished spans + device-ledger events, for the
+        gateway's cross-daemon /traces merge (the span-receiver pull model
+        replacing the reference's HTrace push receivers)."""
+        from hdrf_tpu_torch.utils import device_ledger, profiler
+
+        return {"daemon": "namenode",
+                "spans": tracing.all_span_snapshots(),
+                "ledger": device_ledger.events_snapshot(),
+                "counters": profiler.counters_snapshot()}
+
+    # Absolute slowness floor for the no-baseline rule: a peer whose median
+    # downstream transfer is worse than 1 MB/s is pathological regardless of
+    # what the rest of the cluster looks like (the reference's low-threshold
+    # guard, OutlierDetector.lowThresholdMs, inverted to a floor).
+    SLOW_PEER_FLOOR_S_PER_MB = 1.0
+    # Same idea for disk probes: one write+read+unlink of a few bytes
+    # taking a full second is a sick disk on any hardware.
+    SLOW_VOLUME_FLOOR_S = 1.0
+
+    def _health_report(self) -> dict:
+        """Cluster health intelligence over the DN heartbeat telemetry
+        (caller holds self._lock): per-peer pipeline-latency medians and
+        per-volume disk-probe medians through the median+MAD outlier
+        detector (utils/outlier.py — OutlierDetector.java:61-103 applied
+        to both SlowPeerTracker and SlowDiskTracker populations), with
+        the absolute floors covering tiny-population clusters where the
+        MAD rule has no baseline.  Updates the /prom gauges as a side
+        effect so exposition is never older than one heartbeat."""
+        import statistics
+
+        peers: dict[str, list[float]] = {}
+        vols: dict[str, float] = {}
+        mirror_failures: dict[str, int] = {}
+        degraded: list[str] = []
+        for dn in self._datanodes.values():
+            st = dn.stats or {}
+            for peer, rep in (st.get("peer_transfer") or {}).items():
+                peers.setdefault(peer, []).append(float(rep[0]))
+            for vid, v in (st.get("volumes") or {}).items():
+                pm = v.get("probe_median_s")
+                if pm is not None and not v.get("failed"):
+                    vols[f"{dn.dn_id}:vol-{vid}"] = float(pm)
+            # outright mirror failures per peer (block_receiver attribution
+            # riding heartbeats): summed across reporters
+            for peer, n in (st.get("mirror_failures") or {}).items():
+                mirror_failures[peer] = mirror_failures.get(peer, 0) + int(n)
+            # reduction_degraded: the DN's worker breaker is not closed —
+            # writes succeed via passthrough but reduction is off
+            if st.get("reduction_degraded"):
+                degraded.append(dn.dn_id)
+        peer_meds = {p: statistics.median(ms) for p, ms in peers.items()}
+        slow_peers = outlier.detect(
+            peer_meds, abs_floor=self.SLOW_PEER_FLOOR_S_PER_MB)
+        # a peer with outright mirror failures is flagged even when its
+        # latency median looks fine (broken beats slow) — within two
+        # heartbeats of the failure: one to ship the count, one to read it
+        for peer, n in mirror_failures.items():
+            if peer not in slow_peers:
+                slow_peers[peer] = {"rule": "mirror_failure"}
+            slow_peers[peer]["mirror_failures"] = n
+        slow_vols = outlier.detect(
+            vols, abs_floor=self.SLOW_VOLUME_FLOOR_S)
+        _M.gauge("slow_peer_count", len(slow_peers))
+        _M.gauge("slow_volume_count", len(slow_vols))
+        _M.gauge("reduction_degraded_count", len(degraded))
+        return {"slow_peers": slow_peers,
+                "slow_volumes": slow_vols,
+                "peer_medians_s_per_mb": peer_meds,
+                "volume_probe_medians_s": vols,
+                "mirror_failures": mirror_failures,
+                "degraded_nodes": sorted(degraded),
+                "reporters": {p: len(ms) for p, ms in peers.items()}}
+
+    def rpc_slow_nodes_report(self) -> dict:
+        """Health-intelligence RPC backing ``dfsadmin -slowPeers`` and the
+        gateway's /health endpoint: the outlier detector's verdict over the
+        latest heartbeat telemetry, plus the raw medians it judged."""
+        with self._lock:
+            return self._health_report()
+
+    def rpc_slow_peers(self) -> dict:
+        """SlowPeerTracker.java:56 analog: aggregate the DNs' peer-latency
+        reports (riding heartbeat stats) and flag outliers.  Two rules:
+
+        - relative: a peer whose median reported latency exceeds 3x the
+          median of OTHER peers' reports (the reference's outlier rule on
+          the same reporter->peer structure);
+        - absolute: when no other peer has reports (tiny cluster, skewed
+          placement), unanimous multi-reporter slowness past an absolute
+          floor still flags — the reference needs no cross-peer baseline
+          (it detects outliers over the *reported* latencies).
+        """
+        import statistics
+
+        with self._lock:
+            reports: dict[str, list[float]] = {}
+            for dn in self._datanodes.values():
+                for peer, (med, _n) in (dn.stats.get("peer_transfer")
+                                        or {}).items():
+                    reports.setdefault(peer, []).append(float(med))
+            if not reports:
+                return {"cluster_median_s_per_mb": None, "slow_peers": {}}
+            med_all = statistics.median(
+                [m for ms in reports.values() for m in ms])
+            floor = self.SLOW_PEER_FLOOR_S_PER_MB
+            slow = {}
+            for p, ms in reports.items():
+                # relative baseline EXCLUDES the candidate's own reports — an
+                # outlier must not inflate the median it is judged against
+                others = [m for q, qs in reports.items() if q != p
+                          for m in qs]
+                base = statistics.median(others) if others else 0.0
+                med_p = statistics.median(ms)
+                flagged = base > 0 and med_p > 3 * base
+                if not flagged and base == 0.0:
+                    flagged = len(ms) >= 2 and med_p > floor
+                if flagged:
+                    slow[p] = {"median_s_per_mb": med_p,
+                               "reporters": len(ms)}
+            return {"cluster_median_s_per_mb": med_all,
+                    "slow_peers": slow,
+                    "reports": {p: len(ms) for p, ms in reports.items()}}
+
+    # ---------------------------------------------------------- block mgmt
+
+    # Storage policies (BlockStoragePolicySuite analog): preferred storage
+    # type per replica index; fallback = any type when the preferred ones
+    # are unavailable (the reference's policy fallback chain).
+    STORAGE_POLICIES = {
+        "hot": ["DISK"],
+        "warm": ["DISK", "ARCHIVE"],    # first replica DISK, rest ARCHIVE
+        "cold": ["ARCHIVE"],
+        "all_ssd": ["SSD"],
+        "one_ssd": ["SSD", "DISK"],
+        "lazy_persist": ["RAM_DISK", "DISK"],
+    }
+
+    def _policy_of(self, path: str) -> str:
+        """Effective storage policy: the nearest ancestor's explicit
+        policy, default 'hot'."""
+        node: Any = self._root
+        policy = self._root.attrs.policy
+        for p in [q for q in path.split("/") if q]:
+            if not isinstance(node, dict):
+                break
+            node = node.get(p)
+            if node is None:
+                break
+            a = getattr(node, "attrs", None)
+            if a is not None and a.policy:
+                policy = a.policy
+        return policy or "hot"
+
+    def _types_for(self, policy: str, n: int) -> list[str]:
+        pref = self.STORAGE_POLICIES.get(policy, ["DISK"])
+        return [pref[min(i, len(pref) - 1)] for i in range(n)]
+
+    def _choose_targets(self, n: int, exclude: set[str],
+                        policy: str | None = None,
+                        slots: list | None = None) -> list[DatanodeInfo]:
+        """Rack- and storage-policy-aware placement
+        (BlockPlacementPolicyDefault-lite): per replica index the policy's
+        preferred storage type is satisfied first, falling back to any
+        live node; within a type class, round-robin across racks so
+        replicas spread over failure domains before doubling up.  A
+        multi-volume DN matches a type class if ANY of its volumes has
+        that type.  ``slots`` (out-param) receives the storage type each
+        chosen target was picked FOR, aligned with the returned list —
+        the hint the write op carries so the receiving DN routes the
+        replica to a matching volume."""
+        now = time.monotonic()
+        live = [d for d in self._datanodes.values()
+                if now - d.last_heartbeat < self.config.dead_node_interval_s
+                and d.dn_id not in exclude
+                and d.dn_id not in self._decommissioning]
+        random.shuffle(live)
+        wanted_types = self._types_for(policy or "hot", n)
+
+        def pick(pool: list[DatanodeInfo], k: int,
+                 chosen: list[DatanodeInfo]) -> None:
+            by_rack: dict[str, list[DatanodeInfo]] = {}
+            used = {c.dn_id for c in chosen}
+            for d in pool:
+                if d.dn_id not in used:
+                    by_rack.setdefault(d.rack, []).append(d)
+            racks = list(by_rack.values())
+            random.shuffle(racks)
+            while k > 0 and any(racks):
+                for r in racks:
+                    if r and k > 0:
+                        chosen.append(r.pop())
+                        k -= 1
+
+        out: list[DatanodeInfo] = []
+        slot_of: dict[str, str] = {}
+        # policy pass: fill each type class from matching nodes
+        from collections import Counter
+
+        for stype, count in Counter(wanted_types).items():
+            before = len(out)
+            pick([d for d in live if stype in d.storage_types], count, out)
+            for d in out[before:]:
+                slot_of[d.dn_id] = stype
+        if len(out) < n:  # fallback chain: any live node
+            pick(live, n - len(out), out)
+        out = out[:n]
+        if slots is not None:
+            slots.extend(slot_of.get(d.dn_id, d.storage_type) for d in out)
+        return out
+
+    # -------------------------------------------------------------------- HA
+
+    # -------------------------------------------------------------- safemode
+
+    def _in_safemode(self) -> bool:
+        if self._safemode_forced:
+            return True
+        if not self._safemode_auto:
+            return False
+        # auto safemode: leave once the reported fraction of known completed
+        # blocks reaches the threshold (SafeModeInfo analog)
+        total = known = 0
+        dns = set(self._datanodes)
+        for info in self._blocks.values():
+            if info.length < 0:
+                continue
+            total += 1
+            if info.locations & dns:
+                known += 1
+        if total == 0 or known / total >= self.config.safemode_threshold:
+            self._safemode_auto = False
+            _M.incr("safemode_left")
+            return self._safemode_forced
+        return True
+
+    def _check_safemode(self) -> None:
+        if self._in_safemode():
+            raise OSError("NameNode is in safe mode")
+
+    def rpc_safemode(self, action: str = "get") -> bool:
+        """dfsadmin -safemode get|enter|leave|forceExit analog."""
+        with self._lock:
+            if action != "get":
+                self._check_access("/", super_only=True)
+            if action == "enter":
+                self._safemode_forced = True
+            elif action in ("leave", "forceExit"):
+                self._safemode_forced = False
+                self._safemode_auto = False
+            return self._in_safemode()
+
+    # ----------------------------------------------------------- decommission
+
+    def rpc_decommission(self, dn_id: str) -> bool:
+        """Begin draining a DN (DecommissionManager analog): it stays live
+        for reads and as a re-replication source, is excluded from new
+        placements, and its blocks are re-replicated elsewhere; poll
+        rpc_decommission_status for completion, then stop the DN."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            if dn_id not in self._datanodes:
+                return False
+            self._decommissioning.add(dn_id)
+            self._save_decommissioning()
+            _M.incr("decommissions_started")
+            return True
+
+    def rpc_recommission(self, dn_id: str) -> bool:
+        """Return a drained (or repaired) DN to service — clears the exclude
+        state so placement uses it again (refreshNodes-after-edit analog)."""
+        with self._lock:
+            self._check_access("/", super_only=True)
+            if dn_id not in self._decommissioning:
+                return False
+            self._decommissioning.discard(dn_id)
+            self._save_decommissioning()
+            return True
+
+    def _save_decommissioning(self) -> None:
+        """The exclude set persists like the reference's hosts-exclude file:
+        a sidecar in the (HA-shared) meta dir, so restarts and promoted
+        standbys keep honoring an in-progress drain."""
+        import json
+        import os
+
+        path = os.path.join(self.config.meta_dir, "decommissioning.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(sorted(self._decommissioning), f)
+        os.replace(tmp, path)
+
+    def _load_decommissioning(self) -> None:
+        import json
+        import os
+
+        path = os.path.join(self.config.meta_dir, "decommissioning.json")
+        try:
+            with open(path) as f:
+                self._decommissioning = set(json.load(f))
+        except (FileNotFoundError, ValueError):
+            self._decommissioning = set()
+
+    def rpc_decommission_status(self, dn_id: str) -> dict:
+        """'decommissioning' while blocks still need copies elsewhere;
+        'decommissioned' when every hosted block is safe without this DN."""
+        with self._lock:
+            dn = self._datanodes.get(dn_id)
+            if dn is None:
+                return {"state": "dead", "remaining": 0}
+            if dn_id not in self._decommissioning:
+                return {"state": "normal", "remaining": 0}
+            ec_bids = {b for g in self._groups.values() for b in g.bids}
+            avail = sum(1 for d in self._datanodes
+                        if d not in self._decommissioning)
+            remaining = sum(1 for bid in dn.blocks
+                            if not self._safe_without(bid, dn_id, ec_bids,
+                                                      avail))
+            return {"state": ("decommissioned" if remaining == 0
+                              else "decommissioning"),
+                    "remaining": remaining}
+
+    def _safe_without(self, bid: int, dn_id: str, ec_bids: set[int],
+                      avail: int) -> bool:
+        info = self._blocks.get(bid)
+        if info is None:
+            return True
+        node = self._try_file(info.path)
+        want = node.replication if node else 1
+        if bid in ec_bids:
+            want = 1  # EC internal blocks carry one replica each
+        # Cap by cluster capacity (DecommissionManager's isSufficient): a
+        # 3-replica block on a 3-node cluster must not pin the drain forever.
+        want = min(want, max(avail, 1))
+        others = {d for d in info.locations
+                  if d in self._datanodes and d != dn_id
+                  and d not in self._decommissioning}
+        return len(others) >= want
+
+    # --------------------------------------------------------------- inotify
+
+    def rpc_get_events(self, since_seq: int = 0, limit: int = 1000) -> dict:
+        """Edit-event stream (hdfs/inotify analog — DFSInotifyEventInputStream
+        over getEditsFromTxid): events after ``since_seq`` from the in-memory
+        ring.  ``first_seq`` lets a slow consumer detect gaps (ring
+        overwrote) and resync via a namespace listing."""
+        with self._lock:
+            evs = [e for e in self._events if e["seq"] > since_seq][:limit]
+            return {"events": evs, "last_seq": self._editlog.seq,
+                    "trimmed_through": self._events_trimmed}
+
+    _EVENT_TYPES = {"create": "create", "complete": "close",
+                    "delete": "unlink", "rename": "rename",
+                    "mkdir": "mkdir", "setperm": "metadata",
+                    "setowner": "metadata", "setacl": "metadata",
+                    "setxattr": "metadata", "rmxattr": "metadata"}
+
+    def _emit_event(self, rec: list) -> None:
+        kind = self._EVENT_TYPES.get(rec[0])
+        if kind is None:
+            return
+        ev = {"seq": self._editlog.seq, "type": kind, "path": rec[1],
+              "time": time.time()}
+        if kind == "rename":
+            ev["dst"] = rec[2]
+        self._events.append(ev)
+        if len(self._events) > self._events_cap:
+            drop = self._events_cap // 10
+            self._events_trimmed = self._events[drop - 1]["seq"]
+            del self._events[:drop]
+
+    def rpc_ha_state(self) -> dict:
+        return {"role": self.role, "seq": self._editlog.seq,
+                "applied_txid": self._editlog.seq,
+                "lag_s": round(self._tail_lag_s(), 3),
+                "epoch": self._editlog.read_epoch()}
+
+    # ------------------------------------------------- observer read plane
+
+    # Wire methods an observer accepts besides _OBSERVER_READS: the DN
+    # protocol (registrations/heartbeats/reports keep the observer's soft
+    # block map warm — location sets are never journaled, so an observer
+    # that refused reports could not serve get_block_locations) and HA
+    # plumbing (transition_to_active is accepted here and refused in the
+    # handler so the caller gets a typed error, not a silent bounce).
+    _OBSERVER_PLUMBING = frozenset({
+        "register_datanode", "heartbeat", "lifeline", "block_report",
+        "incremental_block_report", "bad_block", "block_received",
+        "commit_block_sync", "stripe_complete", "bad_stripe",
+        "transition_to_active", "fetch_image",
+    })
+
+    def _tail_lag_s(self) -> float:
+        """Seconds since the last successful tail pass (0 on the active —
+        it IS the journal head)."""
+        if self.role == "active":
+            return 0.0
+        return max(0.0, time.monotonic() - self._tail_ok_t)
+
+    def _rpc_state_id(self) -> dict:
+        """Reply-envelope state stamp (GlobalStateIdContext analog): the
+        RPC server appends this to EVERY reply, so mutations on the active
+        piggyback the journal txid and observer replies carry applied_txid
+        + tail lag for the client's read-your-writes bookkeeping."""
+        return {"txid": self._editlog.seq, "role": self.role,
+                "lag_s": round(self._tail_lag_s(), 3)}
+
+    def _rpc_observer_gate(self, method: str, sid: int | None) -> None:
+        """Called by RpcServer before dispatching wire calls.  On an
+        observer: refuse non-read methods (StandbyError → HA proxy fails
+        over), wait out a bounded window for the tailer to reach the
+        caller's state-id, and enforce the hard staleness bound
+        (ObserverReadProxyProvider.isRead + ObserverRetryOnActive analog).
+        Active/standby roles pass everything through unchanged."""
+        if self.role != "observer":
+            return
+        if method not in _OBSERVER_READS:
+            if method in self._OBSERVER_PLUMBING:
+                return
+            raise StandbyError("observer namenode serves reads only")
+        if method in ("msync", "ha_state"):
+            return  # barrier/probe calls report staleness, never refuse
+        want = int(sid) if sid else 0
+        if want > self._max_seen_sid:
+            self._max_seen_sid = want
+        if want > self._editlog.seq:
+            deadline = time.monotonic() + self.config.observer_wait_s
+            pause = min(0.005, self.config.tail_interval_s)
+            while (self._editlog.seq < want
+                   and time.monotonic() < deadline):
+                time.sleep(pause)
+            if self._editlog.seq < want:
+                _M.incr("observer_stale_bounced")
+                raise ObserverStaleError(
+                    f"observer applied txid {self._editlog.seq} < client "
+                    f"state-id {want} after {self.config.observer_wait_s}s")
+        lag = self._tail_lag_s()
+        if lag > self.config.observer_max_lag_s:
+            _M.incr("observer_stale_bounced")
+            raise ObserverStaleError(
+                f"observer tail lag {lag:.2f}s exceeds the "
+                f"{self.config.observer_max_lag_s}s staleness bound")
+        _M.incr("observer_reads")
+
+    def rpc_msync(self, txid: int = 0, wait_s: float | None = None) -> dict:
+        """Consistency barrier (HAServiceProtocol msync analog): block —
+        deadline-bounded — until this NN has applied ``txid``, then report
+        where it stands.  On the active this returns immediately (it is
+        the txid source); a caller that msyncs every observer with its
+        last-seen txid gets read-your-writes on all subsequent observer
+        reads."""
+        _M.incr("msync_calls")
+        want = int(txid or 0)
+        if want > self._max_seen_sid:
+            self._max_seen_sid = want
+        budget = (self.config.observer_msync_wait_s if wait_s is None
+                  else float(wait_s))
+        deadline = time.monotonic() + max(0.0, budget)
+        while (self.role != "active" and self._editlog.seq < want
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        applied = self._editlog.seq
+        return {"applied_txid": applied, "role": self.role,
+                "caught_up": bool(self.role == "active" or applied >= want),
+                "lag_s": round(self._tail_lag_s(), 3)}
+
+    # ------------------------------------------------- delegation tokens
+
+    # Methods reachable without a delegation token when require_token_auth
+    # is on: the DN protocol (DNs authenticate via the shared block keys /
+    # deployment perimeter, as in the reference's service principals), HA
+    # and journal plumbing, and token acquisition itself (the kerberos leg
+    # that gates issuance in the reference has no analog here).
+    _AUTH_EXEMPT = frozenset({
+        "register_datanode", "heartbeat", "lifeline", "block_report",
+        "incremental_block_report", "bad_block", "block_received",
+        "commit_block_sync", "ha_state", "msync", "transition_to_active",
+        "fetch_image", "get_delegation_token", "renew_delegation_token",
+        "cancel_delegation_token", "check_delegation_token",
+    })
+
+    def _rpc_auth_hook(self, method: str, dtoken: dict | None) -> None:
+        """Called by RpcServer before every dispatch.  In-process callers
+        (tests, embedded use) bypass it — the wire is the trust boundary,
+        same as the reference's IPC-layer SASL authentication."""
+        if not self.config.require_token_auth or method in self._AUTH_EXEMPT:
+            return
+        self._dtokens.verify(dtoken)
+
+    def rpc_get_delegation_token(self, renewer: str = "",
+                                 owner: str = "") -> dict:
+        """Issue a delegation token (FSNamesystem.getDelegationToken): the
+        identifier + master key id are journaled, so a promoted standby
+        keeps verifying and renewing mid-lifetime tokens."""
+        with self._lock:
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            nk = self._dtokens.need_key()
+            if nk is not None:
+                self._log(["dt_key", nk[0], nk[1], nk[2]])
+            ident = self._dtokens.build_identifier(owner or "anonymous",
+                                                   renewer)
+            expiry = time.time() + self._dtokens.renew_interval_s
+            self._log(["dt_issue", ident, expiry])
+            return {**ident, "password": self._dtokens.password(ident),
+                    "expiry": expiry}
+
+    def rpc_check_delegation_token(self, token: dict) -> bool:
+        """Non-mutating verification (the gateway's token-issue gate asks
+        before treating a presented delegation token as authentication —
+        decoding alone proves nothing)."""
+        with self._lock:
+            try:
+                self._dtokens.verify(token)
+                return True
+            except Exception:  # noqa: BLE001 — verification IS the answer
+                return False
+
+    def rpc_renew_delegation_token(self, token: dict) -> float:
+        with self._lock:
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            self._dtokens.verify(token)
+            expiry = self._dtokens.check_renew(token["seq"],
+                                               token.get("renewer", ""))
+            self._log(["dt_renew", int(token["seq"]), expiry])
+            return expiry
+
+    def rpc_cancel_delegation_token(self, token: dict) -> bool:
+        with self._lock:
+            if self.role != "active":
+                raise StandbyError("namenode is standby")
+            self._dtokens.verify(token)
+            self._dtokens.check_cancel(token["seq"], token.get("owner", ""))
+            self._log(["dt_cancel", int(token["seq"])])
+            return True
+
+    def rpc_fetch_image(self) -> dict:
+        """Serve this NN's fsimage bytes (image-transfer analog: the
+        reference moves images between NNs over its HTTP servlet; quorum
+        JournalNodes hold only edits, so a far-behind standby bootstraps
+        from a peer)."""
+        data = self._editlog.read_image_bytes()
+        return {"image": data, "seq": self._editlog.seq}
+
+    def _fetch_image_from_peer(self) -> bool:
+        from hdrf_tpu_torch.proto.rpc import RpcClient
+
+        for addr in (self.config.peers or []):
+            try:
+                with RpcClient(tuple(addr), timeout=10.0) as c:
+                    r = c.call("fetch_image")
+                if r.get("image"):
+                    with self._lock:
+                        self._editlog.write_image_bytes(r["image"])
+                    _M.incr("image_bootstraps")
+                    return True
+            except (OSError, ConnectionError, RpcError):
+                continue
+        return False
+
+    def rpc_transition_to_active(self) -> bool:
+        """Manual/controller-driven failover (transitionToActive analog):
+        final catch-up tail, claim the journal epoch (fencing the old
+        active), open for append, start the redundancy monitor.  Observers
+        are read replicas by contract, never failover candidates — the
+        refusal is typed so a misconfigured controller learns why."""
+        with self._lock:
+            if self.role == "active":
+                return True
+            if self.config.role == "observer":
+                raise ValueError("observer namenode cannot be promoted")
+            # claim FIRST (fencing the old writer), THEN the final tail —
+            # the reverse order loses any edit the not-yet-fenced active
+            # appends between the tail and the claim, and reuses its seq.
+            # The tail runs readonly=False: we are now the sole journal
+            # writer, and the torn tail a crashed ex-active left behind must
+            # be truncated before open_for_append, or every edit we append
+            # behind it becomes unreachable to future replays.
+            self._editlog.claim_epoch()
+            from hdrf_tpu_torch.server.editlog import JournalGapError
+            try:
+                self._editlog.tail(self._apply_tolerant,
+                                   reload_fn=self._reload_image,
+                                   readonly=False)
+            except JournalGapError:
+                # Lagged past the quorum's purge horizon: bootstrap the
+                # ex-active's image, then retry — failing here would leave
+                # the cluster active-less with the old writer already
+                # fenced.  (The claim is not undone: a retried transition
+                # simply claims the next epoch.)
+                if not self._fetch_image_from_peer():
+                    raise
+                self._editlog.tail(self._apply_tolerant,
+                                   reload_fn=self._reload_image,
+                                   readonly=False)
+            self._drain_pending_ibr()
+            self._editlog.open_for_append(self._snapshot)
+            self._load_decommissioning()
+            # same protection as a cold start: hold mutations until enough
+            # replicas are known (a warm standby lifts this immediately)
+            self._safemode_auto = bool(self._blocks)
+            self.role = "active"
+        mon = threading.Thread(target=self._monitor_loop, name="nn-monitor",
+                               daemon=True)
+        mon.start()
+        _M.incr("transitions_to_active")
+        return True
+
+    def _tailer_loop(self) -> None:
+        """Standby/observer: periodically replay the shared journal
+        (EditLogTailer.java:74 + StandbyCheckpointer roles).  On an
+        observer each pass also refreshes the staleness gauges the read
+        gate and flight recorder report against."""
+        from hdrf_tpu_torch.server.editlog import JournalGapError
+
+        interval = self.config.tail_interval_s
+        quorum = bool(self.config.journal_addrs)
+        applied_since_image = 0
+        while not self._monitor_stop.wait(interval):
+            if self.role == "active":
+                return  # transitioned; monitor thread has taken over
+            try:
+                fault_injection.point("namenode.tail", role=self.role)
+                with self._lock:
+                    n = self._editlog.tail(self._apply_tolerant,
+                                           reload_fn=self._reload_image)
+                    self._drain_pending_ibr()
+                self._tail_ok_t = time.monotonic()
+                if self.role == "observer":
+                    _M.gauge("observer_lag_s", round(self._tail_lag_s(), 3))
+                    _M.gauge("observer_lag_txids",
+                             max(0, self._max_seen_sid - self._editlog.seq))
+                applied_since_image += n
+                if quorum and applied_since_image >= \
+                        self.config.editlog_checkpoint_every:
+                    # Quorum-mode standby keeps its OWN local image current
+                    # (each NN owns its meta_dir; in shared-dir mode the
+                    # active owns the one shared image).  Everything the
+                    # standby applied is quorum-committed, so snapshotting
+                    # it is always safe.
+                    with self._lock:
+                        self._editlog.write_image(self._editlog.seq,
+                                                  self._snapshot())
+                    applied_since_image = 0
+            except JournalGapError:
+                # the journal was purged past our seq: bootstrap a newer
+                # image from the active peer, then resume tailing from it
+                if self._fetch_image_from_peer():
+                    applied_since_image = 0
+                else:
+                    _M.incr("tail_errors")
+            except Exception:  # noqa: BLE001 — tailer must survive
+                _M.incr("tail_errors")
+
+    def _monitor_loop(self) -> None:
+        """HeartbeatManager.Monitor + RedundancyMonitor (§3.5): declare dead
+        DNs, schedule re-replication, recover expired leases."""
+        interval = self.config.heartbeat_interval_s
+        while not self._monitor_stop.wait(interval):
+            if self.role != "active":
+                return  # demoted: the tailer owns this NN now
+            try:
+                fault_injection.point("namenode.monitor_tick")
+                self._check_dead_nodes()
+                self._check_replication()
+                self._check_partial_replicas()
+                self._settle_moves()
+                self._check_cache()
+                self._recover_leases()
+                self._check_ec_demotion()
+                self._check_stripe_repair()
+                self._check_fsck()
+                with self._lock:
+                    self._dtokens.purge_expired()
+                if self._editlog.should_checkpoint():
+                    # Background checkpointer (SecondaryNameNode /
+                    # StandbyCheckpointer role): with group commit the
+                    # append path no longer checkpoints inline; the
+                    # namesystem lock makes the snapshot consistent.
+                    with self._lock:
+                        self._editlog.checkpoint()
+            except Exception:  # noqa: BLE001 — monitor must survive
+                _M.incr("monitor_errors")
+
+    def _check_dead_nodes(self) -> None:
+        with self._lock:
+            now = time.monotonic()
+            for dn in list(self._datanodes.values()):
+                if now - dn.last_heartbeat > self.config.dead_node_interval_s:
+                    _M.incr("dn_declared_dead")
+                    for bid in dn.blocks:
+                        info = self._blocks.get(bid)
+                        if info:
+                            info.locations.discard(dn.dn_id)
+                            info.reported.pop(dn.dn_id, None)
+                            info.storage_of.pop(dn.dn_id, None)
+                    del self._datanodes[dn.dn_id]
+
+    def _check_replication(self) -> None:
+        with self._lock:
+            now = time.monotonic()
+            self._check_ec_groups(now)
+            ec_bids = {b for g in self._groups.values() for b in g.bids}
+            under = 0
+            for info in self._blocks.values():
+                node = self._try_file(info.path)
+                if node is None or not node.complete:
+                    continue
+                # EC internal blocks: zero-location loss is handled by
+                # _check_ec_groups (reconstruction); a draining host still
+                # holds live bytes, so the drain is a plain 1-replica copy.
+                # stripe-demoted blocks keep ONE full replica (the stripe
+                # owner); redundancy lives in the (k+m)/k cold-tier stripes
+                want = (1 if info.block_id in ec_bids
+                        or info.block_id in self._ec_demoted
+                        else node.replication)
+                live = {d for d in info.locations if d in self._datanodes}
+                # PROVIDED replicas are views of ONE shared external store:
+                # N DataNodes mounting the same provided volume add no
+                # redundancy beyond the store itself.  They count once
+                # toward the target, are never pruned as "excess" (pruning
+                # would collapse a multi-DN provided mount to a single DN),
+                # and never trigger or source deficit re-replication onto
+                # local disks (provided->local migration is an explicit
+                # operator action, not the monitor's).
+                provided = {d for d in live
+                            if info.storage_of.get(d) == "PROVIDED"}
+                local = live - provided
+                counted = local - self._decommissioning
+                deficit = want - len(counted) - (1 if provided else 0)
+                if deficit > 0 and local:
+                    under += 1
+                if deficit <= 0 or not local:
+                    self._pending_repl.pop(info.block_id, None)
+                    if (deficit < 0
+                            and info.block_id not in self._pending_moves):
+                        self._prune_excess(info, counted,
+                                           want - (1 if provided else 0))
+                    continue
+                # PendingReconstructionBlocks analog: don't re-queue the same
+                # block every monitor tick while a transfer is in flight.
+                deadline = self._pending_repl.get(info.block_id, 0.0)
+                if deadline > now:
+                    continue
+                targets = self._choose_targets(deficit, exclude=live)
+                if targets:
+                    src = self._datanodes[next(iter(local))]
+                    src.commands.append({
+                        "cmd": "replicate", "block_id": info.block_id,
+                        "gen_stamp": info.gen_stamp,
+                        "targets": [{"dn_id": t.dn_id, "addr": list(t.addr)}
+                                    for t in targets]})
+                    self._pending_repl[info.block_id] = (
+                        now + self.config.pending_replication_timeout_s)
+                    _M.incr("replications_scheduled")
+            # cached for rpc_cluster_status: the dfshealth page must not
+            # re-walk every block under the namesystem lock per page load
+            self._under_replicated = under
+
+    def _check_partial_replicas(self) -> None:
+        """Reconciliation monitor for the coded mirror plane (alongside
+        ``_check_stripe_repair``): a DN holding only a k-of-n SEGMENT of a
+        block's reduced payload (server/mirror_plane.py) is upgraded to a
+        full replica in the background — a ``replicate`` re-push from any
+        live full-replica holder, or, when the write lost every full copy,
+        a ``mirror_assemble`` command telling one segment holder to gather
+        any k segments off its peers and decode.  The partial entry clears
+        when the holder's normal (non-partial) IBR lands."""
+        with self._lock:
+            now = time.monotonic()
+            for bid in list(self._partial_replicas):
+                holders = self._partial_replicas[bid]
+                for d in [d for d in holders if d not in self._datanodes]:
+                    del holders[d]   # holder died with its segment
+                info = self._blocks.get(bid)
+                if not holders or info is None:
+                    self._partial_replicas.pop(bid, None)
+                    self._pending_partial.pop(bid, None)
+                    continue
+                if self._pending_partial.get(bid, 0.0) > now:
+                    continue   # an upgrade is already in flight
+                live_full = sorted(d for d in info.locations
+                                   if d in self._datanodes)
+                if live_full:
+                    src = self._datanodes[live_full[0]]
+                    src.commands.append({
+                        "cmd": "replicate", "block_id": bid,
+                        "gen_stamp": info.gen_stamp,
+                        "targets": [{"dn_id": d,
+                                     "addr": list(self._datanodes[d].addr)}
+                                    for d in sorted(holders)]})
+                    _M.incr("partial_reconciliations_scheduled")
+                else:
+                    agent = self._datanodes[sorted(holders)[0]]
+                    agent.commands.append({"cmd": "mirror_assemble",
+                                           "block_id": bid})
+                    _M.incr("partial_assembles_scheduled")
+                self._pending_partial[bid] = (
+                    now + self.config.partial_reconcile_timeout_s)
+                # keep _check_replication from double-scheduling the same
+                # deficit while the reconciliation transfer is in flight
+                self._pending_repl[bid] = (
+                    now + self.config.pending_replication_timeout_s)
+
+    def _prune_excess(self, info, counted: set[str], want: int) -> None:
+        """Drop excess replicas (BlockManager.processExtraRedundancy /
+        chooseReplicaToDelete analog): over-replication arises from
+        re-replication racing a node's return, or a balancer move abandoned
+        at its deadline whose target reported late.  Victim selection must
+        preserve rack diversity (the invariant _choose_targets establishes):
+        only prune from racks holding more than one replica while another
+        rack still has a copy; among eligible victims prefer the fullest
+        node.  Decommissioning nodes' copies are already excluded from
+        ``counted``."""
+        excess = len(counted) - want
+        remaining = set(counted)
+        for _ in range(excess):
+            by_rack: dict[str, list[str]] = {}
+            for d in remaining:
+                by_rack.setdefault(self._datanodes[d].rack, []).append(d)
+            if len(by_rack) > 1:
+                eligible = [d for r, ds in by_rack.items() if len(ds) > 1
+                            for d in ds]
+            else:
+                eligible = list(remaining)
+            if not eligible:
+                # every remaining rack holds exactly one replica: removing
+                # any would shrink rack coverage — prune the fullest anyway
+                # (count still exceeds want) but from the largest rack set.
+                eligible = list(remaining)
+            victim = max(eligible,
+                         key=lambda d: len(self._datanodes[d].blocks))
+            remaining.discard(victim)
+            dn = self._datanodes.get(victim)
+            if dn is None:
+                continue
+            dn.commands.append({"cmd": "invalidate",
+                                "block_ids": [info.block_id]})
+            info.locations.discard(victim)
+            dn.blocks.discard(info.block_id)
+            _M.incr("excess_replicas_pruned")
+
+    def _check_ec_groups(self, now: float) -> None:
+        """Schedule EC reconstruction for lost internal blocks
+        (BlockManager's DNA_ERASURE_CODING_RECONSTRUCTION path, §3.5)."""
+        from hdrf_tpu_torch.ops import rs
+
+        for grp in self._groups.values():
+            info0 = self._blocks.get(grp.group_id)
+            node = self._try_file(info0.path) if info0 else None
+            if node is None or not node.complete or not node.ec:
+                continue
+            k, m, cell = rs.parse_policy(node.ec)
+            survivors, missing = [], []
+            for i, bid in enumerate(grp.bids):
+                locs = self._locs_of(bid)
+                (survivors if locs else missing).append(
+                    (i, bid, locs))
+            if not missing or len(survivors) < k:
+                continue  # healthy, or unrecoverable (alerting is the
+                # operator's signal: ec_groups_unrecoverable metric)
+            chosen: set[str] = set()
+            for i, bid, _ in missing:
+                if self._pending_repl.get(bid, 0.0) > now:
+                    continue
+                # keep the distinct-placement invariant: exclude survivor
+                # hosts AND DNs already picked for this group's other shards
+                used = {loc["dn_id"] for _, _, ls in survivors
+                        for loc in ls} | chosen
+                targets = self._choose_targets(1, exclude=used)
+                if not targets:
+                    continue
+                chosen.add(targets[0].dn_id)
+                targets[0].commands.append({
+                    "cmd": "ec_reconstruct", "block_id": bid,
+                    "gen_stamp": self._blocks[bid].gen_stamp,
+                    "policy": node.ec, "index": i,
+                    "group_len": grp.logical_len,
+                    "survivors": [{"index": si, "block_id": sb,
+                                   "locations": ls}
+                                  for si, sb, ls in survivors]})
+                self._pending_repl[bid] = (
+                    now + self.config.pending_replication_timeout_s)
+                _M.incr("ec_reconstructions_scheduled")
+
+    def _ec_placement_pool(self, now: float) -> list["DatanodeInfo"]:
+        """Stripe-target pool: live, non-decommissioning DNs minus the
+        health report's veto set — slow peers, reduction-degraded nodes,
+        and any DN with a flagged slow volume (the health detectors gating
+        cold-tier placement).  Caller holds self._lock."""
+        health = self._health_report()
+        vetoed = set(health["slow_peers"]) | set(health["degraded_nodes"])
+        vetoed |= {v.split(":", 1)[0] for v in health["slow_volumes"]}
+        pool = [d for d in self._datanodes.values()
+                if now - d.last_heartbeat < self.config.dead_node_interval_s
+                and d.dn_id not in self._decommissioning
+                and d.dn_id not in vetoed]
+        pool.sort(key=lambda d: d.dn_id)
+        return pool
+
+    def _check_ec_demotion(self) -> None:
+        """EC cold-tier demotion scheduler: blocks of complete files idle
+        past ``ec_demote_after_s`` drop from ``replication``x full copies
+        to (k+m)/k stripes.  The primary holder is commanded to stripe its
+        sealed containers (server/ec_tier.py demote); the demotion only
+        becomes durable when that DN reports ``stripe_complete`` back —
+        until then the block stays fully replicated.  Stripe i lands on
+        pool[i % len(pool)], so a cluster smaller than k+m still places
+        every stripe (with spread returning as the cluster grows)."""
+        cfg = self.config
+        if cfg.ec_demote_after_s <= 0:
+            return
+        with self._lock:
+            now = time.monotonic()
+            cutoff = time.time() - cfg.ec_demote_after_s
+            k, m = cfg.ec_data_shards, cfg.ec_parity_shards
+            self._pending_demote = {
+                b: t for b, t in self._pending_demote.items()
+                if t > now or b in self._blocks}
+            pool = self._ec_placement_pool(now)
+            if not pool:
+                return
+            ec_bids = {b for g in self._groups.values() for b in g.bids}
+            for info in list(self._blocks.values()):
+                bid = info.block_id
+                if bid in self._ec_demoted or bid in ec_bids:
+                    continue
+                if self._pending_demote.get(bid, 0.0) > now:
+                    continue
+                node = self._try_file(info.path)
+                if (node is None or not node.complete or node.ec
+                        or info.length < 0):
+                    continue
+                if node.mtime <= 0 or node.mtime > cutoff:
+                    continue
+                live = sorted(d for d in info.locations
+                              if d in self._datanodes)
+                # demote only from full health: a replica deficit means
+                # redundancy is already degraded — re-replicate first
+                if len(live) < node.replication:
+                    continue
+                owner = self._datanodes[live[0]]
+                targets = [pool[i % len(pool)] for i in range(k + m)]
+                owner.commands.append({
+                    "cmd": "stripe_demote", "block_id": bid,
+                    "k": k, "m": m,
+                    "targets": [[t.dn_id, t.addr[0], t.addr[1]]
+                                for t in targets]})
+                self._pending_demote[bid] = (
+                    now + cfg.pending_replication_timeout_s)
+                _M.incr("ec_demotions_scheduled")
+
+    def _check_stripe_repair(self) -> None:
+        """Background stripe-repair scheduler over the soft-state group
+        cache: a stripe whose holder left the cluster is re-decoded by the
+        group's owner DN (it holds the WAL-durable manifest) onto healthy
+        replacements.  Owner loss is repairable too, since the demote-time
+        ``ec_demote`` edits journal each group's full manifest: a surviving
+        holder is deputized as the repair agent and hands the NN's durable
+        manifest copy down with the ``stripe_repair`` command
+        (_schedule_owner_loss_repair)."""
+        with self._lock:
+            now = time.monotonic()
+            dead_after = self.config.dead_node_interval_s
+            for (owner_id, cid), grp in list(self._stripe_groups.items()):
+                owner = self._datanodes.get(owner_id)
+                if (owner is None
+                        or now - owner.last_heartbeat >= dead_after):
+                    # owner (and its WAL manifest) is gone: fall back to
+                    # the editlog-durable manifest via a surviving holder
+                    self._schedule_owner_loss_repair(owner_id, cid, grp, now)
+                    continue
+                missing = []
+                for idx, h in enumerate(grp["holders"]):
+                    d = self._datanodes.get(h[0])
+                    if d is None or now - d.last_heartbeat >= dead_after:
+                        missing.append(idx)
+                key = (owner_id, cid)
+                # scrub-confirmed corrupt stripes on live holders repair
+                # through the same scheduler as dead-holder losses
+                corrupt = self._corrupt_stripes.get(key, set())
+                missing = sorted(set(missing)
+                                 | {i for i in corrupt
+                                    if i < len(grp["holders"])})
+                if not missing:
+                    self._pending_stripe_repair.pop(key, None)
+                    self._corrupt_stripes.pop(key, None)
+                    continue
+                if self._pending_stripe_repair.get(key, 0.0) > now:
+                    continue
+                survivors = {h[0] for i, h in enumerate(grp["holders"])
+                             if i not in missing}
+                base = self._ec_placement_pool(now)
+                # small clusters: if every healthy DN already holds a
+                # surviving stripe, double up on survivors (distinct
+                # (owner,cid,idx) filenames make that safe) rather than
+                # leaving the group degraded forever
+                pool = ([d for d in base if d.dn_id not in survivors]
+                        or base)
+                if not pool:
+                    continue
+                targets = [pool[i % len(pool)]
+                           for i in range(len(missing))]
+                owner.commands.append({
+                    "cmd": "stripe_repair", "cid": cid,
+                    "block_id": grp.get("block_id"),
+                    "missing": missing,
+                    "targets": [[t.dn_id, t.addr[0], t.addr[1]]
+                                for t in targets]})
+                self._pending_stripe_repair[key] = (
+                    now + self.config.pending_replication_timeout_s)
+                _M.incr("stripe_repairs_scheduled")
+            # orphaned groups: the durable manifests remember stripes whose
+            # owner died before (or across an NN restart, where the soft
+            # cache starts empty) — sweep them through the same scheduler
+            for (owner_id, cid), man in list(self._stripe_manifests.items()):
+                if (owner_id, cid) in self._stripe_groups:
+                    continue
+                owner = self._datanodes.get(owner_id)
+                if (owner is not None
+                        and now - owner.last_heartbeat < dead_after):
+                    continue  # live owner re-reports the group itself
+                self._schedule_owner_loss_repair(
+                    owner_id, cid,
+                    {"holders": [list(h) for h in man["holders"]],
+                     "block_id": None}, now)
+
+    def _schedule_owner_loss_repair(self, owner_id: str, cid: int,
+                                    grp: dict, now: float) -> None:
+        """Repair a stripe group whose OWNER (and therefore the WAL-durable
+        manifest) is gone: deputize the first surviving holder as the
+        repair agent and hand it the NN's journaled manifest copy with the
+        ``stripe_repair`` command.  Repaired stripes keep the dead owner's
+        name (ec_tier._place owner=), so the group stays addressable; the
+        NN's editlog manifest remains the orphan group's durable home.
+        Caller holds self._lock."""
+        man = self._stripe_manifests.get((owner_id, cid))
+        if man is None:
+            return   # pre-durability residual: nothing to repair from
+        key = (owner_id, cid)
+        if self._pending_stripe_repair.get(key, 0.0) > now:
+            return
+        dead_after = self.config.dead_node_interval_s
+        missing, agent = [], None
+        for idx, h in enumerate(grp["holders"]):
+            d = self._datanodes.get(h[0])
+            if d is None or now - d.last_heartbeat >= dead_after:
+                missing.append(idx)
+            elif agent is None:
+                agent = d
+        if agent is None:
+            return   # no surviving holder left to deputize: data loss
+        if not missing:
+            self._pending_stripe_repair.pop(key, None)
+            return   # every stripe survives; group is merely owner-less
+        survivors = {h[0] for i, h in enumerate(grp["holders"])
+                     if i not in missing}
+        base = self._ec_placement_pool(now)
+        pool = [d for d in base if d.dn_id not in survivors] or base
+        if not pool:
+            return
+        targets = [pool[i % len(pool)] for i in range(len(missing))]
+        agent.commands.append({
+            "cmd": "stripe_repair", "cid": cid,
+            "block_id": grp.get("block_id"),
+            "missing": missing,
+            "targets": [[t.dn_id, t.addr[0], t.addr[1]] for t in targets],
+            # stamp the group's owner into the handed-down manifest: the
+            # agent's gather/placement key stripes by (owner, cid, idx),
+            # and the agent's own dn_id must never leak in as the default
+            "manifest": dict(man, owner=owner_id)})
+        self._pending_stripe_repair[key] = (
+            now + self.config.pending_replication_timeout_s)
+        _M.incr("owner_loss_repairs_scheduled")
+
+    def _recover_leases(self) -> None:
+        with self._lock:
+            for path in self._leases.expired():
+                node = self._try_file(path)
+                if node is None or node.complete:
+                    self._leases.drop(path)
+                    continue
+                # keep the (expired) lease until the file actually closes:
+                # it is what makes the monitor retry a finalize that is
+                # waiting on IBR grace or an in-flight block recovery
+                if self._finalize_abandoned(path, node):
+                    self._leases.drop(path)
+
+    RECOVERY_GRACE_S = 4.0  # bounded wait for async IBRs before concluding
+    # "no replica survived" (the reference's recovery also never trusts an
+    # instantaneous empty view — rpc_recover_lease polls race the DNs' IBRs)
+
+    def _resolved_length(self, bid: int) -> int:
+        """Best known logical length of a block: the committed length if
+        resolved, else the MINIMUM length among live replicas of the highest
+        reported generation (every byte below the minimum was CRC-verified
+        on each node — BlockRecoveryWorker's sync rule)."""
+        info = self._blocks.get(bid)
+        if info is None:
+            return 0
+        if info.length >= 0:
+            return info.length
+        live = [v for d, v in info.reported.items() if d in self._datanodes]
+        if not live:
+            return 0
+        top = max(gs for gs, _ in live)
+        return min(ln for gs, ln in live if gs == top)
+
+    def _finalize_abandoned(self, path: str, node: "FileNode") -> bool:
+        """Close a writer-abandoned file.  If the last block's length is
+        unresolved: with live replicas, journal a recovery generation stamp
+        (fencing the dead writer's pipeline) and dispatch a primary-DN
+        length-sync recovery (BlockRecoveryWorker; the pipeline may have
+        died with different replica lengths on each node), finishing in
+        rpc_commit_block_sync; with NO replicas reported yet, wait a bounded
+        grace for the asynchronous IBRs before dropping the block.
+        Returns True when the file closed now.  Caller holds the lock."""
+        last = node.blocks[-1] if node.blocks and not node.ec else None
+        info = self._blocks.get(last) if last is not None else None
+        if info is not None and info.length < 0:
+            now = time.monotonic()
+            # candidates = reporters + the allocation's intended pipeline:
+            # recovery must not race the async IBRs of a DN that holds a
+            # replica but hasn't reported yet (it would sync to a PARTIAL
+            # peer set — possibly one replica's length, not the min)
+            live = sorted({d for d in (set(info.reported)
+                                       | set(info.expected))
+                           if d in self._datanodes})
+            lens = {v for d, v in info.reported.items()
+                    if d in self._datanodes}
+            reported_live = {d for d in info.reported
+                             if d in self._datanodes}
+            if live and set(live) <= reported_live and len(lens) == 1 and \
+                    next(iter(lens))[0] == info.gen_stamp:
+                # every live replica is at the current generation and they
+                # agree on length: nothing to sync — complete directly (the
+                # all-replicas-consistent fast path of the reference's
+                # internalReleaseLease); _resolved_length picks the agreed
+                # value below
+                self._recovery_grace.pop(last, None)
+            elif live and reported_live:
+                self._recovery_grace.pop(last, None)
+                if now < self._pending_recovery.get(last, 0):
+                    return False  # a recovery is already in flight
+                # Journal the recovery generation stamp BEFORE dispatching:
+                # it fences the dead writer (a late finalize IBRs as stale)
+                # and survivors are restamped with it so the next full block
+                # report doesn't invalidate the just-recovered replicas
+                # (commitBlockSynchronization installs the recovery gen
+                # stamp in the reference too).
+                rec_gs = self._gen_stamp
+                self._log(["bump_block", path, last, rec_gs])
+                # retry window: a recovery aborted by an in-flight RBW
+                # (writer not torn down yet) re-dispatches quickly
+                self._pending_recovery[last] = now + 5.0
+                primary = self._datanodes[live[0]]
+                primary.commands.append({
+                    "cmd": "recover_block", "path": path, "block_id": last,
+                    "gen_stamp": rec_gs,
+                    "peers": [{"dn_id": d,
+                               "addr": list(self._datanodes[d].addr)}
+                              for d in live]})
+                _M.incr("block_recoveries_dispatched")
+                return False
+            else:
+                deadline = self._recovery_grace.setdefault(
+                    last, now + self.RECOVERY_GRACE_S)
+                if now < deadline:
+                    return False  # IBRs may still be in flight; retry later
+                # grace expired with no replica reported: nothing survived —
+                # drop the last block (the reference drops it too) and close
+                self._recovery_grace.pop(last, None)
+                self._log(["abandon_block", path, last])
+        if node.ec:
+            lengths = {g: max(self._groups[g].logical_len, 0)
+                       for g in node.blocks if g in self._groups}
+        else:
+            lengths = {b: self._resolved_length(b)
+                       for b in node.blocks if b in self._blocks}
+        self._log(["complete", path, lengths, time.time()])
+        _M.incr("leases_recovered")
+        return True
+
+    def rpc_commit_block_sync(self, path: str, block_id: int, length: int,
+                              dn_ids: list, gen_stamp: int = -1) -> bool:
+        """Primary-DN report after a length-sync recovery
+        (commitBlockSynchronization analog): record the agreed length (or
+        drop a block no replica survived for), install the recovery
+        generation's replica set as the serving locations, and close the
+        file."""
+        with self._lock:
+            node = self._try_file(path)
+            info = self._blocks.get(block_id)
+            if node is None or node.complete or info is None:
+                return False
+            if 0 <= gen_stamp < info.gen_stamp:
+                return False  # a newer recovery superseded this one
+            self._pending_recovery.pop(block_id, None)
+            self._recovery_grace.pop(block_id, None)
+            if length <= 0:
+                self._log(["abandon_block", path, block_id])
+            else:
+                live = set(dn_ids) & set(self._datanodes)
+                info.locations = set(live)
+                for d in live:
+                    info.reported[d] = (info.gen_stamp, length)
+                    self._datanodes[d].blocks.add(block_id)
+            lengths = {b: (length if b == block_id
+                           else self._resolved_length(b))
+                       for b in node.blocks if b in self._blocks}
+            self._log(["complete", path, lengths, time.time()])
+            _M.incr("blocks_synced")
+            return True
+
+    def _try_file(self, path: str) -> FileNode | None:
+        try:
+            node = self._resolve(path)
+            return node if isinstance(node, FileNode) else None
+        except (FileNotFoundError, NotADirectoryError):
+            return None

@@ -997,3 +997,75 @@ def test_rs_entry_points_on_the_card(dev):
         rs._bit_matmul(np.eye(24, 48, dtype=np.float32)[::-1].copy(), d, 3,
                        device=dev)
 
+
+
+def test_namenode_writes_and_demotes_on_card(dev, tmp_path):
+    """Steps (a) and (d) of chip_smoke's NAMENODE phase at a small size: a
+    port NameNode, three port DataNodes on ``cuda``, one 8 MiB block
+    written down the pipeline add_block chose, read back from every
+    replica; then ``ec_demote_after_s`` set, the NameNode's
+    ``stripe_demote`` runs the RS kernel on the owner, the other replicas
+    are invalidated and the block reads back equal from the owner."""
+    import time
+
+    from _dn_standin import port_dn, read_block, write_block, write_ok
+    from hdrf_tpu_torch.config import NameNodeConfig
+    from hdrf_tpu_torch.proto.rpc import RpcClient
+    from hdrf_tpu_torch.server.namenode import NameNode
+
+    def wait(pred, what, timeout=120.0):
+        t_end = time.monotonic() + timeout
+        while not pred():
+            assert time.monotonic() < t_end, what
+            time.sleep(0.05)
+
+    nn = NameNode(NameNodeConfig(meta_dir=str(tmp_path / "name"),
+                                 ec_data_shards=3, ec_parity_shards=2)
+                  ).start()
+    dns = {}
+    try:
+        for i in range(3):
+            d = port_dn(str(tmp_path / f"dn{i}"), nn.addr, f"dn-{i}",
+                        backend="cuda", red={"container_size": 1 << 20})
+            dns[d.dn_id] = d
+        wait(lambda: len(nn._datanodes) == 3, "registration")
+        rng = np.random.default_rng(5)
+        data = rng.integers(0, 256, 8 << 20, dtype=np.uint8).tobytes()
+        n0 = (cdc_cuda.scan_launches, sha256_cuda.launches)
+        with RpcClient(nn.addr) as c:
+            c.call("create", path="/card/f", client="t", scheme="dedup_lz4")
+            a = c.call("add_block", path="/card/f", client="t")
+            tg = [{"dn_id": t["dn_id"], "addr": t["addr"]}
+                  for t in a["targets"]]
+            acks = write_block(tg[0]["addr"], a["block_id"], data,
+                               targets=tg[1:], gen_stamp=a["gen_stamp"])
+            assert write_ok(acks, data)
+            wait(lambda: c.call("complete", path="/card/f", client="t",
+                                block_lengths={a["block_id"]: len(data)}),
+                 "complete")
+            assert cdc_cuda.scan_launches > n0[0]
+            assert sha256_cuda.launches > n0[1]
+            assert c.call("stat", path="/card/f")["length"] == len(data)
+            locs = c.call("get_block_locations", path="/card/f")["blocks"]
+            holders = [loc["dn_id"] for loc in locs[0]["locations"]]
+            assert len(holders) == 3
+            for d in holders:
+                assert read_block(dns[d].addr, a["block_id"])[1] == data
+            for d in dns.values():
+                d.containers.drain_seals()
+            r0 = rs_cuda.launches
+            nn.config.ec_demote_after_s = 0.5
+            wait(lambda: c.call("ec_status")["demoted_blocks"] == 1,
+                 "demotion")
+            assert rs_cuda.launches > r0
+            wait(lambda: len(c.call("get_block_locations", path="/card/f")
+                             ["blocks"][0]["locations"]) == 1,
+                 "replicas invalidated down to the owner")
+            owner = c.call("get_block_locations", path="/card/f")[
+                "blocks"][0]["locations"][0]["dn_id"]
+            assert dns[owner].index.stripe_manifests()
+            assert read_block(dns[owner].addr, a["block_id"])[1] == data
+    finally:
+        for d in dns.values():
+            d.stop()
+        nn.stop()

@@ -298,8 +298,7 @@ def test_qos_shed_answers_ack_shed_like_reference(tmp_path):
     assert got["port"][3] == [500, 502] and got["port"][4]
 
 
-WAITING = [({"status_port": 0}, "#9e"), ({"flight_archive_dir": "fa"}, "#9e"),
-           ({"scrub_interval_s": 5.0}, "#9f"),
+WAITING = [({"status_port": 0}, "#9e"), ({"scrub_interval_s": 5.0}, "#9f"),
            ({"simulated_dataset": True}, "#9h"),
            ({"reduction.cdc_adaptive": True}, "#9i"),
            ({"reduction.worker_spawn": True}, "#9j")]
@@ -335,13 +334,13 @@ def test_waiting_plane_ops_count_as_unknown(tmp_path):
     try:
         u0 = reg.counter("unknown_ops")
         for op in ("alias_add", "reconfigure", "get_reconfigurable",
-                   "flight_timeseries", "no_such_op"):
+                   "no_such_op"):
             assert op_reply(dn.addr, op, key="x", regions=[]) is None
         deadline = time.monotonic() + 10
-        while reg.counter("unknown_ops") < u0 + 5 \
+        while reg.counter("unknown_ops") < u0 + 4 \
                 and time.monotonic() < deadline:
             time.sleep(0.02)
-        assert reg.counter("unknown_ops") == u0 + 5
+        assert reg.counter("unknown_ops") == u0 + 4
         # the DataNode still serves
         blk = _blocks(7, n=1, size=64 << 10)[0]
         assert write_ok(write_block(dn.addr, 600, blk), blk)

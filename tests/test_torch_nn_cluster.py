@@ -1,0 +1,231 @@
+"""The port NameNode running a cluster, driven by the reference client.
+
+A started port ``NameNode`` (heartbeats every 0.2 s, dead after 1.5 s)
+with six DataNodes of either package (``native`` backend, 32 KiB
+containers so they roll and seal while the test writes), and the
+reference ``HdrfClient``: ``dedup_lz4`` files and an EC file written and
+read back equal; a DataNode stopped and its blocks re-replicated by the
+NameNode's ``replicate`` commands; ``ec_demote_after_s`` set at runtime,
+the blocks demoted through ``stripe_demote`` and read back; a stripe
+holder stopped and its stripes repaired through ``stripe_repair``.  This
+is the cold-tier flow of the reference's own cluster tests, with the
+port NameNode in place of the reference's.
+
+Also here: the port DataNode's flight archive and ``flight_timeseries``
+reply against the reference DataNode's.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import pytest
+
+from _dn_standin import (StandInNN, guard_reference_stat_race, op_reply,
+                         port_dn, ref_dn)
+
+BLOCK = 256 << 10
+
+
+def _wait(pred, timeout=60.0, interval=0.1, msg="condition"):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(interval)
+    raise AssertionError(f"timed out waiting for {msg}")
+
+
+class Cluster:
+    """A port NameNode and ``n`` DataNodes of one package."""
+
+    def __init__(self, root: str, dn_pkg: str, n: int = 6) -> None:
+        from hdrf_tpu_torch.config import NameNodeConfig
+        from hdrf_tpu_torch.server.namenode import NameNode
+
+        self.root = root
+        self.dn_pkg = dn_pkg
+        self.nn = NameNode(NameNodeConfig(
+            meta_dir=os.path.join(root, "name"), replication=3,
+            block_size=BLOCK, heartbeat_interval_s=0.2,
+            dead_node_interval_s=1.5, ec_data_shards=3,
+            ec_parity_shards=2, ec_demote_after_s=0.0)).start()
+        self.dns = [self._dn(i) for i in range(n)]
+        _wait(lambda: len(self.nn._datanodes) == n, msg="registration")
+
+    def _dn(self, i: int):
+        make = port_dn if self.dn_pkg == "port" else ref_dn
+        return make(os.path.join(self.root, f"dn{i}"), self.nn.addr,
+                    f"dn-{i}", red={"container_size": 32 << 10},
+                    dn={"heartbeat_interval_s": 0.2,
+                        "block_report_interval_s": 5.0})
+
+    def ec_registry(self):
+        if self.dn_pkg == "port":
+            from hdrf_tpu_torch.utils import metrics
+        else:
+            from hdrf_tpu.utils import metrics
+        return metrics.registry("ec")
+
+    def live_locations(self, c, path: str) -> list[set]:
+        return [{loc["dn_id"] for loc in b["locations"]}
+                for b in c._call("get_block_locations", path=path)["blocks"]]
+
+    def stop(self) -> None:
+        for dn in self.dns:
+            if dn is not None:
+                dn.stop()
+        self.nn.stop()
+        from hdrf_tpu.utils import retry as ref_retry
+        from hdrf_tpu_torch.utils import retry as port_retry
+
+        ref_retry.reset_breakers()
+        port_retry.reset_breakers()
+
+
+@pytest.mark.parametrize("dn_pkg", ["port", "ref"])
+def test_reference_client_on_port_namenode(tmp_path, monkeypatch, dn_pkg):
+    from hdrf_tpu.client.filesystem import HdrfClient
+
+    if dn_pkg == "ref":
+        guard_reference_stat_race(monkeypatch)
+    cl = Cluster(str(tmp_path), dn_pkg)
+    nn = cl.nn
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, size=400_000, dtype=np.uint8).tobytes()
+    files = {"/w/a": base + base[:200_000],          # 3 blocks, dedup
+             "/w/b": rng.integers(0, 256, size=90_000,
+                                  dtype=np.uint8).tobytes()}
+    ec_data = rng.integers(0, 256, size=50_000, dtype=np.uint8).tobytes()
+    try:
+        with HdrfClient(nn.addr, name=f"nn-{dn_pkg}") as c:
+            # ---- write and read ----------------------------------------
+            for p, data in files.items():
+                c.write(p, data, scheme="dedup_lz4")
+            c.write("/w/ec", ec_data, ec="rs-3-2-4k")
+            for p, data in files.items():
+                assert c.read(p) == data
+                assert c.stat(p)["length"] == len(data)
+            assert c.read("/w/ec") == ec_data
+            assert c.read("/w/a", offset=300_001, length=77_777) == \
+                files["/w/a"][300_001:377_778]
+            _wait(lambda: all(len(s) == 3 for p in files
+                              for s in cl.live_locations(c, p)),
+                  msg="three replicas of every block")
+
+            # ---- re-replication ----------------------------------------
+            victim = sorted(cl.live_locations(c, "/w/a")[0])[0]
+            vi = int(victim.split("-")[1])
+            cl.dns[vi].stop()
+            cl.dns[vi] = None
+            _wait(lambda: victim not in nn._datanodes, msg="dead node")
+            _wait(lambda: all(len(s) == 3 and victim not in s
+                              for p in files
+                              for s in cl.live_locations(c, p)),
+                  msg="re-replication")
+            for p, data in files.items():
+                assert c.read(p) == data
+
+            # ---- demotion ----------------------------------------------
+            nn.config.ec_demote_after_s = 0.3
+            # (a block whose chunks all sit in a still-open container has
+            # nothing sealed to stripe and stays replicated, as in the
+            # reference)
+            _wait(lambda: c._call("ec_status")["demoted_blocks"] >= 2,
+                  msg="demotion")
+            _wait(lambda: c._call("ec_status")["striped_containers"] >= 1,
+                  msg="striped-container census")
+            demoted = set(nn._ec_demoted)
+
+            def owner_only():
+                return all(len(b["locations"]) == 1 for p in files
+                           for b in c._call("get_block_locations",
+                                            path=p)["blocks"]
+                           if b["block_id"] in demoted)
+            _wait(owner_only, msg="replicas invalidated down to the owner")
+            for p, data in files.items():
+                assert c.read(p) == data
+
+            # ---- stripe repair -----------------------------------------
+            reg = cl.ec_registry()
+            owners = {d.dn_id: d for d in cl.dns
+                      if d is not None and d.index.stripe_manifests()}
+            owner = next(iter(owners.values()))
+            man = next(iter(owner.index.stripe_manifests().values()))
+            lost = next(h[0] for h in man["holders"]
+                        if h[0] not in owners)
+            repaired0 = reg.counter("stripes_repaired")
+            li = int(lost.split("-")[1])
+            cl.dns[li].stop()
+            cl.dns[li] = None
+            _wait(lambda: reg.counter("stripes_repaired") > repaired0,
+                  timeout=90.0, msg="stripe repair")
+            _wait(lambda: all(h[0] != lost
+                              for m in owner.index.stripe_manifests()
+                              .values() for h in m["holders"]),
+                  msg="holders re-registered")
+            for p, data in files.items():
+                assert c.read(p) == data
+            assert c._call("ec_status")["demoted_blocks"] >= len(demoted)
+    finally:
+        cl.stop()
+
+
+def test_flight_archive_matches_reference(tmp_path):
+    """A port and a reference DataNode with ``flight_archive_dir``: the
+    same archive layout and samples on disk, and the same
+    ``flight_timeseries`` reply shape; history survives a restart."""
+    nn = StandInNN()
+    clock = {"t": 1_700_000_000.0, "m": 50.0}
+
+    def pinned(dn):
+        dn.flight._wall = lambda: clock["t"]
+        dn.flight._clock = lambda: clock["m"]
+
+    dns = {}
+    replies = {}
+    try:
+        for pkg, make in (("ref", ref_dn), ("port", port_dn)):
+            root = str(tmp_path / pkg)
+            dn = make(root, nn.addr, f"dn-fa-{pkg}",
+                      dn={"flight_archive_dir": "flight",
+                          "flight_interval_s": 0.0})
+            dns[pkg] = dn
+            pinned(dn)
+            for _ in range(3):
+                clock["t"] += 1.0
+                clock["m"] += 1.0
+                dn.flight.sample_once()
+            dn.flight_archive.sync()
+            replies[pkg] = op_reply(dn.addr, "flight_timeseries",
+                                    metric=None, limit=10)
+            clock["t"] -= 3.0
+            clock["m"] -= 3.0
+        ref, port = replies["ref"], replies["port"]
+        assert port is not None and ref is not None
+        assert set(port) == set(ref)
+        assert port["archived"] == ref["archived"] == 3
+        assert [(s["t"], s["mono"]) for s in port["samples"]] == \
+            [(s["t"], s["mono"]) for s in ref["samples"]]
+        assert [sorted(s) for s in port["samples"]] == \
+            [sorted(s) for s in ref["samples"]]
+        files = {pkg: sorted(os.listdir(os.path.join(str(tmp_path / pkg),
+                                                     "flight")))
+                 for pkg in dns}
+        assert files["port"] == files["ref"]
+        # restart: the archive replays the three samples
+        dns["port"].stop()
+        dns["port"] = port_dn(str(tmp_path / "port"), nn.addr,
+                              "dn-fa-port",
+                              dn={"flight_archive_dir": "flight",
+                                  "flight_interval_s": 0.0})
+        again = op_reply(dns["port"].addr, "flight_timeseries", limit=10)
+        assert again["archived"] == 3
+        assert [s["t"] for s in again["samples"]] == \
+            [s["t"] for s in port["samples"]]
+    finally:
+        for dn in dns.values():
+            dn.stop()
+        nn.stop()

@@ -301,6 +301,8 @@ def test_port_imports_no_jax_and_no_reference():
             "                               'hdrf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'hdrf_tpu_torch.server.reduction_worker' in sys.modules\n"
+            "from hdrf_tpu_torch.config import NameNodeConfig\n"
+            "from hdrf_tpu_torch.proto.rpc import RpcServer, HaRpcClient\n"
             "for m in ('parallel.sharded', 'parallel.launch',\n"
             "          'config', 'utils.wal', 'utils.rollwin',\n"
             "          'utils.tenants', 'utils.retry', 'utils.qos',\n"
@@ -316,7 +318,11 @@ def test_port_imports_no_jax_and_no_reference():
             "          'server.mirror_plane', 'storage.replica_store',\n"
             "          'storage.volumes', 'storage.version', 'security',\n"
             "          'utils.watchdog', 'utils.log',\n"
-            "          'utils.flight_recorder'):\n"
+            "          'utils.flight_recorder', 'utils.outlier',\n"
+            "          'utils.lockprof', 'utils.flight_archive',\n"
+            "          'server.permissions', 'server.journal',\n"
+            "          'server.editlog', 'server.namenode',\n"
+            "          'server.failover'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
