@@ -183,9 +183,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``ReductionConfig()`` defaults (dedup_lz4, 32 MiB lz4 containers,
    ``pipeline_depth`` 4, a 2 ms group commit, 4 write slots).  (a) Three
    DataNodes, replication 3 (DN1 with targets DN2 and DN3: reduced
-   mirroring, the chunk delta down the chain): the ``reduce`` corpus
-   over 4 concurrent streams (the reference harness's ``dfs --pipeline-ab
-   --streams 4``).  The write kernels' launches (zeroed before) are > 0,
+   mirroring, the chunk delta down the chain): four blocks of the
+   ``reduce`` corpus, one on each of 4 concurrent streams (the reference
+   harness's ``dfs --pipeline-ab --streams 4``; the depth cut to four to
+   keep the smoke inside its time).  The write kernels' launches (zeroed before) are > 0,
    the coalescer ran groups, no seal fell back to the host codec
    (``worker_fallbacks`` 0); every block is read back from all three
    with ``READ_BLOCK`` and equals the bytes written, ``BLOCK_CHECKSUM``
@@ -208,18 +209,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    two blocks, the second with its leg to DN3 refused so that the parity
    leg is hedged in; the mirrors hold their segments (partial IBRs), DN2
    assembles the second block through the RS decode, and it reads back
-   equal (``DATANODE mirror``).  (c) ``pipeline_depth`` 4 beside 1 on
-   fresh single DataNodes, 4 blocks over 4 streams (``DATANODE ab``,
-   information only).  Each pass's directories are deleted when it ends.
+   equal (``DATANODE mirror``).  Each pass's directories are deleted
+   when it ends.  The ``pipeline_depth`` 4 beside 1 pass that was (c),
+   information only, is left out to keep the smoke inside its time.
 12. NAMENODE, the port's NameNode (hdrf_tpu_torch/server/namenode.py) at
    ``NameNodeConfig()`` defaults (replication 3, 128 MiB blocks, 1 s
    heartbeats, 6 s dead-node detection; its meta dir under a
    ``tempfile`` root, on a fixed port so that it restarts there) and
    four port DataNodes on ``cuda:0`` at ``DataNodeConfig()`` /
-   ``ReductionConfig()`` defaults registered with it; a writer on the
-   port's ``RpcClient`` calls ``create(scheme="dedup_lz4")``,
-   ``add_block`` (streaming each block down the pipeline it chose, in
-   its order), ``complete(block_lengths)`` and ``get_block_locations``.
+   ``ReductionConfig()`` defaults registered with it (its block size
+   ``--block-mib``, 128 MiB at the defaults); the port's ``HdrfClient``
+   writes each file (``create(scheme="dedup_lz4")``, ``add_block`` and
+   the block streamed down the pipeline it chose, ``complete`` polled
+   until the IBRs are in; ms a block from ``_write_block``).
    (a) Two files of 2 blocks and 1 block of the ``reduce`` corpus by two
    concurrent writers: every replica listed reads back equal with
    ``READ_BLOCK``, ``BLOCK_CHECKSUM`` equals ``native.crc32c_chunks``,
@@ -244,7 +246,37 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``rpc.namenode`` p99 (``NAMENODE meta``, information only).  Every
    step holds ``DN_FAULTS``; ``NAMENODE launches`` sums the kernels'
    launches over the steps.
-13. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+13. CLIENT, the port's ``MiniCluster`` (hdrf_tpu_torch/testing/
+   minicluster.py) on ``cuda:0``: ``NameNodeConfig`` defaults where they
+   matter (replication 3, ``--block-mib`` blocks, 1 s heartbeats, 6 s
+   dead-node verdict), 32 MiB containers, nine DataNodes (RS-6-3-1024k,
+   HDFS's default EC policy, needs k + m = 9) at the reference's
+   ``native`` in-process backend, and ``tpu_worker=True``: one port
+   reduction worker PROCESS owns the card (its ``ping`` must say
+   ``cuda``), and the DataNodes send it ``reduce`` and the seals (its
+   ``traces`` ledger must hold ``resident.cdc``, ``resident.sha`` and
+   ``lz4.scan`` dispatches).  The port's ``HdrfClient`` in this process
+   (``mc.client()``, device ``cuda``).  (a) The ``reduce`` corpus's
+   blocks 0-1 as ``/c/a`` (dedup_lz4) and block 0 again as ``/c/dup``:
+   read whole and at odd ranges across the block boundary over TCP
+   (reduced replicas pass no fd: ``metadata_only`` rises,
+   ``short_circuit_reads`` does not), ``get_file_checksum`` equal to
+   ``native.crc32c`` (``CLIENT write``: client ms a block, MiB/s, the
+   duplicate's ms and dedup).  (b) Block 2 as ``/c/d`` (direct): read
+   twice through the short-circuit fd and twice with
+   ``ClientConfig(short_circuit=False)``, equal; deleted, its replicas
+   invalidated, the cached fd revoked (a read of the old block through
+   the cache returns nothing), re-created with one MiB of other bytes
+   and read back (``CLIENT read``).  (c) ``/c/a``'s bytes as ``/c/ec`` with
+   ``ec="rs-6-3-1024k"``: the client's ``rs`` launches > 0, the three
+   parity blocks the DataNodes store equal to the plain version of the
+   encode of the bytes' cell layout, read back equal,
+   ``get_file_checksum`` equal to ``/c/a``'s; a data-shard holder
+   stopped, the whole and a ranged read decode on the card (``rs``
+   launches rise), equal the bytes, and each decode equals the plain
+   version on the same shards (``CLIENT ec``).  Every step holds ``DN_FAULTS``
+   (``worker_fallbacks`` among them) to no change.
+14. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
@@ -262,7 +294,10 @@ requests.  ``gather_raw`` (the raw lane gather of the read path, a
 jitted XLA program in the reference, not a ``pallas_call``) counts its
 launches over SCHEME's first full read pass, ``rs`` (the reference's
 jitted bit-matrix product, filed under its "TPU kernels") its launches
-over EC's demote, degraded reads and repairs.  Bounds use the card's
+over EC's demote, degraded reads and repairs; the client's in CLIENT
+(the EC write's encode, the degraded reads' decodes) and their error
+there stand in the ``rs`` entry's own ``client_launches`` and
+``client_max_abs_err``.  Bounds use the card's
 published peaks: 3.35 TB/s HBM, and
 16.7 T int32 ops/s (132 SMs x 64 INT32 lanes x 1.98 GHz; the kernels are
 integer work).
@@ -2447,7 +2482,7 @@ DN_PHASES = ("recv", "checksum", "pipeline_submit", "device_wait",
              "dedup_lookup", "wal_commit", "container_io", "mirror_stream",
              "ack")
 DN_STREAMS = 4          # the reference harness's dfs --pipeline-ab --streams 4
-DN_AB_BLOCKS = 4
+DN_BLOCKS = 4           # one block a stream: the depth cut to keep the time
 # counters of work a DataNode lost or degraded while answering success (a
 # mirror leg that failed still acks the client, as pipeline recovery does)
 DN_FAULTS = {"block_receiver": ("mirror_failures", "worker_fallbacks",
@@ -2538,40 +2573,24 @@ def start_dn(root: str, nn, dn_id: str, **red):
 def dn_write(addr, bid: int, blk: np.ndarray, targets=(),
              gen_stamp: int = 1) -> float:
     """WRITE_BLOCK of ``blk`` in 64 KiB packets on a fresh connection, the
-    acks read by a second thread as they come (the reference client's
-    response processor: a writer that left them unread would stall the
-    DataNode's ack pump on a full window); every packet and the LAST one
+    acks read as they come (``datatransfer.stream_acked``, the reference
+    client's response processor: a writer that left them unread would
+    stall the stream on a full window); every packet and the LAST one
     acked, the last with status 0.  Returns ms from the first packet to
     the final ack (client clock)."""
     import socket
-    import threading
 
     from hdrf_tpu_torch.proto import datatransfer as dt
 
     npkt = -(-blk.size // DEFAULT_PACKET)
-    acks: list = []
     s = socket.create_connection(tuple(addr), timeout=600)
     try:
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         dt.send_op(s, dt.WRITE_BLOCK, block_id=bid, gen_stamp=gen_stamp,
                    scheme="dedup_lz4", targets=list(targets),
                    _client="smoke")
-
-        def responder():
-            try:
-                for _ in range(npkt + 1):
-                    acks.append(dt.read_ack(s))
-            except (ConnectionError, OSError):
-                pass
-        rt = threading.Thread(target=responder, daemon=True)
         t0 = time.perf_counter()
-        rt.start()
-        seq = 0
-        for pkt in packets(blk):
-            dt.write_packet(s, seq, pkt)
-            seq += 1
-        dt.write_packet(s, seq, b"", last=True)
-        rt.join(timeout=600)
+        acks = dt.stream_acked(s, memoryview(blk), DEFAULT_PACKET)
         ms = (time.perf_counter() - t0) * 1e3
     finally:
         s.close()
@@ -2873,46 +2892,23 @@ def datanode_coded(root: str, nn, blocks: list) -> dict:
     return out
 
 
-def datanode_ab(root: str, nn, blocks: list) -> dict:
-    """pipeline_depth 1 beside 4 on fresh single DataNodes, the same
-    blocks over four streams (information, not a claim)."""
-    out = {}
-    faults0 = _dn_faults()
-    for depth in (4, 1):
-        dn = start_dn(root, nn, f"ab{depth}", pipeline_depth=depth)
-        try:
-            ms, wall, cores = _write_streams(dn, blocks, 3000)
-            dn.containers.drain_seals()
-        finally:
-            dn.stop()
-        out[f"depth{depth}"] = {
-            "ms_per_block": _stats(ms),
-            "aggregate_mib_s": sum(b.size for b in blocks) / MIB / wall,
-            "host_cores_used": cores}
-    check_faults(faults0, "depth A/B")
-    print("DATANODE ab " + json.dumps(out), flush=True)
-    return out
-
-
 def datanode_phase(args) -> dict:
     """DATANODE: the port's DataNode on the card through its wire entry
     points (a stand-in NameNode; a wire client on the port's
-    datatransfer): the main pass, the coded mirror, the depth A/B.  Each
-    pass's directories are deleted when it ends."""
+    datatransfer): the main pass and the coded mirror.  Each pass's
+    directories are deleted when it ends."""
     import shutil
     import tempfile
 
     t0 = time.perf_counter()
-    blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
+    blocks = main_path_corpus(args.seed, DN_BLOCKS, args.block_mib)
     extra = main_path_corpus(args.seed + 9, 2, args.block_mib)
     nn = SmokeNN()
     out = {}
     try:
         for name, run_pass in (
                 ("main", lambda r: datanode_main(r, nn, blocks, extra)),
-                ("mirror", lambda r: datanode_coded(r, nn, blocks)),
-                ("ab", lambda r: datanode_ab(r, nn,
-                                             blocks[:DN_AB_BLOCKS]))):
+                ("mirror", lambda r: datanode_coded(r, nn, blocks))):
             root = tempfile.mkdtemp(prefix=f"smoke_dn_{name}_")
             try:
                 out[name] = run_pass(root)
@@ -2936,18 +2932,20 @@ NN_WATCH = ("repair", "demot", "stripe", "replicat", "dead", "fail",
             "error", "invalid", "gather")
 
 
-def _wait_for(pred, what: str, timeout: float = NN_WAIT_S) -> float:
+def _wait_for(pred, what: str, timeout: float = NN_WAIT_S,
+              detail=None) -> float:
     """Poll ``pred`` until true; returns the seconds it took, fails the
     smoke after ``timeout`` with the NameNode's and the EC tier's
-    scheduling counters in the message."""
+    scheduling counters (and ``detail()``) in the message."""
     t0 = time.monotonic()
     while not pred():
         if time.monotonic() - t0 >= timeout:
             counters = {r: {k: v for k, v in metrics.registry(r).snapshot()[
                 "counters"].items() if any(w in k for w in NN_WATCH)}
                 for r in ("namenode", "ec", "datanode")}
+            more = "" if detail is None else "; " + json.dumps(detail())
             check(False, f"NAMENODE: timed out after {timeout:.0f}s waiting "
-                  f"for {what}; {json.dumps(counters)}")
+                  f"for {what}; {json.dumps(counters)}{more}")
         time.sleep(0.05)
     return time.monotonic() - t0
 
@@ -2960,37 +2958,51 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _nn_start(meta_dir: str, port: int):
+def _nn_start(meta_dir: str, port: int, block_mib: int):
     """The port NameNode at NameNodeConfig() defaults (replication 3,
-    128 MiB blocks, 1 s heartbeats, 6 s dead-node detection) on
-    ``meta_dir`` and a fixed port."""
+    1 s heartbeats, 6 s dead-node detection) on ``meta_dir`` and a fixed
+    port, its block size ``--block-mib`` (128 MiB, the default, at the
+    smoke's defaults), so that every corpus block is one file block."""
     from hdrf_tpu_torch.config import NameNodeConfig
     from hdrf_tpu_torch.server.namenode import NameNode
 
-    return NameNode(NameNodeConfig(meta_dir=meta_dir, port=port)).start()
+    return NameNode(NameNodeConfig(meta_dir=meta_dir, port=port,
+                                   block_size=block_mib * MIB)).start()
+
+
+def _timed_write(c, path: str, blocks: list, **kw) -> list:
+    """``c.write`` of the blocks' bytes as one file; returns the client
+    ms of each block (``HdrfClient._write_block``: add_block, the block
+    streamed down the pipeline the NameNode chose, its final ack)."""
+    ms: list = []
+    inner = c._write_block
+
+    def timed(path, block, retries=3):
+        t0 = time.perf_counter()
+        bid = inner(path, block, retries)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return bid
+    c._write_block = timed
+    try:
+        c.write(path, b"".join(b.tobytes() for b in blocks), **kw)
+    finally:
+        c._write_block = inner
+    return ms
 
 
 def _nn_write_file(addr, path: str, blocks: list) -> dict:
-    """A writer on the port's RpcClient: create(dedup_lz4), then per block
-    add_block and the block streamed down the pipeline the NameNode chose,
-    in its order; complete(block_lengths) once the IBRs are in."""
-    from hdrf_tpu_torch.proto.rpc import RpcClient
+    """The port's HdrfClient writing ``blocks`` as one dedup_lz4 file:
+    create, per block add_block and the block streamed down the pipeline
+    the NameNode chose, then complete polled until the IBRs are in."""
+    from hdrf_tpu_torch.client.filesystem import HdrfClient
 
-    ms, lengths = [], {}
-    with RpcClient(addr, timeout=600) as c:
-        c.call("create", path=path, client="smoke", scheme="dedup_lz4")
-        for b in blocks:
-            a = c.call("add_block", path=path, client="smoke")
-            tg = a["targets"]
-            check(len(tg) == 3, f"{path}: add_block chose {tg}")
-            ms.append(dn_write(tg[0]["addr"], a["block_id"], b,
-                               [{"dn_id": t["dn_id"], "addr": t["addr"]}
-                                for t in tg[1:]], a["gen_stamp"]))
-            lengths[a["block_id"]] = b.size
-        _wait_for(lambda: c.call("complete", path=path, client="smoke",
-                                 block_lengths=lengths),
-                  f"{path} complete (its IBRs)")
-    return {"ms": ms, "block_ids": list(lengths)}
+    with HdrfClient(addr, name=f"smoke{path.replace('/', '-')}") as c:
+        ms = _timed_write(c, path, blocks, scheme="dedup_lz4")
+        bids = [b["block_id"] for b in c._call(
+            "get_block_locations", path=path)["blocks"]]
+    check(len(ms) == len(blocks) == len(bids),
+          f"{path}: {len(ms)} blocks written, {len(bids)} located")
+    return {"ms": ms, "block_ids": bids}
 
 
 def _locations(nn, path: str) -> dict:
@@ -3057,7 +3069,7 @@ def namenode_phase(args) -> dict:
     corpus = main_path_corpus(args.seed, 3, args.block_mib)
     files = {"/nn/f2": corpus[:2], "/nn/f1": corpus[2:3]}
     out: dict = {"launches": {}}
-    nn = _nn_start(meta, port)
+    nn = _nn_start(meta, port, args.block_mib)
     dns: dict = {}
     try:
         dns = {f"nd{i}": start_dn(root, nn_ref, f"nd{i}")
@@ -3108,7 +3120,7 @@ def namenode_phase(args) -> dict:
                   nn._gen_stamp, nn.rpc_listing("/nn"))
         seq = nn._editlog.seq
         nn.stop()
-        nn = _nn_start(meta, port)
+        nn = _nn_start(meta, port, args.block_mib)
         after = (packb(nn._snapshot()), nn._next_inode, nn._next_block_id,
                  nn._gen_stamp, nn.rpc_listing("/nn"))
         check(after == before and nn._editlog.seq == seq,
@@ -3178,9 +3190,31 @@ def namenode_phase(args) -> dict:
         faults0 = _dn_faults()
         ec = metrics.registry("ec")
         nn.config.ec_demote_after_s = 1.0
+
+        def containers_of_blocks():
+            """Each block's holders and, on its owner (the first), the
+            states of the containers holding its chunks."""
+            out = {}
+            for p in files:
+                for b, h in _locations(nn, p).items():
+                    dn = dns[h[0]]
+                    entry = dn.index.get_block(b)
+                    cids = sorted({loc.container_id for loc in (
+                        dn.index.chunk_location(x) for x in entry.hashes)
+                        if loc is not None}) if entry else []
+                    out[str(b)] = {"holders": h, "demoted":
+                                   b in nn._ec_demoted, "containers": {
+                                       str(c): "striped" if
+                                       dn.index.stripe_manifest(c)
+                                       else "sealed" if os.path.exists(
+                                           dn.volumes.volume_of_cid(c)
+                                           .containers._sealed_path(c))
+                                       else "open" for c in cids}}
+            return out
         demote_s = _wait_for(
             lambda: nn.rpc_ec_status()["demoted_blocks"] == len(data),
-            "stripe_demote of every block and its stripe_complete")
+            "stripe_demote of every block and its stripe_complete",
+            detail=containers_of_blocks)
         _wait_for(lambda: nn.rpc_ec_status()["striped_containers"] > 0,
                   "the striped-container census")
         _wait_for(lambda: all(len(h) == 1 for p in files
@@ -3220,7 +3254,9 @@ def namenode_phase(args) -> dict:
                     "lost_holder": lost, "repair_s": repair_s,
                     "repair_wall_s": time.perf_counter() - t1,
                     "stripes_repaired": ec.counter("stripes_repaired")
-                    - rep0, "demote_launches": enc,
+                    - rep0, "demotes_already_striped":
+                    ec.counter("demotes_already_striped"),
+                    "demote_launches": enc,
                     "repair_launches": dec}
         out["launches"]["d_demote"] = enc
         out["launches"]["d_repair"] = dec
@@ -3269,6 +3305,312 @@ def namenode_phase(args) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print("NAMENODE launches " + json.dumps(total), flush=True)
     print(f"NAMENODE done in {out['seconds']:.1f}s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- client
+
+CLIENT_DATANODES = 9     # RS-6-3-1024k, HDFS's default EC policy: k + m
+CLIENT_EC = "rs-6-3-1024k"
+CLIENT_SEAL_OPS = ("resident.cdc", "resident.sha", "lz4.scan")
+
+
+def _counter_of(registry: str, key: str) -> int:
+    return metrics.registry(registry).counter(key)
+
+
+def _hop_phases(bids: list, since: float) -> dict:
+    """Phase ms a block of each hop's write timeline (the DataNodes'
+    ``utils/profiler`` BlockTimelines of ``bids`` that started after
+    ``since``, a ``profiler._now()`` reading; each block's in order of
+    start: the primary, then each mirror down the chain), rounded."""
+    by_block: dict = {}
+    for t in profiler.timelines_snapshot():
+        if t["block_id"] in bids and t["t0"] >= since:
+            by_block.setdefault(t["block_id"], []).append(t)
+    out: dict = {}
+    for tls in by_block.values():
+        tls.sort(key=lambda t: t["t0"])
+        for i, t in enumerate(tls):
+            hop = out.setdefault("primary" if i == 0 else f"mirror{i}", {})
+            for ph, v in {**t["profile"]["phases"],
+                          "wall": t["profile"]["wall_s"]}.items():
+                hop[ph] = hop.get(ph, 0.0) + v * 1e3 / len(by_block)
+    return {h: {k: round(v, 1) for k, v in ph.items() if v >= 0.05}
+            for h, ph in out.items()}
+
+
+def _cores(c0, wall: float) -> float:
+    """Host cores this process used since ``c0`` (os.times) over wall s."""
+    c1 = os.times()
+    return (c1.user - c0.user + c1.system - c0.system) / wall
+
+
+def _mib_s(nbytes: int, ms: float) -> float:
+    return nbytes / MIB / (ms / 1e3)
+
+
+def _plain_err(coeffs: np.ndarray, src: np.ndarray,
+               got: np.ndarray) -> int:
+    """Max abs difference of ``got`` u8[nrows, L] from the GF kernel's
+    plain version (``rs_cuda.gf_apply_plain``) of ``coeffs`` applied to
+    host rows ``src`` u8[k, L], on the card in column windows of 4 MiB."""
+    from hdrf_tpu_torch.ops import rs_cuda
+
+    dev = torch.device("cuda:0")
+    err = 0
+    for lo in range(0, src.shape[1], 4 * MIB):
+        want = rs_cuda.gf_apply_plain(
+            coeffs, torch.from_numpy(
+                np.ascontiguousarray(src[:, lo:lo + 4 * MIB])).to(dev))
+        err = max(err, max_err(torch.from_numpy(np.ascontiguousarray(
+            got[:, lo:lo + 4 * MIB])).to(dev), want))
+    return err
+
+
+def client_phase(args) -> dict:
+    """CLIENT: the port's MiniCluster on ``cuda:0`` (NameNodeConfig
+    defaults where they matter: 128 MiB blocks, replication 3, 1 s
+    heartbeats, 6 s dead-node verdict; 32 MiB containers; nine native
+    DataNodes) with ``tpu_worker=True``: one port reduction worker process
+    owns the card, and the DataNodes send it ``reduce`` and the seals.
+    The port's HdrfClient in this process (device ``cuda``): (a) dedup_lz4
+    writes and reads over TCP, (b) a direct file read through the
+    short-circuit fd and over the wire, deleted and re-created (one MiB
+    of other bytes), (c) the
+    same bytes as an RS-6-3-1024k file, read whole and degraded."""
+    import shutil
+    import tempfile
+
+    from hdrf_tpu_torch.client.filesystem import HdrfClient
+    from hdrf_tpu_torch.client.striped import layout_shards
+    from hdrf_tpu_torch.config import ClientConfig
+    from hdrf_tpu_torch.ops import rs, rs_cuda
+    from hdrf_tpu_torch.proto import datatransfer as dt
+    from hdrf_tpu_torch.reduction import accounting
+    from hdrf_tpu_torch.server.reduction_worker import WorkerClient
+    from hdrf_tpu_torch.testing.minicluster import MiniCluster
+
+    t_phase = time.perf_counter()
+    bs = args.block_mib * MIB
+    corpus = main_path_corpus(args.seed, 3, args.block_mib)
+    a_bytes = corpus[0].tobytes() + corpus[1].tobytes()
+    root = tempfile.mkdtemp(prefix="smc_")   # AF_UNIX paths: keep it short
+    out: dict = {}
+    mc = MiniCluster(n_datanodes=CLIENT_DATANODES, base_dir=root,
+                     replication=3, block_size=bs,
+                     container_size=SEAL_BYTES, heartbeat_s=1.0,
+                     dead_node_s=6.0, tpu_worker=True)
+    try:
+        t0 = time.perf_counter()
+        mc.start()
+        start_s = time.perf_counter() - t0
+        worker = WorkerClient(mc._worker_addr, deadline_s=600)
+        ping = worker.ping()
+        check(ping["backend"] == "cuda",
+              f"CLIENT: the worker runs on {ping}, not the card")
+        c = mc.client("smoke-client")
+        check(c.device == "cuda", f"CLIENT: client device {c.device}")
+        dns = [d for d in mc.datanodes if d is not None]
+
+        # ---- (a) dedup_lz4 through the worker, reads over TCP ------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        sc0 = _counter_of("client", "short_circuit_reads")
+        md0 = _counter_of("shortcircuit", "metadata_only")
+        acc0 = accounting.snapshot()["counters"]
+        w0 = worker.stats()
+        since = profiler._now()
+        c0, t1 = os.times(), time.perf_counter()
+        a_ms = _timed_write(c, "/c/a", corpus[:2], scheme="dedup_lz4")
+        a_cores = _cores(c0, time.perf_counter() - t1)
+        acc1 = accounting.snapshot()["counters"]
+        dup_ms = _timed_write(c, "/c/dup", corpus[:1], scheme="dedup_lz4")
+        acc2 = accounting.snapshot()["counters"]
+        a_bids = [b["block_id"] for p in ("/c/a", "/c/dup") for b in
+                  c._call("get_block_locations", path=p)["blocks"]]
+        _drain(dns)
+        w1 = worker.stats()
+        check(w1["blocks_reduced"] - w0["blocks_reduced"] >= 3
+              and w1["compress_jobs"] > w0["compress_jobs"],
+              f"CLIENT: the worker reduced and sealed too little {w0} {w1}")
+        ops = {e["op"] for e in worker.traces()["ledger"]}
+        check(set(CLIENT_SEAL_OPS) <= ops,
+              f"CLIENT: worker ledger ops {sorted(ops)} lack "
+              f"{CLIENT_SEAL_OPS}")
+        read_ms = []
+        for p, want in (("/c/a", a_bytes), ("/c/dup", a_bytes[:bs])):
+            t1 = time.perf_counter()
+            check(c.read(p) == want, f"CLIENT (a): {p} != written")
+            read_ms.append((time.perf_counter() - t1) * 1e3)
+            ck = c.get_file_checksum(p)
+            check(ck["crc"] == native.crc32c(want)
+                  and ck["length"] == len(want),
+                  f"CLIENT (a): {p} checksum {ck} != crc32c")
+        for off, ln in ((bs - 12_345, 1_000_003), (77_777, 5 * MIB + 1),
+                        (2 * bs - 3, 3)):
+            check(c.read("/c/a", offset=off, length=ln)
+                  == a_bytes[off:off + ln],
+                  f"CLIENT (a): /c/a [{off}, +{ln}) != written")
+        check(_counter_of("client", "short_circuit_reads") == sc0
+              and _counter_of("shortcircuit", "metadata_only") > md0,
+              "CLIENT (a): a reduced replica passed an fd")
+
+        def delta(x, y, key):
+            return y.get(key, 0) - x.get(key, 0)
+        dup_logical = delta(acc1, acc2, "logical_bytes__dedup_lz4")
+        dup_physical = delta(acc1, acc2, "physical_bytes__dedup_lz4")
+        check_faults(faults0, "CLIENT (a)")
+        out["a"] = {"seconds": time.perf_counter() - t0,
+                    "write_ms_per_block": _stats(a_ms),
+                    "write_mib_s": _mib_s(len(a_bytes), sum(a_ms)),
+                    "dup_ms": dup_ms[0],
+                    "dup_dedup": dup_logical / max(dup_physical, 1),
+                    "a_dedup": delta(acc0, acc1, "logical_bytes__dedup_lz4")
+                    / max(delta(acc0, acc1, "physical_bytes__dedup_lz4"), 1),
+                    "dup_chunks_hit": delta(acc1, acc2, "dedup_chunks_hit"),
+                    "dup_chunks_miss": delta(acc1, acc2, "dedup_chunks_miss"),
+                    "read_ms": read_ms, "host_cores_used": a_cores,
+                    "phase_ms_per_block": _hop_phases(a_bids[:2], since),
+                    "dup_phase_ms": _hop_phases(a_bids[2:], since),
+                    "worker": w1, "worker_ledger_ops": sorted(ops)}
+        print("CLIENT write " + json.dumps(out["a"]), flush=True)
+
+        # ---- (b) direct: short-circuit against the wire -------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        d_bytes = corpus[2].tobytes()
+        since = profiler._now()
+        c0, t1 = os.times(), time.perf_counter()
+        d_ms = _timed_write(c, "/c/d", corpus[2:3], scheme="direct")
+        d_cores = _cores(c0, time.perf_counter() - t1)
+        d_write_s = time.perf_counter() - t1
+        sc0 = _counter_of("client", "short_circuit_reads")
+        sc_ms, wire_ms = [], []
+        with HdrfClient(mc.nn_addrs()[0], name="smoke-wire",
+                        config=ClientConfig(short_circuit=False)) as wc:
+            for _ in range(2):
+                for reader, lat in ((c, sc_ms), (wc, wire_ms)):
+                    t1 = time.perf_counter()
+                    check(reader.read("/c/d") == d_bytes,
+                          "CLIENT (b): /c/d != written")
+                    lat.append((time.perf_counter() - t1) * 1e3)
+        check(_counter_of("client", "short_circuit_reads") - sc0 == 2,
+              "CLIENT (b): the reads did not take the short circuit")
+        loc = c._call("get_block_locations", path="/c/d")["blocks"][0]
+        old = loc["block_id"]
+        # the replica whose fd the client holds, behind its shm slot
+        sock = next(x["sc_path"] for x in loc["locations"]
+                    if (x["sc_path"], old) in c._sc_cache._fds)
+        c.delete("/c/d")
+        inv_s = _wait_for(lambda: all(d.replicas.get_meta(old) is None
+                                      for d in dns),
+                          "/c/d's replicas invalidated")
+        rev0 = _counter_of("shortcircuit", "cached_fd_revoked")
+        check(c._sc_cache.read(sock, old, 0, -1) is None
+              and _counter_of("shortcircuit", "cached_fd_revoked") - rev0
+              == 1, "CLIENT (b): a revoked fd served a read")
+        new_bytes = corpus[0][:MIB].tobytes()   # other bytes, one MiB
+        c.write("/c/d", new_bytes, scheme="direct")
+        check(c.read("/c/d") == new_bytes,
+              "CLIENT (b): the re-created /c/d read stale bytes")
+        check_faults(faults0, "CLIENT (b)")
+        out["b"] = {"seconds": time.perf_counter() - t0,
+                    "write_ms": d_ms[0], "write_s_with_complete": d_write_s,
+                    "write_host_cores_used": d_cores,
+                    "write_phase_ms": _hop_phases([old], since),
+                    "short_circuit_ms": sc_ms, "wire_ms": wire_ms,
+                    "short_circuit_mib_s": _mib_s(bs, min(sc_ms)),
+                    "wire_mib_s": _mib_s(bs, min(wire_ms)),
+                    "invalidated_s": inv_s}
+        print("CLIENT read " + json.dumps(out["b"]), flush=True)
+
+        # ---- (c) the same bytes striped, then degraded ------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        rs0 = rs_cuda.launches
+        t1 = time.perf_counter()
+        c.write("/c/ec", a_bytes, ec=CLIENT_EC)
+        ec_write_ms = (time.perf_counter() - t1) * 1e3
+        enc = rs_cuda.launches - rs0
+        check(enc > 0, "CLIENT (c): the EC write launched no rs kernel")
+        t1 = time.perf_counter()
+        check(c.read("/c/ec") == a_bytes, "CLIENT (c): /c/ec != written")
+        ec_read_ms = (time.perf_counter() - t1) * 1e3
+        ck_ec, ck_a = c.get_file_checksum("/c/ec"), \
+            c.get_file_checksum("/c/a")
+        check(ck_ec == ck_a, f"CLIENT (c): checksums {ck_ec} != {ck_a}")
+        loc = c._call("get_block_locations", path="/c/ec")
+        grp = loc["groups"][0]
+        k, m, cell = rs.parse_policy(CLIENT_EC)
+        # the card's encode: the parity the DataNodes store, against the
+        # plain version of the cell layout of the same bytes
+        data_sh = layout_shards(a_bytes, k, cell)
+        stored = np.stack([np.frombuffer(dt.fetch_block(
+            tuple(b["locations"][0]["addr"]), b["block_id"],
+            token=b.get("token")), np.uint8) for b in grp["blocks"][k:]])
+        enc_err = _plain_err(rs.rs_matrix(k, m)[k:], data_sh, stored)
+        check(enc_err == 0, f"CLIENT (c): stored parity != the plain "
+                            f"encode (max err {enc_err})")
+        victim = tuple(grp["blocks"][1]["locations"][0]["addr"])
+        mc.stop_datanode(next(i for i, d in enumerate(mc.datanodes)
+                              if d is not None and tuple(d.addr) == victim))
+        deg0 = _counter_of("client_ec", "ec_degraded_reads")
+        rs1 = rs_cuda.launches
+        decodes: list = []   # (survivors, want, the card's result)
+        decode = rs.rs_decode
+
+        def recorded(shards, k, m, want=None, device="cuda"):
+            got = decode(shards, k, m, want=want, device=device)
+            decodes.append((dict(shards), want, got))
+            return got
+        rs.rs_decode = recorded
+        try:
+            t1 = time.perf_counter()
+            check(c.read("/c/ec") == a_bytes, "CLIENT (c): degraded read")
+            deg_ms = (time.perf_counter() - t1) * 1e3
+            check(c.read("/c/ec", offset=bs - 7, length=3 * MIB + 11)
+                  == a_bytes[bs - 7:bs + 3 * MIB + 4],
+                  "CLIENT (c): degraded ranged read")
+        finally:
+            rs.rs_decode = decode
+        dec = rs_cuda.launches - rs1
+        check(dec > 0 and len(decodes) == 2
+              and _counter_of("client_ec", "ec_degraded_reads") > deg0,
+              "CLIENT (c): the degraded reads decoded nothing")
+        # the card's decodes against the plain version on the same shards
+        dec_err = 0
+        for have, want, got in decodes:
+            surv = sorted(have)[:k]
+            e = _plain_err(rs.repair_rows(k, m, tuple(surv), tuple(want)),
+                           np.stack([have[i] for i in surv]),
+                           np.stack([got[i] for i in want]))
+            dec_err = max(dec_err, e)
+            check(e == 0, f"CLIENT (c): the decode of {want} from {surv} "
+                          f"!= plain (max err {e})")
+        del data_sh, stored, decodes
+        check_faults(faults0, "CLIENT (c)")
+        out["c"] = {"seconds": time.perf_counter() - t0,
+                    "write_ms": ec_write_ms, "read_ms": ec_read_ms,
+                    "degraded_read_ms": deg_ms,
+                    "write_mib_s": _mib_s(len(a_bytes), ec_write_ms),
+                    "rs_launches_write": enc, "rs_launches_decode": dec,
+                    "rs_max_abs_err": max(enc_err, dec_err),
+                    "groups": len(loc["groups"])}
+        print("CLIENT ec " + json.dumps(out["c"]), flush=True)
+        out["launches"] = {"rs": rs_cuda.launches - rs0}
+        out["max_abs_err"] = {"rs": max(enc_err, dec_err)}
+        c.close()
+        worker.close()
+    finally:
+        t0 = time.perf_counter()
+        mc.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        stop_s = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"CLIENT done in {out['seconds']:.1f}s (cluster start "
+          f"{start_s:.1f}s, stop {stop_s:.1f}s)", flush=True)
     return out
 
 
@@ -3383,6 +3725,7 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     datanode_phase(args)
     namenode_phase(args)
+    cl = client_phase(args)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],
@@ -3398,6 +3741,10 @@ def run(args) -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],
                         "library_ms": t["library_ms"]})
+        if kname in cl["launches"]:
+            # the client's own path: its launches and its error there
+            kernels[-1]["client_launches"] = cl["launches"][kname]
+            kernels[-1]["client_max_abs_err"] = cl["max_abs_err"][kname]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"SECONDS {time.perf_counter() - t_start:.1f}", flush=True)
     print(nvidia_smi(), flush=True)

@@ -1,29 +1,34 @@
-"""Chunking, reduction, NameNode and DataNode configuration (port of
-hdrf_tpu/config.py:27-46 ``CdcConfig``, :50-230 ``ReductionConfig``,
-:232-338 ``NameNodeConfig`` and :343-439 ``DataNodeConfig``).
+"""Configuration (port of hdrf_tpu/config.py): ``CdcConfig`` (:27-46),
+``ReductionConfig`` (:50-230), ``NameNodeConfig`` (:232-338),
+``DataNodeConfig`` (:343-427), ``ClientConfig`` and ``HdrfConfig``
+(:429-569) with its layered loading: defaults -> TOML file -> ``HDRF_*``
+environment -> explicit overrides (``_dotted_set``, ``_coerce``,
+``_parse_scalar``, ``default_config``).
 
 Copies of the reference dataclasses with the same field names and
-defaults, so a reference ``dataclasses.asdict(CdcConfig)`` dict maps onto
-the port's field for field (``ops.dispatch.from_reference_cdc``).  Of
-``ReductionConfig`` the scheme layer reads ``container_size``,
-``container_codec``, ``backend``, ``device_recon``, ``chunk_cache_mb``,
-``read_batch_window_ms``, ``read_max_inflight``, the ``qos_*`` and
-``shed_p95_mult`` fields and ``cdc``; the DataNode (server/datanode.py)
-reads the rest.  ``backend`` takes the reference's names: ``auto`` and
-``tpu`` select the card, ``native`` the host C++ library, ``cpu`` the
-kernels' plain versions (ops/dispatch.resolve_backend).
+defaults, so ``HdrfConfig.to_dict()`` equals the reference's for the same
+file, environment and overrides, and a reference
+``dataclasses.asdict(CdcConfig)`` dict maps onto the port's field for
+field (``ops.dispatch.from_reference_cdc``).  ``backend`` takes the
+reference's names: ``auto`` and ``tpu`` select the card, ``native`` the
+host C++ library, ``cpu`` the kernels' plain versions
+(ops/dispatch.resolve_backend).
 
-``NameNodeConfig`` and ``DataNodeConfig`` have every field and default of
-the reference's.  The NameNode refuses ``status_port``.  The
-DataNode refuses, with ``NotImplementedError``, the settings that turn on
-a plane the port does not have yet: ``status_port``,
-``simulated_dataset``, ``scrub_interval_s`` > 0,
-and of the reduction config ``worker_spawn`` and ``cdc_adaptive``.
+The NameNode refuses ``status_port``.  The DataNode refuses, with
+``NotImplementedError``, the settings that turn on a plane the port does
+not have yet: ``status_port``, ``simulated_dataset``,
+``scrub_interval_s`` > 0, and of the reduction config ``cdc_adaptive``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import tomllib
 from dataclasses import dataclass, field
+from typing import Any
+
+ENV_PREFIX = "HDRF_"
 
 
 @dataclass
@@ -419,3 +424,145 @@ class DataNodeConfig:
     # older than this (young tmps may still be mid-replace).
     scrub_tmp_age_s: float = 300.0
     reduction: ReductionConfig = field(default_factory=ReductionConfig)
+
+
+@dataclass
+class ClientConfig:
+    packet_size: int = 64 * 1024
+    # Outstanding un-acked packets in the write pipeline (DataStreamer window).
+    max_inflight_packets: int = 16
+    read_retries: int = 3
+    # Short-circuit local reads: fd passing over the DN's unix socket
+    # (dfs.client.read.shortcircuit analog).
+    short_circuit: bool = True
+    # Encrypt block data on the wire (dfs.encrypt.data.transfer analog);
+    # needs block tokens enabled — the token signature keys the handshake.
+    encrypt_data_transfer: bool = False
+    # Fetch a delegation token at connect and attach it to every NameNode
+    # RPC (the kerberos-bootstrapped token flow, minus kerberos).
+    use_delegation_tokens: bool = False
+    # End-to-end deadline budget (seconds) bound around each write/read op
+    # and propagated hop-by-hop as the _deadline header (utils/retry.py).
+    # None = no client-imposed budget (budgets are strictly opt-in).
+    op_deadline_s: float | None = None
+    # Hedged replica reads (utils/retry.hedged_quorum): when a block has
+    # >1 location, the second location launches as a tied request once the
+    # first exceeds (rolling-window p95 block-read latency) * mult, or
+    # immediately on primary failure.  False restores the serial failover
+    # loop verbatim.
+    hedged_reads: bool = True
+    read_hedge_p95_mult: float = 3.0
+    # Hedge-delay floor/fallback (s): used before the latency window has
+    # samples, and as a lower bound so a cold window never hedges at ~0 s.
+    read_hedge_floor_s: float = 0.05
+    # Observer reads (ObserverReadProxyProvider analog): route read-only
+    # NameNode RPCs to observer endpoints first, carrying last_seen_txid
+    # for read-your-writes.  No-op when the endpoint list has no observer.
+    observer_reads: bool = True
+    # Client-side metadata cache (block locations + stats, LRU with TTL)
+    # invalidated by txid generation: an entry is served only while the
+    # client has observed NO newer journal txid than at insert time, so
+    # any mutation this client sees (its own writes included — replies
+    # piggyback the txid) invalidates at once.  ttl <= 0 disables (the
+    # default: block locations are soft state, so caching is opt-in for
+    # read-hot workloads that tolerate bounded staleness).
+    metadata_cache_ttl_s: float = 0.0
+    metadata_cache_entries: int = 256
+
+
+@dataclass
+class HdrfConfig:
+    namenode: NameNodeConfig = field(default_factory=NameNodeConfig)
+    datanode: DataNodeConfig = field(default_factory=DataNodeConfig)
+    client: ClientConfig = field(default_factory=ClientConfig)
+
+    # ---- layered loading -------------------------------------------------
+
+    @staticmethod
+    def load(path: str | None = None, env: dict[str, str] | None = None,
+             overrides: dict[str, Any] | None = None) -> "HdrfConfig":
+        cfg = HdrfConfig()
+        if path:
+            with open(path, "rb") as f:  # explicit path must exist
+                cfg._apply_mapping(tomllib.load(f))
+        cfg._apply_env(os.environ if env is None else env)
+        if overrides:
+            for k, v in overrides.items():
+                cfg.set(k, v)
+        return cfg
+
+    def _apply_mapping(self, m: dict[str, Any], prefix: str = "") -> None:
+        for k, v in m.items():
+            key = f"{prefix}{k}" if not prefix else f"{prefix}.{k}"
+            if isinstance(v, dict):
+                self._apply_mapping(v, key)
+            else:
+                self.set(key, v)
+
+    def _apply_env(self, env: dict[str, str]) -> None:
+        # HDRF_DATANODE_REDUCTION_DEFAULT_SCHEME=zstd -> datanode.reduction.default_scheme
+        for name, raw in env.items():
+            if not name.startswith(ENV_PREFIX):
+                continue
+            key = name[len(ENV_PREFIX):].lower().replace("_", ".")
+            try:
+                self.set(key, _parse_scalar(raw))
+            except KeyError:
+                continue  # unknown env keys are ignored, like Hadoop's
+
+    def set(self, dotted_key: str, value: Any) -> None:
+        """Set a value by dotted key.
+
+        Env-style keys can't distinguish '.' from '_' (both arrive as '.'), so
+        matching greedily joins leading segments against field names:
+        ``datanode.reduction.default.scheme`` resolves to
+        ``datanode.reduction.default_scheme``.
+        """
+        _dotted_set(self, dotted_key.split("."), dotted_key, value)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _dotted_set(obj: Any, parts: list[str], full_key: str, value: Any) -> None:
+    fields = {f.name for f in dataclasses.fields(obj)}
+    for j in range(len(parts), 0, -1):
+        cand = "_".join(parts[:j])
+        if cand not in fields:
+            continue
+        cur = getattr(obj, cand)
+        if j == len(parts):
+            if dataclasses.is_dataclass(cur):
+                raise KeyError(f"{full_key!r} names a section, not a value")
+            setattr(obj, cand, _coerce(value, type(cur)))
+            return
+        if dataclasses.is_dataclass(cur):
+            return _dotted_set(cur, parts[j:], full_key, value)
+    raise KeyError(f"unknown config key: {full_key!r}")
+
+
+def _coerce(value: Any, typ: type | None) -> Any:
+    if typ is None or isinstance(value, typ):
+        return value
+    if typ is bool:
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if typ in (int, float, str):
+        return typ(value)
+    return value
+
+
+def _parse_scalar(raw: str) -> Any:
+    for conv in (int, float):
+        try:
+            return conv(raw)
+        except ValueError:
+            pass
+    if raw.lower() in ("true", "false"):
+        return raw.lower() == "true"
+    return raw
+
+
+def default_config() -> HdrfConfig:
+    return HdrfConfig()

@@ -21,8 +21,9 @@ Ops entry point::
         --nprocs N --rank R [--n-data D] [--selftest MB] [--device cuda|cpu]
 
 Without ``--coordinator`` the process runs alone, its mesh over its own
-devices.  The reference's ``--with-worker`` (a supervised co-located
-reduction worker) waits for the port's ``WorkerSupervisor``.
+devices.  ``--with-worker`` also starts a supervised co-located reduction
+worker on this host (:func:`supervised_worker`, the reference's), on the
+device ``--device`` names.
 """
 
 from __future__ import annotations
@@ -122,6 +123,20 @@ def _selftest(mb: int, n_data: int, device="cuda") -> bool:
     return ok
 
 
+def supervised_worker(backend: str = "auto"):
+    """Spawn a supervised co-located reduction worker on this host (the
+    per-host daemon bring-up role of the reference's ``hdfs --daemon``
+    scripts, with the supervision the reference leaves to init systems):
+    returns the started WorkerSupervisor — the worker is respawned with
+    capped backoff if it dies, and ``supervisor.addr`` always names the
+    live incarnation."""
+    from hdrf_tpu_torch.server.reduction_worker import WorkerSupervisor
+
+    sup = WorkerSupervisor(backend=backend)
+    sup.start()
+    return sup
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="hdrf-torch-launch")
     ap.add_argument("--coordinator", default=None,
@@ -136,11 +151,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the card (nccl) or the CPU's plain versions "
                          "(gloo)")
+    ap.add_argument("--with-worker", action="store_true",
+                    help="also spawn a SUPERVISED co-located reduction "
+                         "worker on this host (auto-respawn on death)")
     args = ap.parse_args(argv)
     import torch.distributed as dist
 
     if args.coordinator is not None:
         initialize(args.coordinator, args.nprocs, args.rank, args.device)
+    sup = None
+    if args.with_worker:
+        sup = supervised_worker(args.device)
+        print(f"supervised reduction worker listening on "
+              f"{sup.addr[0]}:{sup.addr[1]}", flush=True)
     try:
         if args.selftest:
             return 0 if _selftest(args.selftest, args.n_data,
@@ -151,6 +174,8 @@ def main(argv=None) -> int:
               f"devices", flush=True)
         return 0
     finally:
+        if sup is not None:
+            sup.stop()
         if dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
 

@@ -23,12 +23,22 @@ Wire layout:
 Ops (Receiver.java:101-135 op dispatch analog): WRITE_BLOCK, READ_BLOCK,
 TRANSFER_BLOCK, COPY_BLOCK, BLOCK_CHECKSUM — dispatched by the DataNode's
 xceiver loop.
+
+The port's one departure is in how a sender reads its acks: on a thread,
+as they arrive (:class:`AckPump`, the DFSOutputStream ResponseProcessor
+role), where the reference reads them after its last packet or at a
+flush barrier.  The bytes on the wire are the same.  On a network stack
+that charges each queued segment against the receive window, thousands
+of unread 9-byte acks close the window and the stream crawls
+(stream_probe.py).
 """
 
 from __future__ import annotations
 
+import queue
 import socket
 import struct
+import threading
 from typing import Any, Iterator
 
 from hdrf_tpu_torch import native
@@ -153,6 +163,74 @@ def send_ack(sock: socket.socket, seqno: int, status: int = ACK_SUCCESS) -> None
 def read_ack(sock: socket.socket) -> tuple[int, int]:
     seqno, status = ACK.unpack(recv_exact(sock, ACK.size))
     return seqno, status
+
+
+class AckPump:
+    """The acks of the packets sent on ``sock``, read on a thread as they
+    arrive and handed out in order by ``read_ack`` with :func:`read_ack`'s
+    results.  The thread reads only the acks announced by ``expect``, so
+    a pipeline with none owed (a stream idle after an hflush) is left
+    unread, as the reference leaves it, and the socket's timeout cannot
+    fire there.  The first read error (a reset, EOF, a timeout while an
+    ack is owed) is raised by that and every later ``read_ack``.
+    ``close`` (or leaving the ``with`` block) ends the thread."""
+
+    def __init__(self, sock: socket.socket) -> None:
+        self._sock = sock
+        self._owed = 0
+        self._closed = False
+        self._cv = threading.Condition()
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        threading.Thread(target=self._run, name="ack-pump",
+                         daemon=True).start()
+
+    def expect(self, n: int = 1) -> None:
+        """``n`` more packets were (or are about to be) sent."""
+        with self._cv:
+            self._owed += n
+            self._cv.notify()
+
+    def _run(self) -> None:
+        try:
+            while True:
+                with self._cv:
+                    while not self._owed and not self._closed:
+                        self._cv.wait()
+                    if self._closed:
+                        return
+                    self._owed -= 1
+                self._q.put(read_ack(self._sock))
+        except (ConnectionError, OSError) as e:
+            self._q.put(e)
+
+    def read_ack(self) -> tuple[int, int]:
+        item = self._q.get()
+        if isinstance(item, BaseException):
+            self._q.put(item)
+            raise item
+        return item
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+
+    def __enter__(self) -> "AckPump":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def stream_acked(sock: socket.socket, data: bytes,
+                 packet_size: int = DEFAULT_PACKET) -> list[tuple[int, int]]:
+    """:func:`stream_bytes` with the acks read as they come (an
+    :class:`AckPump`); returns every packet's ack in order."""
+    n = -(-len(data) // packet_size) + 1
+    with AckPump(sock) as pump:
+        pump.expect(n)
+        stream_bytes(sock, data, packet_size)
+        return [pump.read_ack() for _ in range(n)]
 
 
 def stream_bytes(sock: socket.socket, data: bytes,

@@ -8,6 +8,12 @@ Re-expression of BlockReceiver.java:
   to the local replica, per-packet acks upstream (PacketResponder,
   BlockReceiver.java:1509).  The final empty packet's ack aggregates the
   whole downstream chain (durability); earlier acks are flow control.
+  The port reads the mirror's acks as they arrive (``dt.AckPump``) and
+  hands them out where the reference reads them (flush barriers, the
+  end); the reference leaves them unread until then, which stalls the
+  stream on a network stack that charges each unread segment against
+  the receive window (stream_probe.py).  The wire is unchanged, and a
+  pipeline that owes no ack is left unread, as the reference leaves it.
 - ``receive_reduced``: the reduction path.  The reference buffers the block
   into a direct ByteBuffer ``bf1`` (BlockReceiver.java:877-897), acks, and
   reduces asynchronously (DDRunner) — while every pipeline node re-runs
@@ -111,7 +117,7 @@ class BlockReceiver:
         dn = self._dn
         block_id, gen_stamp = fields["block_id"], fields["gen_stamp"]
         targets = fields.get("targets", [])
-        mirror_sock = None
+        mirror_sock = mirror_acks = None
         with profiler.block_timeline(block_id) as tl, \
                 dn.direct_slot():  # bounded concurrent streaming writes
             with profiler.phase("container_io"):
@@ -128,6 +134,7 @@ class BlockReceiver:
                                **{**fields, "targets": targets[1:],
                                   "storage_type":
                                   targets[0].get("storage_type")})
+                    mirror_acks = dt.AckPump(mirror_sock)
                 crcs: list[int] = []
                 tail = b""
                 cchunk = dn.checksum_chunk
@@ -146,6 +153,7 @@ class BlockReceiver:
                         with profiler.phase("mirror_stream"):
                             dt.write_packet(mirror_sock, seqno, data,
                                             flags=flags)
+                            mirror_acks.expect()
                         mirror_t += time.perf_counter() - _mt0
                         forwarded += 1
                         fwd_bytes += len(data)
@@ -168,7 +176,7 @@ class BlockReceiver:
                             _mt0 = time.perf_counter()
                             with profiler.phase("mirror_stream"):
                                 while drained < forwarded:
-                                    _, down = dt.read_ack(mirror_sock)
+                                    _, down = mirror_acks.read_ack()
                                     status = max(status, down)
                                     drained += 1
                             mirror_t += time.perf_counter() - _mt0
@@ -194,7 +202,7 @@ class BlockReceiver:
                             _mt0 = time.perf_counter()
                             with profiler.phase("mirror_stream"):
                                 for _ in range(forwarded - drained):
-                                    _, down = dt.read_ack(mirror_sock)
+                                    _, down = mirror_acks.read_ack()
                                     status = max(status, down)
                             mirror_t += time.perf_counter() - _mt0
                             self._note_peer(targets[0], mirror_t, fwd_bytes)
@@ -238,6 +246,8 @@ class BlockReceiver:
                         writer.detach()   # crash sim: leave rbw + sidecar
                     else:
                         writer.abort()
+                if mirror_acks is not None:
+                    mirror_acks.close()
                 if mirror_sock is not None:
                     mirror_sock.close()
 

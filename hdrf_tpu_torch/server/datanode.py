@@ -31,19 +31,23 @@ here, so the ``cpu`` backend (the kernels' plain versions) runs the same
 structure on a machine without a card.  The co-located worker path
 (``worker_addr``) keeps the reference's documented degraded mode: a
 failed worker seal falls back to the host codec and counts
-``worker_fallbacks``; nothing else falls back from the card.
+``worker_fallbacks``; nothing else falls back from the card.  With
+``reduction.worker_spawn`` the DataNode owns that worker process through
+a ``WorkerSupervisor`` (server/reduction_worker.py), which respawns it
+with capped backoff and repoints the ``WorkerClient``.
 
 Planes of the reference that the port does not have yet are refused, not
 skipped: a config that turns one on raises ``NotImplementedError`` at
 construction (``status_port``, ``simulated_dataset``,
-``scrub_interval_s`` > 0,
-``reduction.worker_spawn``, ``reduction.cdc_adaptive``), and their ops
+``scrub_interval_s`` > 0, ``reduction.cdc_adaptive``), and their ops
 (``alias_add``, ``reconfigure``, ``get_reconfigurable``) count as
 ``unknown_ops``, as any unknown op does.  The flight archive
 (``flight_archive_dir``) and its ``flight_timeseries`` op are ported.
-Short-circuit reads are not offered (registration carries no
-``sc_path``, so clients read over the wire), and block reports carry no
-PROVIDED replicas.  The block scanner (``scan_interval_s``) is ported.
+Short-circuit reads are served as the reference serves them
+(server/shortcircuit.py on ``<data_dir>/sc.sock``, registered as
+``sc_path``; a finalized or invalidated replica revokes its grants).
+Block reports carry no PROVIDED replicas.  The block scanner
+(``scan_interval_s``) is ported.
 """
 
 from __future__ import annotations
@@ -92,8 +96,6 @@ _WAITING_PLANES = (
      "aliasmap + simulated_dataset (ROADMAP Queue A #9h)"),
     ("reduction.cdc_adaptive", lambda c: c.reduction.cdc_adaptive,
      "reconfigure + AdaptiveChunkController (ROADMAP Queue A #9i)"),
-    ("reduction.worker_spawn", lambda c: c.reduction.worker_spawn,
-     "WorkerSupervisor / worker_spawn (ROADMAP Queue A #9j)"),
 )
 # ... and their xceiver ops, counted as unknown_ops like any unknown op
 _WAITING_OPS = frozenset({"alias_add", "reconfigure", "get_reconfigurable"})
@@ -206,8 +208,23 @@ class DataNode:
         # the in-process device path, else the host codec default.
         self._worker = None
         self._worker_breaker = None
+        self._worker_supervisor = None
         seal_fn = None
         seal_batch_fn = None
+        if red.worker_spawn and not red.worker_addr:
+            # Supervised co-located worker: the DN owns the process and
+            # respawns it with backoff; each respawn repoints the client
+            # (fresh ephemeral port) and the breaker's half-open probe
+            # re-admits the edge.
+            from hdrf_tpu_torch.server.reduction_worker import \
+                WorkerSupervisor
+
+            self._worker_supervisor = WorkerSupervisor(
+                backend=red.backend,
+                base_s=red.worker_respawn_base_s,
+                cap_s=red.worker_respawn_cap_s,
+                on_respawn=lambda addr: self._worker.set_addr(addr))
+            red.worker_addr = list(self._worker_supervisor.start())
         if red.worker_addr:
             from hdrf_tpu_torch.server.reduction_worker import (WorkerClient,
                                                           WorkerError)
@@ -443,6 +460,9 @@ class DataNode:
             interval_s=config.flight_interval_s,
             capacity=config.flight_capacity,
             archive=self.flight_archive)
+        from hdrf_tpu_torch.server.shortcircuit import ShortCircuitServer
+        self._sc = ShortCircuitServer(
+            self, os.path.join(config.data_dir, "sc.sock"))
 
     # ------------------------------------------------------------ lifecycle
 
@@ -456,6 +476,7 @@ class DataNode:
                              name=f"{self.dn_id}-xceiver", daemon=True)
         t.start()
         self._threads.append(t)
+        self._sc.start()
         self.watchdog.start()
         if self.config.flight_interval_s > 0:
             self.flight.start()
@@ -511,6 +532,8 @@ class DataNode:
         self.flight.stop()
         if self.flight_archive is not None:
             self.flight_archive.close()
+        self._sc.stop()
+        self._sc.stop_registry()
         self._server.shutdown()
         self._server.server_close()
         self._sever_connections()
@@ -523,6 +546,8 @@ class DataNode:
         if hasattr(self.containers, "close_async_seals"):
             self.containers.close_async_seals()
         self.index.close()
+        if self._worker_supervisor is not None:
+            self._worker_supervisor.stop()
         if self._worker is not None:
             self._worker.close()
         for nn in self._nns:
@@ -592,6 +617,9 @@ class DataNode:
         # copy-on-append rewrites the same block id, and serving the stale
         # pinned bytes would lose the appended region
         self.cache.unpin(block_id)
+        # ... and revokes outstanding short-circuit grants for the same
+        # reason (a cached client fd still maps the superseded inode)
+        self._sc.registry.revoke(block_id)
         if not partial:
             # a FULL replica landing (any path: direct receive, replicate
             # push, ec reconstruct, mirror assemble) shadows any partial
@@ -815,7 +843,7 @@ class DataNode:
         for c in ([nn] if nn else self._nns):
             try:
                 resp = c.call("register_datanode", dn_id=self.dn_id,
-                              addr=list(self.addr), sc_path=None,
+                              addr=list(self.addr), sc_path=self._sc.path,
                               rack=self.config.rack,
                               storage_type=self.volume_types[0],
                               storage_types=self.volume_types)
@@ -1226,6 +1254,7 @@ class DataNode:
 
     def _invalidate(self, block_id: int) -> None:
         self.cache.unpin(block_id)
+        self._sc.registry.revoke(block_id)  # cached client fds must drop
         meta = self.replicas.get_meta(block_id)
         if meta is None:
             return

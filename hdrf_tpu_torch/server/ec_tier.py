@@ -54,6 +54,15 @@ the CPU through the plain version (the native library has no RS code).
 The ``dn`` contract is the reference's: ``config.data_dir``,
 ``containers``, ``index``, ``dn_id``, ``reduction_ctx.config``, ``coded``,
 ``qos``, ``balance_throttler``, ``_peer_call`` and ``_nns``.
+
+One reference fault is repaired on purpose: the reference's ``demote``
+reports ``stripe_complete`` only when the call striped a container
+itself, so a block whose containers other blocks' demotions have all
+striped already (containers are shared) is never reported demoted and
+the NameNode commands it again at every pending timeout.  The port
+reports such a block, with no new groups.  A block with a container
+still open or unstriped and nothing new striped is left unreported, as
+the reference leaves it: its chunks there have no stripes yet.
 """
 
 from __future__ import annotations
@@ -333,6 +342,12 @@ class EcTier:
                              "manifest": manifest})
         if done:
             self._notify_nn(bid, done)
+        elif cids and all(dn.index.stripe_manifest(c) is not None
+                          for c in cids):
+            # every container of the block was striped by other blocks'
+            # demotions: the block is demoted, with no new groups
+            _M.incr("demotes_already_striped")
+            self._notify_nn(bid, [])
 
     def repair(self, cmd: dict) -> None:
         """NN ``stripe_repair``: re-decode the lost stripe indices from k

@@ -1,7 +1,6 @@
 """Co-located reduction worker on the card (port of
-hdrf_tpu/server/reduction_worker.py:52-536: the worker, its client and
-``main``; ``WorkerSupervisor`` and ``spawn_local_worker`` are a later
-slice).
+hdrf_tpu/server/reduction_worker.py, whole: the worker, its client,
+``spawn_local_worker``, ``WorkerSupervisor`` and ``main``).
 
 A separate process that owns the device and speaks the reference's framed
 protocol, so an unmodified ``hdrf_tpu`` DataNode drives it through
@@ -57,9 +56,11 @@ Run standalone: ``python -m hdrf_tpu_torch.server.reduction_worker --port 0
 from __future__ import annotations
 
 import contextlib
+import os
 import socket
 import socketserver
 import threading
+import time
 
 import numpy as np
 import torch
@@ -602,6 +603,128 @@ class WorkerClient:
             self._pool.clear()
 
 
+def spawn_local_worker(backend: str = "auto"):
+    """Launch a worker as a real SEPARATE PROCESS (the co-located
+    deployment shape); returns (Popen, (host, port)).  The caller owns the
+    process (terminate() when done).  The reference's command line with
+    this package's module; the child finds the package through
+    ``PYTHONPATH`` whatever the caller's working directory.  It starts
+    from a fresh interpreter (fork + exec), so it inherits no CUDA context
+    of the caller, and its first stdout line is the banner."""
+    import re
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdrf_tpu_torch.server.reduction_worker",
+         "--port", "0", "--backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=env)
+    line = proc.stdout.readline()
+    m = re.search(r"listening on ([\d.]+):(\d+)", line)
+    if not m:
+        proc.terminate()
+        raise RuntimeError(f"worker failed to start: {line!r}")
+    return proc, (m.group(1), int(m.group(2)))
+
+
+class WorkerSupervisor:
+    """Supervised co-located worker: owns the process, detects death, and
+    respawns with capped full-jitter backoff (the NodeManager service-
+    restart role the reference delegates to init systems; DataNode.java has
+    no analog for its in-process codecs — they die with the daemon).
+
+    ``on_respawn(addr)`` fires after each successful respawn so the owner
+    repoints its :class:`WorkerClient` (`set_addr`) — respawned workers
+    land on a fresh ephemeral port.  Clock/sleep/spawn are injectable so
+    tests drive the respawn schedule without wall-clock waits.  A process
+    that stayed up longer than ``healthy_s`` resets the backoff streak.
+    """
+
+    def __init__(self, backend: str = "auto", base_s: float = 0.5,
+                 cap_s: float = 15.0, healthy_s: float = 30.0,
+                 on_respawn=None, clock=time.monotonic,
+                 sleep=time.sleep, spawn=spawn_local_worker,
+                 poll_s: float = 0.2):
+        self._backend = backend
+        self._base_s = float(base_s)
+        self._cap_s = float(cap_s)
+        self._healthy_s = float(healthy_s)
+        self._on_respawn = on_respawn
+        self._clock = clock
+        self._sleep = sleep
+        self._spawn = spawn
+        self._poll_s = float(poll_s)
+        self._proc = None
+        self.addr: tuple[str, int] | None = None
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._spawned_at = 0.0
+        self._streak = 0  # consecutive quick deaths
+        self.respawns = 0
+
+    def start(self) -> tuple[str, int]:
+        """Spawn the first incarnation and the monitor thread; returns the
+        worker address (startup failures propagate to the caller — only
+        RE-spawns are retried with backoff)."""
+        self._proc, self.addr = self._spawn(self._backend)
+        self._spawned_at = self._clock()
+        self._thread = threading.Thread(target=self._monitor,
+                                        name="worker-supervisor",
+                                        daemon=True)
+        self._thread.start()
+        return self.addr
+
+    def _monitor(self) -> None:
+        import random as _random
+
+        while not self._stop.is_set():
+            if self._proc.poll() is None:
+                self._sleep(self._poll_s)
+                continue
+            if self._stop.is_set():
+                return
+            if self._clock() - self._spawned_at >= self._healthy_s:
+                self._streak = 0
+            delay = _random.uniform(0.0, min(
+                self._cap_s, self._base_s * (2.0 ** self._streak)))
+            self._streak += 1
+            _M.incr("worker_deaths")
+            if delay > 0:
+                self._sleep(delay)
+            if self._stop.is_set():
+                return
+            try:
+                self._proc, self.addr = self._spawn(self._backend)
+            except Exception:
+                _M.incr("worker_respawn_failures")
+                continue  # next lap backs off further
+            self._spawned_at = self._clock()
+            self.respawns += 1
+            _M.incr("worker_respawns")
+            if self._on_respawn is not None:
+                try:
+                    self._on_respawn(self.addr)
+                except Exception:
+                    _M.incr("worker_respawn_callback_errors")
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.terminate()
+            try:
+                self._proc.wait(timeout=5)
+            except Exception:
+                self._proc.kill()
+
+
 # The reference's --backend names (hdrf_tpu/server/reduction_worker.py
 # main, passed by its spawn_local_worker) and the port's own.
 BACKENDS = ("auto", "cpu", "cuda", "native", "tpu")
@@ -609,7 +732,6 @@ BACKENDS = ("auto", "cpu", "cuda", "native", "tpu")
 
 def main(argv=None) -> int:
     import argparse
-    import time
 
     p = argparse.ArgumentParser(prog="hdrf-torch-reduction-worker")
     p.add_argument("--host", default="127.0.0.1")

@@ -1069,3 +1069,44 @@ def test_namenode_writes_and_demotes_on_card(dev, tmp_path):
         for d in dns.values():
             d.stop()
         nn.stop()
+
+
+def test_client_ec_write_and_degraded_read_on_card(dev):
+    """The port client's striped path on the card: an RS(6,3) EC file
+    written by ``HdrfClient(device="cuda")`` launches the RS kernel and
+    stores shards byte-identical to a ``device="cpu"`` client's; with a
+    data-shard holder stopped, the card client decodes on the card and
+    both read the bytes back."""
+    from hdrf_tpu_torch.client.filesystem import HdrfClient
+    from hdrf_tpu_torch.proto import datatransfer as dt
+    from hdrf_tpu_torch.testing.minicluster import MiniCluster
+
+    data = np.random.default_rng(9).integers(
+        0, 256, 3_000_001, dtype=np.uint8).tobytes()
+    with MiniCluster(n_datanodes=9, replication=1, block_size=1 << 20,
+                     container_size=1 << 20) as mc:
+        addr = mc.nn_addrs()[0]
+        with HdrfClient(addr, name="card") as gc, \
+                HdrfClient(addr, name="host", device="cpu") as hc:
+            assert gc.device == "cuda"
+            r0 = rs_cuda.launches
+            gc.write("/ec/g", data, ec="rs-6-3-64k")
+            assert rs_cuda.launches > r0
+            hc.write("/ec/h", data, ec="rs-6-3-64k")
+            stored = {}
+            for p in ("/ec/g", "/ec/h"):
+                loc = hc._call("get_block_locations", path=p)
+                stored[p] = [dt.fetch_block(tuple(b["locations"][0]["addr"]),
+                                            b["block_id"])
+                             for g in loc["groups"] for b in g["blocks"]]
+            assert stored["/ec/g"] == stored["/ec/h"]
+            assert gc.read("/ec/g") == hc.read("/ec/g") == data
+            victim = tuple(loc["groups"][0]["blocks"][0]["locations"][0]
+                           ["addr"])
+            mc.stop_datanode(next(i for i, d in enumerate(mc.datanodes)
+                                  if tuple(d.addr) == victim))
+            r1 = rs_cuda.launches
+            assert gc.read("/ec/h") == data
+            assert rs_cuda.launches > r1
+            assert hc.read("/ec/h", offset=65_537, length=1_000_000) == \
+                data[65_537:1_065_537]

@@ -300,8 +300,7 @@ def test_qos_shed_answers_ack_shed_like_reference(tmp_path):
 
 WAITING = [({"status_port": 0}, "#9e"), ({"scrub_interval_s": 5.0}, "#9f"),
            ({"simulated_dataset": True}, "#9h"),
-           ({"reduction.cdc_adaptive": True}, "#9i"),
-           ({"reduction.worker_spawn": True}, "#9j")]
+           ({"reduction.cdc_adaptive": True}, "#9i")]
 
 
 @pytest.mark.parametrize("setting,item", WAITING,

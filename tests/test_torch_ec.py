@@ -289,6 +289,72 @@ def test_stripe_complete_reports_equal(flows):
     assert all(m == "stripe_complete" for m, _ in flows["port"]["nn_final"])
 
 
+@pytest.mark.parametrize("kind", ["ref", "port"])
+def test_block_whose_containers_another_demotion_striped(tmp_path, kind):
+    """Two blocks of the same bytes share every sealed container.  After
+    the first block's demotion stripes them, the second's has nothing
+    left to stripe: the reference never reports it (the NameNode commands
+    it again at every pending timeout and it stays fully replicated);
+    the port reports it demoted with no new groups (ROADMAP Queue C).
+    Both read back equal from the stripes."""
+    node = Node(kind, str(tmp_path), fresh=False)
+    try:
+        data = random.Random(5).randbytes(200_000)
+        for bid in (101, 102):
+            assert node.scheme.reduce(bid, data, node.ctx) == b""
+        node.ctx.containers.flush_open(on_seal=node.ctx.index.seal_container)
+        tg = standin.targets(node.owner, node.peers)
+        for bid in (101, 102):
+            node.owner.ec.demote({"block_id": bid, "k": K, "m": M,
+                                  "targets": tg})
+        reports = [(kw["block_id"], len(kw["containers"]))
+                   for method, kw in node.nn.calls
+                   if method == "stripe_complete"]
+        assert reports[0][0] == 101 and reports[0][1] >= 1
+        assert reports[1:] == ([] if kind == "ref" else [(102, 0)])
+        for bid in (101, 102):
+            assert node.scheme.reconstruct(bid, b"", len(data),
+                                           node.ctx) == data
+    finally:
+        node.close()
+
+
+@pytest.mark.parametrize("kind", ["ref", "port"])
+def test_block_with_a_container_still_open_is_left_unreported(tmp_path,
+                                                              kind):
+    """A block whose chunks lie in a container another block's demotion
+    striped and in a container still open has nothing to stripe: both
+    packages leave it unreported (its chunks in the open container have
+    no stripes yet).  Once that container seals, the next demotion
+    stripes it and reports the block in both.  Both read back equal."""
+    node = Node(kind, str(tmp_path), fresh=False)
+    try:
+        rnd = random.Random(6)
+        first = rnd.randbytes(200_000)
+        data = {101: first, 102: first + rnd.randbytes(3_000)}
+        ctx = node.ctx
+        assert node.scheme.reduce(101, data[101], ctx) == b""
+        ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+        assert node.scheme.reduce(102, data[102], ctx) == b""  # tail: open
+        tg = standin.targets(node.owner, node.peers)
+
+        def demote(bid):
+            node.owner.ec.demote({"block_id": bid, "k": K, "m": M,
+                                  "targets": tg})
+            return [(kw["block_id"], len(kw["containers"]))
+                    for method, kw in node.nn.calls
+                    if method == "stripe_complete"]
+        demote(101)
+        assert [b for b, _ in demote(102)] == [101]
+        ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+        reports = demote(102)
+        assert [b for b, _ in reports] == [101, 102] and reports[1][1] >= 1
+        for bid, want in data.items():
+            assert node.scheme.reconstruct(bid, b"", len(want), ctx) == want
+    finally:
+        node.close()
+
+
 def test_degraded_reads_bit_identical(flows):
     for kind in ("ref", "port"):
         assert flows[kind]["read_p1_lost"], kind

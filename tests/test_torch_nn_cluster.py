@@ -1,9 +1,10 @@
-"""The port NameNode running a cluster, driven by the reference client.
+"""The port NameNode running a cluster, driven by either package's client.
 
 A started port ``NameNode`` (heartbeats every 0.2 s, dead after 1.5 s)
 with six DataNodes of either package (``native`` backend, 32 KiB
 containers so they roll and seal while the test writes), and the
-reference ``HdrfClient``: ``dedup_lz4`` files and an EC file written and
+reference ``HdrfClient`` or the port's (``device="cpu"``): ``dedup_lz4``
+files and an EC file written and
 read back equal; a DataNode stopped and its blocks re-replicated by the
 NameNode's ``replicate`` commands; ``ec_demote_after_s`` set at runtime,
 the blocks demoted through ``stripe_demote`` and read back; a stripe
@@ -89,6 +90,21 @@ class Cluster:
 def test_reference_client_on_port_namenode(tmp_path, monkeypatch, dn_pkg):
     from hdrf_tpu.client.filesystem import HdrfClient
 
+    _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient)
+
+
+@pytest.mark.parametrize("dn_pkg", ["port", "ref"])
+def test_port_client_on_port_namenode(tmp_path, monkeypatch, dn_pkg):
+    from hdrf_tpu_torch.client.filesystem import HdrfClient
+
+    _cluster_flow(tmp_path, monkeypatch, dn_pkg,
+                  lambda addr, name: HdrfClient(addr, name=name,
+                                                device="cpu"))
+
+
+def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
+    """Write and read, re-replication, demotion and stripe repair through
+    ``HdrfClient(addr, name=...)``."""
     if dn_pkg == "ref":
         guard_reference_stat_race(monkeypatch)
     cl = Cluster(str(tmp_path), dn_pkg)

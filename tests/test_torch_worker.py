@@ -296,7 +296,7 @@ def _py(args, **kw):
 
 def test_port_imports_no_jax_and_no_reference():
     code = ("import importlib, pkgutil, sys\n"
-            "import hdrf_tpu_torch, chip_smoke, kernel_times\n"
+            "import hdrf_tpu_torch, chip_smoke, kernel_times, stream_probe\n"
             "for m in pkgutil.walk_packages(hdrf_tpu_torch.__path__,\n"
             "                               'hdrf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -322,7 +322,10 @@ def test_port_imports_no_jax_and_no_reference():
             "          'utils.lockprof', 'utils.flight_archive',\n"
             "          'server.permissions', 'server.journal',\n"
             "          'server.editlog', 'server.namenode',\n"
-            "          'server.failover'):\n"
+            "          'server.failover', 'utils.checksum',\n"
+            "          'client.oauth2', 'server.shortcircuit',\n"
+            "          'client.striped', 'client.filesystem',\n"
+            "          'testing.minicluster'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
