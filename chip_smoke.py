@@ -276,7 +276,44 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    launches rise), equal the bytes, and each decode equals the plain
    version on the same shards (``CLIENT ec``).  Every step holds ``DN_FAULTS``
    (``worker_fallbacks`` among them) to no change.
-14. One JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+14. PLANES, the DataNode's planes that are off by default and the
+   operator surface.  (a) One ``--block-mib`` block of the ``reduce``
+   corpus through ``ResidentReducer`` on the card at each of the nine
+   geometries ``AdaptiveChunkController`` can emit (mask bits 8-16):
+   cuts and digests equal ``native.cdc_select`` + ``sha256_batch``, the
+   select's telemetry lanes ``H_SURV`` / ``H_CANDS`` (summed by
+   ``accounting.record_scan_summary``) equal a host count over
+   ``native_bits``, and on the block's first 8 MiB the select kernel's
+   table (lanes included) equals its plain version's (``PLANES sweep``:
+   first-use and steady ms a block, chunks, launches).  (c), inside
+   NAMENODE after its step (d), on the demoted cluster (its NameNode
+   runs its status server): one scrub cycle a DataNode with the scrub
+   throttle raised to 1 GiB/s (stripes CRC'd, the any-k spot-check),
+   no corruption found; then a fresh 80 MiB file, one byte flipped in a
+   sealed container of its own and one in an owner's stripe: the next
+   cycles quarantine both (``.quar``), the block is reported
+   ``bad_block`` and re-replicated, the stripe is decoded back on the
+   card, each decode equal to the plain version, and every block reads
+   back equal; the NameNode's ``/prom`` and ``/contention`` (``PLANES
+   scrub``).  (b) A port MiniCluster of three DataNodes (replication 3,
+   ``cdc_adaptive``, a status port, ``provided_mount_root``) with
+   ``tpu_worker=True`` and the port's HdrfClient on ``cuda``: fresh
+   random blocks until the controllers have coarsened twice (every
+   block's chunks equal the native cuts at the geometry its primary
+   held, the worker's ledger grows by ``resident.cdc`` dispatches at
+   each, every block reads back equal), ``get_reconfigurable`` and
+   ``reconfigure`` refusals, a retune applied by ``dfsadmin -reconfig``
+   and rolled back by the guard over an injected flight window
+   (``PLANES adaptive``).  (d) The DataNode's ``/prom`` and
+   ``/timeseries``, the gateway's ``/health``, a ``--block-mib`` CREATE
+   and OPEN through the gateway's two-step redirect, read back equal,
+   ``/traces?format=chrome`` parsed, and ``alias_add`` of an 8 MiB
+   region under the mount root read back with ``READ_BLOCK`` (``PLANES
+   surface``).  Every step holds ``DN_FAULTS``.
+15. One JSON line ``{"kernels": [...]}`` (the ``cdc_select`` entry with
+   the sweep's ``surv_cands_max_abs_err`` and ``sweep_launches``, the
+   ``rs`` entry with the scrubber's ``scrub_launches`` and
+   ``scrub_max_abs_err``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
@@ -2962,12 +2999,14 @@ def _nn_start(meta_dir: str, port: int, block_mib: int):
     """The port NameNode at NameNodeConfig() defaults (replication 3,
     1 s heartbeats, 6 s dead-node detection) on ``meta_dir`` and a fixed
     port, its block size ``--block-mib`` (128 MiB, the default, at the
-    smoke's defaults), so that every corpus block is one file block."""
+    smoke's defaults), so that every corpus block is one file block, and
+    its status HTTP server on a free port."""
     from hdrf_tpu_torch.config import NameNodeConfig
     from hdrf_tpu_torch.server.namenode import NameNode
 
     return NameNode(NameNodeConfig(meta_dir=meta_dir, port=port,
-                                   block_size=block_mib * MIB)).start()
+                                   block_size=block_mib * MIB,
+                                   status_port=0)).start()
 
 
 def _timed_write(c, path: str, blocks: list, **kw) -> list:
@@ -3049,11 +3088,13 @@ def _read_back(dns: dict, where: dict, data: dict, what: str,
     return lat
 
 
-def namenode_phase(args) -> dict:
+def namenode_phase(args, after_demotion=None) -> dict:
     """NAMENODE: the port's NameNode at NameNodeConfig() defaults running
     four port DataNodes on ``cuda:0``, driven by a writer on the port's
     RpcClient: (a) write and read, (b) NameNode restart, (c) re-replication
-    and excess pruning, (d) demotion and stripe repair, (e) metadata ops."""
+    and excess pruning, (d) demotion and stripe repair, then
+    ``after_demotion(nn, dns, data, owners, addr)`` on the demoted
+    cluster (PLANES (c)), (e) metadata ops."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -3261,6 +3302,9 @@ def namenode_phase(args) -> dict:
         out["launches"]["d_demote"] = enc
         out["launches"]["d_repair"] = dec
         print("NAMENODE ec " + json.dumps(out["d"]), flush=True)
+        if after_demotion is not None:
+            out["after_demotion"] = after_demotion(nn, dns, data, owners,
+                                                   addr)
 
         # ---- (e) metadata ops, for information ---------------------------
         t0 = time.perf_counter()
@@ -3614,6 +3658,537 @@ def client_phase(args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- planes
+
+PLANES_CHECK_MIB = 8     # the lanes' kernel-vs-plain block at each geometry
+PLANES_MAX_BLOCKS = 6    # (b): fresh blocks written until two retunes
+PLANES_RETUNES = 2
+PLANES_ALIAS_BYTES = 8 * MIB
+PLANES_BASELINE_S = 9.0  # flight samples (1 s) after the warm-up write
+SCRUB_RATE_MB_S = 1024.0  # the smoke's scrub throttle (default 8 MB/s)
+
+
+def native_lanes(a: np.ndarray, mask: int, mn: int) -> tuple[int, int]:
+    """(H_SURV, H_CANDS) counted on the host over ``native_bits``: the
+    candidates at ``pos1 >= skip_ahead_threshold(min)`` and the rows of
+    512 positions holding one."""
+    bits = native_bits(a, mask)
+    bits[:gear.skip_ahead_threshold(mn) - 1] = False
+    rows = np.zeros(-(-a.size // 512) * 512, dtype=bool)
+    rows[:a.size] = bits
+    return (int(rows.reshape(-1, 512).any(axis=1).sum()),
+            int(bits.sum()))
+
+
+def planes_sweep(args, dev) -> dict:
+    """PLANES (a): one block of the ``reduce`` corpus through
+    ``ResidentReducer`` on the card at each geometry the adaptive
+    controller can emit; cuts and digests against the native oracle, the
+    header lanes against the host count, and on the block's first
+    ``PLANES_CHECK_MIB`` MiB the select kernel's table (lanes included)
+    against its plain version."""
+    from hdrf_tpu_torch.reduction import accounting
+    from hdrf_tpu_torch.reduction.accounting import AdaptiveChunkController
+
+    t_phase = time.perf_counter()
+    blk = main_path_corpus(args.seed, 2, args.block_mib)[0]
+    small = blk[:PLANES_CHECK_MIB * MIB]
+    rows, err = [], 0
+    _zero_launch_counts()
+    reducers = {}   # one a geometry, kept as the worker keeps them
+    for mb, mn, mx in AdaptiveChunkController().emit_range():
+        torch.cuda.reset_peak_memory_stats(dev)
+        cdc = CdcConfig(mask_bits=mb, min_chunk=mn, max_chunk=mx)
+        mask = gear_mask(cdc)
+        r = reducers[mb] = ResidentReducer(cdc, device=dev)
+        acc0 = accounting.snapshot()["counters"]
+        (cuts, digs), first_ms = timed(lambda: r.reduce(blk))
+        acc1 = accounting.snapshot()["counters"]
+        (cuts2, _), ms = timed(lambda: r.reduce(blk))
+        want_cuts, want_digs = oracle(blk, cdc)
+        check(np.array_equal(cuts, want_cuts)
+              and np.array_equal(cuts2, want_cuts)
+              and np.array_equal(digs, want_digs),
+              f"PLANES sweep mb {mb}: cuts or digests != native")
+        got = (acc1.get("cdc_scan_slab_survivors", 0)
+               - acc0.get("cdc_scan_slab_survivors", 0),
+               acc1.get("cdc_scan_candidates", 0)
+               - acc0.get("cdc_scan_candidates", 0))
+        want = native_lanes(blk, mask, mn)
+        e = max(abs(got[0] - want[0]), abs(got[1] - want[1]))
+        block, n = cdc_cuda.padded_block(small, dev)
+        _, bm = cdc_cuda.cdc_scan(block, n, mask, mn)
+        k = cdc_cuda.cdc_select(bm, n, mn, mx, 4)[0]
+        p = cdc_cuda.cdc_select_plain(bm, n, mn, mx, 4)[0]
+        nc = int(k[0])
+        e = max(e, max_err(k[:8 + nc], p[:8 + nc]))
+        check(e == 0, f"PLANES sweep mb {mb}: lanes {got} kernel table "
+                      f"vs plain / host count {want}: max err {e}")
+        err = max(err, e)
+        lens = np.diff(cuts.astype(np.int64), prepend=0)
+        b_small, _ = buckets_of(mask, mx)
+        rows.append({"mask_bits": mb, "min_chunk": mn, "max_chunk": mx,
+                     "chunks": int(cuts.size),
+                     "small_lanes": int(((lens + 72) // 64 <= b_small)
+                                        .sum()),
+                     "longest": int(lens.max()), "first_ms": first_ms,
+                     "ms": ms, "h_surv": got[0], "h_cands": got[1],
+                     "peak_mib": torch.cuda.max_memory_allocated(dev) / MIB})
+        del r, block, bm, k, p
+    # what the cached reducers hold once their calls are done
+    held_mib = torch.cuda.memory_allocated(dev) / MIB
+    launches = _scheme_launch_counts()
+    for kname in ("cdc_scan", "cdc_select", "gather_pad", "sha256"):
+        check(launches[kname] > 0, f"PLANES sweep never launched {kname}")
+    out = {"block_mib": args.block_mib, "geometries": rows,
+           "reducers_cached": len(reducers), "held_mib": held_mib,
+           "launches": {k: v for k, v in launches.items() if v},
+           "surv_cands_max_abs_err": err,
+           "seconds": time.perf_counter() - t_phase}
+    print("PLANES sweep " + json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def planes_scrub(nn, dns: dict, data: dict, owners: dict, addr) -> dict:
+    """PLANES (c), on the NAMENODE phase's demoted cluster after its step
+    (d): one scrub cycle a DataNode (stripes CRC'd, the any-k decode
+    spot-check), then one byte flipped in a sealed container of a fresh
+    file and one in an owner's stripe: the next cycle quarantines both,
+    the container's block is reported ``bad_block`` and re-replicated,
+    the stripe repaired in place by a decode on the card; every decode
+    of the step is held against the plain version on the same shards and
+    every block reads back equal."""
+    from hdrf_tpu_torch.ops import rs
+    from hdrf_tpu_torch.ops.dispatch import resolve_device
+    from hdrf_tpu_torch.server.scrubber import QUAR_SUFFIX
+
+    t_phase = time.perf_counter()
+    scrub = metrics.registry("scrub")
+    faults0 = _dn_faults()
+    keys = ("scrub_cycles", "scrub_corrupt|class=container",
+            "scrub_corrupt|class=stripe", "scrub_corrupt|class=replica",
+            "scrub_repairs_triggered", "scrub_decode_checks",
+            "scrub_decode_failures", "scrub_bytes_verified")
+
+    def counts():
+        return {k: scrub.counter(k) for k in keys}
+    decodes: list = []
+    real = rs._apply
+
+    def spy(coeffs, shards, device):
+        got = real(coeffs, shards, device)
+        if resolve_device(device).type == "cuda":
+            decodes.append(_plain_err(np.asarray(coeffs),
+                                      rs._host_rows(shards).numpy(), got))
+        return got
+
+    def cycle(dn) -> tuple[dict, float]:
+        c0 = scrub.counter("scrub_cycles")
+        census, s = timed(dn.scrubber.run_cycle)
+        check(scrub.counter("scrub_cycles") == c0 + 1,
+              f"PLANES scrub: {dn.dn_id}'s cycle was vetoed")
+        return census, s / 1e3
+    rs._apply = spy
+    try:
+        for dn in dns.values():
+            dn.config.scrub_rate_mb_s = SCRUB_RATE_MB_S
+            # the block scanner verifies a replica every scan_interval_s
+            # as well: slowed for this step, so that the scrubber is the
+            # plane that finds the flipped container and quarantines it
+            check(dn.reconfigure("scan_interval_s", 3600.0)["ok"],
+                  "PLANES scrub: scan_interval_s not reconfigured")
+        _nn_zero()
+        c0 = counts()
+        clean = {d: cycle(dn) for d, dn in sorted(dns.items())}
+        c1 = counts()
+        check(all(c1[k] == c0[k] for k in keys if "corrupt" in k),
+              f"PLANES scrub: a clean cycle found corruption {c0} {c1}")
+        check(c1["scrub_decode_checks"] > c0["scrub_decode_checks"],
+              "PLANES scrub: no decode spot-check ran")
+        clean_launches = _nn_counts()["rs"]
+
+        # a fresh file whose first container seals (demotion now off)
+        nn.config.ec_demote_after_s = 0.0
+        fresh = np.random.default_rng(7).integers(
+            0, 256, 2 * SEAL_BYTES + SEAL_BYTES // 2, dtype=np.uint8)
+        bid = _nn_write_file(addr, "/nn/scrub", [fresh])["block_ids"][0]
+        for dn in dns.values():
+            dn.containers.drain_seals()
+        victim = dns[_locations(nn, "/nn/scrub")[bid][-1]]
+
+        def containers(b) -> set:
+            e = victim.index.get_block(b)
+            return {victim.index.chunk_location(h).container_id
+                    for h in e.hashes} if e else set()
+        others = set().union(*(containers(b) for b in
+                               victim.index.block_ids() if b != bid))
+        # a sealed container holding the fresh file's chunks alone: its
+        # quarantine must cost no other block a replica
+        cid = next(c for c in sorted(containers(bid) - others)
+                   if victim.index.is_sealed(c)
+                   and victim.index.stripe_manifest(c) is None)
+        store = victim.volumes.volume_of_cid(cid).containers
+        cpath = store._sealed_path(cid)
+        victim.config.scrub_sample_frac = 1.0
+        owner = next(dn for dn in dns.values()
+                     if any(s[0] == dn.dn_id
+                            for s in dn.ec.store.iter_stripes()))
+        _, scid, sidx, _ = sorted(s for s in owner.ec.store.iter_stripes()
+                                  if s[0] == owner.dn_id)[0]
+        spath = os.path.join(owner.ec.store._dir,
+                             f"{owner.dn_id}.{scid}.{sidx}.stripe")
+        _nn_zero()
+        bad0 = _nn_counter("corrupt_replicas_reported")
+        c2 = counts()
+        dirty = []     # each file's flip, then at once its holder's cycle
+        for dn, path in ((victim, cpath), (owner, spath)):
+            raw = bytearray(open(path, "rb").read())
+            raw[len(raw) // 2] ^= 0xFF
+            with open(path, "wb") as f:
+                f.write(raw)
+            with store._cache_lock:
+                store._cache.clear()
+            dirty.append((dn.dn_id, cycle(dn)[1]))
+        c3 = counts()
+        repair_launches = _nn_counts()["rs"]
+        check(c3["scrub_corrupt|class=container"]
+              > c2["scrub_corrupt|class=container"]
+              and c3["scrub_corrupt|class=stripe"]
+              > c2["scrub_corrupt|class=stripe"]
+              and c3["scrub_repairs_triggered"]
+              >= c2["scrub_repairs_triggered"] + 2,
+              f"PLANES scrub: the flipped bytes were not found {c2} {c3}")
+        check(os.path.exists(cpath + QUAR_SUFFIX)
+              and os.path.exists(spath + QUAR_SUFFIX),
+              "PLANES scrub: a corrupt file was not quarantined")
+        check(os.path.exists(spath), "PLANES scrub: stripe not repaired")
+        check(repair_launches > 0, "PLANES scrub: no rs launch")
+        check(decodes and max(decodes) == 0,
+              f"PLANES scrub: a decode != the plain version {decodes}")
+        check(_nn_counter("corrupt_replicas_reported") > bad0,
+              "PLANES scrub: no bad_block report reached the NameNode")
+        def rereplicated():
+            h = _locations(nn, "/nn/scrub")[bid]
+            return len(h) == 3 and all(bid in dns[d].replicas.block_ids()
+                                       for d in h)
+        rerep_s = _wait_for(rereplicated,
+                            "the quarantined block re-replicated")
+        data = {**data, bid: fresh.tobytes()}
+        _read_back(dns, {bid: _locations(nn, "/nn/scrub")[bid]}, data,
+                   "PLANES scrub fresh")
+        _read_back(dns, {b: [o] for b, o in owners.items()}, data,
+                   "PLANES scrub demoted")
+        check_faults(faults0, "PLANES scrub")
+        na = nn._status.addr
+        st, _, prom = _http("GET", f"http://{na[0]}:{na[1]}/prom")
+        check(st == 200 and b'registry="namenode"' in prom,
+              "PLANES: NameNode /prom")
+        st, _, body = _http("GET", f"http://{na[0]}:{na[1]}/contention")
+        check(st == 200 and "methods" in json.loads(body),
+              "PLANES: NameNode /contention")
+    finally:
+        rs._apply = real
+    out = {"cycle_s": {d: s for d, (_, s) in clean.items()},
+           "census": {d: c for d, (c, _) in clean.items()},
+           "clean": {k: c1[k] - c0[k] for k in keys},
+           "clean_rs_launches": clean_launches,
+           "dirty_cycle_s": dirty,
+           "dirty": {k: c3[k] - c2[k] for k in keys},
+           "rs_launches": repair_launches, "decodes": len(decodes),
+           "decode_max_abs_err": max(decodes, default=0),
+           "quarantined": [os.path.basename(cpath),
+                           os.path.basename(spath)],
+           "rereplicated_s": rerep_s,
+           "seconds": time.perf_counter() - t_phase}
+    print("PLANES scrub " + json.dumps(out), flush=True)
+    return out
+
+
+def _http(method: str, url: str, data: bytes | None = None):
+    """(status, headers, body) of one request; a 307 is returned, not
+    followed."""
+    import urllib.error
+    import urllib.request
+
+    class NoRedirect(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *a, **kw):
+            return None
+    opener = urllib.request.build_opener(NoRedirect)
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with opener.open(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _wait_until(want, seconds: float) -> None:
+    """Poll ``want`` for up to ``seconds`` (a condition that may not come)."""
+    t_end = time.monotonic() + seconds
+    while time.monotonic() < t_end and not want():
+        time.sleep(0.1)
+
+
+def planes_cluster(args) -> dict:
+    """PLANES (b) and (d) on one port MiniCluster on ``cuda:0``: three
+    DataNodes at replication 3 with ``cdc_adaptive`` and a status port,
+    ``tpu_worker=True`` (the worker process owns the card), the port's
+    HdrfClient on ``cuda``.  (b) Fresh random blocks until the
+    controllers have coarsened twice: each block's chunks equal the
+    native cuts at the geometry its primary held, the worker's ledger
+    grows by ``resident.cdc`` dispatches at each geometry, every block
+    (the first ones included) reads back equal; ``get_reconfigurable``
+    and ``reconfigure`` replies; a retune applied by ``dfsadmin
+    -reconfig`` and rolled back by the guard over an injected flight
+    window.  (d) ``/prom`` and ``/timeseries`` of a DataNode, the
+    gateway's ``/health``, a 128 MiB CREATE and OPEN through the two-step
+    redirect, ``/traces?format=chrome``, and ``alias_add`` of a region
+    under ``provided_mount_root`` read back through READ_BLOCK."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from hdrf_tpu_torch.reduction import accounting
+    from hdrf_tpu_torch.server.datanode import DataNode
+    from hdrf_tpu_torch.server.http_gateway import HttpGateway
+    from hdrf_tpu_torch.server.reduction_worker import WorkerClient
+    from hdrf_tpu_torch.testing.minicluster import MiniCluster
+    from hdrf_tpu_torch.tools import cli
+
+    t_phase = time.perf_counter()
+    bs = args.block_mib * MIB
+    root = tempfile.mkdtemp(prefix="spl_")
+    mount = os.path.join(root, "mount")
+    os.makedirs(mount)
+    mc = MiniCluster(n_datanodes=3, base_dir=root, replication=3,
+                     block_size=bs, container_size=SEAL_BYTES,
+                     heartbeat_s=1.0, dead_node_s=6.0, tpu_worker=True,
+                     dn_config_overrides={"status_port": 0,
+                                          "provided_mount_root": mount},
+                     reduction_overrides={"cdc_adaptive": True})
+    out: dict = {}
+    try:
+        mc.start()
+        worker = WorkerClient(mc._worker_addr, deadline_s=600)
+        check(worker.ping()["backend"] == "cuda",
+              "PLANES: the worker does not run on the card")
+        c = mc.client("smoke-planes")
+        dns = [d for d in mc.datanodes if d is not None]
+        by_id = {d.dn_id: d for d in dns}
+        nn_arg = f"{mc.namenode.addr[0]}:{mc.namenode.addr[1]}"
+
+        # ---- (b) adaptive retunes under fresh blocks ---------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        acc0 = accounting.snapshot()["counters"]
+        rng = np.random.default_rng(args.seed + 13)
+        written, blocks = [], {}
+
+        def geometry(dn):
+            g = dn.reduction_ctx.config.cdc
+            return (g.mask_bits, g.min_chunk, g.max_chunk)
+        # the first block is written with the controllers parked, and
+        # the flight rings then fill with samples taken after it: a
+        # retune's guard compares against a baseline of a cluster that
+        # has written, not of an empty one (whose write p95 and storage
+        # ratio read 0, so that any retune would look like a regression)
+        ctls = {d.dn_id: d._cdc_controller for d in dns}
+        for d in dns:
+            d._cdc_controller = None
+            # the process's earlier dedup counters are history: absorbed,
+            # so that the controllers' first window is the first block's
+            ctls[d.dn_id].observe(*accounting.dedup_counters(),
+                                  geometry(d)[0])
+            ctls[d.dn_id]._win_hit = ctls[d.dn_id]._win_miss = 0
+        while len(written) < PLANES_MAX_BLOCKS:
+            blk = rng.integers(0, 256, bs, dtype=np.uint8)
+            path = f"/planes/b{len(written)}"
+            before = {d.dn_id: geometry(d) for d in dns}
+            cdc0 = sum(e["op"] == "resident.cdc"
+                       for e in worker.traces()["ledger"])
+            ms = _timed_write(c, path, [blk], scheme="dedup_lz4")
+            _drain(dns)
+            bid = c._call("get_block_locations",
+                          path=path)["blocks"][0]["block_id"]
+            locs = [loc["dn_id"] for loc in c._call(
+                "get_block_locations", path=path)["blocks"][0]["locations"]]
+            holder = by_id[locs[0]]
+            entry = holder.index.get_block(bid)
+            cuts = np.cumsum([holder.index.chunk_location(h).length
+                              for h in entry.hashes], dtype=np.int64)
+            # the primary cut at the geometry it held when the block came
+            g = next((g for g in sorted(set(before.values()))
+                      if np.array_equal(cuts, oracle(blk, CdcConfig(
+                          mask_bits=g[0], min_chunk=g[1],
+                          max_chunk=g[2]))[0].astype(np.int64))), None)
+            check(g is not None, f"PLANES (b) {path}: chunks != native "
+                                 f"cuts at the geometries {before}")
+            lens = np.diff(cuts, prepend=0)
+            cdc1 = sum(e["op"] == "resident.cdc"
+                       for e in worker.traces()["ledger"])
+            check(cdc1 > cdc0, f"PLANES (b) {path}: no resident.cdc "
+                               "dispatch in the worker's ledger")
+            blocks[path] = blk
+            written.append({"path": path, "geometry": g, "ms": ms[0],
+                            "chunks": int(lens.size)})
+            if len({w["geometry"][0] for w in written}) > PLANES_RETUNES:
+                break        # the last geometry written: no retune to wait
+            if len(written) == 1:
+                time.sleep(PLANES_BASELINE_S)
+                for d in dns:
+                    d._cdc_controller = ctls[d.dn_id]
+            # the heartbeat ticks feed the controllers this block's
+            # commits: a retune (three reconfigure steps) lands within a
+            # tick or two, and its guard decides three samples later
+            _wait_until(lambda: all(geometry(d) != before[d.dn_id]
+                                    for d in dns), 4.0)
+            _wait_until(lambda: all(d._cdc_guard is None for d in dns), 8.0)
+        for d in dns:
+            d._cdc_controller = None         # parked for the steps below
+        acc1 = accounting.snapshot()["counters"]
+        retunes = acc1.get("cdc_retunes__cdc_mask_bits", 0) - acc0.get(
+            "cdc_retunes__cdc_mask_bits", 0)
+        mbs = sorted({w["geometry"][0] for w in written})
+        check(len(mbs) > PLANES_RETUNES and retunes >= PLANES_RETUNES,
+              f"PLANES (b): blocks written at mask bits {mbs}, "
+              f"{retunes} mask-bit retunes")
+        read_ms = []
+        for path, blk in blocks.items():
+            t1 = time.perf_counter()
+            check(c.read(path) == blk.tobytes(),
+                  f"PLANES (b): {path} != written")
+            read_ms.append((time.perf_counter() - t1) * 1e3)
+        dn = dns[0]
+        dn_arg = f"{dn.addr[0]}:{dn.addr[1]}"
+        keys = cli._dn_call(dn_arg, "get_reconfigurable")["keys"]
+        check(keys == sorted(DataNode.RECONFIGURABLE),
+              f"PLANES (b): get_reconfigurable {keys}")
+        bad = [cli._dn_call(dn_arg, "reconfigure", key=k, value=v)
+               for k, v in (("cdc_mask_bits", 99),
+                            ("cdc_min_chunk", 1 << 22),
+                            ("data_dir", "/x"))]
+        check(not any(r["ok"] for r in bad)
+              and "outside" in bad[0]["error"]
+              and "reorder" in bad[1]["error"]
+              and "not reconfigurable" in bad[2]["error"],
+              f"PLANES (b): reconfigure refusals {bad}")
+        ctl = ctls[dn.dn_id]
+        g0 = geometry(dn)
+        new = g0[0] + 1 if g0[0] < ctl.MASK_BITS_MAX else g0[0] - 1
+        for key, value in ctl.steps(g0[0], new):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                cli.main(["dfsadmin", "--namenode", nn_arg, "-reconfig",
+                          dn_arg, key, str(value)])
+            r = json.loads(buf.getvalue())
+            check(r["ok"] and r["new"] == value,
+                  f"PLANES (b): dfsadmin -reconfig {key} {value}: {r}")
+        check(geometry(dn)[0] == new, "PLANES (b): -reconfig not applied")
+        base = time.monotonic() + 1e6       # past every real sample
+        rb0 = acc1.get("retune_rollbacks", 0)
+        dn.flight._ring.extend({"t": base + i, "mono": base + i,
+                                "write_p95_ms": 10.0} for i in range(8))
+        dn._arm_cdc_guard(g0[0], new)
+        dn.flight._ring.extend({"t": base + 10 + i, "mono": base + 10 + i,
+                                "write_p95_ms": 30.0}
+                               for i in range(dn.GUARD_MIN_SAMPLES))
+        dn._cdc_guard_tick(ctl)
+        rolled = accounting.snapshot()["counters"].get(
+            "retune_rollbacks", 0) - rb0
+        check(geometry(dn) == g0 and rolled == 1,
+              f"PLANES (b): guard left {geometry(dn)} (was {g0}), "
+              f"rollbacks {rolled}")
+        check_faults(faults0, "PLANES adaptive")
+        out["b"] = {"seconds": time.perf_counter() - t0,
+                    "blocks": written, "mask_bits": mbs,
+                    "mask_bit_retunes": retunes,
+                    "cdc_retunes": acc1.get("cdc_retunes", 0)
+                    - acc0.get("cdc_retunes", 0),
+                    "guard_rollbacks_in_writes": acc1.get(
+                        "retune_rollbacks", 0) - acc0.get(
+                        "retune_rollbacks", 0),
+                    "read_ms": read_ms, "guard_rolled_back": rolled,
+                    "geometries_now": {d.dn_id: geometry(d) for d in dns}}
+        print("PLANES adaptive " + json.dumps(out["b"]), flush=True)
+
+        # ---- (d) the operator surface ------------------------------------
+        t0 = time.perf_counter()
+        faults0 = _dn_faults()
+        sa = dns[1]._status.addr      # dns[0]'s ring holds the guard's
+        st, _, prom = _http("GET", f"http://{sa[0]}:{sa[1]}/prom")
+        check(st == 200 and b'registry="datanode"' in prom
+              and b"hdrf_cdc_retunes_total" in prom,
+              "PLANES (d): DataNode /prom")
+        st, _, ts = _http("GET", f"http://{sa[0]}:{sa[1]}/timeseries")
+        samples = json.loads(ts)["samples"]
+        check(st == 200 and samples and "garbage_bytes" in samples[-1],
+              "PLANES (d): DataNode /timeseries")
+        gw = HttpGateway(mc.namenode.addr).start()
+        try:
+            base_url = f"http://{gw.addr[0]}:{gw.addr[1]}"
+            st, _, body = _http("GET", base_url + "/health")
+            health = json.loads(body)
+            check(st == 200 and health["status"] in ("healthy", "degraded"),
+                  f"PLANES (d): gateway /health {health}")
+            payload = np.random.default_rng(args.seed + 17).integers(
+                0, 256, bs, dtype=np.uint8).tobytes()
+            url = f"{base_url}/webhdfs/v1/planes/gw?op=CREATE&scheme=dedup_lz4"
+            st, hdrs, _ = _http("PUT", url)
+            check(st == 307 and "step=2" in hdrs["Location"],
+                  f"PLANES (d): CREATE step 1 answered {st}")
+            t1 = time.perf_counter()
+            st, _, _ = _http("PUT", hdrs["Location"], payload)
+            create_s = time.perf_counter() - t1
+            check(st == 201, f"PLANES (d): CREATE step 2 answered {st}")
+            st, hdrs, body = _http("GET", base_url
+                                   + "/webhdfs/v1/planes/gw?op=OPEN")
+            t1 = time.perf_counter()
+            if st == 307:
+                st, _, body = _http("GET", hdrs["Location"])
+            open_s = time.perf_counter() - t1
+            check(st == 200 and body == payload,
+                  "PLANES (d): OPEN != the bytes created")
+            st, _, tr = _http("GET", base_url + "/traces?format=chrome")
+            events = json.loads(tr)["traceEvents"]
+            check(st == 200 and events, "PLANES (d): /traces?format=chrome")
+        finally:
+            gw.stop()
+        region = np.random.default_rng(args.seed + 19).integers(
+            0, 256, PLANES_ALIAS_BYTES, dtype=np.uint8).tobytes()
+        src = os.path.join(mount, "region.bin")
+        with open(src, "wb") as f:
+            f.write(b"\0" * 4096 + region)
+        alias_bid = (1 << 40) + 1
+        r = cli._dn_call(dn_arg, "alias_add",
+                         regions=[[alias_bid, "file://" + src, 4096,
+                                   len(region)]], tokens=None)
+        check(r == {"ok": True, "count": 1}, f"PLANES (d): alias_add {r}")
+        outside = cli._dn_call(dn_arg, "alias_add", regions=[
+            [alias_bid + 1, "file:///etc/hostname", 0, 4]], tokens=None)
+        check(not outside["ok"], "PLANES (d): alias outside the mount")
+        _, got = dn_read(dn.addr, alias_bid)
+        check(got == region, "PLANES (d): the PROVIDED block != its file")
+        check_faults(faults0, "PLANES operator surface")
+        out["d"] = {"seconds": time.perf_counter() - t0,
+                    "prom_bytes": len(prom), "timeseries": len(samples),
+                    "health": health["status"],
+                    "gateway_create_s": create_s,
+                    "gateway_open_s": open_s,
+                    "gateway_mib_s": {"create": bs / MIB / create_s,
+                                      "open": bs / MIB / open_s},
+                    "chrome_events": len(events),
+                    "alias_bytes": len(region)}
+        print("PLANES surface " + json.dumps(out["d"]), flush=True)
+        c.close()
+    finally:
+        mc.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -3724,8 +4299,14 @@ def run(args) -> int:
     sc = scheme_phase(args, dev, cdc, errs, timing)
     torch.cuda.empty_cache()
     datanode_phase(args)
-    namenode_phase(args)
+    nm = namenode_phase(args, after_demotion=planes_scrub)
     cl = client_phase(args)
+    sw = planes_sweep(args, dev)
+    pc = planes_cluster(args)
+    scrub_s = nm["after_demotion"]["seconds"]
+    print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}s "
+          f"(scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
+          f"{pc['seconds']:.1f})", flush=True)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],
@@ -3741,6 +4322,17 @@ def run(args) -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                         "bound_by": t["bound"][1],
                         "library_ms": t["library_ms"]})
+        if kname == "cdc_select":
+            # the adaptive geometry sweep: its lanes' error and launches
+            kernels[-1]["surv_cands_max_abs_err"] = \
+                sw["surv_cands_max_abs_err"]
+            kernels[-1]["sweep_launches"] = sw["launches"]
+        if kname == "rs":
+            # the scrubber's decodes (PLANES (c)) on the NAMENODE cluster
+            kernels[-1]["scrub_launches"] = \
+                nm["after_demotion"]["rs_launches"]
+            kernels[-1]["scrub_max_abs_err"] = \
+                nm["after_demotion"]["decode_max_abs_err"]
         if kname in cl["launches"]:
             # the client's own path: its launches and its error there
             kernels[-1]["client_launches"] = cl["launches"][kname]

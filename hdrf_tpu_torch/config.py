@@ -14,10 +14,9 @@ reference's names: ``auto`` and ``tpu`` select the card, ``native`` the
 host C++ library, ``cpu`` the kernels' plain versions
 (ops/dispatch.resolve_backend).
 
-The NameNode refuses ``status_port``.  The DataNode refuses, with
-``NotImplementedError``, the settings that turn on a plane the port does
-not have yet: ``status_port``, ``simulated_dataset``,
-``scrub_interval_s`` > 0, and of the reduction config ``cdc_adaptive``.
+Every plane the reference's settings turn on runs on the port:
+``status_port`` (both daemons), ``simulated_dataset``,
+``scrub_interval_s`` > 0 and the reduction config's ``cdc_adaptive``.
 """
 
 from __future__ import annotations

@@ -37,7 +37,13 @@
 //                      small/big counts into output offsets.  (d) emit:
 //                      every segment on the chain writes its points,
 //                      walker cuts and serial run into the cut table and
-//                      both lane tables in parallel.
+//                      both lane tables in parallel.  The header's two
+//                      telemetry lanes (the reference's H_SURV / H_CANDS)
+//                      ride the same launches: kTallyBlocks more thread
+//                      blocks of the spec grid count the bitmap's set bits
+//                      and its 512-position rows holding one (16 words a
+//                      row) while the walkers walk, a partial pair a
+//                      block, and the stitch's first warp sums the pairs.
 //
 // Bound: the scan moves the block's bytes (read once, written once as
 // words, plus the bitmap); the select reads the bitmap and writes a few
@@ -112,6 +118,7 @@ constexpr int kWin = 8192;             // bitmap words of the stitch's window
 constexpr int kReach = 4;              // converge walks, in segments' worth
 constexpr int kSegArrays = 12;         // scratch arrays of one int a segment
 constexpr int kRunArrays = 4;          // scratch arrays of one int a serial cut
+constexpr int kTallyBlocks = 256;      // spec blocks counting the lanes
 constexpr int32_t kChainEnd = -1;      // merge pointer: the walker reached n
 constexpr int32_t kChainOpen = -2;     // merge pointer: no merge in reach
 constexpr int kTableHdr = 8;
@@ -341,14 +348,20 @@ cudaError_t launch_scan(void (*kernel)(ScanArgs), ScanArgs a,
 // its cuts and of its small and big chunks, and the stitch's serial run
 // after its walker (start in the run arrays, cuts, small ones).  Per serial
 // cut (cap entries): the cut, its chunk start, the small count of its run
-// up to and with it, and its segment; then the serial cut count.
+// up to and with it, and its segment; then the serial cut count; then a
+// (rows, candidates) pair per tally block.
 
 struct SelScratch {
   int32_t *pts, *csm, *ys, *ysm;
   int32_t *npts, *mseg, *midx, *ny, *nys, *ent, *offc, *offs, *offb, *zst,
       *zn, *zns;
-  int32_t *zcut, *zpos, *zrs, *zseg, *zcount;
+  int32_t *zcut, *zpos, *zrs, *zseg, *zcount, *tally;
 };
+
+// Thread blocks of the spec and converge grids: one warp a segment.
+__host__ __device__ __forceinline__ int64_t walk_blocks_of(int64_t S) {
+  return (S * 32 + kWalkThreads - 1) / kWalkThreads;
+}
 
 // pts and csm hold lcap ints a segment, ys and ysm kReach * lcap.
 __device__ __forceinline__ SelScratch sel_scratch(int32_t *base, int64_t S,
@@ -366,7 +379,57 @@ __device__ __forceinline__ SelScratch sel_scratch(int32_t *base, int64_t S,
   int32_t **run[] = {&r.zcut, &r.zpos, &r.zrs, &r.zseg};
   for (int i = 0; i < kRunArrays; ++i) *run[i] = p + i * cap;
   r.zcount = p + kRunArrays * cap;
+  r.tally = r.zcount + 1;
   return r;
+}
+
+// The header's telemetry lanes, counted over the bitmap by the spec
+// grid's tally blocks (row r: bitmap words 16 r .. 16 r + 15, positions
+// 512 r + 1 .. 512 r + 512, as the reference's (R, 128)-word tiles lay
+// rows out): tally block b writes its (rows holding a candidate,
+// candidates) pair.  They run beside the walkers, which are latency-bound,
+// so the bitmap's second read costs the select little time.
+__device__ __forceinline__ void tally_rows(const uint32_t *__restrict__ bm,
+                                           int nbm, int64_t b,
+                                           int32_t *tally) {
+  __shared__ int32_t part[2][kWalkThreads / 32];
+  const int64_t nrows = (static_cast<int64_t>(nbm) + 15) / 16;
+  const int64_t stride = static_cast<int64_t>(kTallyBlocks) * kWalkThreads;
+  int rows = 0, cands = 0;
+  for (int64_t row = b * kWalkThreads + threadIdx.x; row < nrows;
+       row += stride) {
+    const int64_t w0 = row * 16;
+    int c = 0;
+    if (w0 + 16 <= nbm) {
+      const uint4 *q = reinterpret_cast<const uint4 *>(bm + w0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 v = __ldg(q + j);
+        c += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+      }
+    } else {
+      for (int64_t w = w0; w < nbm; ++w) c += __popc(__ldg(bm + w));
+    }
+    rows += c != 0;
+    cands += c;
+  }
+  rows = __reduce_add_sync(0xFFFFFFFFu, rows);
+  cands = __reduce_add_sync(0xFFFFFFFFu, cands);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part[0][warp] = rows;
+    part[1][warp] = cands;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int a = 0, c = 0;
+    for (int i = 0; i < kWalkThreads / 32; ++i) {
+      a += part[0][i];
+      c += part[1][i];
+    }
+    tally[2 * b] = a;
+    tally[2 * b + 1] = c;
+  }
 }
 
 // Positions, bit indices and word indices of the walks are 32-bit (the
@@ -468,16 +531,22 @@ __device__ __forceinline__ int cursor_find(PointCursor &c,
 }
 
 // (a) Speculate: one warp per segment walks from the segment start as if
-// a cut stood there, up to the first cut >= the next start (or n).
+// a cut stood there, up to the first cut >= the next start (or n); the
+// kTallyBlocks blocks past the walkers' count the telemetry lanes.
 __global__ void __launch_bounds__(kWalkThreads)
 cdc_select_spec_kernel(const uint32_t *__restrict__ bitmap, int nbm, int n,
                        int mn, int mx, int32_t b_small, int64_t W, int64_t S,
                        int64_t lcap, int64_t cap,
                        int32_t *__restrict__ scratch) {
+  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
+  const int64_t tb = static_cast<int64_t>(blockIdx.x) - walk_blocks_of(S);
+  if (tb >= 0) {   // block-uniform
+    tally_rows(bitmap, nbm, tb, r.tally);
+    return;
+  }
   const int64_t seg =
       (static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x) >> 5;
   if (seg >= S) return;  // warp-uniform
-  const SelScratch r = sel_scratch(scratch, S, lcap, cap);
   const bool lead = (threadIdx.x & 31) == 0;
   int32_t *pts = r.pts + seg * lcap, *csm = r.csm + seg * lcap;
   const int64_t end = (seg + 1) * W;
@@ -729,6 +798,13 @@ cdc_select_stitch_kernel(const uint32_t *__restrict__ bitmap, int nbm, int n,
   if (lane == 31) part[warp] = x;
   __syncthreads();
   if (warp == 0) {
+    int rows = 0, cands = 0;   // the telemetry lanes: sum the spec pairs
+    for (int i = lane; i < kTallyBlocks; i += 32) {
+      rows += r.tally[2 * i];
+      cands += r.tally[2 * i + 1];
+    }
+    rows = __reduce_add_sync(0xFFFFFFFFu, rows);
+    cands = __reduce_add_sync(0xFFFFFFFFu, cands);
     const uint64_t p = part[lane];
     uint64_t q = p;
 #pragma unroll
@@ -744,7 +820,9 @@ cdc_select_stitch_kernel(const uint32_t *__restrict__ bitmap, int nbm, int n,
       table[1] = 0;  // no overflow: the tables hold the hard cut bound
       table[2] = ns;
       table[3] = nc - ns;
-      for (int i = 4; i < kTableHdr; ++i) table[i] = 0;
+      table[4] = rows;
+      table[5] = cands;
+      for (int i = 6; i < kTableHdr; ++i) table[i] = 0;
     }
   }
   __syncthreads();
@@ -853,7 +931,8 @@ extern "C" int hdrf_be_image(const void *data, int64_t n_pad,
 
 // The select: candidate bitmap -> cut table + the two binned lane tables,
 // in four launches on the stream; `scratch` holds
-// (2 + 2 kReach) S lcap + kSegArrays S + kRunArrays cap + 1 ints
+// (2 + 2 kReach) S lcap + kSegArrays S + kRunArrays cap + 1
+// + 2 kTallyBlocks ints
 // (S = ceil(n / W) segments of W positions, lcap = min(W, n) / min + 3).
 extern "C" int hdrf_cdc_select(const void *bitmap, int64_t nbm, int64_t n,
                                int64_t min_chunk, int64_t max_chunk,
@@ -875,9 +954,8 @@ extern "C" int hdrf_cdc_select(const void *bitmap, int64_t nbm, int64_t n,
   const auto bm = static_cast<const uint32_t *>(bitmap);
   auto scr = static_cast<int32_t *>(scratch);
   auto tab = static_cast<int32_t *>(table);
-  const unsigned walk_blocks =
-      static_cast<unsigned>((S * 32 + kWalkThreads - 1) / kWalkThreads);
-  cdc_select_spec_kernel<<<walk_blocks, kWalkThreads, 0, s>>>(
+  const unsigned walk_blocks = static_cast<unsigned>(walk_blocks_of(S));
+  cdc_select_spec_kernel<<<walk_blocks + kTallyBlocks, kWalkThreads, 0, s>>>(
       bm, nbm32, n32, mn, mx, b_small, W, S, lcap, cap, scr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -42,7 +42,17 @@ parallel select on one stream:
     every segment on the true chain writes its cuts and lanes in
     parallel.  Where chains never meet (a short period with one
     candidate a period) that one warp walks the whole block: the worst
-    case is a serial walk, never a wrong answer.  Bound: bytes (the
+    case is a serial walk, never a wrong answer.  The header's telemetry
+    lanes ride the same launches: ``H_CANDS`` counts the bitmap's set
+    bits (the candidates the skip-ahead rule kept) and ``H_SURV`` its
+    rows of 512 positions (16 words; row ``r`` covers ``pos1`` in
+    ``[512 r + 1, 512 r + 512]``) holding at least one, the reference
+    kernel's survivor rows of its (R, 128)-word tiles (cdc_pallas.py:
+    334-339, 469-470: each tile's fresh rows counted once).
+    ``TALLY_BLOCKS`` more thread blocks of the spec launch count them
+    beside the walkers, which are latency-bound, a pair a block, and the
+    stitch sums the pairs into the header that the reducer already copies
+    back.  Bound: bytes (the
     bitmap read once, a few words per cut written); the walks are
     latency-bound (one dependent L2 load per 4,096 bitmap bits), hence
     spread over ~1,000 warps for a 128 MiB block.
@@ -92,9 +102,11 @@ MAX_SEGS = 8192         # the select's stitch holds its pointers on chip
 WALK_REACH = 4          # select converge walks, in segments' worth of cuts
 SEG_ARRAYS = 12         # select scratch arrays of one int a segment
 RUN_ARRAYS = 4          # select scratch arrays of one int a serial cut
+TALLY_BLOCKS = 256      # select spec blocks counting the telemetry lanes
+ROW_WORDS = 16          # bitmap words of a telemetry row (512 positions)
 TABLE_HDR = 8
 H_COUNT, H_OVERFLOW, H_SMALL, H_BIG = 0, 1, 2, 3
-H_SURV, H_CANDS = 4, 5  # reference telemetry lanes; zero here
+H_SURV, H_CANDS = 4, 5  # telemetry: candidate rows, candidates
 
 # Launches of each kernel, one per wrapper call on a CUDA block
 # (``image_launches``: the scan's words-only mode, ``be_image``).
@@ -241,18 +253,34 @@ def cdc_select_plain(bitmap: torch.Tensor, n: int, min_chunk: int,
     bits = (bitmap.to(torch.int64)[:, None] >> shift) & 1
     cand = (torch.nonzero(bits.reshape(-1)).reshape(-1) + 1).cpu().numpy()
     cuts = gear.cdc_select(cand, n, min_chunk, max_chunk)
+    surv, ncand = scan_telemetry_plain(bitmap)
     cap = cap_for(n, min_chunk)
     starts, lens, small = _bins(cuts, b_small)
     table = np.zeros(TABLE_HDR + cap, dtype=np.int32)
     table[TABLE_HDR:TABLE_HDR + cuts.size] = cuts
     ns, nbg = int(small.sum()), int((~small).sum())
-    table[:4] = (cuts.size, 0, ns, nbg)
+    table[:6] = (cuts.size, 0, ns, nbg, surv, ncand)
     ols = np.zeros((2, cap), dtype=np.int32)
     olb = np.zeros((2, cap), dtype=np.int32)
     ols[0, :ns], ols[1, :ns] = starts[small], lens[small]
     olb[0, :nbg], olb[1, :nbg] = starts[~small], lens[~small]
     return (torch.from_numpy(table).to(dev), torch.from_numpy(ols).to(dev),
             torch.from_numpy(olb).to(dev))
+
+
+def scan_telemetry_plain(bitmap: torch.Tensor) -> tuple[int, int]:
+    """(``H_SURV``, ``H_CANDS``) of a candidate bitmap: its rows of
+    ``ROW_WORDS`` words holding a set bit, and its set bits."""
+    x = bitmap.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    pad = (-x.numel()) % ROW_WORDS
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad)])
+    x = x - ((x >> 1) & 0x55555555)                  # popcount by halves
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    pop = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    per_row = pop.reshape(-1, ROW_WORDS).sum(dim=1)
+    return int((per_row > 0).sum()), int(per_row.sum())
 
 
 def select_geometry(n: int, min_chunk: int, max_chunk: int,
@@ -263,13 +291,14 @@ def select_geometry(n: int, min_chunk: int, max_chunk: int,
     segments cover the block; each segment keeps ``lcap = min(W, n) //
     min + 3`` points and ``WALK_REACH * lcap`` walker cuts, each with a
     running small count, plus ``SEG_ARRAYS`` counters; the serial walk
-    keeps up to ``cap_for(n, min)`` cuts, plus their count."""
+    keeps up to ``cap_for(n, min)`` cuts, plus their count; each tally
+    block of the spec launch its pair of telemetry counts."""
     w = seg_width or max_chunk * max(1, SEG_WIDTH // max_chunk)
     w = max(int(w), -(-n // MAX_SEGS))
     s = -(-n // w)
     lcap = min(w, n) // min_chunk + 3
     return w, ((2 + 2 * WALK_REACH) * s * lcap + SEG_ARRAYS * s
-               + RUN_ARRAYS * cap_for(n, min_chunk) + 1)
+               + RUN_ARRAYS * cap_for(n, min_chunk) + 1 + 2 * TALLY_BLOCKS)
 
 
 def cdc_select(bitmap: torch.Tensor, n: int, min_chunk: int, max_chunk: int,

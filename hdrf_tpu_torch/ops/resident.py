@@ -8,7 +8,10 @@ only the cut table and the digests come back.  Per block, on one stream:
    binned into a small and a big offset/length lane table (the reference's
    two-bucket rule: small when ``(len + 9 + 63) // 64 <= b_small``,
    ``b_small = max(1, min((2 << mask_bits) // 64, max_nb))``,
-   resident.py:371-372).  Its 8-word header goes to pinned host memory.
+   resident.py:371-372).  Its 8-word header goes to pinned host memory;
+   its two telemetry lanes (``H_SURV``, ``H_CANDS``) feed
+   ``accounting.record_scan_summary`` once the header lands, as the
+   reference's ``_start_sha_fused`` does (resident.py:545-552).
 2. Once the header has landed: ``gather_cuda.gather_pad_messages`` per
    bucket, then one ``sha256_cuda.sha256_words_grouped`` launch over both
    (the big bucket's long chains first), each sized to exactly the
@@ -43,6 +46,7 @@ from hdrf_tpu_torch.ops import cdc_cuda
 from hdrf_tpu_torch.ops.dispatch import gear_mask, resolve_device
 from hdrf_tpu_torch.ops.gather_cuda import gather_pad_messages
 from hdrf_tpu_torch.ops.sha256_cuda import sha256_words_grouped
+from hdrf_tpu_torch.reduction import accounting
 from hdrf_tpu_torch.utils import device_ledger as _ledger
 
 _HDR = cdc_cuda.TABLE_HDR
@@ -187,13 +191,15 @@ class ResidentReducer:
         """Wait for each block's header, then enqueue its two gathers and
         one SHA launch over both lane tables, sized to the header's lane
         counts, and the result copies."""
-        nbytes = 0
+        nbytes = surv = cands = 0
         for b in bj.blocks:
             if not b.n:
                 continue
             if b.hdr_ready is not None:
                 b.hdr_ready.synchronize()
-            nc, _, ns, nbg = (int(v) for v in b.hdr[:4].tolist())
+            nc, _, ns, nbg, sv, cd = (int(v) for v in b.hdr[:6].tolist())
+            surv += sv
+            cands += cd
             nbytes += b.hdr.numel() * 4
             big, small = digest_buckets(
                 b.words, [(b.olb[:, :nbg], self._b_big),
@@ -204,6 +210,9 @@ class ResidentReducer:
             b.words = b.table = b.ols = b.olb = None
         _ledger.readback(bj._ev, d2h_bytes=nbytes)
         bj._ev = None
+        # the select's telemetry lanes ride the header readback above, as
+        # the reference's _start_sha_fused reads them off its table
+        accounting.record_scan_summary(surv, cands)
         bj._ev_sha = _ledger.dispatch("resident.sha", batch=len(bj.blocks))
 
     def finish_many(self, bj: BatchJob) -> list[tuple[np.ndarray, np.ndarray]]:

@@ -1,7 +1,6 @@
 """Block read path: serve logical bytes, reconstructing reduced blocks (port
-of hdrf_tpu/server/block_sender.py, whole but for PROVIDED replicas: the
-alias map is a later plane, so a block without local meta answers
-``KeyError`` as an unknown block does in the reference).
+of hdrf_tpu/server/block_sender.py, PROVIDED replicas included: their bytes
+come through the DataNode's alias map).
 
 Re-expression of BlockSender.java: the ctor decides whether the block can be
 served straight from the replica file or needs reconstruction
@@ -33,8 +32,8 @@ if TYPE_CHECKING:
 _M = metrics.registry("block_sender")
 _TR = tracing.tracer("datanode")
 
-# sentinel: "resolve the meta yourself" (serve_read passes the meta it
-# already resolved)
+# sentinel: "resolve the meta yourself" (None is a real value — PROVIDED
+# blocks have no local BlockMeta)
 _UNRESOLVED = object()
 
 
@@ -45,8 +44,8 @@ class BlockSender:
     def read_logical(self, block_id: int, offset: int = 0,
                      length: int = -1, meta=_UNRESOLVED) -> bytes:
         """Logical bytes of a block, whatever its stored form.  ``meta``
-        threads an already-resolved BlockMeta through from serve_read so
-        the replica index is probed once
+        threads an already-resolved BlockMeta (or None for a PROVIDED
+        block) through from serve_read so the replica index is probed once
         per request — the double get_meta used to book a second
         ``index_lookup`` span per read."""
         dn = self._dn
@@ -59,6 +58,13 @@ class BlockSender:
             with profiler.phase("index_lookup"):
                 meta = dn.replicas.get_meta(block_id)
         if meta is None:
+            # PROVIDED replica: bytes live in the external store the alias
+            # map points at (FileRegion -> ProvidedStorageLocation)
+            with dn.read_slot(), profiler.phase("container_decode"):
+                data = dn.aliasmap.read_bytes(block_id, offset, length)
+            if data is not None:
+                _M.incr("provided_serves")
+                return data
             raise KeyError(f"block {block_id} not on this datanode")
         scheme = dn.scheme(meta.scheme)
         with profiler.phase("container_decode"):
@@ -99,7 +105,9 @@ class BlockSender:
                         profiler.phase("container_decode"):
                     with profiler.phase("index_lookup"):
                         meta = dn.replicas.get_meta(block_id)
-                    if meta is None:
+                        region = (dn.aliasmap.read(block_id) if meta is None
+                                  else None)
+                    if meta is None and region is None:
                         raise KeyError(
                             f"block {block_id} not on this datanode")
                     data = self.read_logical(block_id, offset, length,
@@ -121,10 +129,13 @@ class BlockSender:
                 return
             with profiler.phase("net_send"):
                 send_frame(sock, {"status": 0, "length": len(data),
-                                  "logical_len": meta.logical_len,
+                                  "logical_len": (meta.logical_len if meta
+                                                  else region.length),
                                   "offset": offset,
-                                  "checksum_chunk": meta.checksum_chunk,
-                                  "checksums": meta.checksums})
+                                  "checksum_chunk": (meta.checksum_chunk
+                                                     if meta else 64 * 1024),
+                                  "checksums": (meta.checksums
+                                                if meta else [])})
                 dt.stream_bytes(sock, data, dn.config.packet_size)
                 _M.incr("blocks_served")
                 _M.incr("bytes_served", len(data))

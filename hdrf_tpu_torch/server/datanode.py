@@ -36,18 +36,20 @@ failed worker seal falls back to the host codec and counts
 a ``WorkerSupervisor`` (server/reduction_worker.py), which respawns it
 with capped backoff and repoints the ``WorkerClient``.
 
-Planes of the reference that the port does not have yet are refused, not
-skipped: a config that turns one on raises ``NotImplementedError`` at
-construction (``status_port``, ``simulated_dataset``,
-``scrub_interval_s`` > 0, ``reduction.cdc_adaptive``), and their ops
-(``alias_add``, ``reconfigure``, ``get_reconfigurable``) count as
-``unknown_ops``, as any unknown op does.  The flight archive
-(``flight_archive_dir``) and its ``flight_timeseries`` op are ported.
-Short-circuit reads are served as the reference serves them
-(server/shortcircuit.py on ``<data_dir>/sc.sock``, registered as
-``sc_path``; a finalized or invalidated replica revokes its grants).
-Block reports carry no PROVIDED replicas.  The block scanner
-(``scan_interval_s``) is ported.
+Every plane of the reference runs here, the ones off by default too: the
+status HTTP server (``status_port``, server/status_http.py), the integrity
+scrubber (server/scrubber.py: built always, its loop on
+``scrub_interval_s`` > 0), provided storage (storage/aliasmap.py, the
+``alias_add`` op, PROVIDED reports and reads), the simulated dataset
+(``simulated_dataset``, storage/simulated.py), live reconfiguration
+(``reconfigure`` / ``get_reconfigurable``) and the adaptive chunking tick
+(``reduction.cdc_adaptive``: ``AdaptiveChunkController`` steps applied
+through ``reconfigure``, a retune guarded by tools/slo_report.guard).  A
+retune changes the shared ``CdcConfig``; the next reducer resolution (the
+dispatch funnel, the write pipeline, a co-located worker's next
+``reduce``) cuts with it.  The flight archive (``flight_archive_dir``),
+short-circuit reads (server/shortcircuit.py on ``<data_dir>/sc.sock``) and
+the block scanner (``scan_interval_s``) are ported.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from hdrf_tpu_torch.reduction import scheme as schemes
 from hdrf_tpu_torch.reduction.scheme import ReductionContext, ReductionScheme
 from hdrf_tpu_torch.server.block_receiver import BlockReceiver
 from hdrf_tpu_torch.server.block_sender import BlockSender
+from hdrf_tpu_torch.server.status_http import StatusHttpServer
 from hdrf_tpu_torch.reduction import accounting
 from hdrf_tpu_torch.utils import (device_ledger, fault_injection,
                                   flight_archive, flight_recorder, log,
@@ -84,32 +87,6 @@ from hdrf_tpu_torch.utils.watchdog import StallWatchdog
 
 _M = metrics.registry("datanode")
 _TR = tracing.tracer("datanode")
-
-# Planes of the reference DataNode that the port does not have yet: the
-# setting that turns each on, and the queue item that brings it.
-_WAITING_PLANES = (
-    ("status_port", lambda c: c.status_port is not None,
-     "status_http + prom (ROADMAP Queue A #9e)"),
-    ("scrub_interval_s", lambda c: c.scrub_interval_s > 0,
-     "scrubber (ROADMAP Queue A #9f)"),
-    ("simulated_dataset", lambda c: c.simulated_dataset,
-     "aliasmap + simulated_dataset (ROADMAP Queue A #9h)"),
-    ("reduction.cdc_adaptive", lambda c: c.reduction.cdc_adaptive,
-     "reconfigure + AdaptiveChunkController (ROADMAP Queue A #9i)"),
-)
-# ... and their xceiver ops, counted as unknown_ops like any unknown op
-_WAITING_OPS = frozenset({"alias_add", "reconfigure", "get_reconfigurable"})
-
-
-def refuse_waiting_planes(config: DataNodeConfig) -> None:
-    """Raise ``NotImplementedError`` naming the queue item when ``config``
-    turns on a plane the port does not have yet."""
-    for key, on, item in _WAITING_PLANES:
-        if on(config):
-            raise NotImplementedError(
-                f"DataNodeConfig.{key} turns on a plane not ported yet: "
-                f"{item}")
-
 
 class PinnedCache:
     """DN-side pinned replica cache (FsDatasetCache.java:67 analog).  The
@@ -176,7 +153,6 @@ class DataNode:
         DN reports to EVERY NameNode (the BPOfferService-per-NN pattern: the
         standby needs block reports too, so its block map is warm at
         failover) but executes commands only from the active."""
-        refuse_waiting_planes(config)
         self.config = config
         # dn_id is fixed BEFORE the worker wiring below: the DN->worker
         # circuit breaker is registered per edge as "<dn_id>->worker", so
@@ -280,7 +256,12 @@ class DataNode:
                               compress_fn=seal_fn,
                               compress_batch_fn=seal_batch_fn,
                               fsync=red.fsync_containers))
-        self.replicas = self.volumes
+        if config.simulated_dataset:
+            from hdrf_tpu_torch.storage.simulated import SimulatedReplicaStore
+
+            self.replicas = SimulatedReplicaStore()
+        else:
+            self.replicas = self.volumes
         self.containers = self.volumes.containers
         # WAL group-commit window: armed only when the multi-block pipeline
         # is on (depth > 1) — serial writes would just pay the window wait
@@ -361,11 +342,34 @@ class DataNode:
             # seal compression off the commit critical path too: an
             # unlucky rollover must not stall the blocks queued behind it
             self.containers.enable_async_seals()
+        # Content-adaptive chunk sizing (reduction/accounting.py
+        # AdaptiveChunkController): the heartbeat tick feeds it the dedup
+        # hit/miss counters; the steps it emits are applied through
+        # reconfigure() — the same validated path an operator would use —
+        # so geometry never changes behind the config's audit trail.
+        self._cdc_controller = None
+        if red.cdc_adaptive:
+            self._cdc_controller = accounting.AdaptiveChunkController(
+                target_mask_bits=red.cdc_target_mask_bits,
+                min_size=red.cdc_min_size)
+        # Post-retune regression guard (tools/slo_report.py guard): armed
+        # after every applied retune with a baseline of recent flight
+        # samples; once enough post-retune samples accrue, a regressing
+        # window rolls the geometry back through reconfigure().
+        self._cdc_guard: dict | None = None
         # Admission control: bounded slots instead of ticket queues.
         self._write_sem = threading.Semaphore(red.max_concurrent_writes)
         self._read_sem = threading.Semaphore(red.max_concurrent_reads)
         self._direct_sem = threading.Semaphore(red.max_concurrent_direct)
         self.cache = PinnedCache(config.cache_capacity)
+        # provided storage (aliasmap/InMemoryAliasMap.java): blocks whose
+        # bytes live in an external store; persisted regions are reported
+        # as PROVIDED replicas and served through the read path
+        from hdrf_tpu_torch.storage.aliasmap import InMemoryAliasMap
+
+        self.aliasmap = InMemoryAliasMap(
+            os.path.join(config.data_dir, "aliasmap"),
+            mount_root=config.provided_mount_root or None)
         # Federation (BPOfferService.java:57 per namespace): accept either
         # one nameservice's addr(s) or a LIST of nameservices (list of
         # addr lists).  The DN registers/reports to every NN of every
@@ -392,6 +396,11 @@ class DataNode:
         # serial push_reduced relay through this object unchanged
         from hdrf_tpu_torch.server.mirror_plane import MirrorPlane
         self.mirror = MirrorPlane(self)
+        # integrity-scrub plane (server/scrubber.py): container/stripe/
+        # replica re-verification + garbage census; loop gated on
+        # scrub_interval_s > 0, tests drive run_cycle() directly
+        from hdrf_tpu_torch.server.scrubber import Scrubber
+        self.scrubber = Scrubber(self)
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._ibr_queue: list[tuple[int, int, int, str | None, bool]] = []
@@ -441,13 +450,15 @@ class DataNode:
         self._server = Server((config.host, config.port), Handler)
         self._conns: set[socket.socket] = set()
         # Stall watchdog over in-flight xceiver ops (DataXceiver has no
-        # analog): flags ops outliving ``stall_budget_s``.
+        # analog): flags ops outliving ``stall_budget_s`` + optional
+        # per-daemon status HTTP endpoint (HttpServer2 analog).
         self.watchdog = StallWatchdog(self.dn_id,
                                       budget_s=config.stall_budget_s,
                                       registry=_M)
-        # Flight recorder: over-time curve of this DN's key gauges
-        # (utils/flight_recorder.py); optionally backed by a crash-safe
-        # archive so the curve survives restarts (utils/flight_archive.py).
+        # Flight recorder: over-time curve of this DN's key gauges,
+        # served as /timeseries (utils/flight_recorder.py); optionally
+        # backed by a crash-safe archive so the curve survives restarts
+        # (utils/flight_archive.py).
         self.flight_archive = None
         if config.flight_archive_dir:
             arch_dir = config.flight_archive_dir
@@ -460,6 +471,12 @@ class DataNode:
             interval_s=config.flight_interval_s,
             capacity=config.flight_capacity,
             archive=self.flight_archive)
+        self._status = None
+        if config.status_port is not None:
+            self._status = StatusHttpServer(self.dn_id, host=config.host,
+                                            port=config.status_port,
+                                            watchdog=self.watchdog,
+                                            recorder=self.flight)
         from hdrf_tpu_torch.server.shortcircuit import ShortCircuitServer
         self._sc = ShortCircuitServer(
             self, os.path.join(config.data_dir, "sc.sock"))
@@ -480,6 +497,8 @@ class DataNode:
         self.watchdog.start()
         if self.config.flight_interval_s > 0:
             self.flight.start()
+        if self._status is not None:
+            self._status.start()
         self._register()
         hb = threading.Thread(target=self._heartbeat_loop,
                               name=f"{self.dn_id}-heartbeat", daemon=True)
@@ -498,12 +517,19 @@ class DataNode:
                                   name=f"{self.dn_id}-scanner", daemon=True)
             sc.start()
             self._threads.append(sc)
-        if self.config.volume_check_interval_s > 0:
+        if self.config.scrub_interval_s > 0:
+            sb = threading.Thread(target=self._scrub_loop,
+                                  name=f"{self.dn_id}-scrubber", daemon=True)
+            sb.start()
+            self._threads.append(sb)
+        if self.config.volume_check_interval_s > 0 \
+                and not self.config.simulated_dataset:
             vc = threading.Thread(target=self._volume_check_loop,
                                   name=f"{self.dn_id}-volcheck", daemon=True)
             vc.start()
             self._threads.append(vc)
         if self.config.lazy_writer_interval_s > 0 \
+                and not self.config.simulated_dataset \
                 and any(v.storage_type == "RAM_DISK"
                         for v in self.volumes.volumes):
             lw = threading.Thread(target=self._lazy_writer_loop,
@@ -532,6 +558,8 @@ class DataNode:
         self.flight.stop()
         if self.flight_archive is not None:
             self.flight_archive.close()
+        if self._status is not None:
+            self._status.stop()
         self._sc.stop()
         self._sc.stop_registry()
         self._server.shutdown()
@@ -700,10 +728,6 @@ class DataNode:
                     since=fields.get("since"),
                     limit=int(fields.get("limit") or 2048)))
                 return
-            if op in _WAITING_OPS:
-                # a plane not ported yet: answered as any unknown op
-                _M.incr("unknown_ops")
-                return
             with retry.bind_remaining(fields.get(retry.DEADLINE_KEY)), \
                     self.watchdog.track(f"xceiver.{op}"), \
                     _TR.span(f"xceiver.{op}",
@@ -791,6 +815,36 @@ class DataNode:
                               "gen_stamp": meta.gen_stamp if meta else -1,
                               "rbw": self.replicas.is_rbw(
                                   fields["block_id"])})
+        elif op == "alias_add":
+            # provided-storage mount push (the live-cluster form of
+            # the reference's offline alias-map generation): persist
+            # the regions, report them immediately via IBR.  Gated by
+            # per-region WRITE block tokens (minted by the superuser-
+            # only rpc_provide_file) — without the check, anyone with
+            # DN network access could repoint provided blocks at
+            # arbitrary local files
+            from hdrf_tpu_torch.storage.aliasmap import FileRegion
+            regions = [FileRegion.unpack(v) for v in fields["regions"]]
+            tokens = fields.get("tokens") or [None] * len(regions)
+            for reg, tok in zip(regions, tokens):
+                self.tokens.verify(tok, reg.block_id, "w")
+            try:
+                for reg in regions:
+                    self.aliasmap.check_uri(reg.uri)
+            except IOError as e:
+                _M.incr("alias_rejects")
+                send_frame(sock, {"ok": False, "error": str(e)})
+                return
+            self.aliasmap.write(regions)
+            for reg in regions:
+                self.notify_block_received(reg.block_id, reg.length, 0,
+                                           storage_type="PROVIDED")
+            send_frame(sock, {"ok": True, "count": len(regions)})
+        elif op == "reconfigure":
+            send_frame(sock, self.reconfigure(fields.get("key", ""),
+                                              fields.get("value")))
+        elif op == "get_reconfigurable":
+            send_frame(sock, {"keys": sorted(self.RECONFIGURABLE)})
         elif op == "disk_balance":
             # intra-DN volume evening (diskbalancer -plan/-execute in
             # one round trip; like the DN protocol, trusted within the
@@ -827,6 +881,18 @@ class DataNode:
     def _serve_checksum(self, sock: socket.socket, fields: dict) -> None:
         meta = self.replicas.get_meta(fields["block_id"])
         if meta is None:
+            # PROVIDED replica: no stored chunk CRCs — compute them from
+            # the external bytes (BlockChecksumHelper recomputes for
+            # replicas without meta the same way)
+            data = self.aliasmap.read_bytes(fields["block_id"])
+            if data is not None:
+                crcs = [int(c) for c in native.crc32c_chunks(
+                    data, self.checksum_chunk)]
+                send_frame(sock, {"status": 0,
+                                  "checksum_chunk": self.checksum_chunk,
+                                  "checksums": crcs,
+                                  "logical_len": len(data)})
+                return
             send_frame(sock, {"status": 1, "error": "KeyError",
                               "message": "no such block"})
             return
@@ -862,6 +928,8 @@ class DataNode:
 
     def _send_block_report(self, nn: RpcClient | None = None) -> None:
         report = [list(t) for t in self.replicas.block_report()]
+        report.extend([r.block_id, 0, r.length, "PROVIDED"]
+                      for r in self.aliasmap.list())
         for c in ([nn] if nn else self._nns):
             pool = self._pool_of.get(id(c))
             rows = (report if pool is None
@@ -878,6 +946,7 @@ class DataNode:
         last_report = 0.0
         while not self._stop.wait(interval):
             fault_injection.point("datanode.heartbeat", dn_id=self.dn_id)
+            self._cdc_tick()
             stats = self._stats()
             for nn in self._nns:
                 try:
@@ -902,6 +971,84 @@ class DataNode:
                 except (OSError, ConnectionError):
                     _M.incr("heartbeat_failures")
                 last_report = now
+
+    def _cdc_tick(self) -> None:
+        """Adaptive-chunking control step (heartbeat cadence): feed the
+        controller the cumulative dedup counters; apply whatever ordered
+        reconfigure steps it emits through the SAME validated reconfigure
+        path an operator uses.  A rejected step (bounds, transient
+        min>max the ordering should have prevented) abandons the retune —
+        the controller re-decides next window from fresh evidence.
+
+        Every APPLIED retune arms the regression guard (ROADMAP item 5's
+        "a bad retune rolls itself back"): the flight ring's most recent
+        samples become the baseline; once enough post-retune samples
+        accrue, tools/slo_report.py's guard() compares the windows and a
+        direction-aware regression reverts the geometry through the same
+        reconfigure path, counts ``retune_rollbacks``, and holds the
+        controller for two observation windows so the loop cannot flap."""
+        ctl = self._cdc_controller
+        if ctl is None:
+            return
+        self._cdc_guard_tick(ctl)
+        hit, miss = accounting.dedup_counters()
+        cdc = self.reduction_ctx.config.cdc
+        old_bits = cdc.mask_bits
+        steps = ctl.observe(hit, miss, old_bits)
+        applied = False
+        for key, value in steps:
+            r = self.reconfigure(key, value)
+            if not r.get("ok"):
+                _M.incr("cdc_retune_rejected")
+                self._log.warning("cdc retune step %s=%s rejected: %s",
+                                  key, value, r.get("error"))
+                return
+            accounting.record_retune(key, r["old"], r["new"])
+            applied = True
+        if applied:
+            self._arm_cdc_guard(old_bits, self.reduction_ctx.config.cdc.mask_bits)
+
+    GUARD_GAUGES = ("dedup_ratio", "storage_ratio",
+                    "write_p95_ms", "read_p95_ms")
+    GUARD_MIN_SAMPLES = 3
+
+    def _arm_cdc_guard(self, old_bits: int, new_bits: int) -> None:
+        samples = self.flight.snapshot()["samples"]
+        self._cdc_guard = {
+            "old_bits": int(old_bits), "new_bits": int(new_bits),
+            "baseline": samples[-8:],
+            "armed_mono": samples[-1]["mono"] if samples else 0.0}
+
+    def _cdc_guard_tick(self, ctl) -> None:
+        """Evaluate an armed retune guard once enough post-retune flight
+        samples exist; regress -> revert geometry + hold the controller."""
+        guard = self._cdc_guard
+        if guard is None or not guard["baseline"]:
+            return
+        from hdrf_tpu_torch.tools import slo_report
+
+        samples = self.flight.snapshot()["samples"]
+        current = [s for s in samples if s["mono"] > guard["armed_mono"]]
+        if len(current) < self.GUARD_MIN_SAMPLES:
+            return
+        self._cdc_guard = None
+        verdict = slo_report.guard(guard["baseline"], current,
+                                   gauges=self.GUARD_GAUGES)
+        if not verdict["regressed"]:
+            return
+        for key, value in ctl.steps(guard["new_bits"], guard["old_bits"]):
+            r = self.reconfigure(key, value)
+            if not r.get("ok"):
+                _M.incr("cdc_retune_rejected")
+                return
+        accounting.record_retune_rollback()
+        ctl.note_rollback()
+        _M.incr("cdc_guard_rollbacks")
+        self._log.warning("cdc retune rolled back by regression guard",
+                          dn_id=self.dn_id,
+                          regressions=[r["metric"]
+                                       for r in verdict["rows"]
+                                       if r.get("regressed")])
 
     def _lifeline_loop(self) -> None:
         """DatanodeLifelineProtocol analog: a LOW-COST liveness-only
@@ -987,10 +1134,11 @@ class DataNode:
         acc = self.index.accounting()
         live = self.index.container_live_bytes()
         sizes = {}
-        try:
-            sizes = self.containers.container_sizes()
-        except OSError:
-            pass
+        if not self.config.simulated_dataset:
+            try:
+                sizes = self.containers.container_sizes()
+            except OSError:
+                pass
         return {
             "logical_bytes": acc["logical_bytes"],
             "unique_chunk_bytes": acc["unique_chunk_bytes"],
@@ -1065,13 +1213,10 @@ class DataNode:
             # whether hints track the actual recovery horizon
             "sheds_total": self.qos.sheds_total(),
             "shed_retry_after_p50_ms": self.qos.shed_retry_after_p50_ms(),
-            # integrity-drift curve: the scrubber's garbage census and
-            # corruption count.  The scrubber is not ported and a port
-            # DataNode never runs one (scrub_interval_s > 0 is refused),
-            # so both read 0, as the reference's do with its scrubber off;
-            # the archive keeps the reference's gauge set.
-            "garbage_bytes": 0,
-            "scrub_corrupt_total": 0,
+            # integrity-drift curve: garbage growth and corruption rate
+            # belong in the /timeseries regressions
+            "garbage_bytes": sum(self.scrubber._last_census.values()),
+            "scrub_corrupt_total": self.scrubber.corrupt_total(),
         }
 
     def _stats(self) -> dict:
@@ -1095,12 +1240,19 @@ class DataNode:
             "index": self.index.stats(),
             "ec": self.ec.report(),
             "mirror": self.mirror.report(),
+            "scrub": self.scrubber.report(),
             "qos": self.qos.report(),
         }
 
     def _execute(self, cmd: dict) -> None:
         """NN command execution (BPServiceActor.processCommand analog)."""
         if cmd["cmd"] == "invalidate":
+            # provided entries purge as ONE map rewrite, not one per
+            # block (each remove persists + fsyncs the whole map)
+            prov = [b for b in cmd["block_ids"]
+                    if self.aliasmap.read(b) is not None]
+            if prov:
+                self.aliasmap.remove(prov)
             for bid in cmd["block_ids"]:
                 self._invalidate(bid)
         elif cmd["cmd"] == "replicate":
@@ -1215,6 +1367,91 @@ class DataNode:
                 continue  # standby / raced recovery: another NN may accept
         _M.incr("block_recovery_failures")
 
+    # Live reconfiguration (ReconfigurationProtocol.proto /
+    # TestDataNodeReconfiguration analog): a whitelist of keys applied
+    # without a restart.  Loops read config each tick, so interval
+    # changes take effect at the next wakeup.
+    RECONFIGURABLE = frozenset({
+        "scan_interval_s", "volume_check_interval_s",
+        "block_report_interval_s", "cache_capacity",
+        "balancer_bandwidth", "scrub_interval_s",
+        "cdc_mask_bits", "cdc_min_chunk", "cdc_max_chunk",
+    })
+
+    # Live CDC geometry: bounds mirror AdaptiveChunkController's emit
+    # range plus headroom for operator-driven reconfigures; the min<=max
+    # invariant is checked against the OTHER live field so a retune
+    # sequence must order its steps (accounting.py steps()).
+    _CDC_BOUNDS = {"cdc_mask_bits": (6, 20),
+                   "cdc_min_chunk": (32, 1 << 22),
+                   "cdc_max_chunk": (64, 1 << 24)}
+
+    def _reconfigure_cdc(self, key: str, value) -> dict:
+        """Apply a live CDC-geometry change to the SHARED CdcConfig (the
+        write pipeline and dispatch funnel hold the same object, so new
+        cuts pick it up on their next reducer resolution; committed
+        fingerprints are content-addressed and stay valid —
+        ARCHITECTURE.md decision 15)."""
+        cdc = self.reduction_ctx.config.cdc
+        field = key[len("cdc_"):]
+        old = getattr(cdc, field)
+        try:
+            cast = int(value)
+        except (TypeError, ValueError) as e:
+            return {"ok": False, "error": f"bad value for {key}: {e}"}
+        lo, hi = self._CDC_BOUNDS[key]
+        if not lo <= cast <= hi:
+            return {"ok": False,
+                    "error": f"{key}={cast} outside [{lo}, {hi}]"}
+        mn = cast if field == "min_chunk" else cdc.min_chunk
+        mx = cast if field == "max_chunk" else cdc.max_chunk
+        if mn > mx:
+            return {"ok": False,
+                    "error": f"{key}={cast} would leave min_chunk={mn} > "
+                             f"max_chunk={mx}; reorder the steps"}
+        setattr(cdc, field, cast)
+        _M.incr("reconfigurations")
+        return {"ok": True, "key": key, "old": old, "new": cast}
+
+    def reconfigure(self, key: str, value) -> dict:
+        if key not in self.RECONFIGURABLE:
+            return {"ok": False,
+                    "error": f"'{key}' is not reconfigurable "
+                             f"(allowed: {sorted(self.RECONFIGURABLE)})"}
+        if key.startswith("cdc_"):
+            return self._reconfigure_cdc(key, value)
+        old = getattr(self.config, key)
+        try:
+            cast = type(old)(value)
+        except (TypeError, ValueError) as e:
+            return {"ok": False, "error": f"bad value for {key}: {e}"}
+        if key.endswith("_interval_s"):
+            # the loops wait() on these each tick: 0/negative would turn
+            # them into busy-spins, and a loop that was DISABLED at start
+            # (interval 0) was never spawned — a new interval could not
+            # take effect and must not pretend to
+            if cast <= 0:
+                return {"ok": False,
+                        "error": f"{key} must be > 0 (disabling a loop "
+                                 "requires a restart)"}
+            thread_of = {"scan_interval_s": "-scanner",
+                         "volume_check_interval_s": "-volcheck",
+                         "scrub_interval_s": "-scrubber"}
+            suffix = thread_of.get(key)
+            if suffix is not None and not any(
+                    t.name.endswith(suffix) and t.is_alive()
+                    for t in self._threads):
+                return {"ok": False,
+                        "error": f"{key}: that loop was disabled at "
+                                 "startup and is not running"}
+        setattr(self.config, key, cast)
+        if key == "cache_capacity":
+            self.cache.set_capacity(int(cast))
+        elif key == "balancer_bandwidth":
+            self.balance_throttler.set_rate(cast)
+        _M.incr("reconfigurations")
+        return {"ok": True, "key": key, "old": old, "new": cast}
+
     def _verify_index_containers(self) -> list[int]:
         """Startup cross-check: with ``fsync_containers=False`` an OS crash
         can leave the (always-fsync'd) chunk index referencing container
@@ -1255,6 +1492,8 @@ class DataNode:
     def _invalidate(self, block_id: int) -> None:
         self.cache.unpin(block_id)
         self._sc.registry.revoke(block_id)  # cached client fds must drop
+        if self.aliasmap.read(block_id) is not None:
+            self.aliasmap.remove([block_id])  # provided mount entry
         meta = self.replicas.get_meta(block_id)
         if meta is None:
             return
@@ -1420,6 +1659,18 @@ class DataNode:
                 _M.incr("scanner_errors")
             except Exception:  # noqa: BLE001
                 _M.incr("scanner_errors")
+
+    def _scrub_loop(self) -> None:
+        """Integrity-scrub driver (server/scrubber.py): one full cycle per
+        wakeup; interval re-read each tick (live-reconfigurable)."""
+        _SCRUB = metrics.registry("scrub")
+        while not self._stop.wait(self.config.scrub_interval_s):
+            try:
+                self.scrubber.run_cycle()
+            except (OSError, ConnectionError):
+                _SCRUB.incr("scrub_errors")
+            except Exception:  # noqa: BLE001
+                _SCRUB.incr("scrub_errors")
 
     def verify_block(self, block_id: int) -> bool:
         """True if the replica is corrupt (stored checksums don't match).

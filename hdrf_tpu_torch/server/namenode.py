@@ -1,6 +1,6 @@
 """NameNode: the metadata plane (port of hdrf_tpu/server/namenode.py
-``NameNode``, ``LeaseManager`` and the block/datanode/group records, whole
-but for the status HTTP server).
+``NameNode``, ``LeaseManager`` and the block/datanode/group records, the
+status HTTP server of ``status_port`` included).
 
 Port notes.  The edit-log records and the fsimage are packed by the port's
 codec (proto/rpc.packb via server/editlog.py), byte for byte the
@@ -8,10 +8,7 @@ reference's, so each package replays the other's meta dir.  The
 encryption-zone EDEK xattr is packed the same way and sealed with the
 port's ChaCha20-Poly1305 (native.aead_seal / aead_open); EC policies are
 parsed by ops/rs.parse_policy; block and delegation tokens come from the
-port's security module.  ``status_port`` (the status HTTP server,
-server/status_http.py in the reference) is refused at construction with
-``NotImplementedError``, as the DataNode refuses its waiting planes.
-One reference fault is repaired: ``rpc_block_report`` does not make a
+port's security module.  One reference fault is repaired: ``rpc_block_report`` does not make a
 live block's replica a location again while its ``invalidate`` is still
 queued for that DataNode (the reference re-adds it, and its monitor may
 then prune the copy that was to stay).
@@ -310,19 +307,9 @@ _OBSERVER_READS = frozenset({
 })
 
 
-def refuse_waiting_planes(config: NameNodeConfig) -> None:
-    """Raise ``NotImplementedError`` naming the queue item when ``config``
-    turns on a plane the port does not have yet (the status HTTP server)."""
-    if config.status_port is not None:
-        raise NotImplementedError(
-            "NameNodeConfig.status_port turns on a plane not ported yet: "
-            "status_http + prom (ROADMAP Queue A4)")
-
-
 class NameNode:
     def __init__(self, config: NameNodeConfig | None = None):
         self.config = config or NameNodeConfig()
-        refuse_waiting_planes(self.config)
         self.role = self.config.role  # "active" | "standby" | "observer"
         # Observer staleness bookkeeping: monotonic time of the last
         # successful tail pass (lag_s = now - this on non-active roles)
@@ -480,6 +467,15 @@ class NameNode:
             capacity=self.config.flight_capacity,
             archive=self.flight_archive)
         self._status = None
+        if self.config.status_port is not None:
+            from hdrf_tpu_torch.server.status_http import StatusHttpServer
+
+            self._status = StatusHttpServer("namenode",
+                                            host=self.config.host,
+                                            port=self.config.status_port,
+                                            watchdog=self.watchdog,
+                                            recorder=self.flight,
+                                            contention=self.rpc_contention)
         self._monitor_stop = threading.Event()
         self._monitor: threading.Thread | None = None
         self._logger = log.get_logger("namenode")

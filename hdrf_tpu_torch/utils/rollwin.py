@@ -9,8 +9,8 @@ the same shape over per-volume IO latencies (DataNodeVolumeMetrics).  Here
 one structure serves both: a bounded sample window whose entries expire
 after ``window_s`` seconds, summarized as median/mean/max/count, with a
 nearest-rank ``quantiles()`` surface (p50/p95/p99 for the per-tenant SLO
-gauges).  (The reference's ``P2Quantile`` streaming estimator has no
-caller in the port yet.)
+gauges) and a five-marker P² streaming estimator (:class:`P2Quantile`)
+for cumulative series where even ``maxlen`` samples is too much state.
 
 Deterministic by construction — the clock is injectable (tests drive
 ``now=``), expiry happens on access (no background thread), and the
@@ -93,6 +93,81 @@ class RollingWindow:
         n = len(ranked)
         return {f"p{p}": ranked[min(n - 1, max(0, -(-n * p // 100) - 1))]
                 for p in pcts}
+
+
+class P2Quantile:
+    """Bounded-memory streaming quantile estimator (the P² algorithm,
+    Jain & Chlamtac 1985): five markers tracked in O(1) memory regardless
+    of stream length — the cumulative-series complement to the decayed
+    window's exact nearest-rank.  Exact (nearest-rank) below five samples;
+    marker-interpolated above.  Deterministic: a pure function of the
+    observation sequence, no clock involved."""
+
+    __slots__ = ("q", "_h", "_n", "_ns", "_dns", "count")
+
+    def __init__(self, q: float):
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"quantile must be in (0, 1): {q}")
+        self.q = q
+        self.count = 0
+        self._h: list[float] = []       # marker heights (first 5: raw samples)
+        self._n = [0.0, 1.0, 2.0, 3.0, 4.0]            # actual positions
+        self._ns = [0.0, 2 * q, 4 * q, 2 + 2 * q, 4.0]  # desired positions
+        self._dns = [0.0, q / 2, q, (1 + q) / 2, 1.0]   # desired increments
+
+    def add(self, x: float) -> None:
+        self.count += 1
+        h = self._h
+        if len(h) < 5:
+            h.append(float(x))
+            h.sort()
+            return
+        n, ns, dns = self._n, self._ns, self._dns
+        if x < h[0]:
+            h[0] = float(x)
+            k = 0
+        elif x >= h[4]:
+            h[4] = float(x)
+            k = 3
+        else:
+            k = 3
+            for i in range(1, 5):
+                if x < h[i]:
+                    k = i - 1
+                    break
+        for i in range(k + 1, 5):
+            n[i] += 1.0
+        for i in range(5):
+            ns[i] += dns[i]
+        for i in range(1, 4):
+            d = ns[i] - n[i]
+            if ((d >= 1.0 and n[i + 1] - n[i] > 1.0)
+                    or (d <= -1.0 and n[i - 1] - n[i] < -1.0)):
+                s = 1.0 if d > 0 else -1.0
+                hp = self._parabolic(i, s)
+                if not h[i - 1] < hp < h[i + 1]:
+                    # parabolic prediction left the bracket: linear fallback
+                    j = i + int(s)
+                    hp = h[i] + s * (h[j] - h[i]) / (n[j] - n[i])
+                h[i] = hp
+                n[i] += s
+
+    def _parabolic(self, i: int, s: float) -> float:
+        h, n = self._h, self._n
+        return h[i] + s / (n[i + 1] - n[i - 1]) * (
+            (n[i] - n[i - 1] + s) * (h[i + 1] - h[i]) / (n[i + 1] - n[i])
+            + (n[i + 1] - n[i] - s) * (h[i] - h[i - 1]) / (n[i] - n[i - 1]))
+
+    def value(self) -> float:
+        """Current estimate; nearest-rank over the raw samples while fewer
+        than five have arrived, 0.0 for an empty stream."""
+        h = self._h
+        if not h:
+            return 0.0
+        if len(h) < 5:
+            k = len(h)
+            return h[min(k - 1, max(0, -(-k * int(self.q * 100) // 100) - 1))]
+        return self._h[2]
 
 
 class WindowMap:

@@ -3,7 +3,8 @@
 A span is ``(trace_id, span_id, parent_id, name, t0, t1)``; the wire carries
 ``(trace_id, span_id)`` as the ``_trace`` request key, and finished spans
 accumulate in a bounded per-tracer sink that the worker's ``traces`` op
-returns.  The Chrome-trace exporter stays with the reference gateway.
+returns; ``chrome_trace`` renders spans, device-ledger events and profiler
+counter samples as Chrome ``trace_event`` JSON for the status servers.
 """
 
 from __future__ import annotations
@@ -124,3 +125,67 @@ def all_span_snapshots() -> list[dict[str, Any]]:
     for t in ts:
         out.extend(t.snapshot())
     return out
+
+
+def chrome_trace(spans: list[dict[str, Any]],
+                 ledger: list[dict[str, Any]] = (),
+                 trace_id: str | None = None,
+                 counters: list[dict[str, Any]] = ()) -> dict[str, Any]:
+    """Assemble span snapshots + device-ledger events + profiler counter
+    samples into Chrome ``trace_event`` format (the ``chrome://tracing`` /
+    Perfetto JSON schema: ``M`` process-name metadata rows plus ``X``
+    complete events with microsecond ``ts``/``dur``, plus ``C`` counter
+    events rendered as Perfetto counter tracks — in-flight blocks,
+    outstanding dispatches, WAL queue depth from utils/profiler.py).
+    ``pid`` groups rows by tracer (spans) or originating process (ledger
+    events / counter tracks); ``tid`` groups by trace so one write's causal
+    chain reads as one row block.  ``args`` keeps the raw trace/span/parent
+    ids, so parent-chain assembly survives the export.  Counter samples have
+    no trace affinity, so a ``trace_id`` filter drops them."""
+    if trace_id is not None:
+        spans = [s for s in spans if s["trace_id"] == trace_id]
+        ledger = [e for e in ledger if e.get("trace_id") == trace_id]
+        counters = []
+    events: list[dict[str, Any]] = []
+    pids: dict[str, int] = {}
+
+    def pid_of(group: str) -> int:
+        if group not in pids:
+            pids[group] = len(pids) + 1
+            events.append({"ph": "M", "name": "process_name",
+                           "pid": pids[group], "tid": 0,
+                           "args": {"name": group}})
+        return pids[group]
+
+    for s in spans:
+        if s.get("duration_ms") is None:
+            continue
+        events.append({
+            "ph": "X", "name": s["name"], "cat": "span",
+            "pid": pid_of(s.get("tracer", "?")),
+            "tid": int(s["trace_id"][-8:], 16),
+            "ts": s["start"] * 1e6, "dur": s["duration_ms"] * 1e3,
+            "args": {"trace_id": s["trace_id"], "span_id": s["span_id"],
+                     "parent_id": s["parent_id"],
+                     **s.get("annotations", {})},
+        })
+    for e in ledger:
+        tid = int(e["trace_id"][-8:], 16) if e.get("trace_id") else 0
+        events.append({
+            "ph": "X", "name": f"{e['kind']}:{e['op']}",
+            "cat": "device_ledger",
+            "pid": pid_of(f"device:{e.get('proc', '?')}"),
+            "tid": tid, "ts": e["t0"] * 1e6,
+            "dur": max(e.get("dur_us", 0.0), 1.0),
+            "args": {"trace_id": e.get("trace_id"),
+                     "span_id": e.get("span_id"), "batch": e.get("batch"),
+                     "bytes": e.get("bytes"), "kind": e["kind"]},
+        })
+    for c in counters:
+        events.append({
+            "ph": "C", "name": c["name"], "cat": "profiler",
+            "pid": pid_of(f"profiler:{c.get('proc', '?')}"), "tid": 0,
+            "ts": c["t"] * 1e6,
+            "args": {"value": c["value"]},
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

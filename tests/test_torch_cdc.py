@@ -183,7 +183,9 @@ def _select_model(cand, n, mn, mx, b_small, w):
     of the segment it is in, (c) the stitch along the merge pointers from
     segment 0, walking on serially past a walker that did not merge until
     the chain lands on a segment's point, (d) the emit at offsets scanned
-    from the segments' counts.  Returns the kernel's (table, ols, olb) up
+    from the segments' counts; the header's telemetry lanes are the spec
+    grid's tally (rows of 512 positions holding a candidate, and the
+    candidates).  Returns the kernel's (table, ols, olb) up
     to the header counts, the number of segments on the true chain and
     the number of cuts the stitch walked serially."""
     nseg = -(-n // w)
@@ -247,7 +249,8 @@ def _select_model(cand, n, mn, mx, b_small, w):
             else:
                 olb[:, b] = (a, cut - a)
                 b += 1
-    table[:4] = (oc[-1], 0, os_[-1], ob[-1])
+    rows = np.unique((np.asarray(cand, dtype=np.int64) - 1) // 512).size
+    table[:6] = (oc[-1], 0, os_[-1], ob[-1], rows, len(cand))  # + tally
     return (table, ols, olb, sum(e >= 0 for e in ent),
             sum(len(r) for r in runs))
 

@@ -193,6 +193,56 @@ def test_select_counts_one_launch(dev):
     assert cdc_cuda.select_launches == n0 + 1
 
 
+EMIT_RANGE = [(mb, max(512, 1 << (mb - 2)), 1 << (mb + 3))
+              for mb in range(8, 17)]   # AdaptiveChunkController's range
+
+
+@pytest.mark.parametrize("mb,mn,mx", EMIT_RANGE,
+                         ids=[f"mb{g[0]}" for g in EMIT_RANGE])
+def test_header_lanes_and_emit_range_equal_plain(dev, mb, mn, mx):
+    """At every geometry the adaptive controller can emit: the select
+    kernel's table (cuts, counts and the H_SURV / H_CANDS lanes) equals
+    the plain version's, the lanes equal a count over the bitmap, and
+    the reducer's cuts and digests equal the native oracle's."""
+    cdc = CdcConfig(mask_bits=mb, min_chunk=mn, max_chunk=mx)
+    mask = gear_mask(cdc)
+    rng = np.random.default_rng(mb)
+    for a in (rng.integers(0, 256, (2 << 20) + 333, dtype=np.uint8),
+              rng.integers(97, 101, 1 << 20, dtype=np.uint8)):
+        block, n = cdc_cuda.padded_block(a, dev)
+        words, bitmap = cdc_cuda.cdc_scan(block, n, mask, mn)
+        k = cdc_cuda.cdc_select(bitmap, n, mn, mx, 4)
+        p = cdc_cuda.cdc_select_plain(bitmap.cpu(), n, mn, mx, 4)
+        nc = int(k[0][0])
+        assert torch.equal(k[0][:8 + nc].cpu(), p[0][:8 + nc])
+        surv, cands = cdc_cuda.scan_telemetry_plain(bitmap.cpu())
+        assert k[0][cdc_cuda.H_SURV].item() == surv
+        assert k[0][cdc_cuda.H_CANDS].item() == cands > 0
+        cuts, digs = ResidentReducer(cdc, device=dev).reduce(a)
+        want = native.cdc_select(native.gear_candidates(a, mask), a.size,
+                                 mn, mx)
+        np.testing.assert_array_equal(cuts, want)
+        starts = np.concatenate([[0], want[:-1]]).astype(np.uint64)
+        np.testing.assert_array_equal(
+            digs, native.sha256_batch(a, starts, want - starts))
+
+
+@pytest.mark.parametrize("nbm", [1, 15, 17, 4096 + 5])
+def test_header_lanes_of_ragged_bitmaps(dev, nbm):
+    """A bitmap whose length is not a whole number of 16-word rows: the
+    kernel's lanes count its partial last row as the plain version
+    does."""
+    rng = np.random.default_rng(nbm)
+    bm = rng.integers(0, 2 ** 32, nbm, dtype=np.uint64).astype(np.uint32)
+    bm &= rng.integers(0, 2 ** 32, nbm, dtype=np.uint64).astype(np.uint32)
+    bm[rng.random(nbm) < 0.5] = 0
+    bitmap = torch.from_numpy(bm.view(np.int32)).to(dev)
+    n = 32 * nbm
+    table, _, _ = cdc_cuda.cdc_select(bitmap, n, 64, 4096, 4)
+    assert (table[cdc_cuda.H_SURV].item(), table[cdc_cuda.H_CANDS].item()) \
+        == cdc_cuda.scan_telemetry_plain(bitmap.cpu())
+
+
 def test_sha_partial_last_thread_block(dev):
     """133 lanes: the last 128-thread block is partial and still hashed."""
     rng = np.random.default_rng(7)

@@ -3,7 +3,7 @@ reference's on the CPU: the reference client and NameNode through a port
 DataNode, the same op stream to both packages (acks, replica meta,
 container, WAL and index files, READ_BLOCK / BLOCK_CHECKSUM replies,
 IBRs), each package reopening the other's data directory, admission
-shedding, the NameNode's commands and the planes the port refuses.
+shedding, the NameNode's commands and the planes that are off by default.
 
 Backends: ``native`` (the host library) on both sides, and the
 reference's ``tpu`` backend on the JAX CPU device against the port's
@@ -298,33 +298,151 @@ def test_qos_shed_answers_ack_shed_like_reference(tmp_path):
     assert got["port"][3] == [500, 502] and got["port"][4]
 
 
-WAITING = [({"status_port": 0}, "#9e"), ({"scrub_interval_s": 5.0}, "#9f"),
-           ({"simulated_dataset": True}, "#9h"),
-           ({"reduction.cdc_adaptive": True}, "#9i")]
+def _http_get(addr, path: str) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(
+                f"http://{addr[0]}:{addr[1]}{path}", timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
 
 
-@pytest.mark.parametrize("setting,item", WAITING,
-                         ids=[next(iter(s)) for s, _ in WAITING])
-def test_waiting_planes_raise(tmp_path, setting, item):
-    """A config that turns on a plane the port does not have yet raises
-    NotImplementedError naming its queue item."""
-    from hdrf_tpu_torch.config import DataNodeConfig
-    from hdrf_tpu_torch.server.datanode import DataNode
+def _status_first(dn, tmp_path) -> dict:
+    import json
 
-    cfg = DataNodeConfig(data_dir=str(tmp_path / "dn"))
-    (key, value), = setting.items()
-    obj = cfg
-    *path, last = key.split(".")
-    for p in path:
-        obj = getattr(obj, p)
-    setattr(obj, last, value)
-    with pytest.raises(NotImplementedError, match=item):
-        DataNode(cfg, ("127.0.0.1", 1), dn_id="dn-w")
+    out = {}
+    for path in ("/timeseries", "/stacks", "/traces", "/contention"):
+        code, body = _http_get(dn._status.addr, path)
+        doc = json.loads(body)
+        out[path] = (code, sorted(doc))
+    # each package's own registries, whichever earlier tests created
+    code, body = _http_get(dn._status.addr, "/metrics")
+    out["/metrics"] = (code, type(json.loads(body)).__name__)
+    code, body = _http_get(dn._status.addr, "/traces?format=chrome")
+    out["chrome"] = (code, sorted(json.loads(body)))
+    code, body = _http_get(dn._status.addr, "/prom")
+    out["prom"] = (code, body.startswith(b"# TYPE") or body == b"\n")
+    out["404"] = _http_get(dn._status.addr, "/nope")
+    return out
 
 
-def test_waiting_plane_ops_count_as_unknown(tmp_path):
-    """The ops of the planes left out are answered as an unknown op is:
-    the connection closes without a reply and ``unknown_ops`` grows."""
+def _scrub_first(dn, tmp_path) -> dict:
+    blk = _blocks(11, n=1, size=200 << 10)[0]
+    assert write_ok(write_block(dn.addr, 700, blk), blk)
+    dn.containers.drain_seals()
+    deadline = time.monotonic() + 30
+    while dn.scrubber.report()["cycles"] < 1 \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    rep = dn.scrubber.report()
+    return {"cycles": rep["cycles"] >= 1, "keys": sorted(rep),
+            "garbage": rep["garbage"],
+            "stats": sorted(dn._stats()["scrub"])}
+
+
+def _simulated_first(dn, tmp_path) -> dict:
+    blk = _blocks(12, n=1, size=150 << 10)[0]
+    acks = write_block(dn.addr, 701, blk, scheme="direct")
+    return {"acks": write_ok(acks, blk),
+            "read": read_block(dn.addr, 701) == blk,
+            "info": op_reply(dn.addr, "replica_info", block_id=701),
+            "checksum": block_checksum(dn.addr, 701),
+            "replicas": type(dn.replicas).__name__,
+            "files": sorted(f for f in os.listdir(dn.config.data_dir)
+                            if f.endswith(".meta"))}
+
+
+def _adaptive_first(dn, tmp_path) -> dict:
+    calls = [("cdc_max_chunk", 131072), ("cdc_min_chunk", 4096),
+             ("cdc_mask_bits", 14), ("cdc_min_chunk", 1 << 20),
+             ("cdc_mask_bits", 99), ("cdc_max_chunk", "x"),
+             ("scan_interval_s", 0), ("cache_capacity", 1 << 20),
+             ("no_such_key", 1), ("scrub_interval_s", 5.0)]
+    out = {"keys": op_reply(dn.addr, "get_reconfigurable")}
+    for key, value in calls:
+        out[f"{key}={value}"] = op_reply(dn.addr, "reconfigure", key=key,
+                                         value=value)
+    cdc = dn.reduction_ctx.config.cdc
+    out["geometry"] = (cdc.mask_bits, cdc.min_chunk, cdc.max_chunk)
+    out["controller"] = dn._cdc_controller.emit_range()
+    return out
+
+
+def _provided_first(dn, tmp_path) -> dict:
+    mount = tmp_path / "mount"
+    mount.mkdir(exist_ok=True)
+    src = mount / "region.bin"
+    if not src.exists():
+        src.write_bytes(np.random.default_rng(5).integers(
+            0, 256, 300_000, dtype=np.uint8).tobytes())
+    uri = "file://" + str(src)
+    out = {"add": op_reply(dn.addr, "alias_add",
+                           regions=[[702, uri, 1000, 70_000],
+                                    [703, uri, 90_000, 200_000]]),
+           "outside": op_reply(dn.addr, "alias_add",
+                               regions=[[704, "file:///etc/hostname", 0,
+                                         4]])}
+    data = src.read_bytes()
+    out["read"] = read_block(dn.addr, 702) == data[1000:71_000]
+    out["ranged"] = (read_block(dn.addr, 703, offset=7, length=5000)
+                     == data[90_007:95_007])
+    out["checksum"] = block_checksum(dn.addr, 703)
+    dn._send_block_report()
+    out["map"] = open(os.path.join(dn.config.data_dir, "aliasmap"),
+                      "rb").read()
+    return out
+
+
+PLANES = [
+    ("status_port", {"status_port": 0}, _status_first),
+    ("scrub_interval_s", {"scrub_interval_s": 0.1}, _scrub_first),
+    ("simulated_dataset", {"simulated_dataset": True}, _simulated_first),
+    ("cdc_adaptive", {"reduction.cdc_adaptive": True}, _adaptive_first),
+    ("provided_mount_root", {"provided_mount_root": "MOUNT"},
+     _provided_first),
+]
+
+
+@pytest.mark.parametrize("name,setting,first", PLANES,
+                         ids=[p[0] for p in PLANES])
+def test_plane_on_matches_reference(tmp_path, name, setting, first):
+    """A config that turns on a plane off by default constructs and
+    serves on the port, and its first replies and reports equal the
+    reference DataNode's under the same op stream."""
+    nn = StandInNN()
+    got = {}
+    try:
+        for pkg, make in (("port", port_dn), ("ref", ref_dn)):
+            red, dn_kw = {}, {}
+            for key, value in setting.items():
+                if value == "MOUNT":
+                    value = str(tmp_path / "mount")
+                if key.startswith("reduction."):
+                    red[key.split(".", 1)[1]] = value
+                else:
+                    dn_kw[key] = value
+            dn = make(str(tmp_path / pkg), nn.addr, f"dn-{pkg}", red=red,
+                      dn=dn_kw)
+            try:
+                got[pkg] = first(dn, tmp_path)
+                if name == "provided_mount_root":
+                    got[pkg]["report"] = sorted(
+                        r for r in nn.reports[dn.dn_id] if r[3:] ==
+                        ["PROVIDED"])
+            finally:
+                dn.stop()
+    finally:
+        nn.stop()
+    assert got["port"] == got["ref"]
+
+
+def test_unknown_op_still_counts(tmp_path):
+    """The planes' ops answer; an op neither package knows is answered
+    as before: the connection closes without a reply and
+    ``unknown_ops`` grows."""
     from hdrf_tpu_torch.utils import metrics
 
     reg = metrics.registry("datanode")
@@ -332,14 +450,16 @@ def test_waiting_plane_ops_count_as_unknown(tmp_path):
     dn = port_dn(str(tmp_path / "dn"), nn.addr, "dn-u")
     try:
         u0 = reg.counter("unknown_ops")
-        for op in ("alias_add", "reconfigure", "get_reconfigurable",
-                   "no_such_op"):
-            assert op_reply(dn.addr, op, key="x", regions=[]) is None
+        assert op_reply(dn.addr, "get_reconfigurable")["keys"]
+        assert op_reply(dn.addr, "reconfigure", key="x")["ok"] is False
+        assert op_reply(dn.addr, "alias_add", regions=[]) == {
+            "ok": True, "count": 0}
+        assert op_reply(dn.addr, "no_such_op") is None
         deadline = time.monotonic() + 10
-        while reg.counter("unknown_ops") < u0 + 4 \
+        while reg.counter("unknown_ops") < u0 + 1 \
                 and time.monotonic() < deadline:
             time.sleep(0.02)
-        assert reg.counter("unknown_ops") == u0 + 4
+        assert reg.counter("unknown_ops") == u0 + 1
         # the DataNode still serves
         blk = _blocks(7, n=1, size=64 << 10)[0]
         assert write_ok(write_block(dn.addr, 600, blk), blk)

@@ -325,7 +325,11 @@ def test_port_imports_no_jax_and_no_reference():
             "          'server.failover', 'utils.checksum',\n"
             "          'client.oauth2', 'server.shortcircuit',\n"
             "          'client.striped', 'client.filesystem',\n"
-            "          'testing.minicluster'):\n"
+            "          'testing.minicluster', 'utils.prom',\n"
+            "          'server.status_http', 'storage.aliasmap',\n"
+            "          'storage.simulated', 'server.scrubber',\n"
+            "          'server.http_gateway', 'tools.cli',\n"
+            "          'tools.slo_report', 'tools.gap_report'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
