@@ -245,7 +245,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``NNThroughputBenchmark`` does: ops/s, client p50/p99 and the
    ``rpc.namenode`` p99 (``NAMENODE meta``, information only).  Every
    step holds ``DN_FAULTS``; ``NAMENODE launches`` sums the kernels'
-   launches over the steps.
+   launches over the steps.  ``NAMENODE log`` lines (``DnCommandLog``)
+   give each ``replicate`` command's outcome (the source's meta missing,
+   returned, or the exception), every command that raises and every
+   OSError an xceiver op swallows; a demotion that times out prints
+   each block's owner-side container states.
 13. CLIENT, the port's ``MiniCluster`` (hdrf_tpu_torch/testing/
    minicluster.py) on ``cuda:0``: ``NameNodeConfig`` defaults where they
    matter (replication 3, ``--block-mib`` blocks, 1 s heartbeats, 6 s
@@ -310,11 +314,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``/traces?format=chrome`` parsed, and ``alias_add`` of an 8 MiB
    region under the mount root read back with ``READ_BLOCK`` (``PLANES
    surface``).  Every step holds ``DN_FAULTS``.
-15. One JSON line ``{"kernels": [...]}`` (the ``cdc_select`` entry with
+15. BENCH, the port's nine harnesses (hdrf_tpu_torch/benchmarks.py)
+   through ``benchmarks.main(argv)`` in this process on the card, their
+   standard output captured: ``reduction`` and ``cdc`` at ``--mb 128``
+   (one HDFS block), ``sort``, ``ec``, ``ec --repair-ab``, ``recon``,
+   ``multichip`` and ``churn`` at the reference's defaults, ``dfs --mb
+   16``, ``dfs --pipeline-ab --rounds 1`` (``--backend cuda``), ``nn``
+   and ``nn --observer-ab --rounds 1`` at ``--ops 500``, ``nn
+   --kill-active``.  Each line prints as ``BENCH <which> <line>``; each
+   harness must print the lines its reference's docstring gives it, run
+   on ``cuda``, and hold its oracle flags: ``cdc``'s cuts against the
+   native library and its ``H_SURV`` / ``H_CANDS`` lanes equal to the
+   plain scan's count on the same block (rebuilt from its seed),
+   ``reduction``'s chunk count equal to the native library's on its
+   corpus, ``ec``'s parity against ``encode_ref`` and its 1.5 ratio,
+   ``--repair-ab``'s 129 erasure patterns pinned, ``multichip``'s
+   oracle and one ledger dispatch a mesh step, ``nn``'s zero errors, no
+   stale read past a failover.  Every kernel but the shard scan
+   launches in the phase (``BENCH launches``; no ('data', 1) mesh runs
+   the shard scan), which takes at most 120 s (``BENCH done in``).
+16. One JSON line ``{"kernels": [...]}`` (the ``cdc_select`` entry with
    the sweep's ``surv_cands_max_abs_err`` and ``sweep_launches``, the
    ``rs`` entry with the scrubber's ``scrub_launches`` and
-   ``scrub_max_abs_err``), the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+   ``scrub_max_abs_err``, every entry with its ``bench_launches``), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
 the row sort, the RS kernel and the raw gather of any checkout on the
@@ -3088,6 +3111,80 @@ def _read_back(dns: dict, where: dict, data: dict, what: str,
     return lat
 
 
+class DnCommandLog:
+    """Logs what the DataNodes do with their NameNode's commands while the
+    NAMENODE phase runs, for the faults of its steps (c) and (d) that
+    recur rarely: each ``replicate``'s outcome (the source's meta missing,
+    pushed in s, or the exception), every command that raises, and every
+    OSError an xceiver op swallows (counted as ``op_io_errors``).  The
+    DataNode's methods are wrapped for the ``with`` block only; each entry
+    prints at once as a ``NAMENODE log`` line."""
+
+    def __init__(self):
+        self.entries: list[str] = []
+
+    def _log(self, dn, what: str) -> None:
+        line = f"{time.strftime('%H:%M:%S')} {dn.dn_id} {what}"
+        self.entries.append(line)
+        print("NAMENODE log " + line, flush=True)
+
+    def __enter__(self):
+        from hdrf_tpu_torch.server.datanode import DataNode
+        from hdrf_tpu_torch.utils.qos import ShedError
+
+        self._saved = {n: getattr(DataNode, n) for n in
+                       ("_replicate", "_execute", "_dispatch_op")}
+        replicate, execute, dispatch_op = (self._saved[n] for n in
+                                           ("_replicate", "_execute",
+                                            "_dispatch_op"))
+        log = self._log
+
+        def _replicate(dn, cmd):
+            bid, t0 = cmd["block_id"], time.perf_counter()
+            to = [t["dn_id"] for t in cmd["targets"]]
+            if dn.replicas.get_meta(bid) is None:
+                log(dn, f"replicate {bid} -> {to}: meta missing, nothing "
+                        "pushed")
+            try:
+                replicate(dn, cmd)
+            except BaseException as e:
+                log(dn, f"replicate {bid} -> {to}: raised {e!r}")
+                raise
+            log(dn, f"replicate {bid} -> {to}: returned in "
+                    f"{time.perf_counter() - t0:.2f}s")
+
+        def _execute(dn, cmd):
+            try:
+                execute(dn, cmd)
+            except BaseException as e:
+                log(dn, f"command {cmd.get('cmd')} "
+                        f"{cmd.get('block_id', cmd.get('block_ids'))}: "
+                        f"raised {e!r}")
+                raise
+
+        def _dispatch_op(dn, sock, op, fields):
+            try:
+                dispatch_op(dn, sock, op, fields)
+            except ShedError:
+                raise
+            except (ConnectionError, OSError) as e:
+                log(dn, f"xceiver op {op} block {fields.get('block_id')}: "
+                        f"{e!r}")
+                raise
+
+        DataNode._replicate = _replicate
+        DataNode._execute = _execute
+        DataNode._dispatch_op = _dispatch_op
+        return self
+
+    def __exit__(self, *exc):
+        from hdrf_tpu_torch.server.datanode import DataNode
+
+        for n, f in self._saved.items():
+            setattr(DataNode, n, f)
+        return False
+
+
 def namenode_phase(args, after_demotion=None) -> dict:
     """NAMENODE: the port's NameNode at NameNodeConfig() defaults running
     four port DataNodes on ``cuda:0``, driven by a writer on the port's
@@ -4189,6 +4286,148 @@ def planes_cluster(args) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- bench
+
+BENCH_MB = 128           # reduction and cdc: one HDFS block (PERF.md 1a-2)
+BENCH_BUDGET_S = 120.0
+BENCH_CDC = CdcConfig(mask_bits=13, min_chunk=2048)   # the cdc defaults
+# (label, argv, lines the reference's docstring gives the harness on a card)
+BENCH_RUNS = (
+    ("reduction", ["reduction", "--mb", str(BENCH_MB), "--backend", "cuda"],
+     1),
+    ("cdc", ["cdc", "--mb", str(BENCH_MB), "--device", "cuda"], 1),
+    ("sort", ["sort", "--device", "cuda"], 5),     # 2 legs x 2 + readback
+    ("ec", ["ec", "--device", "cuda"], 1),
+    ("ec --repair-ab", ["ec", "--repair-ab", "--device", "cuda"], 1),
+    ("recon", ["recon", "--device", "cuda"], 3),   # host, device, kernel
+    ("multichip", ["multichip", "--device", "cuda"], 1),
+    ("dfs", ["dfs", "--mb", "16", "--device", "cuda"], 3),   # a scheme each
+    ("dfs --pipeline-ab", ["dfs", "--pipeline-ab", "--rounds", "1",
+                           "--backend", "cuda"], 1),
+    ("nn", ["nn", "--ops", "500", "--device", "cuda"], 1),
+    ("nn --observer-ab", ["nn", "--observer-ab", "--rounds", "1", "--ops",
+                          "500", "--device", "cuda"], 1),
+    ("nn --kill-active", ["nn", "--kill-active", "--device", "cuda"], 1),
+    ("churn", ["churn", "--device", "cuda"], 1),
+)
+
+
+def _bench_lines(argv: list) -> list:
+    """``hdrf_tpu_torch.benchmarks.main(argv)`` in this process, its
+    standard output captured: the JSON lines it printed."""
+    import contextlib
+    import io
+
+    from hdrf_tpu_torch import benchmarks
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = benchmarks.main(list(argv))
+    check(rc == 0, f"BENCH {argv}: exit {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+def _bench_oracle(label: str, lines: list, dev) -> None:
+    """The harness's own oracle flags, and the facts the smoke recomputes
+    from the harness's seed: the reduction's chunk count against the
+    native library, the select's telemetry lanes against the plain scan
+    of the same block."""
+    o = lines[0]
+    for x in lines:
+        if "backend" in x and label != "dfs --pipeline-ab":
+            check(x["backend"] == "cuda", f"BENCH {label}: ran on "
+                  f"{x['backend']}")
+    if label == "reduction":
+        data = np.random.default_rng(3).integers(0, 256, size=BENCH_MB * MIB,
+                                                 dtype=np.uint8)
+        cdc = CdcConfig()
+        want = native.cdc_select(native.gear_candidates(data, gear_mask(cdc)),
+                                 data.size, cdc.min_chunk, cdc.max_chunk)
+        check(o["op"] == "reduction pipeline [cuda]"
+              and o["chunks"] == want.size,
+              f"BENCH reduction: {o['chunks']} chunks, native {want.size}")
+    elif label == "cdc":
+        n = BENCH_MB * MIB
+        rng = np.random.default_rng(17)
+        a = rng.integers(0, 256, n, dtype=np.uint8)
+        a[: n // 4] = rng.integers(97, 123, size=n // 4, dtype=np.uint8)
+        block, _ = cdc_cuda.padded_block(a, dev)
+        _, bitmap = cdc_cuda.cdc_scan_plain(block, n, gear_mask(BENCH_CDC),
+                                            BENCH_CDC.min_chunk)
+        surv, cands = cdc_cuda.scan_telemetry_plain(bitmap)
+        check(o["cuts_verified"] is True and o["interpret"] is False,
+              f"BENCH cdc: {o}")
+        check((o["scan_slab_survivors"], o["scan_candidates"])
+              == (surv, cands), f"BENCH cdc: lanes {o['scan_slab_survivors']}"
+              f" / {o['scan_candidates']}, plain {surv} / {cands}")
+    elif label == "sort":
+        check([x["op"] for x in lines] == [
+            "match_deltas [plain]", "match_deltas [cuda]",
+            "sort_rows [plain]", "sort_rows [cuda]", "record readback"],
+            f"BENCH sort: {[x['op'] for x in lines]}")
+    elif label == "ec":
+        check(o["parity_oracle_ok"] is True and o["storage_ratio"] == 1.5,
+              f"BENCH ec: {o}")
+    elif label == "ec --repair-ab":
+        check(o["parity_oracle_ok"] is True and o["patterns_pinned"] == 129,
+              f"BENCH ec --repair-ab: {o}")
+    elif label == "multichip":
+        check(o["oracle_ok"] is True and o["one_dispatch_per_step"] is True,
+              f"BENCH multichip: {o}")
+    elif label in ("nn", "nn --observer-ab"):
+        check(o["errors"] == 0, f"BENCH {label}: {o['errors']} errors")
+    elif label == "nn --kill-active":
+        check(o["stale_beyond_bound"] == 0 and o["reads"] > 0,
+              f"BENCH {label}: {o}")
+
+
+def _all_launch_counts() -> dict:
+    from hdrf_tpu_torch.ops import rs_cuda
+
+    return {**_scheme_launch_counts(), "rs": rs_cuda.launches,
+            "shard_scan": cdc_cuda.shard_scan_launches}
+
+
+def _zero_all_launch_counts() -> None:
+    from hdrf_tpu_torch.ops import rs_cuda
+
+    _zero_launch_counts()
+    rs_cuda.launches = cdc_cuda.shard_scan_launches = 0
+
+
+def bench_phase(dev) -> dict:
+    """BENCH: every harness of ``hdrf_tpu_torch.benchmarks`` once on the
+    card, in this process: its lines (``BENCH <which> <line>``), their
+    count, its oracle flags, and each kernel's launches over the phase
+    (every kernel but the shard scan, which no ('data', 1) mesh runs)."""
+    t_phase = time.perf_counter()
+    _zero_all_launch_counts()
+    out: dict = {"seconds_by_harness": {}}
+    for label, argv, nlines in BENCH_RUNS:
+        t0 = time.perf_counter()
+        lines = _bench_lines(argv)
+        out["seconds_by_harness"][label] = round(time.perf_counter() - t0, 1)
+        for ln in lines:
+            print(f"BENCH {label} {json.dumps(ln)}", flush=True)
+        check(len(lines) == nlines,
+              f"BENCH {label}: {len(lines)} lines, expected {nlines}")
+        _bench_oracle(label, lines, dev)
+        torch.cuda.empty_cache()
+    out["launches"] = _all_launch_counts()
+    for kname, n in out["launches"].items():
+        check(n > 0 or kname == "shard_scan",
+              f"BENCH launched no {kname} kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    print("BENCH launches " + json.dumps(out["launches"]), flush=True)
+    print("BENCH seconds " + json.dumps(out["seconds_by_harness"]),
+          flush=True)
+    print(f"BENCH done in {out['seconds']:.1f}s", flush=True)
+    check(out["seconds"] <= BENCH_BUDGET_S,
+          f"BENCH took {out['seconds']:.1f}s, over {BENCH_BUDGET_S:.0f}s")
+    return out
+
+
 def print_timing(timing: dict) -> None:
     for kname, t in timing.items():
         print(f"TIMING {kname}: kernel_ms={t['ms']:.4f} "
@@ -4299,7 +4538,8 @@ def run(args) -> int:
     sc = scheme_phase(args, dev, cdc, errs, timing)
     torch.cuda.empty_cache()
     datanode_phase(args)
-    nm = namenode_phase(args, after_demotion=planes_scrub)
+    with DnCommandLog():
+        nm = namenode_phase(args, after_demotion=planes_scrub)
     cl = client_phase(args)
     sw = planes_sweep(args, dev)
     pc = planes_cluster(args)
@@ -4307,6 +4547,7 @@ def run(args) -> int:
     print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}s "
           f"(scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
           f"{pc['seconds']:.1f})", flush=True)
+    bn = bench_phase(dev)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],
@@ -4333,6 +4574,7 @@ def run(args) -> int:
                 nm["after_demotion"]["rs_launches"]
             kernels[-1]["scrub_max_abs_err"] = \
                 nm["after_demotion"]["decode_max_abs_err"]
+        kernels[-1]["bench_launches"] = bn["launches"][kname]
         if kname in cl["launches"]:
             # the client's own path: its launches and its error there
             kernels[-1]["client_launches"] = cl["launches"][kname]

@@ -1,9 +1,9 @@
-"""Configuration (port of hdrf_tpu/config.py): ``CdcConfig`` (:27-46),
-``ReductionConfig`` (:50-230), ``NameNodeConfig`` (:232-338),
-``DataNodeConfig`` (:343-427), ``ClientConfig`` and ``HdrfConfig``
-(:429-569) with its layered loading: defaults -> TOML file -> ``HDRF_*``
-environment -> explicit overrides (``_dotted_set``, ``_coerce``,
-``_parse_scalar``, ``default_config``).
+"""Configuration (port of hdrf_tpu/config.py): ``CdcConfig``
+(config.py:28-46), ``ReductionConfig`` (:50-230), ``NameNodeConfig``
+(:232-338), ``DataNodeConfig`` (:343-427), ``ClientConfig`` and
+``HdrfConfig`` (:429-569) with its layered loading: defaults -> TOML
+file -> ``HDRF_*`` environment -> explicit overrides (``_dotted_set``,
+``_coerce``, ``_parse_scalar``, ``default_config``).
 
 Copies of the reference dataclasses with the same field names and
 defaults, so ``HdrfConfig.to_dict()`` equals the reference's for the same

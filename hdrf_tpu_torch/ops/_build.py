@@ -1,4 +1,6 @@
-"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``): the counterpart
+of the native library's build and load in hdrf_tpu/native/__init__.py:34-45
+(``make`` at first use, then ``ctypes.CDLL``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into an object file, all
 started together, and the objects link into one shared library with a

@@ -1,5 +1,6 @@
 """Multi-process launcher for the sharded reduction pipeline (port of
-hdrf_tpu/parallel/launch.py).
+hdrf_tpu/parallel/launch.py: ``initialize`` launch.py:44, ``global_mesh``
+:57, ``_selftest`` :87, ``main`` :131).
 
 The reference brings up ``jax.distributed``: every host runs the module,
 rank 0 doubles as coordinator, and the hosts' chips merge into one global

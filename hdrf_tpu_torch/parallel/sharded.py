@@ -1,5 +1,7 @@
 """Multi-device sharded reduction over a ('data', 'seq') mesh of torch
-devices (port of hdrf_tpu/parallel/sharded.py).
+devices (port of hdrf_tpu/parallel/sharded.py: ``make_mesh`` sharded.py:98,
+``reduce_sharded`` :335, ``ShardedBucketTable`` :719, ``MeshReducer``
+:817, ``lz4_compress_many_sharded`` :1025).
 
 The reference expresses the multi-chip form of the write path with two
 mesh axes under ``shard_map``:
@@ -791,7 +793,8 @@ class MeshReducer:
                 hdrs.append(to_host(out[1][:cdc_cuda.TABLE_HDR]))
             shards.append(_Shard(key=key, cdc=cdc, hdrs=hdrs,
                                  ready=record_event(dev)))
-        ev = _ledger.dispatch("sharded.step", batch=k0)  # H2D: the put
+        ev = _ledger.dispatch("sharded.step", batch=k0,  # H2D: the put
+                              key=(Kl, n_pad, cap, self.ndata))
         _MP.incr("steps")
         _MP.observe("step_blocks", k0)
         _MP.incr("step_bytes", int(sum(true_ns)))

@@ -1,6 +1,6 @@
 """Length-prefixed msgpack frames, the RPC server and the RPC clients (port
 of hdrf_tpu/proto/rpc.py, whole: ``MAX_FRAME``/``RpcError``/``recv_exact``/
-``send_frame``/``recv_frame`` :54-92, ``RpcServer`` :99-451,
+``send_frame``/``recv_frame`` rpc.py:54-92, ``RpcServer`` :99-451,
 ``normalize_addrs`` :453, ``HaRpcClient`` :465-667 and ``RpcClient``
 :669-742).
 

@@ -1,12 +1,24 @@
-"""Device dispatch ledger (port of hdrf_tpu/utils/device_ledger.py).
+"""Device dispatch ledger (port of hdrf_tpu/utils/device_ledger.py:
+``dispatch`` device_ledger.py:91-116, ``pending`` :120-123,
+``readback`` :126-146, ``stamp`` / ``delta`` :162-173).
 
 Records the two moments the reduction path already has — a dispatch
 (kernels enqueued on the CUDA stream) and the readback that waits for its
 results — and never adds a synchronisation of its own.  Counters land in
 the ``device_ledger`` metrics registry, events in a bounded ring that the
-worker's ``traces`` op returns.  The reference's profiler hooks (device
-wait spans on block timelines) stay with the reference until
-``utils/profiler.py`` is ported.
+worker's ``traces`` op returns.  ``stamp()`` / ``delta()`` give a bench
+round its counter movement (benchmarks.py).
+
+``dispatch(op, key=...)``: the first sighting of an ``(op, key)`` pair
+counts ``compiles_total`` and writes a ``compile`` event.  In the
+reference that approximates a jit cache miss; the port compiles no
+program per shape (its kernels are built once, at first use, by
+ops/_build.py), so here a "compile" is the first launch of a shape — the
+first time a kernel runs at a geometry, its allocator and occupancy
+warm-up included.
+
+The reference's profiler hooks (device wait spans on block timelines)
+stay with the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ STALL_BUDGET_S = 5.0
 _RING_MAX = 4096
 _ring: deque[dict[str, Any]] = deque(maxlen=_RING_MAX)
 _lock = threading.Lock()
+_seen_keys: set[tuple] = set()
 _next_id = [0]
 _PROC = f"{os.path.basename(sys.argv[0] or 'py')}:{os.getpid()}"
 
@@ -61,16 +74,33 @@ def _event(op: str, kind: str, *, t0: float, dur_us: float, batch: int,
     return ev["id"]
 
 
-def dispatch(op: str, *, batch: int = 1, h2d_bytes: int = 0) -> _Pending:
+def dispatch(op: str, *, batch: int = 1, h2d_bytes: int = 0,
+             key: tuple | None = None) -> _Pending:
     """Record an enqueued device computation; returns the timing token the
-    matching ``readback`` closes."""
+    matching ``readback`` closes.  ``key`` is a hashable shape signature:
+    its first sighting counts as a compile (the first launch of a shape)."""
     _M.incr("dispatch_total")
     _M.incr("dispatch_batch_total", batch)
     if h2d_bytes:
         _M.incr("h2d_bytes_total", h2d_bytes)
+    if key is not None:
+        k = (op, key)
+        with _lock:
+            fresh = k not in _seen_keys
+            _seen_keys.add(k)
+        if fresh:
+            _M.incr("compiles_total")
+            _event(op, "compile", t0=time.time(), dur_us=0.0, batch=batch,
+                   nbytes=0)
     _event(op, "enqueue", t0=time.time(), dur_us=0.0, batch=batch,
            nbytes=h2d_bytes)
     return _Pending(op, batch, h2d_bytes)
+
+
+def pending(op: str, *, batch: int = 1) -> _Pending:
+    """Timing token WITHOUT counting a dispatch — for aggregate readbacks
+    whose constituent dispatches were already recorded one by one."""
+    return _Pending(op, batch, 0)
 
 
 def readback(tok: _Pending | None, *, d2h_bytes: int = 0) -> None:
@@ -104,3 +134,19 @@ def events_snapshot(limit: int = _RING_MAX) -> list[dict[str, Any]]:
     with _lock:
         evs = list(_ring)
     return evs[-limit:]
+
+
+COUNTERS = ("dispatch_total", "readback_total", "compiles_total",
+            "stall_total", "h2d_bytes_total", "d2h_bytes_total")
+
+
+def stamp() -> dict[str, int]:
+    """Cheap counter stamp for delta accounting across a bench round."""
+    snap = _M.snapshot()["counters"]
+    return {k: snap.get(k, 0) for k in COUNTERS}
+
+
+def delta(before: dict[str, int]) -> dict[str, int]:
+    """Counter movement since ``before`` (a ``stamp()`` result)."""
+    now = stamp()
+    return {k: now[k] - before.get(k, 0) for k in now}

@@ -1,4 +1,5 @@
-"""Metrics registry (port of hdrf_tpu/utils/metrics.py).
+"""Metrics registry (port of hdrf_tpu/utils/metrics.py: ``Histogram``
+metrics.py:17, ``MetricsRegistry`` :73, ``registry`` :129).
 
 Named counters, gauges and histograms on a process-wide registry,
 snapshot-able as a dict — what the worker, the device ledger and the

@@ -1,5 +1,7 @@
 """Resilience primitives (port of hdrf_tpu/utils/retry.py): deadline
-budgets, capped backoff, hedged quorums, circuit breakers.
+budgets (``Deadline`` retry.py:58), capped backoff (:142-180), hedged
+quorums (``hedged_quorum`` :194), circuit breakers (``CircuitBreaker``
+:283).
 
 - :class:`Deadline` is an absolute time budget.  It propagates hop-by-hop
   as a REMAINING-SECONDS header (``_deadline`` on RPC kwargs / DT op

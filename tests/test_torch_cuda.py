@@ -1160,3 +1160,43 @@ def test_client_ec_write_and_degraded_read_on_card(dev):
             assert rs_cuda.launches > r1
             assert hc.read("/ec/h", offset=65_537, length=1_000_000) == \
                 data[65_537:1_065_537]
+
+
+def _bench(argv: list) -> list:
+    import contextlib
+    import io
+    import json
+
+    from hdrf_tpu_torch import benchmarks
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert benchmarks.main(argv) == 0
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+def test_benchmarks_cdc_and_ec_on_card(dev):
+    """``benchmarks cdc --mb 1`` and ``ec --mb 2`` on the card: their
+    oracle flags hold, and the kernels they time launched."""
+    cdc_cuda.scan_launches = cdc_cuda.select_launches = 0
+    cdc_cuda.image_launches = gather_cuda.launches = rs_cuda.launches = 0
+    (o,) = _bench(["cdc", "--mb", "1", "--inner", "2", "--repeats", "1"])
+    assert o["backend"] == "cuda" and o["interpret"] is False
+    assert o["cuts_verified"] is True
+    n = 1 << 20
+    rng = np.random.default_rng(17)
+    a = rng.integers(0, 256, n, dtype=np.uint8)
+    a[: n // 4] = rng.integers(97, 123, size=n // 4, dtype=np.uint8)
+    block, _ = cdc_cuda.padded_block(a, dev)
+    _, bitmap = cdc_cuda.cdc_scan_plain(
+        block, n, gear_mask(CdcConfig(mask_bits=13, min_chunk=2048)), 2048)
+    assert (o["scan_slab_survivors"], o["scan_candidates"]) \
+        == cdc_cuda.scan_telemetry_plain(bitmap)
+    for c in (cdc_cuda.scan_launches, cdc_cuda.select_launches,
+              cdc_cuda.image_launches, gather_cuda.launches):
+        assert c > 0
+    (e,) = _bench(["ec", "--mb", "2", "--inner", "2"])
+    assert e["backend"] == "cuda" and e["parity_oracle_ok"] is True
+    assert (e["k"], e["m"], e["storage_ratio"]) == (6, 3, 1.5)
+    assert rs_cuda.launches > 0

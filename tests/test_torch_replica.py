@@ -133,12 +133,20 @@ def _volume_ops(mod, root: str) -> dict:
             "where": dict(sorted(vs._where.items()))}
 
 
-def test_volume_set_matches_reference(tmp_path):
+def test_volume_set_matches_reference(tmp_path, monkeypatch):
     """Placement across typed volumes, container ids namespaced per
     volume, the intra-node balancer's plan and moves, and a volume
-    ejection: the same decisions as the reference's."""
+    ejection: the same decisions as the reference's.  Placement follows
+    each volume's free space (``free_estimate`` reads ``os.statvfs``), so
+    both runs see the same fixed free space: other processes writing to
+    the same filesystem between the two runs cannot move it."""
+    from types import SimpleNamespace
+
     from hdrf_tpu.storage import volumes as ref
     from hdrf_tpu_torch.storage import volumes as port
+
+    monkeypatch.setattr(os, "statvfs", lambda _path: SimpleNamespace(
+        f_bavail=1 << 20, f_frsize=4096))
 
     assert _volume_ops(port, str(tmp_path / "p")) == \
         _volume_ops(ref, str(tmp_path / "r"))

@@ -329,7 +329,8 @@ def test_port_imports_no_jax_and_no_reference():
             "          'server.status_http', 'storage.aliasmap',\n"
             "          'storage.simulated', 'server.scrubber',\n"
             "          'server.http_gateway', 'tools.cli',\n"
-            "          'tools.slo_report', 'tools.gap_report'):\n"
+            "          'tools.slo_report', 'tools.gap_report',\n"
+            "          'benchmarks', 'tools.check_parity'):\n"
             "    assert 'hdrf_tpu_torch.' + m in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'hdrf_tpu',\n"
