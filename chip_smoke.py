@@ -248,8 +248,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    launches over the steps.  ``NAMENODE log`` lines (``DnCommandLog``)
    give each ``replicate`` command's outcome (the source's meta missing,
    returned, or the exception), every command that raises and every
-   OSError an xceiver op swallows; a demotion that times out prints
-   each block's owner-side container states.
+   OSError an xceiver op swallows.  The ``restart``, ``rereplicate``
+   and ``ec`` lines carry the step's change in the command counters
+   (``NN_COMMAND_COUNTERS``), and ``NAMENODE containers`` lines each
+   block's owner-side container states before and after the demotion
+   (a demotion that times out prints them too).
 13. CLIENT, the port's ``MiniCluster`` (hdrf_tpu_torch/testing/
    minicluster.py) on ``cuda:0``: ``NameNodeConfig`` defaults where they
    matter (replication 3, ``--block-mib`` blocks, 1 s heartbeats, 6 s
@@ -3089,6 +3092,28 @@ def _nn_counter(key: str) -> int:
     return metrics.registry("namenode").counter(key)
 
 
+# what the DataNodes did with the NameNode's commands in a step: a
+# heartbeat or a full report that failed, a command that failed, an
+# xceiver op's OSError, a replica pushed, a replicate with no source
+# replica, a push to a target that held it already, a block whose
+# containers were all striped, an open container a demotion sealed
+NN_COMMAND_COUNTERS = {
+    "datanode": ("heartbeat_failures", "block_report_failures",
+                 "command_errors", "op_io_errors", "blocks_replicated",
+                 "replicate_source_missing"),
+    "block_receiver": ("replicas_already_held",),
+    "ec": ("demotes_already_striped", "demote_open_sealed")}
+
+
+def _command_counts() -> dict:
+    return {f"{r}.{k}": metrics.registry(r).counter(k)
+            for r, ks in NN_COMMAND_COUNTERS.items() for k in ks}
+
+
+def _command_delta(c0: dict) -> dict:
+    return {k: v - c0[k] for k, v in _command_counts().items()}
+
+
 def _read_back(dns: dict, where: dict, data: dict, what: str,
                checksums: bool = False) -> list:
     """Every listed replica read with READ_BLOCK equals the bytes written
@@ -3254,6 +3279,7 @@ def namenode_phase(args, after_demotion=None) -> dict:
         # ---- (b) restart the NameNode on its meta dir --------------------
         t0 = time.perf_counter()
         faults0 = _dn_faults()
+        cmds0 = _command_counts()
         before = (packb(nn._snapshot()), nn._next_inode, nn._next_block_id,
                   nn._gen_stamp, nn.rpc_listing("/nn"))
         seq = nn._editlog.seq
@@ -3272,13 +3298,15 @@ def namenode_phase(args, after_demotion=None) -> dict:
         check_faults(faults0, "NAMENODE restart")
         out["b"] = {"seconds": time.perf_counter() - t0,
                     "editlog_seq": seq, "safemode_exit_s": safe_s,
-                    "locations_s": locs_s}
+                    "locations_s": locs_s,
+                    "commands": _command_delta(cmds0)}
         print("NAMENODE restart " + json.dumps(out["b"]), flush=True)
 
         # ---- (c) re-replication, then excess pruning ---------------------
         t0 = time.perf_counter()
         _nn_zero()
         faults0 = _dn_faults()
+        cmds0 = _command_counts()
         repl0 = _nn_counter("replications_scheduled")
         victim = where[wrote["/nn/f2"]["block_ids"][0]][0]
         dns[victim].stop()
@@ -3318,6 +3346,9 @@ def namenode_phase(args, after_demotion=None) -> dict:
                     "s_per_block": repl_s / len(moved),
                     "excess_pruned": _nn_counter("excess_replicas_pruned")
                     - excess0, "pruned_s": prune_s,
+                    "replications_scheduled":
+                    _nn_counter("replications_scheduled") - repl0,
+                    "commands": _command_delta(cmds0),
                     "launches": _nn_counts()}
         out["launches"]["c"] = out["c"]["launches"]
         print("NAMENODE rereplicate " + json.dumps(out["c"]), flush=True)
@@ -3326,8 +3357,9 @@ def namenode_phase(args, after_demotion=None) -> dict:
         t0 = time.perf_counter()
         _nn_zero()
         faults0 = _dn_faults()
+        cmds0 = _command_counts()
+        demote0 = _nn_counter("ec_demotions_scheduled")
         ec = metrics.registry("ec")
-        nn.config.ec_demote_after_s = 1.0
 
         def containers_of_blocks():
             """Each block's holders and, on its owner (the first), the
@@ -3349,10 +3381,15 @@ def namenode_phase(args, after_demotion=None) -> dict:
                                            .containers._sealed_path(c))
                                        else "open" for c in cids}}
             return out
+        print("NAMENODE containers before demotion "
+              + json.dumps(containers_of_blocks()), flush=True)
+        nn.config.ec_demote_after_s = 1.0
         demote_s = _wait_for(
             lambda: nn.rpc_ec_status()["demoted_blocks"] == len(data),
             "stripe_demote of every block and its stripe_complete",
             detail=containers_of_blocks)
+        print("NAMENODE containers after demotion "
+              + json.dumps(containers_of_blocks()), flush=True)
         _wait_for(lambda: nn.rpc_ec_status()["striped_containers"] > 0,
                   "the striped-container census")
         _wait_for(lambda: all(len(h) == 1 for p in files
@@ -3365,10 +3402,19 @@ def namenode_phase(args, after_demotion=None) -> dict:
         _read_back(dns, {b: [o] for b, o in owners.items()}, data,
                    "NAMENODE (d) demoted")
         status = nn.rpc_ec_status()
-        lost = next(d for d in sorted(dns) if d not in owners.values())
-        check(any(h[0] == lost for dn in dns.values()
-                  for m in dn.index.stripe_manifests().values()
-                  for h in m["holders"]), f"{lost} holds no stripe")
+        holders = {h[0] for dn in dns.values()
+                   for m in dn.index.stripe_manifests().values()
+                   for h in m["holders"]}
+        with nn._lock:
+            slow = sorted(nn._health_report()["slow_peers"])
+        # the stripes' placement pool leaves out the DataNodes the health
+        # report vetoes (a slow peer of the write): the holder stopped is
+        # one that holds a stripe and owns no block
+        lost = next((d for d in sorted(dns) if d not in owners.values()
+                     and d in holders), None)
+        check(lost is not None, f"NAMENODE: no stripe holder but the "
+              f"owners {sorted(set(owners.values()))}: holders "
+              f"{sorted(holders)}, slow peers {slow}")
         _nn_zero()
         rep0 = ec.counter("stripes_repaired")
         sched0 = _nn_counter("stripe_repairs_scheduled")
@@ -3389,11 +3435,13 @@ def namenode_phase(args, after_demotion=None) -> dict:
         check_faults(faults0, "NAMENODE demote and repair")
         out["d"] = {"seconds": time.perf_counter() - t0,
                     "demote_s": demote_s, "ec_status": status,
+                    "stripe_holders": sorted(holders), "slow_peers": slow,
                     "lost_holder": lost, "repair_s": repair_s,
                     "repair_wall_s": time.perf_counter() - t1,
                     "stripes_repaired": ec.counter("stripes_repaired")
-                    - rep0, "demotes_already_striped":
-                    ec.counter("demotes_already_striped"),
+                    - rep0, "demotions_scheduled":
+                    _nn_counter("ec_demotions_scheduled") - demote0,
+                    "commands": _command_delta(cmds0),
                     "demote_launches": enc,
                     "repair_launches": dec}
         out["launches"]["d_demote"] = enc

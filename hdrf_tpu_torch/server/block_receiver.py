@@ -705,13 +705,24 @@ class BlockReceiver:
             _M.incr("stale_gen_rejected")
             raise IOError(f"stale gen_stamp {gen_stamp} < "
                           f"{existing.gen_stamp} for block {block_id}")
+        # the replica is already here at this generation: a ``replicate``
+        # the NameNode sent again (its pending timeout passed before the
+        # first push's IBR counted), or two sources pushing in turn.  It
+        # is acknowledged and reported again; the reference commits the
+        # block's chunk references a second time and then fails on
+        # create_rbw (FileExistsError).
+        held = (existing is not None and existing.gen_stamp == gen_stamp
+                and existing.logical_len == logical_len)
         stored = b""
         if hashes is not None:
             hashes = [bytes(h) for h in hashes]
             uniq = list(dict.fromkeys(hashes))
-            with profiler.phase("dedup_lookup"):
-                known = dn.index.lookup_chunks(uniq)
-            need = [i for i, h in enumerate(uniq) if known[h] is None]
+            if held:
+                need = []
+            else:
+                with profiler.phase("dedup_lookup"):
+                    known = dn.index.lookup_chunks(uniq)
+                need = [i for i, h in enumerate(uniq) if known[h] is None]
             # torn need-frame window: the mirror dying mid-negotiation
             # (upstream sees a half-written frame / reset socket)
             fault_injection.point("block_receiver.need_frame",
@@ -721,35 +732,41 @@ class BlockReceiver:
                 "recv", dt.iter_packets(sock)) if data]
             if len(chunks) != len(need):
                 raise IOError(f"expected {len(need)} chunks, got {len(chunks)}")
-            with profiler.phase("container_io"):
-                locs = dn.containers.append_chunks(
-                    chunks, on_seal=dn.index.seal_container)
-            new_chunks = {uniq[i]: loc for i, loc in zip(need, locs)}
-            dn.index.commit_block(block_id, logical_len, hashes, new_chunks)
+            if not held:
+                with profiler.phase("container_io"):
+                    locs = dn.containers.append_chunks(
+                        chunks, on_seal=dn.index.seal_container)
+                new_chunks = {uniq[i]: loc for i, loc in zip(need, locs)}
+                dn.index.commit_block(block_id, logical_len, hashes,
+                                      new_chunks)
         else:
             send_frame(sock, {"need": []})
             with profiler.phase("recv"):
                 stored = dt.collect_packets(sock)
-        with profiler.phase("container_io"):
-            writer = dn.replicas.create_rbw(block_id, gen_stamp)
-        try:
+        if held:
+            _M.incr("replicas_already_held")
+            meta = existing
+        else:
             with profiler.phase("container_io"):
-                if stored:
-                    writer.write(stored)
-                meta = writer.finalize(logical_len, scheme_name, list(crcs),
-                                       cchunk)
-        except (OSError, ValueError) as e:
-            # same contract as _store_and_mirror: typed cleanup + traced
-            # log + re-raise (no silent broad catch)
-            _LOG.error("reduced ingest failed", dn_id=dn.dn_id,
-                       block_id=block_id,
-                       trace=tracing.current_context(),
-                       error=f"{type(e).__name__}: {e}")
-            if dn._crashed:
-                writer.detach()   # crash sim: dead processes delete nothing
-            else:
-                writer.abort()
-            raise
+                writer = dn.replicas.create_rbw(block_id, gen_stamp)
+            try:
+                with profiler.phase("container_io"):
+                    if stored:
+                        writer.write(stored)
+                    meta = writer.finalize(logical_len, scheme_name,
+                                           list(crcs), cchunk)
+            except (OSError, ValueError) as e:
+                # same contract as _store_and_mirror: typed cleanup +
+                # traced log + re-raise (no silent broad catch)
+                _LOG.error("reduced ingest failed", dn_id=dn.dn_id,
+                           block_id=block_id,
+                           trace=tracing.current_context(),
+                           error=f"{type(e).__name__}: {e}")
+                if dn._crashed:
+                    writer.detach()   # crash sim: dead processes delete nothing
+                else:
+                    writer.abort()
+                raise
         with profiler.phase("ack"):
             dn.notify_block_received(block_id, meta.logical_len,
                                      meta.gen_stamp)

@@ -936,9 +936,15 @@ class DataNode:
                     else [t for t in report if t[0] >> 48 == pool])
             try:
                 c.call("block_report", dn_id=self.dn_id, blocks=rows)
-            except (OSError, ConnectionError):
+            except (OSError, ConnectionError, RpcError):
                 if nn is not None:
                     raise  # caller handles (registration path)
+                # a NameNode that restarted, or declared this DataNode
+                # dead, refuses the report of an unregistered dn_id
+                # (RpcError KeyError) until the next heartbeat re-registers
+                # it.  In the reference that error ends the heartbeat
+                # thread, and the lifeline then keeps the DataNode alive at
+                # the NameNode with every command it is sent undelivered.
                 _M.incr("block_report_failures")
 
     def _heartbeat_loop(self) -> None:
@@ -959,7 +965,7 @@ class DataNode:
                         continue
                     # only the active commands; a standby answers with none
                     for cmd in resp.get("commands", []):
-                        self._execute(cmd)
+                        self._run_command(cmd)
                 except (OSError, ConnectionError):
                     _M.incr("heartbeat_failures")
                 except Exception:  # noqa: BLE001
@@ -1244,6 +1250,21 @@ class DataNode:
             "qos": self.qos.report(),
         }
 
+    def _run_command(self, cmd: dict) -> None:
+        """One NameNode command, its failure counted on its own
+        (``command_errors``) so that the rest of the heartbeat's commands
+        still run.  The reference ends the reply's command loop at the
+        first command that raises, and counts an ``OSError`` there (a
+        ``replicate`` whose push failed) as ``heartbeat_failures``."""
+        try:
+            self._execute(cmd)
+        except Exception as e:  # noqa: BLE001 — one command, not the loop
+            _M.incr("command_errors")
+            self._log.warning("namenode command failed", dn_id=self.dn_id,
+                              cmd=cmd.get("cmd"),
+                              block_id=cmd.get("block_id"),
+                              error=f"{type(e).__name__}: {e}")
+
     def _execute(self, cmd: dict) -> None:
         """NN command execution (BPServiceActor.processCommand analog)."""
         if cmd["cmd"] == "invalidate":
@@ -1508,6 +1529,14 @@ class DataNode:
         block_id = cmd["block_id"]
         meta = self.replicas.get_meta(block_id)
         if meta is None:
+            # the NameNode lists a replica this DataNode does not hold (the
+            # reference returns without a trace): count it, and send a full
+            # report so that the NameNode drops the location and its next
+            # schedule takes another source
+            _M.incr("replicate_source_missing")
+            self._log.warning("replicate of a replica not held",
+                              dn_id=self.dn_id, block_id=block_id)
+            self._send_block_report()
             return
         stored = self.replicas.read_data(block_id) if meta.physical_len else b""
         self._receiver.push_reduced(block_id, meta.gen_stamp, meta.scheme,

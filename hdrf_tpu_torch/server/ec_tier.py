@@ -289,7 +289,14 @@ class EcTier:
         Ordering per container: stripes durable on holders -> manifest
         WAL'd -> sealed file deleted — a crash at any point leaves the
         container readable (sealed file until the WAL commit, stripes
-        after)."""
+        after).
+
+        The block is cold by the NameNode's own rule (idle past
+        ``ec_demote_after_s``), so an open container holding its chunks
+        is sealed first, through the ``flush_open`` path ``stop()`` takes
+        (counter ``demote_open_sealed``).  The reference skips it as hot;
+        nothing rolls it on an idle DataNode, so a block whose other
+        containers other demotions had striped was never reported."""
         dn = self._dn
         bid = cmd["block_id"]
         k, m = int(cmd["k"]), int(cmd["m"])
@@ -307,12 +314,18 @@ class EcTier:
                 cids.append(loc.container_id)
         done: list[dict] = []
         with retry.bind(retry.Deadline(_CMD_BUDGET_S)), qos.background():
+            sealed = dn.containers.flush_open(
+                on_seal=dn.index.seal_container,
+                cids={c for c in cids
+                      if dn.index.stripe_manifest(c) is None})
+            if sealed:
+                _M.incr("demote_open_sealed", sealed)
             for cid in cids:
                 if dn.index.stripe_manifest(cid) is not None:
                     continue  # already striped (shared container)
                 blob = dn.containers.sealed_file_bytes(cid)
                 if blob is None:
-                    continue  # open/raw container: stays hot
+                    continue  # a raw file a crash left: never sealed
                 magic, usize, _codec = _SEAL_HDR.unpack(
                     blob[:_SEAL_HDR.size])
                 if magic != _SEAL_MAGIC:

@@ -371,8 +371,12 @@ class ContainerStore:
             return self._compress_fn(data)
         return codecs.compress(self._codec, data)
 
-    def flush_open(self, on_seal=None) -> None:
-        """Seal every open lane (shutdown/test hook).
+    def flush_open(self, on_seal=None, cids=None) -> int:
+        """Seal every open lane (shutdown/test hook), or with ``cids`` only
+        the lanes whose open container is one of them (a cold-tier
+        demotion sealing the containers of a block idle past
+        ``ec_demote_after_s``); returns the number of containers sealed.
+        Either way every queued async seal is on disk on return.
 
         With ``compress_batch_fn`` set, every sealable lane's payload is
         compressed through ONE batched call before sealing — on the card
@@ -381,6 +385,8 @@ class ContainerStore:
             sealable = []
             for lane in self._lanes:
                 stack.enter_context(lane.lock)
+                if cids is not None and lane.container_id not in cids:
+                    continue
                 if lane.image is not None and lane.size > 0:
                     sealable.append(lane)
                 elif lane.image is not None:
@@ -398,6 +404,7 @@ class ContainerStore:
             for lane, comp in zip(sealable, comps or [None] * len(sealable)):
                 self._seal_locked(lane, on_seal, comp=comp)
         self.drain_seals()
+        return len(sealable)
 
     # --------------------------------------------------------- async sealing
 

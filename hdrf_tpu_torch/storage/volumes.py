@@ -504,9 +504,9 @@ class MultiContainerStore:
             out.extend(v.containers.container_ids())
         return sorted(out)
 
-    def flush_open(self, on_seal=None) -> None:
-        for v in self._vs._alive():
-            v.containers.flush_open(on_seal=on_seal)
+    def flush_open(self, on_seal=None, cids=None) -> int:
+        return sum(v.containers.flush_open(on_seal=on_seal, cids=cids)
+                   for v in self._vs._alive())
 
     def enable_async_seals(self) -> None:
         for v in self._vs._alive():

@@ -7,7 +7,9 @@ shape): ``register_datanode`` (no block keys), ``block_report``,
 ``heartbeat`` (the commands queued with :meth:`StandInNN.command`),
 ``lifeline``, ``block_received``, ``bad_block`` and ``commit_block_sync``.
 It records every IBR, so two DataNodes given the same op stream can be
-held to the same reports.
+held to the same reports.  With ``refuse_reports`` set it refuses full
+block reports as a NameNode refuses an unregistered DataNode's (the
+error frame ``[req_id, 1, {"error": "KeyError", ...}]``).
 
 The wire client speaks the port's ``proto/datatransfer`` (the same bytes
 as the reference's): ``write_block`` streams one block as a client
@@ -41,6 +43,7 @@ class StandInNN:
         self.ibrs: list[tuple] = []
         self.commands: dict[str, list] = {}
         self.heartbeats: dict[str, int] = {}
+        self.refuse_reports = False
         outer = self
 
         class Handler(socketserver.BaseRequestHandler):
@@ -50,8 +53,12 @@ class StandInNN:
                 try:
                     while True:
                         req_id, method, kw = recv_frame(sock)
-                        send_frame(sock, [req_id, 0, outer._answer(method,
-                                                                   kw)])
+                        try:
+                            reply = [req_id, 0, outer._answer(method, kw)]
+                        except KeyError as e:
+                            reply = [req_id, 1, {"error": "KeyError",
+                                                 "message": str(e)}]
+                        send_frame(sock, reply)
                 except (ConnectionError, OSError):
                     return
 
@@ -75,6 +82,8 @@ class StandInNN:
                 return {"heartbeat_interval_s": 1.0, "block_keys": None,
                         "nameservice_id": "ns0", "block_pool_index": 0}
             if method == "block_report":
+                if self.refuse_reports:
+                    raise KeyError(f"unregistered datanode {kw['dn_id']}")
                 self.reports[kw["dn_id"]] = [list(r) for r in kw["blocks"]]
                 return {}
             if method == "heartbeat":
@@ -230,6 +239,35 @@ def guard_reference_stat_race(monkeypatch) -> None:
                         physical_bytes)
     monkeypatch.setattr(ref_cs.ContainerStore, "container_sizes",
                         container_sizes)
+
+
+def guard_reference_report_refusal(monkeypatch) -> None:
+    """The reference DataNode's periodic full block report lets an
+    ``RpcError`` through: a NameNode that restarted, or declared the
+    DataNode dead, refuses an unregistered dn_id's report until the next
+    heartbeat re-registers it.  The reference's heartbeat thread then
+    ends, and its lifeline keeps it alive at the NameNode with every
+    command sent to it undelivered.  The port counts the refusal and goes
+    on (tests/test_torch_cold_tier_faults.py).  A cluster of reference
+    DataNodes declared dead after 1.5 s meets it under load; the
+    reference, there to drive the port NameNode, gets the port's
+    tolerance for the duration of a test, so that its own fault cannot
+    fail the flow."""
+    from hdrf_tpu.proto.rpc import RpcError
+    from hdrf_tpu.server import datanode as ref_datanode
+
+    report = ref_datanode.DataNode._send_block_report
+
+    def send_block_report(self, nn=None):
+        try:
+            report(self, nn)
+        except RpcError:
+            if nn is not None:
+                raise
+            ref_datanode._M.incr("block_report_failures")
+
+    monkeypatch.setattr(ref_datanode.DataNode, "_send_block_report",
+                        send_block_report)
 
 
 # -------------------------------------------------------------- factories

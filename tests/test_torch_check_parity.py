@@ -128,9 +128,11 @@ def test_port_tree_is_clean():
         PORT_ROOT)
     assert port_lint.check_fault_points(PORT_ROOT) == []
     names = port_lint.declared_metrics(PORT_ROOT)
-    assert {"demotes_already_striped", "emits"} <= set(names)
+    port_only = {"demotes_already_striped", "emits", "demote_open_sealed",
+                 "replicate_source_missing", "replicas_already_held"}
+    assert port_only <= set(names)
     assert port_lint.port_only_metrics(os.path.join(REPO, "README.md")) \
-        == {"demotes_already_striped", "emits"}
+        == port_only
     assert port_lint.check_prom_metrics(PORT_ROOT) == []
     rc, out = _main_output(port_lint, [])
     assert rc == 0, out

@@ -323,10 +323,12 @@ def test_block_whose_containers_another_demotion_striped(tmp_path, kind):
 def test_block_with_a_container_still_open_is_left_unreported(tmp_path,
                                                               kind):
     """A block whose chunks lie in a container another block's demotion
-    striped and in a container still open has nothing to stripe: both
-    packages leave it unreported (its chunks in the open container have
-    no stripes yet).  Once that container seals, the next demotion
-    stripes it and reports the block in both.  Both read back equal."""
+    striped and in a container still open: the reference has nothing to
+    stripe and leaves it unreported until that container seals, and the
+    next demotion then stripes it and reports the block.  The port seals
+    the open container at the first demotion (the block is cold) and
+    reports the block at once (ROADMAP Queue C).  Both read back
+    equal."""
     node = Node(kind, str(tmp_path), fresh=False)
     try:
         rnd = random.Random(6)
@@ -337,6 +339,7 @@ def test_block_with_a_container_still_open_is_left_unreported(tmp_path,
         ctx.containers.flush_open(on_seal=ctx.index.seal_container)
         assert node.scheme.reduce(102, data[102], ctx) == b""  # tail: open
         tg = standin.targets(node.owner, node.peers)
+        ec = node.mx.registry("ec")
 
         def demote(bid):
             node.owner.ec.demote({"block_id": bid, "k": K, "m": M,
@@ -345,10 +348,68 @@ def test_block_with_a_container_still_open_is_left_unreported(tmp_path,
                     for method, kw in node.nn.calls
                     if method == "stripe_complete"]
         demote(101)
-        assert [b for b, _ in demote(102)] == [101]
-        ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+        sealed0 = ec.counter("demote_open_sealed")
         reports = demote(102)
+        if kind == "ref":
+            assert [b for b, _ in reports] == [101]
+            ctx.containers.flush_open(on_seal=ctx.index.seal_container)
+            reports = demote(102)
+        else:
+            assert ec.counter("demote_open_sealed") - sealed0 == 1
         assert [b for b, _ in reports] == [101, 102] and reports[1][1] >= 1
+        for bid, want in data.items():
+            assert node.scheme.reconstruct(bid, b"", len(want), ctx) == want
+    finally:
+        node.close()
+
+
+@pytest.mark.parametrize("kind", ["ref", "port"])
+def test_block_whose_only_unstriped_container_is_open(tmp_path, kind):
+    """Block 1 fills and seals container 0 and leaves its tail in the
+    open container 1; block 2 is block 1's first part plus new bytes, so
+    its chunks lie in container 0, the open container 1 and the other
+    lane's open container.  Block 1's demotion stripes container 0.
+    Block 2 then has nothing sealed left to stripe: the reference never
+    reports it, however often the NameNode commands it (the smoke's
+    NAMENODE (d) timeout: the third block re-commanded at every pending
+    timeout on an idle DataNode).  The port seals both open containers
+    and reports block 2 with their groups.  Both read back equal."""
+    node = Node(kind, str(tmp_path), fresh=False)
+    try:
+        rnd = random.Random(7)
+        one = rnd.randbytes(100_000)
+        data = {201: one, 202: one[:90_000] + rnd.randbytes(20_000)}
+        ctx = node.ctx
+        for bid, blob in data.items():
+            assert node.scheme.reduce(bid, blob, ctx) == b""
+        cids = {bid: sorted({ctx.index.chunk_location(h).container_id
+                             for h in ctx.index.get_block(bid).hashes})
+                for bid in data}
+        assert cids[201] == [0, 1] and cids[202] == [0, 1, 2]
+        assert ctx.containers.sealed_file_bytes(0) is not None
+        assert all(ctx.containers.sealed_file_bytes(c) is None
+                   for c in (1, 2))
+        tg = standin.targets(node.owner, node.peers)
+        ec = node.mx.registry("ec")
+        sealed0 = ec.counter("demote_open_sealed")
+
+        def demote(bid):
+            node.owner.ec.demote({"block_id": bid, "k": K, "m": M,
+                                  "targets": tg})
+            return [(kw["block_id"], sorted(int(g["cid"])
+                                            for g in kw["containers"]))
+                    for method, kw in node.nn.calls
+                    if method == "stripe_complete"]
+        if kind == "ref":
+            assert demote(201) == [(201, [0])]
+            for _ in range(3):
+                assert demote(202) == [(201, [0])]
+            assert sorted(node.striped()) == [0]
+        else:
+            assert demote(201) == [(201, [0, 1])]
+            assert demote(202) == [(201, [0, 1]), (202, [2])]
+            assert ec.counter("demote_open_sealed") - sealed0 == 2
+            assert sorted(node.striped()) == [0, 1, 2]
         for bid, want in data.items():
             assert node.scheme.reconstruct(bid, b"", len(want), ctx) == want
     finally:

@@ -10,7 +10,11 @@ NameNode's ``replicate`` commands; ``ec_demote_after_s`` set at runtime,
 the blocks demoted through ``stripe_demote`` and read back; a stripe
 holder stopped and its stripes repaired through ``stripe_repair``.  This
 is the cold-tier flow of the reference's own cluster tests, with the
-port NameNode in place of the reference's.
+port NameNode in place of the reference's.  Reference DataNodes get the
+port's tolerance of two reference faults for the flow
+(``_dn_standin.guard_reference_stat_race`` and
+``guard_reference_report_refusal``: a refused full report ends the
+reference's heartbeat thread).
 
 Also here: the port DataNode's flight archive and ``flight_timeseries``
 reply against the reference DataNode's.
@@ -24,8 +28,9 @@ import time
 import numpy as np
 import pytest
 
-from _dn_standin import (StandInNN, guard_reference_stat_race, op_reply,
-                         port_dn, ref_dn)
+from _dn_standin import (StandInNN, guard_reference_report_refusal,
+                         guard_reference_stat_race, op_reply, port_dn,
+                         ref_dn)
 
 BLOCK = 256 << 10
 
@@ -107,6 +112,7 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
     ``HdrfClient(addr, name=...)``."""
     if dn_pkg == "ref":
         guard_reference_stat_race(monkeypatch)
+        guard_reference_report_refusal(monkeypatch)
     cl = Cluster(str(tmp_path), dn_pkg)
     nn = cl.nn
     rng = np.random.default_rng(11)
@@ -154,6 +160,11 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
             _wait(lambda: c._call("ec_status")["striped_containers"] >= 1,
                   msg="striped-container census")
             demoted = set(nn._ec_demoted)
+            # no demotion is scheduled from here on: a block demoted after
+            # the stripe owners are read below (a reference DataNode
+            # re-commanded after skipping a container still sealing) could
+            # make the holder stopped there its owner and only replica
+            nn.config.ec_demote_after_s = 0.0
 
             def owner_only():
                 return all(len(b["locations"]) == 1 for p in files
@@ -170,8 +181,12 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
                       if d is not None and d.index.stripe_manifests()}
             owner = next(iter(owners.values()))
             man = next(iter(owner.index.stripe_manifests().values()))
-            lost = next(h[0] for h in man["holders"]
-                        if h[0] not in owners)
+            # a stripe holder that owns no group, and if one exists, holds
+            # no replica of the files either
+            held = {d for p in files for s in cl.live_locations(c, p)
+                    for d in s}
+            spare = [h[0] for h in man["holders"] if h[0] not in owners]
+            lost = next((d for d in spare if d not in held), spare[0])
             repaired0 = reg.counter("stripes_repaired")
             li = int(lost.split("-")[1])
             cl.dns[li].stop()
