@@ -183,11 +183,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``ReductionConfig()`` defaults (dedup_lz4, 32 MiB lz4 containers,
    ``pipeline_depth`` 4, a 2 ms group commit, 4 write slots).  (a) Three
    DataNodes, replication 3 (DN1 with targets DN2 and DN3: reduced
-   mirroring, the chunk delta down the chain): four blocks of the
-   ``reduce`` corpus, one on each of 4 concurrent streams (the reference
-   harness's ``dfs --pipeline-ab --streams 4``; the depth cut to four to
-   keep the smoke inside its time).  The write kernels' launches (zeroed before) are > 0,
-   the coalescer ran groups, no seal fell back to the host codec
+   mirroring, the chunk delta down the chain): the first two blocks of
+   a three-block ``reduce`` corpus (random 1 MiB segments with copies),
+   one on each of 2 concurrent streams (the reference harness's ``dfs
+   --pipeline-ab --streams 4``, its depth cut to two blocks to keep the
+   smoke inside its time with the RESILIENCE phase).  The write
+   kernels' launches (zeroed before) are > 0, the coalescer ran groups, no seal fell back to the host codec
    (``worker_fallbacks`` 0); every block is read back from all three
    with ``READ_BLOCK`` and equals the bytes written, ``BLOCK_CHECKSUM``
    equals ``native.crc32c_chunks`` of them, and each DataNode's IBRs
@@ -317,7 +318,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``/traces?format=chrome`` parsed, and ``alias_add`` of an 8 MiB
    region under the mount root read back with ``READ_BLOCK`` (``PLANES
    surface``).  Every step holds ``DN_FAULTS``.
-15. BENCH, the port's nine harnesses (hdrf_tpu_torch/benchmarks.py)
+15. RESILIENCE, federation, lazy persist and the crash points on the
+   card.  (a) A port ``MiniCluster`` with two nameservices (two
+   NameNodes, pools 0 and 1) over three DataNodes (replication 1,
+   ``--block-mib`` blocks, 32 MiB containers, 1 s heartbeats) and
+   ``tpu_worker=True``: one ``dedup_lz4`` block of the ``reduce`` corpus
+   a namespace, written at once by two port clients on ``cuda``, read
+   back at once, equal; each namespace's block ids ``>> 48`` equal its pool
+   index, the pools are disjoint, and a full block report of every
+   DataNode to both NameNodes invalidates nothing (``RESILIENCE
+   federation``).  (b) One DataNode with a RAM_DISK and a DISK volume,
+   its ``reduce`` and seals sent to (a)'s worker: a ``dedup_lz4`` block
+   under the ``lazy_persist`` policy lands on the RAM volume (a 0-byte
+   replica file, no container there), the lazy writer shadows it onto
+   DISK, the shm directory is deleted while the DataNode is down, and
+   the restarted DataNode reads the block back equal from its shadow
+   (``RESILIENCE lazy_persist``).  (c) SCHEME's in-process ``dedup_lz4``
+   wiring: two blocks reduced, the seal of the open container crashed
+   (``fault_injection`` at ``container.seal``: the raw file survives,
+   no sealed file, both blocks read back) and retried (every sealed
+   file decodes to its payload); a third block's WAL append crashed
+   (``index.wal_append``: the index unchanged) and retried; the index
+   closed and reopened equal, all three blocks read back (``RESILIENCE
+   crash``).  The worker's launches are counted from its ``traces``
+   ledger (a ``resident.cdc`` dispatch a block: the scan and the
+   select; ``resident.sha``: two pad gathers and SHA-256; ``lz4.scan``
+   or ``lz4.rescan`` a container: the word image, the match deltas and
+   five row sorts), (c)'s by the wrappers' counters; each must be > 0.
+16. BENCH, the port's nine harnesses (hdrf_tpu_torch/benchmarks.py)
    through ``benchmarks.main(argv)`` in this process on the card, their
    standard output captured: ``reduction`` and ``cdc`` at ``--mb 128``
    (one HDFS block), ``sort``, ``ec``, ``ec --repair-ab``, ``recon``,
@@ -336,11 +364,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    stale read past a failover.  Every kernel but the shard scan
    launches in the phase (``BENCH launches``; no ('data', 1) mesh runs
    the shard scan), which takes at most 120 s (``BENCH done in``).
-16. One JSON line ``{"kernels": [...]}`` (the ``cdc_select`` entry with
+17. One JSON line ``{"kernels": [...]}`` (the ``cdc_select`` entry with
    the sweep's ``surv_cands_max_abs_err`` and ``sweep_launches``, the
    ``rs`` entry with the scrubber's ``scrub_launches`` and
-   ``scrub_max_abs_err``, every entry with its ``bench_launches``), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+   ``scrub_max_abs_err``, every entry with its ``bench_launches`` and
+   RESILIENCE's ``resilience_launches`` (in this process, (c)) and
+   ``resilience_worker_launches`` (the worker's ledger, (a) and (b))),
+   the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
 the row sort, the RS kernel and the raw gather of any checkout on the
@@ -2545,7 +2575,7 @@ DN_PHASES = ("recv", "checksum", "pipeline_submit", "device_wait",
              "dedup_lookup", "wal_commit", "container_io", "mirror_stream",
              "ack")
 DN_STREAMS = 4          # the reference harness's dfs --pipeline-ab --streams 4
-DN_BLOCKS = 4           # one block a stream: the depth cut to keep the time
+DN_BLOCKS = 2           # one block a stream: the depth cut to keep the time
 # counters of work a DataNode lost or degraded while answering success (a
 # mirror leg that failed still acks the client, as pipeline recovery does)
 DN_FAULTS = {"block_receiver": ("mirror_failures", "worker_fallbacks",
@@ -2807,7 +2837,7 @@ def datanode_main(root: str, nn, blocks: list, extra: list) -> dict:
     logical = sum(b.size for b in blocks)
     out = {"write": {
         "blocks": len(blocks), "block_mib": blocks[0].size / MIB,
-        "streams": DN_STREAMS, "replication": 3,
+        "streams": min(DN_STREAMS, len(blocks)), "replication": 3,
         "ms_per_block": _stats(ms), "ms_all": ms,
         "aggregate_mib_s": logical / MIB / wall,
         "host_cores_used": cores, "host_cores": os.cpu_count(),
@@ -2845,8 +2875,9 @@ def datanode_main(root: str, nn, blocks: list, extra: list) -> dict:
                 b, ck["checksum_chunk"])] and ck["logical_len"] == b.size,
                 f"{dn.dn_id} block {i}: BLOCK_CHECKSUM != crc32c")
         reads[dn.dn_id] = _stats(lat)
-    _, part = dn_read(dns[1].addr, 1003, 12_345_677, 3_000_001)
-    check(part == blocks[3][12_345_677:15_345_678].tobytes(),
+    _, part = dn_read(dns[1].addr, 1000 + len(blocks) - 1, 12_345_677,
+                      3_000_001)
+    check(part == blocks[-1][12_345_677:15_345_678].tobytes(),
           "ranged read != slice")
     pw = profile_window(
         "datanode_write", lambda: [dn_write(dns[0].addr, 1100 + i, b, tg)
@@ -2964,7 +2995,10 @@ def datanode_phase(args) -> dict:
     import tempfile
 
     t0 = time.perf_counter()
-    blocks = main_path_corpus(args.seed, DN_BLOCKS, args.block_mib)
+    # the first blocks of a three-block corpus: random 1 MiB segments
+    # with copies (a corpus's last block is text, which the coded pass
+    # does not take)
+    blocks = main_path_corpus(args.seed, 3, args.block_mib)[:DN_BLOCKS]
     extra = main_path_corpus(args.seed + 9, 2, args.block_mib)
     nn = SmokeNN()
     out = {}
@@ -4334,6 +4368,358 @@ def planes_cluster(args) -> dict:
     return out
 
 
+# ------------------------------------------------------------- resilience
+
+RES_DATANODES = 3        # the federation cluster: two pools over three
+# one replica a block, for the phase's 70 s budget: at replication 2 a
+# write took 18-25 s and the phase 88-92 s on the H100 (the mirror leg)
+RES_REPLICATION = 1
+RES_WORKER = "auto"      # the worker's backend: the card
+RES_DEVICE = "cuda"      # the clients' device
+RES_SHADOW_S = 30.0      # the lazy writer's shadow, at most
+# the launches one worker ledger dispatch makes, by op (PERF.md section
+# 6): a ``resident.cdc`` dispatch a block runs the scan and the select, a
+# ``resident.sha`` the pad gather of both lane tables and SHA-256; an
+# ``lz4.scan`` (or ``lz4.rescan``) the match scan of one container: the
+# word image, the match deltas and five row sorts
+RES_WORKER_KERNELS = {"resident.cdc": {"cdc_scan": 1, "cdc_select": 1},
+                      "resident.sha": {"gather_pad": 2, "sha256": 1},
+                      "lz4.scan": {"be_image": 1, "match_deltas": 1,
+                                   "sort_rows": 5},
+                      "lz4.rescan": {"be_image": 1, "match_deltas": 1,
+                                     "sort_rows": 5}}
+
+
+class _Boom(Exception):
+    """The fault the RESILIENCE phase injects."""
+
+
+def _once(exc):
+    """A fault_injection hook that raises ``exc`` at its first call."""
+    fired: list = []
+
+    def fire(**kw):
+        if not fired:
+            fired.append(kw)
+            raise exc
+    fire.fired = fired
+    return fire
+
+
+def _ledger_mark(worker) -> int:
+    evs = worker.traces()["ledger"]
+    return max((e["id"] for e in evs), default=0)
+
+
+def _worker_dispatches(worker, since: int) -> dict:
+    """The worker's device-ledger dispatches after event ``since``, by op:
+    {op: [dispatches, blocks or containers]}."""
+    out: dict = {}
+    for e in worker.traces()["ledger"]:
+        if e["id"] > since and e["kind"] == "dispatch":
+            n = out.setdefault(e["op"], [0, 0])
+            n[0] += 1
+            n[1] += e["batch"]
+    return out
+
+
+def _worker_launches(disp: dict) -> dict:
+    """The kernels the worker launched, from its ledger dispatches
+    (``RES_WORKER_KERNELS``: launches a block or a container)."""
+    out: dict = {}
+    for op, kernels in RES_WORKER_KERNELS.items():
+        for k, per in kernels.items():
+            out[k] = out.get(k, 0) + per * disp.get(op, [0, 0])[1]
+    return out
+
+
+def resilience_federation(args, corpus, mc, worker) -> dict:
+    """(a) Two nameservices over one DataNode set: one block a namespace,
+    written at once by two clients and read back at once, pools
+    disjoint, a full report cycle to both NameNodes invalidates
+    nothing."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    faults0 = _dn_faults()
+    inv0 = _counter_of("datanode", "blocks_invalidated")
+    mark = _ledger_mark(worker)
+    clients = [mc.client(f"smoke-ns{i}", nsi=i, device=RES_DEVICE)
+               for i in range(2)]
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(_timed_write, c, "/fed/f", [corpus[i]],
+                              scheme="dedup_lz4")
+                    for i, c in enumerate(clients)]
+            ms = [f.result()[0] for f in futs]
+        _drain([d for d in mc.datanodes if d is not None])
+        disp = _worker_dispatches(worker, mark)
+
+        def read(i: int) -> float:
+            t1 = time.perf_counter()
+            check(clients[i].read("/fed/f") == corpus[i].tobytes(),
+                  f"RESILIENCE (a): ns{i}'s /fed/f != the bytes written")
+            return (time.perf_counter() - t1) * 1e3
+        with ThreadPoolExecutor(2) as ex:
+            read_ms = list(ex.map(read, range(2)))
+        pools = []
+        for i, c in enumerate(clients):
+            bids = [b["block_id"] for b in c._call(
+                "get_block_locations", path="/fed/f")["blocks"]]
+            check(len(bids) == 1 and all(b >> 48 == i for b in bids),
+                  f"RESILIENCE (a): ns{i}'s block ids {bids} not in pool {i}")
+        for i, ns in enumerate(mc.ns):
+            pools.append(set(ns["active"]._blocks))
+            check(all(b >> 48 == i for b in pools[-1]),
+                  f"RESILIENCE (a): ns{i} maps a block of another pool")
+        check(not pools[0] & pools[1], "RESILIENCE (a): pools overlap")
+        locs = [_locations(ns["active"], "/fed/f") for ns in mc.ns]
+        for dn in mc.datanodes:
+            dn._send_block_report()
+        time.sleep(1.5)     # a heartbeat: any invalidation is sent
+        check(_counter_of("datanode", "blocks_invalidated") == inv0
+              and [_locations(ns["active"], "/fed/f") for ns in mc.ns]
+              == locs, "RESILIENCE (a): a full report cycle invalidated "
+                       "a replica of the other pool")
+        check_faults(faults0, "RESILIENCE (a)")
+    finally:
+        for c in clients:
+            c.close()
+    return {"seconds": time.perf_counter() - t0, "write_ms": ms,
+            "read_ms": read_ms, "pools": [sorted(p) for p in pools],
+            "replicas": [len(v) for loc in locs for v in loc.values()],
+            "worker_dispatches": disp}
+
+
+def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
+    """(b) One DataNode with a RAM_DISK and a DISK volume sending its
+    reduce and seals to (a)'s worker: a ``dedup_lz4`` block under the
+    ``lazy_persist`` policy lands on the RAM volume (a 0-byte replica
+    file: its chunks go to containers, never on RAM), the lazy writer
+    shadows it onto DISK, the RAM is lost while the DataNode is down,
+    and the restarted DataNode serves the block from its shadow."""
+    import shutil
+
+    from hdrf_tpu_torch.testing.minicluster import MiniCluster
+
+    t0 = time.perf_counter()
+    faults0 = _dn_faults()
+    mark = _ledger_mark(worker)
+    bs = args.block_mib * MIB
+    data = corpus[1].tobytes()
+    mc = MiniCluster(n_datanodes=1, base_dir=root, replication=1,
+                     block_size=bs, container_size=SEAL_BYTES,
+                     heartbeat_s=1.0, dead_node_s=6.0,
+                     volume_types=["RAM_DISK", "DISK"],
+                     dn_config_overrides={"lazy_writer_interval_s": 0.2},
+                     reduction_overrides={"worker_addr": list(worker_addr)})
+    try:
+        mc.start()
+        dn = mc.datanodes[0]
+        ram, disk = (next(v for v in dn.volumes.volumes
+                          if (v.storage_type == "RAM_DISK") is want)
+                     for want in (True, False))
+        with mc.client("smoke-lazy", device=RES_DEVICE) as c:
+            c.mkdir("/hot")
+            c.set_storage_policy("/hot", "lazy_persist")
+            ms = _timed_write(c, "/hot/f", [corpus[1]], scheme="dedup_lz4")
+            bid = c._call("get_block_locations",
+                          path="/hot/f")["blocks"][0]["block_id"]
+        check(ram.root.startswith("/dev/shm/")
+              and ram.replicas.get_meta(bid) is not None
+              and dn.volumes._where[bid] == ram.vol_id,
+              "RESILIENCE (b): the lazy_persist block is not on the RAM "
+              "volume")
+        check(os.path.getsize(ram.replicas.data_path(bid)) == 0
+              and not os.listdir(os.path.join(ram.root, "containers")),
+              "RESILIENCE (b): reduced bytes on the RAM volume")
+        shadow_s = _wait_for(lambda: disk.replicas.get_meta(bid) is not None,
+                             "RESILIENCE (b): the disk shadow", RES_SHADOW_S)
+        _drain([dn])
+        disp = _worker_dispatches(worker, mark)
+        mc.stop_datanode(0)
+        shutil.rmtree(ram.root)                  # the RAM is lost
+        dn = mc.restart_datanode(0)
+        mc.wait_for_datanodes(1, timeout=30.0)
+        check(dn.volumes._where.get(bid) == next(
+                  v.vol_id for v in dn.volumes.volumes
+                  if v.storage_type != "RAM_DISK"),
+              "RESILIENCE (b): the restarted DataNode lost the shadow")
+        with mc.client("smoke-lazy2", device=RES_DEVICE) as c:
+            t1 = time.perf_counter()
+            got = None
+            while got is None:
+                try:
+                    got = c.read("/hot/f")
+                except OSError:
+                    # until the restarted DataNode's report is in
+                    check(time.perf_counter() - t1 < 30.0,
+                          "RESILIENCE (b): no read after the RAM loss")
+                    time.sleep(0.2)
+            read_ms = (time.perf_counter() - t1) * 1e3
+        check(got == data, "RESILIENCE (b): the block read after the RAM "
+                           "loss != the bytes written")
+        check_faults(faults0, "RESILIENCE (b)")
+    finally:
+        mc.stop()
+    return {"seconds": time.perf_counter() - t0, "write_ms": ms[0],
+            "shadow_s": shadow_s, "read_after_loss_ms": read_ms,
+            "worker_dispatches": disp}
+
+
+def resilience_scheme(args, corpus, root) -> dict:
+    """(c) The in-process ``dedup_lz4`` scheme on the card (SCHEME's
+    wiring): two blocks reduced; the seal of the open container crashed
+    (``container.seal``) — its raw file survives and both blocks read
+    back — then sealed by the retry; a WAL append crashed
+    (``index.wal_append``) in a third block's commit — the index is left
+    as it was — then committed by the retry; the index closed and
+    reopened from its WAL and checkpoint: its blocks and refcounts equal
+    the ones before, and every block reads back."""
+    from hdrf_tpu_torch.index.chunk_index import ChunkIndex
+    from hdrf_tpu_torch.utils import fault_injection
+
+    t0 = time.perf_counter()
+    payloads: dict = {}
+    ctx = scheme_context(root, payloads)
+    s = ops_scheme.get("dedup_lz4")
+    datas = [b.tobytes() for b in corpus]
+    store = ctx.containers
+
+    def table() -> tuple:
+        blocks = {bid: ctx.index.get_block(bid) for bid in range(3)}
+        hashes = {h for e in blocks.values() if e is not None
+                  for h in e.hashes}
+        locs = ctx.index.lookup_chunks(sorted(hashes))
+        return ({b: None if e is None else (e.logical_len, e.hashes)
+                 for b, e in blocks.items()},
+                {h: (v.container_id, v.offset, v.length, v.refcount)
+                 for h, v in locs.items()})
+
+    def read_all(n: int) -> None:
+        for bid in range(n):
+            check(s.reconstruct(bid, b"", len(datas[bid]), ctx, 0,
+                                len(datas[bid])) == datas[bid],
+                  f"RESILIENCE (c): block {bid} != the bytes written")
+
+    try:
+        _zero_launch_counts()
+        for bid in range(2):
+            check(s.reduce(bid, datas[bid], ctx) == b"",
+                  f"RESILIENCE (c): block {bid}: stored bytes")
+        open_cids = [cid for cid in store.container_ids()
+                     if os.path.exists(store._raw_path(cid))]
+        check(open_cids, "RESILIENCE (c): no open container to seal")
+        seal = _once(_Boom())
+        with fault_injection.inject("container.seal", seal):
+            try:
+                store.flush_open(on_seal=ctx.index.seal_container)
+                check(False, "RESILIENCE (c): the injected seal crash "
+                             "did not raise")
+            except _Boom:
+                pass
+        check(seal.fired and all(os.path.exists(store._raw_path(c))
+                                 and not os.path.exists(store._sealed_path(c))
+                                 for c in open_cids),
+              "RESILIENCE (c): the crashed seal lost its raw container "
+              "or published a sealed file")
+        read_all(2)
+        store.flush_open(on_seal=ctx.index.seal_container)
+        check(all(os.path.exists(store._sealed_path(c)) for c in open_cids),
+              "RESILIENCE (c): the retried seal left a container unsealed")
+        kinds = _check_sealed(ctx, payloads)
+        before = table()
+        wal = _once(OSError("injected: disk full"))
+        with fault_injection.inject("index.wal_append", wal):
+            try:
+                s.reduce(2, datas[2], ctx)
+                check(False, "RESILIENCE (c): the injected WAL append "
+                             "crash did not raise")
+            except OSError:
+                pass
+        check(wal.fired and table() == before,
+              "RESILIENCE (c): the failed WAL append changed the index")
+        check(s.reduce(2, datas[2], ctx) == b"",
+              "RESILIENCE (c): block 2's retry: stored bytes")
+        store.flush_open(on_seal=ctx.index.seal_container)
+        launches = _scheme_launch_counts()
+        after = table()
+        check(after[0][2] is not None and all(
+                  v[3] >= 1 for v in after[1].values()),
+              "RESILIENCE (c): block 2 not committed by the retry")
+        ctx.index.close()
+        ctx.index = ChunkIndex(os.path.join(root, "index"))
+        check(table() == after, "RESILIENCE (c): the reopened index != "
+                                "the index before")
+        read_all(3)
+        for kname in ("cdc_scan", "cdc_select", "gather_pad", "sha256",
+                      "be_image", "match_deltas", "sort_rows", "gather_raw"):
+            check(launches[kname] > 0,
+                  f"RESILIENCE (c): never launched the {kname} kernel")
+    finally:
+        ctx.read_plane.close()
+        ctx.index.close()
+    return {"seconds": time.perf_counter() - t0, "sealed": kinds,
+            "chunks": len(after[1]), "launches": launches}
+
+
+def resilience_phase(args) -> dict:
+    """RESILIENCE: federation, lazy persist and the crash points on the
+    card; (a) and (b) share one worker process."""
+    import shutil
+    import tempfile
+
+    from hdrf_tpu_torch.testing.minicluster import MiniCluster
+
+    t_phase = time.perf_counter()
+    corpus = main_path_corpus(args.seed, 3, args.block_mib)
+    root = tempfile.mkdtemp(prefix="smr_")   # AF_UNIX paths: keep it short
+    out: dict = {}
+    mc = MiniCluster(n_datanodes=RES_DATANODES, base_dir=os.path.join(
+                         root, "fed"),
+                     replication=RES_REPLICATION,
+                     block_size=args.block_mib * MIB,
+                     container_size=SEAL_BYTES, heartbeat_s=1.0,
+                     dead_node_s=6.0, nameservices=2, tpu_worker=True,
+                     worker_backend=RES_WORKER)
+    try:
+        mc.start()
+        worker = WorkerClient(mc._worker_addr, deadline_s=600)
+        ping = worker.ping()
+        check(ping["backend"] == ops_dispatch.resolve_backend(RES_WORKER),
+              f"RESILIENCE: the worker runs on {ping}")
+        out["a"] = resilience_federation(args, corpus, mc, worker)
+        print("RESILIENCE federation " + json.dumps(out["a"]), flush=True)
+        out["b"] = resilience_lazy_persist(
+            args, corpus, os.path.join(root, "lazy"), mc._worker_addr,
+            worker)
+        print("RESILIENCE lazy_persist " + json.dumps(out["b"]), flush=True)
+        worker.close()
+    finally:
+        mc.stop()
+    try:
+        out["c"] = resilience_scheme(args, corpus,
+                                     os.path.join(root, "scheme"))
+        print("RESILIENCE crash " + json.dumps(out["c"]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    worker_launches = _worker_launches({
+        op: [a + b for a, b in zip(out["a"]["worker_dispatches"].get(
+                 op, [0, 0]), out["b"]["worker_dispatches"].get(op, [0, 0]))]
+        for op in RES_WORKER_KERNELS})
+    for kname, n in worker_launches.items():
+        check(n > 0, f"RESILIENCE: the worker's ledger shows no {kname} "
+                     f"launch")
+    out["launches"] = {"worker": worker_launches,
+                       "in_process": out["c"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"RESILIENCE done in {out['seconds']:.1f}s (federation "
+          f"{out['a']['seconds']:.1f}, lazy persist {out['b']['seconds']:.1f}"
+          f", crash points {out['c']['seconds']:.1f})", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- bench
 
 BENCH_MB = 128           # reduction and cdc: one HDFS block (PERF.md 1a-2)
@@ -4595,6 +4981,7 @@ def run(args) -> int:
     print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}s "
           f"(scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
           f"{pc['seconds']:.1f})", flush=True)
+    res = resilience_phase(args)
     bn = bench_phase(dev)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
@@ -4622,6 +5009,10 @@ def run(args) -> int:
                 nm["after_demotion"]["rs_launches"]
             kernels[-1]["scrub_max_abs_err"] = \
                 nm["after_demotion"]["decode_max_abs_err"]
+        kernels[-1]["resilience_launches"] = \
+            res["launches"]["in_process"].get(kname, 0)
+        kernels[-1]["resilience_worker_launches"] = \
+            res["launches"]["worker"].get(kname, 0)
         kernels[-1]["bench_launches"] = bn["launches"][kname]
         if kname in cl["launches"]:
             # the client's own path: its launches and its error there

@@ -40,10 +40,13 @@ exactly when they ran.
 **Timing.**  The reference's slope method: ``T(1)`` and ``T(k)`` for one
 and ``--inner`` back-to-back calls, each averaged over ``--repeats``
 passes, and ``(T(k) - T(1)) / (k - 1)`` divides the fixed per-pass cost
-out.  A pass ends in ``torch.cuda.synchronize()`` (the reference's
-dependent readback).  The reference salts each iteration's input so XLA
-cannot merge them; eager launches are never merged, so the port calls
-each kernel on the same input.
+out; where host noise makes that difference non-positive, ``T(k) / k``
+stands in (``_slope``: the port never prints a non-positive time for a
+leg that ran, where the reference's can).  A pass ends in
+``torch.cuda.synchronize()`` (the reference's dependent readback).  The
+reference salts each iteration's input so XLA cannot merge them; eager
+launches are never merged, so the port calls each kernel on the same
+input.
 
 **Keys the port reports as ``null``**, and why:
 
@@ -119,7 +122,14 @@ def _sync(dev) -> None:
 def _slope(fn, dev, inner: int, repeats: int) -> float:
     """Seconds per call of ``fn`` by the slope method (module docstring):
     ``repeats`` passes of 1 and of ``inner`` calls, each pass ending in a
-    device synchronisation, after one warm call."""
+    device synchronisation, after one warm call.
+
+    The slope is a difference of two timings, so a host that stalls the
+    pass of one call more than the pass of ``inner`` calls (other
+    processes on its cores) can make it zero or negative.  Then the
+    ``inner`` pass's mean per call is returned instead: an upper bound
+    (it keeps the fixed cost the slope removes), positive for any leg
+    that ran."""
     def timed(k: int) -> float:
         fn()                                   # warm: build + page in
         _sync(dev)
@@ -131,7 +141,8 @@ def _slope(fn, dev, inner: int, repeats: int) -> float:
         return (time.perf_counter() - t0) / repeats
 
     t1, tk = timed(1), timed(inner)
-    return (tk - t1) / (inner - 1) if inner > 1 else t1
+    slope = (tk - t1) / (inner - 1) if inner > 1 else t1
+    return slope if slope > 0 else tk / inner
 
 
 def _nn_observer_ab(args) -> None:

@@ -7,11 +7,13 @@ GF(2^8) RS kernel of striped EC writes (parity) and degraded reads
 (decode), client/striped.py.  ``HdrfClient(..., device="cuda")``, the
 default, runs it on the card and raises without one; ``device="cpu"``
 runs its plain version.  Everything else keeps the reference's names,
-signatures and wire, with one departure in how the wire is read: a
+signatures and wire, with two departures.  One is how the wire is read: a
 block's per-packet acks are read on a second thread while its packets
 are sent (``proto/datatransfer.AckPump``, the DFSOutputStream
 ResponseProcessor role), where the reference reads them all after the
-last packet.  The bytes on the wire are the same.
+last packet.  The bytes on the wire are the same.  The other: the
+leases of a client's open writes are renewed on a timer
+(``LeaseRenewer``), where the reference renews only between blocks.
 
 Re-expression of the reference's client stack — DistributedFileSystem ->
 DFSClient (DFSClient.java:204; open :967, create :1116), DFSOutputStream +
@@ -40,6 +42,7 @@ client:
 from __future__ import annotations
 
 import collections
+import contextlib
 import socket
 import threading
 import time
@@ -53,6 +56,79 @@ from hdrf_tpu_torch.utils import metrics, qos, retry, rollwin, tracing
 
 _M = metrics.registry("client")
 _TR = tracing.tracer("client")
+
+
+class LeaseRenewer:
+    """Renews a client's leases on a timer while any of its writes is open
+    (HDFS's LeaseRenewer thread, which renews every half soft limit): one
+    daemon thread per client, started by the first write and stopped by
+    ``HdrfClient.close``.  It sends the reference's ``renew_lease`` RPC,
+    so the NameNode and the wire are unchanged.
+
+    A departure from the reference, whose client renews only between two
+    blocks of a write: there a block that takes longer than the
+    NameNode's lease expiry (``LeaseManager.expiry_s``, 60 s) loses the
+    file to lease recovery.  Here the lease is renewed every
+    ``INTERVAL_S`` while the block is still streaming.  A failed renewal
+    is counted (``client.lease_renew_failures``) and retried at the next
+    interval."""
+
+    INTERVAL_S = 20.0   # a third of the NameNode's 60 s expiry
+
+    def __init__(self, client: "HdrfClient"):
+        self._c = client
+        self._cv = threading.Condition()
+        self._open = 0
+        self._closed = False
+        self._thread: threading.Thread | None = None
+
+    def begin(self) -> None:
+        """A write of the client opened: renew from now on."""
+        with self._cv:
+            self._open += 1
+            if self._thread is None and not self._closed:
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True,
+                    name=f"{self._c.name}-lease-renewer")
+                self._thread.start()
+            self._cv.notify_all()
+
+    def end(self) -> None:
+        """A write of the client completed or was abandoned."""
+        with self._cv:
+            self._open -= 1
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+
+    def _loop(self) -> None:
+        due = None   # when the next renewal is due; None while no write
+        with self._cv:
+            while not self._closed:
+                if not self._open:
+                    due = None
+                    self._cv.wait()
+                    continue
+                now = time.monotonic()
+                if due is None:
+                    due = now + self.INTERVAL_S
+                if now < due:
+                    self._cv.wait(due - now)
+                    continue
+                due = now + self.INTERVAL_S
+                self._cv.release()
+                try:
+                    self._c._call("renew_lease", client=self._c.name)
+                    _M.incr("lease_renewals")
+                except Exception:  # noqa: BLE001 — the thread must live
+                    _M.incr("lease_renew_failures")
+                finally:
+                    self._cv.acquire()
 
 
 class HdrfClient:
@@ -95,6 +171,7 @@ class HdrfClient:
         # as the mirror plane's per-peer hedge windows).
         self._read_lat = rollwin.RollingWindow(window_s=300.0, maxlen=128)
         self._dtoken: dict | None = None
+        self._renewer = LeaseRenewer(self)
         if self.config.use_delegation_tokens:
             self._dtoken = self._nn.call("get_delegation_token",
                                          renewer=self.name, owner=self.name)
@@ -198,10 +275,20 @@ class HdrfClient:
         return out
 
     def close(self) -> None:
+        self._renewer.close()
         if self._sc_cache is not None:
             self._sc_cache.close()
             self._sc_cache = None
         self._nn.close()
+
+    @contextlib.contextmanager
+    def _lease_held(self):
+        """Keep the lease renewer running around one write."""
+        self._renewer.begin()
+        try:
+            yield
+        finally:
+            self._renewer.end()
 
     def __enter__(self) -> "HdrfClient":
         return self
@@ -436,7 +523,8 @@ class HdrfClient:
         """Write a whole file (the put path, §3.1 of SURVEY.md).  ``ec`` is an
         erasure-coding policy name ('rs-6-3-64k'): the file is cell-striped
         over k+m DataNodes instead of replicated (client/striped.py)."""
-        with self._op_deadline(), _TR.span("write") as sp:
+        with self._op_deadline(), self._lease_held(), \
+                _TR.span("write") as sp:
             sp.annotate("path", path)
             sp.annotate("bytes", len(data))
             if ec is not None:
@@ -458,19 +546,11 @@ class HdrfClient:
             block_size = info["block_size"]
             lengths: dict[int, int] = {}
             off = 0
-            import time as _t
-
-            last_renew = _t.monotonic()
-            while True:
+            while True:   # the lease renewer keeps the lease meanwhile
                 block = data[off:off + block_size]
                 bid = self._write_block(path, block)
                 lengths[bid] = len(block)
                 off += block_size
-                # LeaseRenewer analog: time-based, at 1/3 of the 60 s lease
-                # expiry — a slow write must not outlive its lease
-                if _t.monotonic() - last_renew > 20.0:
-                    self._call("renew_lease", client=self.name)
-                    last_renew = _t.monotonic()
                 if off >= len(data):
                     break
             self._complete(path, lengths)
@@ -485,7 +565,7 @@ class HdrfClient:
         own old chunks), full blocks are appended as usual."""
         if not data:
             return
-        with _TR.span("append") as sp:
+        with self._lease_held(), _TR.span("append") as sp:
             sp.annotate("path", path)
             info = self._call("append", path=path, client=self.name)
             block_size = info["block_size"]
@@ -917,8 +997,7 @@ class HdrfOutputStream:
         self._seqno = 0
         self._flushed_in_block = False
         self._closed = False
-        import time as _t
-        self._last_renew = _t.monotonic()
+        client._renewer.begin()   # until close or abort
 
     # ------------------------------------------------------------- pipeline
 
@@ -1016,11 +1095,6 @@ class HdrfOutputStream:
 
     def write(self, data: bytes) -> None:
         assert not self._closed, "stream closed"
-        import time as _t
-
-        if _t.monotonic() - self._last_renew > 20.0:
-            self._c._call("renew_lease", client=self._c.name)
-            self._last_renew = _t.monotonic()
         off = 0
         while off < len(data):
             room = self._bs - len(self._block)
@@ -1064,6 +1138,7 @@ class HdrfOutputStream:
             self._retryable(self._finish_block)
         self._c._complete(self._path, self._lengths)
         self._closed = True
+        self._c._renewer.end()
         _M.incr("files_written")
 
     def abort(self) -> None:
@@ -1072,6 +1147,8 @@ class HdrfOutputStream:
         replica) and the dangling lease is left for lease recovery — the
         DFSOutputStream.abort analog."""
         self._teardown()
+        if not self._closed:
+            self._c._renewer.end()
         self._closed = True
 
     def __enter__(self) -> "HdrfOutputStream":

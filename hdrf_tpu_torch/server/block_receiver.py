@@ -41,6 +41,7 @@ pipeline refactor are measured by.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import socket
 import threading
@@ -96,6 +97,29 @@ def _connect(addr: list | tuple, dn=None, block_id: int | None = None,
 class BlockReceiver:
     def __init__(self, dn: "DataNode"):
         self._dn = dn
+        # block id -> [lock, holders]: pushes of one block ingest in turn
+        self._ingests: dict[int, list] = {}
+        self._ingests_lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def _one_ingest(self, block_id: int):
+        """Hold the block's ingest lock.  Two sources may push one block
+        at once (a re-sent ``replicate`` and the first push, or two
+        sources commanded in turn); the reference lets both look up,
+        append and commit, which counts the block's chunk references
+        twice.  Here the second waits for the first and then finds the
+        replica held."""
+        with self._ingests_lock:
+            slot = self._ingests.setdefault(block_id, [threading.Lock(), 0])
+            slot[1] += 1
+        try:
+            with slot[0]:
+                yield
+        finally:
+            with self._ingests_lock:
+                slot[1] -= 1
+                if not slot[1]:
+                    del self._ingests[block_id]
 
     def _note_peer(self, target: dict, seconds: float, nbytes: int) -> None:
         """Record a downstream-transfer latency sample for slow-peer
@@ -696,6 +720,43 @@ class BlockReceiver:
         fault_injection.point("block_receiver.ingest_reduced",
                               block_id=block_id, gen_stamp=gen_stamp,
                               dn_id=dn.dn_id)
+        # one ingest of a block at a time: a second push of the block
+        # waits here, then finds the replica held (``_store_reduced``)
+        with self._one_ingest(block_id):
+            meta, stored = self._store_reduced(sock, dn, block_id, gen_stamp,
+                                               scheme_name, logical_len,
+                                               crcs, cchunk, hashes)
+        with profiler.phase("ack"):
+            dn.notify_block_received(block_id, meta.logical_len,
+                                     meta.gen_stamp)
+        # a full replica supersedes any coded segments held for the block
+        # (re-push upgrade path of the partial-replica lifecycle)
+        dn.mirror.on_full_replica(block_id)
+        status = dt.ACK_SUCCESS
+        failed_dn = None
+        if targets:  # relay down the chain
+            try:
+                failed_dn = self.push_reduced(block_id, gen_stamp,
+                                              scheme_name, logical_len,
+                                              stored, list(crcs), targets)
+            except (OSError, ConnectionError, retry.DeadlineExceeded) as e:
+                failed_dn = getattr(e, "dn_id", None) \
+                    or targets[0].get("dn_id")
+                self._note_mirror_failure(
+                    self._target_named(targets, failed_dn), block_id, e)
+        with profiler.phase("ack"):
+            # per-hop status frame ahead of the fixed 9-byte ack: carries
+            # the failing downstream dn_id so upstream hops (and
+            # ultimately the primary's outlier feed) blame the ACTUAL
+            # broken peer, not targets[0]
+            send_frame(sock, {"status": int(status), "failed_dn": failed_dn})
+            dt.send_ack(sock, 0, status)
+
+    def _store_reduced(self, sock, dn, block_id, gen_stamp, scheme_name,
+                       logical_len, crcs, cchunk, hashes):
+        """Negotiate, receive and store one pushed replica; returns its
+        meta and the bytes a non-dedup scheme stored (relayed as they
+        are).  Runs under ``_one_ingest(block_id)``."""
         existing = dn.replicas.get_meta(block_id)
         if existing is not None and existing.gen_stamp > gen_stamp:
             # stale-generation push (a re-push raced a pipeline-recovery
@@ -707,8 +768,9 @@ class BlockReceiver:
                           f"{existing.gen_stamp} for block {block_id}")
         # the replica is already here at this generation: a ``replicate``
         # the NameNode sent again (its pending timeout passed before the
-        # first push's IBR counted), or two sources pushing in turn.  It
-        # is acknowledged and reported again; the reference commits the
+        # first push's IBR counted), or two sources pushing in turn or at
+        # once (the later one waited in ``_one_ingest``).  It is
+        # acknowledged and reported again; the reference commits the
         # block's chunk references a second time and then fails on
         # create_rbw (FileExistsError).
         held = (existing is not None and existing.gen_stamp == gen_stamp
@@ -767,28 +829,4 @@ class BlockReceiver:
                 else:
                     writer.abort()
                 raise
-        with profiler.phase("ack"):
-            dn.notify_block_received(block_id, meta.logical_len,
-                                     meta.gen_stamp)
-        # a full replica supersedes any coded segments held for the block
-        # (re-push upgrade path of the partial-replica lifecycle)
-        dn.mirror.on_full_replica(block_id)
-        status = dt.ACK_SUCCESS
-        failed_dn = None
-        if targets:  # relay down the chain
-            try:
-                failed_dn = self.push_reduced(block_id, gen_stamp,
-                                              scheme_name, logical_len,
-                                              stored, list(crcs), targets)
-            except (OSError, ConnectionError, retry.DeadlineExceeded) as e:
-                failed_dn = getattr(e, "dn_id", None) \
-                    or targets[0].get("dn_id")
-                self._note_mirror_failure(
-                    self._target_named(targets, failed_dn), block_id, e)
-        with profiler.phase("ack"):
-            # per-hop status frame ahead of the fixed 9-byte ack: carries
-            # the failing downstream dn_id so upstream hops (and
-            # ultimately the primary's outlier feed) blame the ACTUAL
-            # broken peer, not targets[0]
-            send_frame(sock, {"status": int(status), "failed_dn": failed_dn})
-            dt.send_ack(sock, 0, status)
+        return meta, stored

@@ -49,6 +49,12 @@ from typing import Any
 
 from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import NameNodeConfig
+# imported with the module, never under the namesystem lock: its first
+# import loads torch (about 2 s on an idle 8-core host), and the monitor
+# parses EC policies under the lock (``_check_ec_groups``), so a lazy
+# first import there held every heartbeat and lifeline past the
+# dead-node verdict (the reference imports it lazily, loading JAX)
+from hdrf_tpu_torch.ops import rs
 from hdrf_tpu_torch.proto.rpc import RpcError, RpcServer, packb, unpackb
 from hdrf_tpu_torch.server import permissions as perm
 from hdrf_tpu_torch.server.editlog import EditLog
@@ -1530,7 +1536,6 @@ class NameNode:
             replication = replication or self.config.replication
             scheme = scheme or "direct"
             if ec is not None:
-                from hdrf_tpu_torch.ops import rs
                 rs.parse_policy(ec)  # validate before logging
             parent, name = self._parent_of(path, create=True)
             existing = parent.get(name)
@@ -1608,7 +1613,6 @@ class NameNode:
     def rpc_add_block_group(self, path: str, client: str) -> dict:
         """Allocate one EC block group: k+m internal blocks on k+m distinct
         DNs (DFSStripedOutputStream's block-group allocation analog)."""
-        from hdrf_tpu_torch.ops import rs
 
         with self._lock:
             node = self._file(path)
@@ -4257,7 +4261,6 @@ class NameNode:
     def _check_ec_groups(self, now: float) -> None:
         """Schedule EC reconstruction for lost internal blocks
         (BlockManager's DNA_ERASURE_CODING_RECONSTRUCTION path, §3.5)."""
-        from hdrf_tpu_torch.ops import rs
 
         for grp in self._groups.values():
             info0 = self._blocks.get(grp.group_id)

@@ -129,7 +129,8 @@ def test_port_tree_is_clean():
     assert port_lint.check_fault_points(PORT_ROOT) == []
     names = port_lint.declared_metrics(PORT_ROOT)
     port_only = {"demotes_already_striped", "emits", "demote_open_sealed",
-                 "replicate_source_missing", "replicas_already_held"}
+                 "replicate_source_missing", "replicas_already_held",
+                 "lease_renewals", "lease_renew_failures"}
     assert port_only <= set(names)
     assert port_lint.port_only_metrics(os.path.join(REPO, "README.md")) \
         == port_only

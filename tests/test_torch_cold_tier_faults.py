@@ -1,7 +1,7 @@
 """The faults of the cold-tier command path, each pinned without timing.
 
 A NameNode's ``replicate`` and ``stripe_demote`` commands reach a
-DataNode in its heartbeat reply.  Four ways that path failed, each built
+DataNode in its heartbeat reply.  Five ways that path failed, each built
 here directly (no cluster, no sleeps) on both packages' DataNodes, with
 the reference's outcome asserted beside the port's:
 
@@ -24,7 +24,13 @@ the reference's outcome asserted beside the port's:
   acknowledges it and leaves its index as it was;
 - a ``replicate`` sent to a source without the replica: the reference
   returns with no trace; the port counts ``replicate_source_missing`` and
-  sends a full block report, so the NameNode drops the location.
+  sends a full block report, so the NameNode drops the location;
+- two sources pushing one block to one target at once (two ``write_reduced``
+  streams built here, interleaved at the need frame): the reference's
+  target commits the block twice (every refcount doubled) and refuses the
+  second replica; the port's runs one ingest of a block at a time
+  (``BlockReceiver._one_ingest``), so the second push finds the replica
+  held and is acknowledged.
 
 One pass of a DataNode's heartbeat loop runs in the test's own thread
 (``one_heartbeat``): the DataNodes are started with an hour's heartbeat
@@ -278,4 +284,117 @@ def test_refused_block_report_leaves_the_heartbeat_loop_running(tmp_path,
             assert [r[0] for r in nn.reports["dn-a"]] == [1]
     finally:
         dn.stop()
+        nn.stop()
+
+
+class _Push:
+    """One ``write_reduced`` push of a block held by ``src`` to ``dst``,
+    as ``BlockReceiver.push_reduced`` sends it, split at the need frame
+    so that a test can interleave two pushes."""
+
+    def __init__(self, src, dst, bid: int) -> None:
+        from hdrf_tpu_torch.proto import datatransfer as dt
+
+        self.dt, self.src, self.bid = dt, src, bid
+        self.entry = src.index.get_block(bid)
+        meta = src.replicas.get_meta(bid)
+        self.sock = socket.create_connection(tuple(dst.addr), timeout=60.0)
+        dt.send_op(self.sock, "write_reduced", block_id=bid,
+                   gen_stamp=meta.gen_stamp, scheme=meta.scheme,
+                   logical_len=meta.logical_len,
+                   checksums=list(meta.checksums),
+                   checksum_chunk=src.checksum_chunk,
+                   token=src.tokens.mint(bid, "w"),
+                   hashes=self.entry.hashes, targets=[])
+        self.need = None
+        self.ack = None
+
+    def read_need(self) -> None:
+        from hdrf_tpu_torch.proto.rpc import recv_frame
+
+        self.need = list(recv_frame(self.sock)["need"])
+
+    def finish(self) -> None:
+        """Send the needed chunks; ``ack`` is the target's status (None
+        if it closed the connection)."""
+        from hdrf_tpu_torch.proto.rpc import recv_frame
+
+        uniq = list(dict.fromkeys(self.entry.hashes))
+        hashes = [uniq[i] for i in self.need]
+        locs = self.src.index.lookup_chunks(hashes)
+        chunks = self.src.containers.read_chunks(
+            [(locs[h].container_id, locs[h].offset, locs[h].length)
+             for h in hashes])
+        try:
+            for seq, chunk in enumerate(chunks):
+                self.dt.write_packet(self.sock, seq, chunk)
+            self.dt.write_packet(self.sock, len(chunks), b"", last=True)
+            recv_frame(self.sock)
+            self.ack = self.dt.read_ack(self.sock)[1]
+        except (ConnectionError, OSError):
+            self.ack = None
+        finally:
+            self.sock.close()
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_two_concurrent_pushes_of_one_block(tmp_path, pkg):
+    """Two sources push block 7 (same generation, same bytes) to one
+    target at once: the second push starts while the first is between
+    its need frame and its chunks.  The reference's target answers both
+    need frames with every chunk, commits the block twice (each refcount
+    doubled) and refuses the second replica (``FileExistsError``:
+    ``op_io_errors``).  The port's target holds the second push until the
+    first has stored the replica, then answers it an empty need list and
+    acknowledges it (``replicas_already_held``): one commit, refcounts as
+    the sources have them, both pushes acknowledged."""
+    nn = StandInNN()
+    a1 = _dn(pkg, tmp_path, nn, "dn-a1")
+    a2 = _dn(pkg, tmp_path, nn, "dn-a2")
+    b = _dn(pkg, tmp_path, nn, "dn-b")
+    try:
+        data = _data(7)
+        for src in (a1, a2):
+            assert write_ok(write_block(src.addr, 7, data), data)
+        refs = _refcounts(a1, 7)
+        assert refs == _refcounts(a2, 7)
+        c0 = _counts(pkg)
+        p1 = _Push(a1, b, 7)
+        p1.read_need()
+        p2 = _Push(a2, b, 7)
+        asked, p1_done = threading.Event(), threading.Event()
+
+        def second():
+            p2.read_need()
+            asked.set()
+            p1_done.wait(60.0)   # p2's chunks go after p1's ack
+            p2.finish()
+        t2 = threading.Thread(target=second, daemon=True)
+        t2.start()
+        # the reference answers p2's need at once, the port only after p1
+        assert asked.wait(5.0 if pkg == "ref" else 1.0) is (pkg == "ref")
+        p1.finish()
+        p1_done.set()
+        t2.join(timeout=60.0)
+        assert not t2.is_alive()
+        assert b.await_xceivers(30.0)
+        uniq = len(dict.fromkeys(a1.index.get_block(7).hashes))
+        assert p1.need == list(range(uniq)) and p1.ack == 0
+        got = _delta(c0, _counts(pkg), "op_io_errors",
+                     "br.replicas_already_held")
+        if pkg == "ref":
+            assert p2.need == p1.need and p2.ack is None
+            assert got == {"op_io_errors": 1, "br.replicas_already_held": 0}
+            assert _refcounts(b, 7) == [2 * r for r in refs]
+        else:
+            assert p2.need == [] and p2.ack == 0
+            assert got == {"op_io_errors": 0, "br.replicas_already_held": 1}
+            assert _refcounts(b, 7) == refs
+        meta = b.replicas.get_meta(7)
+        assert (meta.gen_stamp, meta.logical_len) == (1, len(data))
+        assert [ibr[0] for ibr in nn.ibrs_of("dn-b")].count(7) == \
+            (1 if pkg == "ref" else 2)
+    finally:
+        for dn in (b, a2, a1):
+            dn.stop()
         nn.stop()

@@ -14,7 +14,10 @@ port NameNode in place of the reference's.  Reference DataNodes get the
 port's tolerance of two reference faults for the flow
 (``_dn_standin.guard_reference_stat_race`` and
 ``guard_reference_report_refusal``: a refused full report ends the
-reference's heartbeat thread).
+reference's heartbeat thread).  Before it stops a stripe holder the flow
+waits until every ``stripe_demote`` sent has run (``Cluster.settle``), and
+a wait that times out prints the cluster's state
+(``Cluster.diagnostics``).
 
 Also here: the port DataNode's flight archive and ``flight_timeseries``
 reply against the reference DataNode's.
@@ -23,6 +26,7 @@ reply against the reference DataNode's.
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -35,13 +39,26 @@ from _dn_standin import (StandInNN, guard_reference_report_refusal,
 BLOCK = 256 << 10
 
 
-def _wait(pred, timeout=60.0, interval=0.1, msg="condition"):
+def _wait(pred, timeout=60.0, interval=0.1, msg="condition", detail=None):
+    """Poll ``pred``; a timeout names ``msg`` and, with ``detail``, the
+    cluster's state then (``Cluster.diagnostics``)."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if pred():
             return
         time.sleep(interval)
-    raise AssertionError(f"timed out waiting for {msg}")
+    more = "" if detail is None else f"; {detail()}"
+    raise AssertionError(f"timed out waiting for {msg}{more}")
+
+
+NN_WATCH = ("dn_declared_dead", "dn_registered", "lifelines",
+            "replications_scheduled", "excess_replicas_pruned",
+            "ec_demotions_scheduled", "blocks_ec_demoted",
+            "stripe_repairs_scheduled", "monitor_errors")
+DN_WATCH = ("heartbeat_failures", "command_errors", "op_io_errors",
+            "op_errors", "block_report_failures", "blocks_replicated",
+            "blocks_invalidated", "replicate_source_missing",
+            "lifelines_sent")
 
 
 class Cluster:
@@ -58,6 +75,16 @@ class Cluster:
             block_size=BLOCK, heartbeat_interval_s=0.2,
             dead_node_interval_s=1.5, ec_data_shards=3,
             ec_parity_shards=2, ec_demote_after_s=0.0)).start()
+        # heartbeats received, by DataNode (``settle``)
+        self._beats: dict[str, int] = {}
+        self._beats_lock = threading.Lock()
+        beat = self.nn.rpc_heartbeat
+
+        def counted(dn_id, *a, **kw):
+            with self._beats_lock:
+                self._beats[dn_id] = self._beats.get(dn_id, 0) + 1
+            return beat(dn_id, *a, **kw)
+        self.nn.rpc_heartbeat = counted
         self.dns = [self._dn(i) for i in range(n)]
         _wait(lambda: len(self.nn._datanodes) == n, msg="registration")
 
@@ -78,6 +105,50 @@ class Cluster:
     def live_locations(self, c, path: str) -> list[set]:
         return [{loc["dn_id"] for loc in b["locations"]}
                 for b in c._call("get_block_locations", path=path)["blocks"]]
+
+    def settle(self, cmd: str) -> None:
+        """Wait until no ``cmd`` command is queued at the NameNode and each
+        running DataNode has sent two heartbeats since: a DataNode runs
+        the commands of a heartbeat's reply before it sends the next, so
+        every ``cmd`` sent to it has then run."""
+        def queued() -> bool:
+            with self.nn._lock:
+                return any(x.get("cmd") == cmd
+                           for d in self.nn._datanodes.values()
+                           for x in d.commands)
+        _wait(lambda: not queued(), msg=f"{cmd} commands delivered",
+              detail=self.diagnostics)
+        with self._beats_lock:
+            mark = dict(self._beats)
+        running = [dn.dn_id for dn in self.dns if dn is not None]
+
+        def beaten() -> bool:
+            with self._beats_lock:
+                return all(self._beats.get(d, 0) >= mark.get(d, 0) + 2
+                           for d in running)
+        _wait(beaten, msg=f"{cmd} commands run", detail=self.diagnostics)
+
+    def diagnostics(self) -> dict:
+        """What a timed-out wait reports: the NameNode's scheduling
+        counters and EC census, the DataNodes' command and heartbeat
+        counters (each package's registry), which DataNodes it holds, and
+        every block's locations."""
+        from hdrf_tpu_torch.utils import metrics as port_metrics
+        if self.dn_pkg == "port":
+            dn_metrics = port_metrics
+        else:
+            from hdrf_tpu.utils import metrics as dn_metrics
+        nn_c = port_metrics.registry("namenode").snapshot()["counters"]
+        dn_c = dn_metrics.registry("datanode").snapshot()["counters"]
+        with self.nn._lock:
+            blocks = {bid: sorted(i.locations)
+                      for bid, i in self.nn._blocks.items()}
+            live = sorted(self.nn._datanodes)
+        return {"namenode": {k: nn_c.get(k, 0) for k in NN_WATCH},
+                "datanode": {k: dn_c.get(k, 0) for k in DN_WATCH},
+                "ec_status": self.nn.rpc_ec_status(), "live": live,
+                "running": [dn.dn_id for dn in self.dns if dn is not None],
+                "locations": blocks}
 
     def stop(self) -> None:
         for dn in self.dns:
@@ -135,18 +206,19 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
                 files["/w/a"][300_001:377_778]
             _wait(lambda: all(len(s) == 3 for p in files
                               for s in cl.live_locations(c, p)),
-                  msg="three replicas of every block")
+                  msg="three replicas of every block", detail=cl.diagnostics)
 
             # ---- re-replication ----------------------------------------
             victim = sorted(cl.live_locations(c, "/w/a")[0])[0]
             vi = int(victim.split("-")[1])
             cl.dns[vi].stop()
             cl.dns[vi] = None
-            _wait(lambda: victim not in nn._datanodes, msg="dead node")
+            _wait(lambda: victim not in nn._datanodes, msg="dead node",
+                  detail=cl.diagnostics)
             _wait(lambda: all(len(s) == 3 and victim not in s
                               for p in files
                               for s in cl.live_locations(c, p)),
-                  msg="re-replication")
+                  msg="re-replication", detail=cl.diagnostics)
             for p, data in files.items():
                 assert c.read(p) == data
 
@@ -156,22 +228,28 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
             # nothing sealed to stripe and stays replicated, as in the
             # reference)
             _wait(lambda: c._call("ec_status")["demoted_blocks"] >= 2,
-                  msg="demotion")
+                  msg="demotion", detail=cl.diagnostics)
             _wait(lambda: c._call("ec_status")["striped_containers"] >= 1,
-                  msg="striped-container census")
-            demoted = set(nn._ec_demoted)
+                  msg="striped-container census", detail=cl.diagnostics)
             # no demotion is scheduled from here on: a block demoted after
             # the stripe owners are read below (a reference DataNode
             # re-commanded after skipping a container still sealing) could
             # make the holder stopped there its owner and only replica
             nn.config.ec_demote_after_s = 0.0
+            # nor may one sent before still be running: its DataNode
+            # becomes that block's owner and only replica when it ends
+            # (seen under load: "block 1 has no live locations" at the
+            # last read)
+            cl.settle("stripe_demote")
+            demoted = set(nn._ec_demoted)
 
             def owner_only():
                 return all(len(b["locations"]) == 1 for p in files
                            for b in c._call("get_block_locations",
                                             path=p)["blocks"]
                            if b["block_id"] in demoted)
-            _wait(owner_only, msg="replicas invalidated down to the owner")
+            _wait(owner_only, msg="replicas invalidated down to the owner",
+                  detail=cl.diagnostics)
             for p, data in files.items():
                 assert c.read(p) == data
 
@@ -192,11 +270,11 @@ def _cluster_flow(tmp_path, monkeypatch, dn_pkg, HdrfClient) -> None:
             cl.dns[li].stop()
             cl.dns[li] = None
             _wait(lambda: reg.counter("stripes_repaired") > repaired0,
-                  timeout=90.0, msg="stripe repair")
+                  timeout=90.0, msg="stripe repair", detail=cl.diagnostics)
             _wait(lambda: all(h[0] != lost
                               for m in owner.index.stripe_manifests()
                               .values() for h in m["holders"]),
-                  msg="holders re-registered")
+                  msg="holders re-registered", detail=cl.diagnostics)
             for p, data in files.items():
                 assert c.read(p) == data
             assert c._call("ec_status")["demoted_blocks"] >= len(demoted)
@@ -260,3 +338,48 @@ def test_flight_archive_matches_reference(tmp_path):
         for dn in dns.values():
             dn.stop()
         nn.stop()
+
+
+_TICK_SCRIPT = r"""
+import json, sys, tempfile
+sys.path.insert(0, {tests!r})
+from _nn_standin import MONITOR_TICK, close_unstarted
+from {pkg}.config import NameNodeConfig
+from {pkg}.server.namenode import NameNode
+
+nn = NameNode(NameNodeConfig(meta_dir=tempfile.mkdtemp(), port=0))
+before = set(sys.modules)
+for name in MONITOR_TICK:
+    getattr(nn, name)()
+close_unstarted(nn)
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_monitor_tick_imports_nothing(tmp_path, pkg):
+    """The NameNode monitor's body holds the namesystem lock, which every
+    heartbeat, lifeline and client call also takes.  Run once in a fresh
+    process, the reference's imports ``hdrf_tpu.ops.rs`` there
+    (``_check_ec_groups``), loading JAX; the port's first import of its
+    ``ops/rs`` loaded torch there, about 2 s on an idle host and past
+    the cluster flow's 1.5 s dead-node verdict under the test suite's
+    load (every DataNode stale at once: ``no datanodes available``).
+    The port's monitor imports nothing."""
+    import json
+    import subprocess
+    import sys
+
+    name = "hdrf_tpu" if pkg == "ref" else "hdrf_tpu_torch"
+    script = _TICK_SCRIPT.format(tests=os.path.dirname(__file__), pkg=name)
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu",
+                              "PYTHONPATH": os.path.dirname(
+                                  os.path.dirname(os.path.abspath(__file__)))})
+    assert out.returncode == 0, out.stderr[-2000:]
+    imported = json.loads(out.stdout.strip().splitlines()[-1])
+    if pkg == "ref":
+        assert "hdrf_tpu.ops.rs" in imported and "jax" in imported
+    else:
+        assert imported == []
