@@ -186,9 +186,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mirroring, the chunk delta down the chain): the first two blocks of
    a three-block ``reduce`` corpus (random 1 MiB segments with copies),
    one on each of 2 concurrent streams (the reference harness's ``dfs
-   --pipeline-ab --streams 4``, its depth cut to two blocks to keep the
-   smoke inside its time with the RESILIENCE phase).  The write
-   kernels' launches (zeroed before) are > 0, the coalescer ran groups, no seal fell back to the host codec
+   --pipeline-ab --streams 4``, cut to two blocks: at four, with
+   RESILIENCE, the smoke took 1,083.5 s against its 1,050 s target on
+   the H100, PERF.md PR 16).  The write kernels' launches (zeroed
+   before) are > 0, the coalescer ran groups, no seal fell back to the host codec
    (``worker_fallbacks`` 0); every block is read back from all three
    with ``READ_BLOCK`` and equals the bytes written, ``BLOCK_CHECKSUM``
    equals ``native.crc32c_chunks`` of them, and each DataNode's IBRs
@@ -196,9 +197,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    client clock, aggregate MiB/s, the phase ms a block from the
    BlockTimelines of the primary and of each mirror's ingest, the dedup
    ratio, each mirror leg's chunk-delta bytes against the logical, the
-   coalescer's groups and mean size, launches a block).  Two more blocks
-   under the profiler (``PROFILE datanode_write``), then their IBRs on
-   all three and a read from DN3.  A failed mirror leg still acks the
+   coalescer's groups and mean size, launches a block).  One more block
+   under the profiler (``PROFILE datanode_write``; two until PR 16, cut
+   for the smoke's time), then its IBRs on all three and a read from
+   DN3.  A failed mirror leg still acks the
    client (pipeline recovery), so every pass also holds the DataNodes'
    failure counters (``DN_FAULTS``: failed legs, worker fallbacks, op
    and IBR errors, blocks lost at start, coded fallbacks, segment and
@@ -340,11 +342,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    file decodes to its payload); a third block's WAL append crashed
    (``index.wal_append``: the index unchanged) and retried; the index
    closed and reopened equal, all three blocks read back (``RESILIENCE
-   crash``).  The worker's launches are counted from its ``traces``
-   ledger (a ``resident.cdc`` dispatch a block: the scan and the
-   select; ``resident.sha``: two pad gathers and SHA-256; ``lz4.scan``
-   or ``lz4.rescan`` a container: the word image, the match deltas and
-   five row sorts), (c)'s by the wrappers' counters; each must be > 0.
+   crash``).  The worker's launches in (a) and in (b) are the change
+   of its wrappers' counters (``kernel_launches`` in its ``stats``
+   reply) across each part, (c)'s the change of this process's; each
+   reduce and seal kernel must launch in each part (the worker's ledger
+   dispatches by op are printed beside them).
 16. BENCH, the port's nine harnesses (hdrf_tpu_torch/benchmarks.py)
    through ``benchmarks.main(argv)`` in this process on the card, their
    standard output captured: ``reduction`` and ``cdc`` at ``--mb 128``
@@ -369,7 +371,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``rs`` entry with the scrubber's ``scrub_launches`` and
    ``scrub_max_abs_err``, every entry with its ``bench_launches`` and
    RESILIENCE's ``resilience_launches`` (in this process, (c)) and
-   ``resilience_worker_launches`` (the worker's ledger, (a) and (b))),
+   ``resilience_worker_launches`` (the worker's counters, (a) and (b))),
    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 kernel_times.py times the scans, the select, SHA-256, the match deltas,
@@ -427,7 +429,8 @@ from hdrf_tpu_torch.parallel import launch, sharded
 from hdrf_tpu_torch.proto.datatransfer import DEFAULT_PACKET
 from hdrf_tpu_torch.reduction import scheme as ops_scheme
 from hdrf_tpu_torch.server.reduction_worker import (ReductionWorker,
-                                                    WorkerClient)
+                                                    WorkerClient,
+                                                    kernel_launches)
 from hdrf_tpu_torch.utils import metrics, profiler
 
 HBM_BYTES_PER_S = 3.35e12
@@ -1710,14 +1713,7 @@ RAW_KERNELS = ("gather_raw_kernel",)
 
 
 def _scheme_launch_counts() -> dict:
-    return {"cdc_scan": cdc_cuda.scan_launches,
-            "cdc_select": cdc_cuda.select_launches,
-            "gather_pad": gather_cuda.launches,
-            "sha256": sha256_cuda.launches,
-            "match_deltas": sort_cuda.match_deltas_launches,
-            "sort_rows": sort_cuda.sort_rows_launches,
-            "be_image": cdc_cuda.image_launches,
-            "gather_raw": gather_cuda.raw_launches}
+    return kernel_launches()
 
 
 def _zero_launch_counts() -> None:
@@ -2574,8 +2570,9 @@ DN_WRITE_KERNELS = ("cdc_scan", "cdc_select", "gather_pad", "sha256",
 DN_PHASES = ("recv", "checksum", "pipeline_submit", "device_wait",
              "dedup_lookup", "wal_commit", "container_io", "mirror_stream",
              "ack")
-DN_STREAMS = 4          # the reference harness's dfs --pipeline-ab --streams 4
-DN_BLOCKS = 2           # one block a stream: the depth cut to keep the time
+# one block a stream: the reference harness's dfs --pipeline-ab --streams
+# 4, cut to two to keep the smoke inside its 1,050 s target
+DN_STREAMS = 2
 # counters of work a DataNode lost or degraded while answering success (a
 # mirror leg that failed still acks the client, as pipeline recovery does)
 DN_FAULTS = {"block_receiver": ("mirror_failures", "worker_fallbacks",
@@ -2837,7 +2834,7 @@ def datanode_main(root: str, nn, blocks: list, extra: list) -> dict:
     logical = sum(b.size for b in blocks)
     out = {"write": {
         "blocks": len(blocks), "block_mib": blocks[0].size / MIB,
-        "streams": min(DN_STREAMS, len(blocks)), "replication": 3,
+        "streams": DN_STREAMS, "replication": 3,
         "ms_per_block": _stats(ms), "ms_all": ms,
         "aggregate_mib_s": logical / MIB / wall,
         "host_cores_used": cores, "host_cores": os.cpu_count(),
@@ -2884,7 +2881,7 @@ def datanode_main(root: str, nn, blocks: list, extra: list) -> dict:
                                    for i, b in enumerate(extra)],
         len(extra), SCHEME_KERNEL_NAMES)
     _drain(dns)
-    # the profiled blocks landed on every replica, as the first eight did
+    # the profiled block landed on every replica, as the first ones did
     want_ibr += [(1100 + i, b.size, False) for i, b in enumerate(extra)]
     for dn in dns:
         _wait_ibrs(nn, dn.dn_id, want_ibr)
@@ -2998,8 +2995,8 @@ def datanode_phase(args) -> dict:
     # the first blocks of a three-block corpus: random 1 MiB segments
     # with copies (a corpus's last block is text, which the coded pass
     # does not take)
-    blocks = main_path_corpus(args.seed, 3, args.block_mib)[:DN_BLOCKS]
-    extra = main_path_corpus(args.seed + 9, 2, args.block_mib)
+    blocks = main_path_corpus(args.seed, 3, args.block_mib)[:DN_STREAMS]
+    extra = main_path_corpus(args.seed + 9, 2, args.block_mib)[:1]
     nn = SmokeNN()
     out = {}
     try:
@@ -3459,7 +3456,11 @@ def namenode_phase(args, after_demotion=None) -> dict:
             lambda: ec.counter("stripes_repaired") > rep0 and all(
                 h[0] != lost for dn in dns.values()
                 for m in dn.index.stripe_manifests().values()
-                for h in m["holders"]), "stripe_repair of every group")
+                for h in m["holders"]), "stripe_repair of every group",
+            detail=lambda: {"lost": lost, "holders": {
+                d: {c: [h[0] for h in m["holders"]] for c, m in
+                    dn.index.stripe_manifests().items()}
+                for d, dn in dns.items()}})
         dec = _nn_counts()
         check(_nn_counter("stripe_repairs_scheduled") > sched0,
               "NAMENODE: no stripe_repair scheduled")
@@ -4374,20 +4375,7 @@ RES_DATANODES = 3        # the federation cluster: two pools over three
 # one replica a block, for the phase's 70 s budget: at replication 2 a
 # write took 18-25 s and the phase 88-92 s on the H100 (the mirror leg)
 RES_REPLICATION = 1
-RES_WORKER = "auto"      # the worker's backend: the card
-RES_DEVICE = "cuda"      # the clients' device
 RES_SHADOW_S = 30.0      # the lazy writer's shadow, at most
-# the launches one worker ledger dispatch makes, by op (PERF.md section
-# 6): a ``resident.cdc`` dispatch a block runs the scan and the select, a
-# ``resident.sha`` the pad gather of both lane tables and SHA-256; an
-# ``lz4.scan`` (or ``lz4.rescan``) the match scan of one container: the
-# word image, the match deltas and five row sorts
-RES_WORKER_KERNELS = {"resident.cdc": {"cdc_scan": 1, "cdc_select": 1},
-                      "resident.sha": {"gather_pad": 2, "sha256": 1},
-                      "lz4.scan": {"be_image": 1, "match_deltas": 1,
-                                   "sort_rows": 5},
-                      "lz4.rescan": {"be_image": 1, "match_deltas": 1,
-                                     "sort_rows": 5}}
 
 
 class _Boom(Exception):
@@ -4423,14 +4411,14 @@ def _worker_dispatches(worker, since: int) -> dict:
     return out
 
 
-def _worker_launches(disp: dict) -> dict:
-    """The kernels the worker launched, from its ledger dispatches
-    (``RES_WORKER_KERNELS``: launches a block or a container)."""
-    out: dict = {}
-    for op, kernels in RES_WORKER_KERNELS.items():
-        for k, per in kernels.items():
-            out[k] = out.get(k, 0) + per * disp.get(op, [0, 0])[1]
-    return out
+def _worker_kernel_launches(worker) -> dict:
+    """The worker process's kernel launch counters (its ``stats``)."""
+    return worker.stats()["kernel_launches"]
+
+
+def _launches_since(worker, before: dict) -> dict:
+    return {k: n - before[k]
+            for k, n in _worker_kernel_launches(worker).items()}
 
 
 def resilience_federation(args, corpus, mc, worker) -> dict:
@@ -4444,7 +4432,8 @@ def resilience_federation(args, corpus, mc, worker) -> dict:
     faults0 = _dn_faults()
     inv0 = _counter_of("datanode", "blocks_invalidated")
     mark = _ledger_mark(worker)
-    clients = [mc.client(f"smoke-ns{i}", nsi=i, device=RES_DEVICE)
+    k0 = _worker_kernel_launches(worker)
+    clients = [mc.client(f"smoke-ns{i}", nsi=i, device="cuda")
                for i in range(2)]
     try:
         with ThreadPoolExecutor(2) as ex:
@@ -4488,7 +4477,8 @@ def resilience_federation(args, corpus, mc, worker) -> dict:
     return {"seconds": time.perf_counter() - t0, "write_ms": ms,
             "read_ms": read_ms, "pools": [sorted(p) for p in pools],
             "replicas": [len(v) for loc in locs for v in loc.values()],
-            "worker_dispatches": disp}
+            "worker_dispatches": disp,
+            "worker_launches": _launches_since(worker, k0)}
 
 
 def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
@@ -4505,6 +4495,7 @@ def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
     t0 = time.perf_counter()
     faults0 = _dn_faults()
     mark = _ledger_mark(worker)
+    k0 = _worker_kernel_launches(worker)
     bs = args.block_mib * MIB
     data = corpus[1].tobytes()
     mc = MiniCluster(n_datanodes=1, base_dir=root, replication=1,
@@ -4519,7 +4510,7 @@ def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
         ram, disk = (next(v for v in dn.volumes.volumes
                           if (v.storage_type == "RAM_DISK") is want)
                      for want in (True, False))
-        with mc.client("smoke-lazy", device=RES_DEVICE) as c:
+        with mc.client("smoke-lazy", device="cuda") as c:
             c.mkdir("/hot")
             c.set_storage_policy("/hot", "lazy_persist")
             ms = _timed_write(c, "/hot/f", [corpus[1]], scheme="dedup_lz4")
@@ -4545,7 +4536,7 @@ def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
                   v.vol_id for v in dn.volumes.volumes
                   if v.storage_type != "RAM_DISK"),
               "RESILIENCE (b): the restarted DataNode lost the shadow")
-        with mc.client("smoke-lazy2", device=RES_DEVICE) as c:
+        with mc.client("smoke-lazy2", device="cuda") as c:
             t1 = time.perf_counter()
             got = None
             while got is None:
@@ -4564,7 +4555,8 @@ def resilience_lazy_persist(args, corpus, root, worker_addr, worker) -> dict:
         mc.stop()
     return {"seconds": time.perf_counter() - t0, "write_ms": ms[0],
             "shadow_s": shadow_s, "read_after_loss_ms": read_ms,
-            "worker_dispatches": disp}
+            "worker_dispatches": disp,
+            "worker_launches": _launches_since(worker, k0)}
 
 
 def resilience_scheme(args, corpus, root) -> dict:
@@ -4681,13 +4673,13 @@ def resilience_phase(args) -> dict:
                      block_size=args.block_mib * MIB,
                      container_size=SEAL_BYTES, heartbeat_s=1.0,
                      dead_node_s=6.0, nameservices=2, tpu_worker=True,
-                     worker_backend=RES_WORKER)
+                     worker_backend="cuda")
     try:
         mc.start()
         worker = WorkerClient(mc._worker_addr, deadline_s=600)
         ping = worker.ping()
-        check(ping["backend"] == ops_dispatch.resolve_backend(RES_WORKER),
-              f"RESILIENCE: the worker runs on {ping}")
+        check(ping["backend"] == "cuda",
+              f"RESILIENCE: the worker runs on {ping}, not the card")
         out["a"] = resilience_federation(args, corpus, mc, worker)
         print("RESILIENCE federation " + json.dumps(out["a"]), flush=True)
         out["b"] = resilience_lazy_persist(
@@ -4704,13 +4696,14 @@ def resilience_phase(args) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
-    worker_launches = _worker_launches({
-        op: [a + b for a, b in zip(out["a"]["worker_dispatches"].get(
-                 op, [0, 0]), out["b"]["worker_dispatches"].get(op, [0, 0]))]
-        for op in RES_WORKER_KERNELS})
-    for kname, n in worker_launches.items():
-        check(n > 0, f"RESILIENCE: the worker's ledger shows no {kname} "
-                     f"launch")
+    worker_launches = {k: n + out["b"]["worker_launches"][k]
+                       for k, n in out["a"]["worker_launches"].items()}
+    for kname in ("cdc_scan", "cdc_select", "gather_pad", "sha256",
+                  "be_image", "match_deltas", "sort_rows"):
+        for part in ("a", "b"):
+            check(out[part]["worker_launches"][kname] > 0,
+                  f"RESILIENCE ({part}): the worker never launched the "
+                  f"{kname} kernel")
     out["launches"] = {"worker": worker_launches,
                        "in_process": out["c"]["launches"]}
     out["seconds"] = time.perf_counter() - t_phase

@@ -16,7 +16,7 @@ so) with the reference's keys:
              ``--kill-active``.
 - ``dfs``  — DFS write/read MB/s through a MiniCluster per reduction
              scheme (BenchmarkThroughput.java); ``--pipeline-ab``.
-- ``ec``   — RS encode / intact / degraded slopes over the stripe store
+- ``ec``   — RS encode / intact / degraded rates over the stripe store
              (ErasureCodeBenchmarkThroughput.java); ``--repair-ab``.
 - ``reduction`` — the block-reduction funnel, selectable backend.
 - ``cdc``, ``sort``, ``recon``, ``multichip`` — the device front end's
@@ -37,13 +37,15 @@ touches to the plain versions, the MiniCluster's DataNodes
 either device; a line's ``interpret`` (or ``/interp`` tag) is true
 exactly when they ran.
 
-**Timing.**  The reference's slope method: ``T(1)`` and ``T(k)`` for one
-and ``--inner`` back-to-back calls, each averaged over ``--repeats``
-passes, and ``(T(k) - T(1)) / (k - 1)`` divides the fixed per-pass cost
-out; where host noise makes that difference non-positive, ``T(k) / k``
-stands in (``_slope``: the port never prints a non-positive time for a
-leg that ran, where the reference's can).  A pass ends in
-``torch.cuda.synchronize()`` (the reference's dependent readback).  The
+**Timing.**  One method for every timed leg (``_per_call``): after one
+warm call, ``--repeats`` passes of ``--inner`` back-to-back calls, each
+pass ending in ``torch.cuda.synchronize()`` (the reference's dependent
+readback); the time a call is the fastest pass over ``--inner``.  It
+keeps ``1/k`` of a pass's fixed cost (one synchronisation), which the
+reference's slope method, ``(T(k) - T(1)) / (k - 1)``, divides out;
+but a difference of two timings goes to zero or below when the host
+stalls the short pass (other processes on its cores), and a printed
+time is never that: the fastest pass is positive for any leg that ran.  The
 reference salts each iteration's input so XLA cannot merge them; eager
 launches are never merged, so the port calls each kernel on the same
 input.
@@ -119,30 +121,22 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _slope(fn, dev, inner: int, repeats: int) -> float:
-    """Seconds per call of ``fn`` by the slope method (module docstring):
-    ``repeats`` passes of 1 and of ``inner`` calls, each pass ending in a
-    device synchronisation, after one warm call.
-
-    The slope is a difference of two timings, so a host that stalls the
-    pass of one call more than the pass of ``inner`` calls (other
-    processes on its cores) can make it zero or negative.  Then the
-    ``inner`` pass's mean per call is returned instead: an upper bound
-    (it keeps the fixed cost the slope removes), positive for any leg
-    that ran."""
-    def timed(k: int) -> float:
-        fn()                                   # warm: build + page in
-        _sync(dev)
+def _per_call(fn, dev, inner: int, repeats: int) -> float:
+    """Seconds per call of ``fn`` (module docstring, "Timing"): after one
+    warm call, the fastest of ``repeats`` passes of ``inner`` calls, each
+    pass ending in a device synchronisation, over ``inner``.  The fastest
+    pass is the one the host stalled least."""
+    inner, repeats = max(inner, 1), max(repeats, 1)
+    fn()                                       # warm: build + page in
+    _sync(dev)
+    best = float("inf")
+    for _ in range(repeats):
         t0 = time.perf_counter()
-        for _ in range(repeats):
-            for _ in range(k):
-                fn()
-            _sync(dev)
-        return (time.perf_counter() - t0) / repeats
-
-    t1, tk = timed(1), timed(inner)
-    slope = (tk - t1) / (inner - 1) if inner > 1 else t1
-    return slope if slope > 0 else tk / inner
+        for _ in range(inner):
+            fn()
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best / inner
 
 
 def _nn_observer_ab(args) -> None:
@@ -677,10 +671,8 @@ def bench_ec_repair_ab(args) -> None:
     def run_coded():
         return coded_fold(missing, survivors)
 
-    full_mbps = rebuilt / max(_slope(run_full, dev, args.inner, 1),
-                              1e-9) / 2**20
-    coded_mbps = rebuilt / max(_slope(run_coded, dev, args.inner, 1),
-                               1e-9) / 2**20
+    full_mbps = rebuilt / _per_call(run_full, dev, args.inner, 1) / 2**20
+    coded_mbps = rebuilt / _per_call(run_coded, dev, args.inner, 1) / 2**20
 
     # ---- wire ledger (the live path's accounting, stamped in-registry)
     fold, remote_wire = run_coded()
@@ -690,7 +682,7 @@ def bench_ec_repair_ab(args) -> None:
     full_wire = sum(len(survivors[i]) for i in sorted(survivors)[:k])
     coded_exchange.book_repair_wire(remote_wire, rebuilt)
     print(json.dumps({
-        "op": f"ec repair A/B [{args.policy}, slope]",
+        "op": f"ec repair A/B [{args.policy}, fastest pass]",
         "mb": args.mb, "backend": dev.type,
         "k": k, "m": m, "dns": dns, "inner": args.inner,
         "erasures": len(missing),
@@ -710,7 +702,7 @@ def bench_ec_repair_ab(args) -> None:
 
 def bench_ec(args) -> None:
     """EC cold-tier harness: paired encode / intact-reassembly /
-    degraded-decode slopes over the container striping path
+    degraded-decode rates over the container striping path
     (storage/stripe_store.py on ops/rs.py, every RS product one launch on
     ``--device``).  Intact reassembly is CRC + concat (all k data stripes
     present); degraded drops the first m stripes (all-data erasures, the
@@ -740,17 +732,17 @@ def bench_ec(args) -> None:
     intact = {i: stripes[i] for i in range(k)}
     degraded = {i: stripes[i] for i in range(m, k + m)}
 
-    def slope_mbps(fn) -> float:
-        return n / max(_slope(fn, dev, args.inner, 1), 1e-9) / 2**20
+    def mbps(fn) -> float:
+        return n / _per_call(fn, dev, args.inner, 1) / 2**20
 
-    enc = slope_mbps(
+    enc = mbps(
         lambda: stripe_store.encode_container(payload, k, m, device=dev))
-    rd_ok = slope_mbps(lambda: stripe_store.reconstruct_container(
+    rd_ok = mbps(lambda: stripe_store.reconstruct_container(
         intact, manifest, device=dev))
-    rd_deg = slope_mbps(lambda: stripe_store.reconstruct_container(
+    rd_deg = mbps(lambda: stripe_store.reconstruct_container(
         degraded, manifest, device=dev))
     print(json.dumps({
-        "op": f"ec cold tier [{args.policy}, slope]",
+        "op": f"ec cold tier [{args.policy}, fastest pass]",
         "mb": args.mb, "backend": dev.type,
         "k": k, "m": m, "inner": args.inner,
         "parity_oracle_ok": bool(oracle_ok),
@@ -906,7 +898,7 @@ def bench_recon(args) -> None:
 def bench_sort(args) -> None:
     """Match-scan sort engine A/B: the card's ``match_deltas`` and
     ``sort_rows`` kernels (ops/sort_cuda.py) vs their plain PyTorch
-    versions, slope method.  On the CPU only the plain leg runs;
+    versions, fastest pass (module docstring).  On the CPU only the plain leg runs;
     ``--interpret`` runs the ``cuda`` leg through the plain versions (a
     correctness spot-check, not a timing)."""
     import torch
@@ -934,8 +926,8 @@ def bench_sort(args) -> None:
         interp, tag = legs(impl)
         fn = (sort_cuda.match_deltas_plain if impl == "plain" or interp
               else sort_cuda.match_deltas)
-        per = _slope(lambda: fn(vals, stride, pos_bits), dev, args.inner,
-                     args.repeats)
+        per = _per_call(lambda: fn(vals, stride, pos_bits), dev,
+                        args.inner, args.repeats)
         print(json.dumps({
             "op": f"match_deltas [{tag}]",
             "entries": t * e, "ms_per_scan": round(per * 1e3, 3),
@@ -945,8 +937,8 @@ def bench_sort(args) -> None:
         interp, tag = legs(impl)
         fn = (sort_cuda.sort_rows_plain if impl == "plain" or interp
               else sort_cuda.sort_rows)
-        per = _slope(lambda: fn(vals, vals, key_unsigned=True), dev,
-                     args.inner, args.repeats)
+        per = _per_call(lambda: fn(vals, vals, key_unsigned=True), dev,
+                        args.inner, args.repeats)
         print(json.dumps({
             "op": f"sort_rows [{tag}]",
             "entries": t * e, "ms_per_sort": round(per * 1e3, 3),
@@ -972,7 +964,7 @@ def _native_cuts(a: np.ndarray, mask: int, mn: int, mx: int) -> np.ndarray:
 def bench_cdc(args) -> None:
     """CDC front end A/B, geometry-sweepable: the card's scan + select pair
     (``cdc_cuda.cdc_block``) vs the plain PyTorch scan on the same device,
-    slope method, with the per-leg micro-profile (gear = the scan alone,
+    fastest pass, with the per-leg micro-profile (gear = the scan alone,
     scan = the pair minus gear, image = ``be_image``, pad =
     ``gather_pad_messages``), the select's H_SURV / H_CANDS lanes and the
     per-block readback byte ledger.  Cuts are pinned bit-identical to
@@ -1025,7 +1017,7 @@ def bench_cdc(args) -> None:
     ol_dev = torch.from_numpy(ol_np).to(dev)
 
     def ms(fn) -> float:
-        return _slope(fn, dev, args.inner, args.repeats) * 1e3
+        return _per_call(fn, dev, args.inner, args.repeats) * 1e3
 
     fused_ms = ms(lambda: block_fn(blk, n, r.mask, mn, mx, r._b_small))
     gear_ms = ms(lambda: scan_fn(blk, n, r.mask, mn))
@@ -1035,7 +1027,8 @@ def bench_cdc(args) -> None:
     cap = cdc_cuda.cap_for(n, mn)
     n_cands = int(tb[cdc_cuda.H_CANDS])
     print(json.dumps({
-        "op": "cdc_prep [fused scan + select vs plain prep, slope A/B]",
+        "op": "cdc_prep [fused scan + select vs plain prep, fastest pass "
+              "A/B]",
         "mb": args.mb, "backend": dev.type,
         "interpret": interpret,
         "mask_bits": cdc.mask_bits, "min_size": cdc.min_chunk,
@@ -1290,7 +1283,7 @@ def main(argv: list[str] | None = None) -> int:
     d.add_argument("--mb", type=int, default=48)
     d.add_argument("--policy", default="rs-6-3-64k")
     d.add_argument("--inner", type=int, default=4,
-                   help="k for the slope method's long pass")
+                   help="calls in a timed pass")
     d.add_argument("--repair-ab", action="store_true",
                    help="paired repair A/B: full-gather decode vs coded "
                         "partial-sum exchange, oracle-pinned on every "
@@ -1309,7 +1302,7 @@ def main(argv: list[str] | None = None) -> int:
     d.add_argument("--tiles", type=int, default=8)
     d.add_argument("--entries", type=int, default=1 << 15)
     d.add_argument("--inner", type=int, default=8,
-                   help="k for the slope method's long pass")
+                   help="calls in a timed pass")
     d.add_argument("--repeats", type=int, default=5)
     d.add_argument("--interpret", action="store_true",
                    help="run the cuda leg through the plain versions "
@@ -1319,7 +1312,7 @@ def main(argv: list[str] | None = None) -> int:
     d = sub.add_parser("cdc")
     d.add_argument("--mb", type=int, default=16)
     d.add_argument("--inner", type=int, default=4,
-                   help="k for the slope method's long pass")
+                   help="calls in a timed pass")
     d.add_argument("--repeats", type=int, default=3)
     d.add_argument("--interpret", action="store_true",
                    help="run the plain versions in place of the kernels "

@@ -1,7 +1,8 @@
 """Reed-Solomon erasure coding over GF(2^8) (port of hdrf_tpu/ops/rs.py).
 
-The host half is the reference's, copied bit for bit: ``parse_policy``,
-the log/antilog field (``_tables``, ``gf_mul``, ``gf_inv``,
+The host half is the reference's, copied bit for bit: ``parse_policy``
+(in ops/ec_policy.py, which loads no torch; re-exported here), the
+log/antilog field (``_tables``, ``gf_mul``, ``gf_inv``,
 ``gf_mat_inv``), the Cauchy generator ``rs_matrix``, the bit-matrix
 expansion ``_bit_matrix``, the host oracles ``encode_ref`` and
 ``partial_sums_ref``, ``repair_rows`` (the decode seam shared by the full
@@ -30,17 +31,7 @@ import torch
 
 from hdrf_tpu_torch.ops import rs_cuda
 from hdrf_tpu_torch.ops.dispatch import resolve_device
-
-def parse_policy(policy: str) -> tuple[int, int, int]:
-    """'rs-6-3-64k' -> (k, m, cell_bytes) (ECPolicyLoader analog)."""
-    parts = policy.lower().split("-")
-    if len(parts) != 4 or parts[0] != "rs":
-        raise ValueError(f"bad EC policy {policy!r} (want rs-<k>-<m>-<cell>k)")
-    k, m = int(parts[1]), int(parts[2])
-    cell = int(parts[3].rstrip("k")) * 1024
-    if not (1 <= k <= 24 and 1 <= m <= 8 and cell > 0):
-        raise ValueError(f"bad EC policy {policy!r}")
-    return k, m, cell
+from hdrf_tpu_torch.ops.ec_policy import parse_policy  # noqa: F401
 
 
 # --------------------------------------------------------------- GF(2^8) host

@@ -80,10 +80,11 @@ from hdrf_tpu_torch.reduction import accounting
 from hdrf_tpu_torch.server import coded_exchange
 from hdrf_tpu_torch.storage import stripe_store
 from hdrf_tpu_torch.storage.container_store import _SEAL_HDR, _SEAL_MAGIC
-from hdrf_tpu_torch.utils import (fault_injection, metrics, profiler, qos,
-                                  retry, rollwin)
+from hdrf_tpu_torch.utils import (fault_injection, log, metrics, profiler,
+                                  qos, retry, rollwin)
 
 _M = metrics.registry("ec")
+_LOG = log.get_logger("ec_tier")
 
 # budget for one whole demote/repair command (all stripe legs); each peer
 # leg retries under it via the ambient-deadline discipline of utils/retry
@@ -403,8 +404,12 @@ class EcTier:
                 try:
                     decoded = stripe_store.reconstruct_container(
                         got, manifest, want=missing, device=self.device)
-                except (stripe_store.StripeCorrupt, ValueError):
+                except (stripe_store.StripeCorrupt, ValueError) as e:
                     _M.incr("repair_failures")
+                    _LOG.warning("stripe repair: decode failed",
+                                 dn_id=dn.dn_id, cid=cid, missing=missing,
+                                 survivors=sorted(got),
+                                 error=f"{type(e).__name__}: {e}")
                     return
                 coded_exchange.book_repair_wire(
                     sum(len(v) for v in got.values()),
@@ -417,8 +422,12 @@ class EcTier:
                     holders[idx] = list(tgt)
                     _M.incr("repair_bytes", len(decoded[idx]))
             except (OSError, ConnectionError, IOError,
-                    retry.DeadlineExceeded):
+                    retry.DeadlineExceeded) as e:
                 _M.incr("repair_failures")
+                _LOG.warning("stripe repair: placement failed",
+                             dn_id=dn.dn_id, cid=cid, missing=missing,
+                             targets=[t[0] for t in targets],
+                             error=f"{type(e).__name__}: {e}")
                 return
         manifest["holders"] = holders
         if owner == dn.dn_id:

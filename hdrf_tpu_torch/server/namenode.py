@@ -7,8 +7,8 @@ codec (proto/rpc.packb via server/editlog.py), byte for byte the
 reference's, so each package replays the other's meta dir.  The
 encryption-zone EDEK xattr is packed the same way and sealed with the
 port's ChaCha20-Poly1305 (native.aead_seal / aead_open); EC policies are
-parsed by ops/rs.parse_policy; block and delegation tokens come from the
-port's security module.  One reference fault is repaired: ``rpc_block_report`` does not make a
+parsed by ops/ec_policy.parse_policy (no torch is loaded); block and
+delegation tokens come from the port's security module.  One reference fault is repaired: ``rpc_block_report`` does not make a
 live block's replica a location again while its ``invalidate`` is still
 queued for that DataNode (the reference re-adds it, and its monitor may
 then prune the copy that was to stay).
@@ -49,12 +49,12 @@ from typing import Any
 
 from hdrf_tpu_torch import native
 from hdrf_tpu_torch.config import NameNodeConfig
-# imported with the module, never under the namesystem lock: its first
-# import loads torch (about 2 s on an idle 8-core host), and the monitor
-# parses EC policies under the lock (``_check_ec_groups``), so a lazy
-# first import there held every heartbeat and lifeline past the
-# dead-node verdict (the reference imports it lazily, loading JAX)
-from hdrf_tpu_torch.ops import rs
+# the policy parser alone, which loads no torch: the monitor parses EC
+# policies under the namesystem lock (``_check_ec_groups``), where a
+# first import of ops/rs (torch, about 2 s on an idle 8-core host) held
+# every heartbeat and lifeline past the dead-node verdict (the reference
+# imports ops/rs there, loading JAX)
+from hdrf_tpu_torch.ops.ec_policy import parse_policy
 from hdrf_tpu_torch.proto.rpc import RpcError, RpcServer, packb, unpackb
 from hdrf_tpu_torch.server import permissions as perm
 from hdrf_tpu_torch.server.editlog import EditLog
@@ -1536,7 +1536,7 @@ class NameNode:
             replication = replication or self.config.replication
             scheme = scheme or "direct"
             if ec is not None:
-                rs.parse_policy(ec)  # validate before logging
+                parse_policy(ec)  # validate before logging
             parent, name = self._parent_of(path, create=True)
             existing = parent.get(name)
             if existing is not None:
@@ -1619,7 +1619,7 @@ class NameNode:
             self._leases.check(path, client)
             if not node.ec:
                 raise ValueError(f"{path} is not an EC file")
-            k, m, cell = rs.parse_policy(node.ec)
+            k, m, cell = parse_policy(node.ec)
             self._check_space_quota(path, k * self.config.block_size)
             targets = self._choose_targets(k + m, exclude=set(),
                                            policy=self._policy_of(path))
@@ -4267,7 +4267,7 @@ class NameNode:
             node = self._try_file(info0.path) if info0 else None
             if node is None or not node.complete or not node.ec:
                 continue
-            k, m, cell = rs.parse_policy(node.ec)
+            k, m, cell = parse_policy(node.ec)
             survivors, missing = [], []
             for i, bid in enumerate(grp.bids):
                 locs = self._locs_of(bid)

@@ -18,7 +18,11 @@ ops) a packet run, then one reply frame.  Ops:
   device batch); a ``sizes`` sum that is not the stream's length answers
   ``{"error": "ValueError", ...}``;
 - ``ping``, ``stats``, ``traces`` — as the reference (``traces`` carries
-  spans, device-ledger events and the profiler's counter samples).
+  spans, device-ledger events and the profiler's counter samples);
+  ``stats`` also carries ``kernel_launches``, this process's launch
+  counters of the hand-written kernels (``kernel_launches()``; the
+  plain versions on the CPU count none), which the reference's reply
+  does not have.
 
 Every data op stamps its bytes into ``reduction/accounting``
 (``record_worker_bytes``), as the reference does.  Requests may carry
@@ -66,6 +70,7 @@ import numpy as np
 import torch
 
 from hdrf_tpu_torch.config import CdcConfig
+from hdrf_tpu_torch.ops import cdc_cuda, gather_cuda, sha256_cuda, sort_cuda
 from hdrf_tpu_torch.ops import dispatch as ops_dispatch
 from hdrf_tpu_torch.ops.cdc_cuda import PAD_GRID
 from hdrf_tpu_torch.ops.dispatch import resolve_device
@@ -78,6 +83,19 @@ from hdrf_tpu_torch.utils import (device_ledger, metrics, profiler, retry,
 from hdrf_tpu_torch.utils.watchdog import StallWatchdog
 
 _M = metrics.registry("reduction_worker")
+
+
+def kernel_launches() -> dict[str, int]:
+    """This process's launches of the reduce and seal kernels, from their
+    wrappers' counters (a wrapper call of several launches counts one)."""
+    return {"cdc_scan": cdc_cuda.scan_launches,
+            "cdc_select": cdc_cuda.select_launches,
+            "gather_pad": gather_cuda.launches,
+            "sha256": sha256_cuda.launches,
+            "match_deltas": sort_cuda.match_deltas_launches,
+            "sort_rows": sort_cuda.sort_rows_launches,
+            "be_image": cdc_cuda.image_launches,
+            "gather_raw": gather_cuda.raw_launches}
 _TR = tracing.tracer("reduction_worker")
 
 # Host->device copy stride for streaming ingest and the ring depth.
@@ -225,7 +243,8 @@ class ReductionWorker:
                 send_frame(sock, {"ok": True, "backend": self.backend})
             elif op == "stats":
                 with self._stats_lock:
-                    send_frame(sock, dict(self._stats))
+                    send_frame(sock, {**self._stats,
+                                      "kernel_launches": kernel_launches()})
             elif op == "traces":
                 send_frame(sock, {
                     "daemon": "reduction_worker",

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -123,6 +124,16 @@ def _closed_port() -> list:
 def _data(seed: int, size: int = 300_000) -> bytes:
     return np.random.default_rng(seed).integers(
         0, 256, size, dtype=np.uint8).tobytes()
+
+
+def _ibrs_of_block(nn, dn_id: str, bid: int) -> int:
+    return [ibr[0] for ibr in nn.ibrs_of(dn_id)].count(bid)
+
+
+def _until(cond, timeout: float) -> None:
+    t_end = time.monotonic() + timeout
+    while not cond() and time.monotonic() < t_end:
+        time.sleep(0.05)
 
 
 def _refcounts(dn, bid: int) -> list:
@@ -392,8 +403,10 @@ def test_two_concurrent_pushes_of_one_block(tmp_path, pkg):
             assert _refcounts(b, 7) == refs
         meta = b.replicas.get_meta(7)
         assert (meta.gen_stamp, meta.logical_len) == (1, len(data))
-        assert [ibr[0] for ibr in nn.ibrs_of("dn-b")].count(7) == \
-            (1 if pkg == "ref" else 2)
+        # IBRs go out on the DataNode's own thread, after the acks
+        want = 1 if pkg == "ref" else 2
+        _until(lambda: _ibrs_of_block(nn, "dn-b", 7) >= want, 30.0)
+        assert _ibrs_of_block(nn, "dn-b", 7) == want
     finally:
         for dn in (b, a2, a1):
             dn.stop()

@@ -383,3 +383,25 @@ def test_monitor_tick_imports_nothing(tmp_path, pkg):
         assert "hdrf_tpu.ops.rs" in imported and "jax" in imported
     else:
         assert imported == []
+
+
+def test_port_namenode_loads_no_torch(tmp_path):
+    """The port's NameNode parses EC policies with ops/ec_policy, which
+    loads no torch: a NameNode started and stopped in a fresh process,
+    and its monitor run once, leave torch and the RS kernel's modules
+    unloaded."""
+    import json
+    import subprocess
+    import sys
+
+    script = _TICK_SCRIPT.format(tests=os.path.dirname(__file__),
+                                 pkg="hdrf_tpu_torch") + (
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                        if m.split('.')[0] == 'torch'\n"
+        "                        or m.endswith(('ops.rs', 'ops.rs_cuda')))))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.path.dirname(
+                             os.path.dirname(os.path.abspath(__file__)))})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -30,8 +30,10 @@ from hdrf_tpu_torch import native
 from hdrf_tpu_torch.ops import dispatch
 from hdrf_tpu_torch.proto import datatransfer as dt
 from hdrf_tpu_torch.proto import rpc
+from hdrf_tpu_torch.ops import cdc_cuda
 from hdrf_tpu_torch.server.reduction_worker import (ReductionWorker,
-                                                    WorkerClient)
+                                                    WorkerClient,
+                                                    kernel_launches)
 from hdrf_tpu_torch.utils import metrics as port_metrics
 
 
@@ -133,6 +135,35 @@ def test_port_client_ping_stats_and_empty_block(worker):
     np.testing.assert_array_equal(cuts, wc.astype(np.int64))
     np.testing.assert_array_equal(digs, wd)
     assert c.stats()["blocks_reduced"] == before + 2
+    c.close()
+
+
+def test_stats_carry_the_wrappers_launch_counters(worker):
+    """``stats`` carries the worker process's kernel launch counters
+    beside the reference's keys, read from the wrappers when it answers;
+    on the CPU a reduce and a seal run the plain versions and count
+    none."""
+    c = WorkerClient(worker.addr)
+    st0 = c.stats()
+    assert set(st0) == {"blocks_reduced", "bytes_reduced", "compress_jobs",
+                        "kernel_launches"}
+    assert st0["kernel_launches"] == kernel_launches()
+    assert set(st0["kernel_launches"]) == {
+        "cdc_scan", "cdc_select", "gather_pad", "sha256", "match_deltas",
+        "sort_rows", "be_image", "gather_raw"}
+    cdc = dispatch.from_reference_cdc(dataclasses.asdict(SMALL))
+    c.reduce(_bytes(20_000), cdc)
+    c.compress("lz4", _bytes(50_000))
+    st1 = c.stats()
+    assert st1["blocks_reduced"] == st0["blocks_reduced"] + 1
+    assert st1["compress_jobs"] == st0["compress_jobs"] + 1
+    assert st1["kernel_launches"] == st0["kernel_launches"]
+    n0 = cdc_cuda.scan_launches
+    try:
+        cdc_cuda.scan_launches = n0 + 3      # as three launches would
+        assert c.stats()["kernel_launches"]["cdc_scan"] == n0 + 3
+    finally:
+        cdc_cuda.scan_launches = n0
     c.close()
 
 
@@ -311,6 +342,7 @@ def test_port_imports_no_jax_and_no_reference():
             "          'storage.container_store', 'index.chunk_index',\n"
             "          'server.read_plane', 'ops.reconstruct',\n"
             "          'ops.gather_cuda', 'ops.rs', 'ops.rs_cuda',\n"
+            "          'ops.ec_policy',\n"
             "          'storage.stripe_store', 'server.coded_exchange',\n"
             "          'server.ec_tier', 'utils.throttler',\n"
             "          'server.datanode', 'server.block_receiver',\n"
