@@ -75,9 +75,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    requests of one 32 MiB container and 2 ``compress_batch`` requests of
    4, sent by the port's WorkerClient.  Every reply must decode to its
    payload and equal, byte for byte, a CPU ``DeviceLz4`` fed the same
-   sequence; both seal kernels' and ``be_image``'s launch counts over the
-   requests must be > 0; the sparse container must emit from its device
-   records.  Per request: latency, MiB/s, compressed size, ratio against
+   sequence (that CPU engine runs in a spawned process while MESH and
+   SCHEME run on the card, ``seal_twin``; ``SEAL twin`` line); both seal
+   kernels' and ``be_image``'s launch counts over the requests must be >
+   0; the sparse container must emit from its device records.  Per request: latency, MiB/s, compressed size, ratio against
    the serial ``native.lz4_compress``, kept match records, and the branch
    taken (``lz4_device`` counters).  Two more ``compress`` requests are
    profiled as in phase 5 (``chiprun_out/smoke_trace_seal.json``).
@@ -115,14 +116,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and the bytes the reconstructor takes), on a random and a zeros image
    of a staged 32 MiB container, all four byte alignments and lanes
    whose window ends at the image's edge; tolerance zero.  (b) Write: the
-   ``reduce`` corpus through ``scheme.get("dedup_lz4").reduce`` on
+   first ``SCHEME_BLOCKS`` (4) blocks of the ``reduce`` corpus (its last
+   block text) through ``scheme.get("dedup_lz4").reduce`` on
    ``cuda``, then ``flush_open``; every block's chunk lengths and hashes
    in the index equal ``native.cdc_select`` + ``sha256_batch``, every
    sealed container decodes (``native.lz4_decompress`` for lz4 frames) to
    the payload its roll saw; the write kernels' launch counts (zeroed
    before) are > 0 (``SCHEME write``: ms per block, MiB/s, dedup ratio,
    containers sealed).  (c) Read: every block whole through
-   ``reconstruct`` (the reconstructor), twice, bit-identical; then
+   ``reconstruct`` (the reconstructor), bit-identical, and blocks 0-1
+   again (image hits within a block); then
    ranged reads at odd offsets above and below ``DEVICE_RECON_MIN`` (the
    reconstructor and the read plane) against the slices, and one ranged
    read repeated, whose second run must stage no image and hit the first
@@ -158,7 +161,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sealed file gone, the stripes' bytes 1.5x the logical up to padding,
    one report per container, ``rs`` launches > 0 (``EC demote``).  (c)
    Holder p1 loses every stripe (data 1 and 4, parity 7); the caches
-   dropped, every block read whole and at odd ranged offsets,
+   dropped, blocks 0-1 read whole and at odd ranged offsets,
    bit-identical, with ``degraded_reads``, ``be_image`` and
    ``gather_raw`` launches > 0 (``EC read p1_lost``).  (d) Every lost
    stripe repaired by the coded exchange (partial sums chained through
@@ -225,8 +228,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    writes each file (``create(scheme="dedup_lz4")``, ``add_block`` and
    the block streamed down the pipeline it chose, ``complete`` polled
    until the IBRs are in; ms a block from ``_write_block``).
-   (a) Two files of 2 blocks and 1 block of the ``reduce`` corpus by two
-   concurrent writers: every replica listed reads back equal with
+   (a) Two one-block files (blocks 0 and 2 of the ``reduce`` corpus) by
+   two concurrent writers: every replica listed reads back equal with
    ``READ_BLOCK``, ``BLOCK_CHECKSUM`` equals ``native.crc32c_chunks``,
    ``stat`` lengths are right, the CDC, SHA-256 and seal kernels
    launched (``NAMENODE write``).  (b) The NameNode stopped and
@@ -240,10 +243,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    hold it (``NAMENODE rereplicate``).  (d) ``ec_demote_after_s`` set to
    1 s: ``stripe_demote`` of every block (``rs`` launches > 0),
    ``stripe_complete`` counted by ``ec_status``, the other replicas
-   invalidated, every block read back from its owner; a stripe holder
-   that owns no block stopped: ``stripe_repair`` re-decodes its stripes
-   (``rs`` launches > 0) until no manifest names it, and every block
-   reads back equal again (``NAMENODE ec``).  (e) 2,000 empty-file
+   invalidated, every block read back from its owner, and no DataNode
+   holding more than m (3) stripes of a group, so that any one loss
+   leaves k (``NAMENODE stripes after demotion``: each group's stripes
+   a DataNode; a demotion the health report's vetoes defer fails the
+   wait with ``ec_demotions_deferred`` and the vetoed DataNodes); a
+   stripe holder that owns no block stopped: ``stripe_repair``
+   re-decodes its stripes (``rs`` launches > 0) until no manifest names
+   it, every group again at most m a DataNode unless the NameNode
+   counted a repair with no room for that (``stripe_repairs_over_m``),
+   no group unrecoverable, and every block reads back equal again
+   (``NAMENODE stripes after repair``, ``NAMENODE ec``).  (e) 1,000 empty-file
    ``create`` + ``complete`` pairs over 8 threads, as Hadoop's
    ``NNThroughputBenchmark`` does: ops/s, client p50/p99 and the
    ``rpc.namenode`` p99 (``NAMENODE meta``, information only).  Every
@@ -273,7 +283,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``short_circuit_reads`` does not), ``get_file_checksum`` equal to
    ``native.crc32c`` (``CLIENT write``: client ms a block, MiB/s, the
    duplicate's ms and dedup).  (b) Block 2 as ``/c/d`` (direct): read
-   twice through the short-circuit fd and twice with
+   through the short-circuit fd and with
    ``ClientConfig(short_circuit=False)``, equal; deleted, its replicas
    invalidated, the cached fd revoked (a read of the old block through
    the cache returns nothing), re-created with one MiB of other bytes
@@ -305,8 +315,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``bad_block`` and re-replicated, the stripe is decoded back on the
    card, each decode equal to the plain version, and every block reads
    back equal; the NameNode's ``/prom`` and ``/contention`` (``PLANES
-   scrub``).  (b) A port MiniCluster of three DataNodes (replication 3,
-   ``cdc_adaptive``, a status port, ``provided_mount_root``) with
+   scrub``).  (b) In a spawned process that runs while CLIENT runs here
+   (``planes_cluster_child``): a port MiniCluster of three DataNodes
+   (replication 3, ``cdc_adaptive``, a status port,
+   ``provided_mount_root``) with
    ``tpu_worker=True`` and the port's HdrfClient on ``cuda``: fresh
    random blocks until the controllers have coarsened twice (every
    block's chunks equal the native cuts at the geometry its primary
@@ -321,7 +333,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    region under the mount root read back with ``READ_BLOCK`` (``PLANES
    surface``).  Every step holds ``DN_FAULTS``.
 15. RESILIENCE, federation, lazy persist and the crash points on the
-   card.  (a) A port ``MiniCluster`` with two nameservices (two
+   card, in a spawned process that runs while PLANES (a) and BENCH run
+   here (``resilience_child``).  (a) A port ``MiniCluster`` with two nameservices (two
    NameNodes, pools 0 and 1) over three DataNodes (replication 1,
    ``--block-mib`` blocks, 32 MiB containers, 1 s heartbeats) and
    ``tpu_worker=True``: one ``dedup_lz4`` block of the ``reduce`` corpus
@@ -352,9 +365,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    standard output captured: ``reduction`` and ``cdc`` at ``--mb 128``
    (one HDFS block), ``sort``, ``ec``, ``ec --repair-ab``, ``recon``,
    ``multichip`` and ``churn`` at the reference's defaults, ``dfs --mb
-   16``, ``dfs --pipeline-ab --rounds 1`` (``--backend cuda``), ``nn``
-   and ``nn --observer-ab --rounds 1`` at ``--ops 500``, ``nn
-   --kill-active``.  Each line prints as ``BENCH <which> <line>``; each
+   16``, ``dfs --pipeline-ab --rounds 1 --mb 16`` (``--backend cuda``),
+   ``nn`` and ``nn --observer-ab --rounds 1`` at ``--ops 200``, ``nn
+   --kill-active --duration 3``.  Each line prints as ``BENCH <which>
+   <line>``; each
    harness must print the lines its reference's docstring gives it, run
    on ``cuda``, and hold its oracle flags: ``cdc``'s cuts against the
    native library and its ``H_SURV`` / ``H_CANDS`` lanes equal to the
@@ -1392,6 +1406,7 @@ SEAL_BATCHES = (("text", "random", "source", "zeros"),
                 ("repeat997", "zeros", "text", "sparse"))
 SEAL_PROFILED = ("sparse", "source")
 RACE_MIN_RECORDS = (SEAL_BYTES // 2) >> 10    # DeviceLz4's grey-zone floor
+TWIN_THREADS = 4     # the CPU seal twin's threads, beside MESH and SCHEME
 SEAL_KERNEL_NAMES = {"match_tile_kernel": "match_deltas",
                      "match_look_kernel": "match_deltas",
                      "sort_tile_kernel": "sort_rows",
@@ -1406,15 +1421,48 @@ def _branch(c0: dict, c1: dict) -> dict:
             if c1.get(k, 0) != c0.get(k, 0)}
 
 
-def seal_main_path(corpora: dict, records: dict) -> dict:
+def child_pool():
+    """One spawned process for work that needs none of this process's
+    state: a phase on its own cluster, or a CPU oracle, beside the card
+    work here.  Leaving the ``with`` block waits for it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+
+
+def seal_twin(corpora: dict, reqs: list, outs: list,
+              prof_outs: list) -> list:
+    """A CPU DeviceLz4 fed the card's sequence of seals (its slice hints,
+    flood streak and bypass carry from request to request): the requests
+    whose reply differs from the CPU engine's stream.  Runs in a
+    ``child_pool`` process, with ``TWIN_THREADS`` threads, while the card
+    runs the next phases."""
+    torch.set_num_threads(TWIN_THREADS)
+    twin = lz4_device.DeviceLz4(device="cpu")
+    bad = []
+    for i, (names, got) in enumerate(zip(reqs, outs)):
+        datas = [corpora[k] for k in names]
+        want = (twin.compress_many(datas) if len(names) > 1
+                else [twin.compress(datas[0])])
+        bad += [f"seal request {i} ({k})"
+                for k, g, w in zip(names, got, want) if g != w]
+    bad += [f"profiled seal ({k})" for k, g in zip(SEAL_PROFILED, prof_outs)
+            if g != twin.compress(corpora[k])]
+    return bad
+
+
+def seal_main_path(corpora: dict, records: dict, pool) -> dict:
     """The port's worker on the card seals 8 single containers
     (``compress``) and 2 groups of 4 (``compress_batch``), driven by the
-    port's WorkerClient.  Every reply decodes to its payload and equals a
-    CPU DeviceLz4 fed the same sequence; the single ``sparse`` seal must
-    emit from its device records and run the grey-zone race."""
+    port's WorkerClient.  Every reply decodes to its payload, and the
+    single ``sparse`` seal must emit from its device records and run the
+    grey-zone race.  The replies' check against a CPU DeviceLz4 fed the
+    same sequence (``seal_twin``) runs in ``pool``: its future is the
+    result's ``twin``."""
     worker = ReductionWorker("127.0.0.1", 0, backend="cuda").start()
     client = WorkerClient(worker.addr)
-    twin = lz4_device.DeviceLz4(device="cpu")
     reg = metrics.registry("lz4_device")
     serial = {k: len(native.lz4_compress(a)) for k, a in corpora.items()}
     reqs = [[k] for k in SEAL_SINGLES] + [list(b) for b in SEAL_BATCHES]
@@ -1450,15 +1498,12 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
         worker.stop()
     for kname, cnt in launches.items():
         check(cnt > 0, f"seal main path never launched the {kname} kernel")
+    twin = pool.submit(seal_twin, corpora, reqs, outs, prof_outs)
     for i, (names, got) in enumerate(zip(reqs, outs)):
         datas = [corpora[k] for k in names]
-        want = (twin.compress_many(datas) if len(names) > 1
-                else [twin.compress(datas[0])])
-        for k, d, g, w in zip(names, datas, got, want):
+        for k, d, g in zip(names, datas, got):
             check(native.lz4_decompress(g, d.size) == d.tobytes(),
                   f"seal request {i} ({k}): reply does not decode")
-            check(g == w, f"seal request {i} ({k}): card stream != CPU "
-                          f"engine stream")
         names, lat, sizes, branch = rows[i]
         mib = sum(d.size for d in datas) / MIB
         ratio = [sz / serial[k] for k, sz in zip(names, sizes)]
@@ -1473,9 +1518,6 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
                   and "native_fallbacks" not in branch,
                   f"sparse seal did not emit from {records['sparse']} device "
                   f"records in the race zone (branch {branch})")
-    for k, g in zip(SEAL_PROFILED, prof_outs):
-        check(g == twin.compress(corpora[k]),
-              f"profiled seal ({k}) != CPU engine stream")
     out = {"requests": [
         {"payloads": r[0], "latency_ms": r[1] * 1e3,
          "mib_per_s": sum(corpora[k].size for k in r[0]) / MIB / r[1],
@@ -1485,6 +1527,7 @@ def seal_main_path(corpora: dict, records: dict) -> dict:
          "branch": r[3]} for r in rows],
         "launches": launches, "profile": prof, "worker_stats": stats}
     print("SEAL_PATH " + json.dumps(out), flush=True)
+    out["twin"] = twin
     return out
 
 
@@ -1704,6 +1747,9 @@ def mesh_phase(args, dev, cdc: CdcConfig, corpora: dict, errs: dict,
 # ----------------------------------------------------------------- scheme
 
 SCHEME_BUCKETS = tuple(16 << i for i in range(8))     # 16 .. 2048
+# the scheme's and the EC tier's blocks, the last of them text: more
+# only repeat the same path (the smoke's time budget, PERF.md section 5)
+SCHEME_BLOCKS = 4
 SCHEME_KERNEL_NAMES = {**REDUCE_KERNEL_NAMES, **SEAL_KERNEL_NAMES,
                        "gather_raw_kernel": "gather_raw"}
 SCHEME_WRITE_KERNELS = ("cdc_scan", "cdc_select", "gather_pad", "sha256",
@@ -2412,7 +2458,7 @@ def ec_phase(ctx, root: str, blocks: list, extra, errs: dict,
         # (c) degraded reads: holder p1 lost whole (data 1, 4; parity 7)
         lost1 = _lose(owner, peers[0], P1_SLOTS)
         _zero_launch_counts()
-        r1 = _degraded_reads(ctx, blocks, "p1 lost")
+        r1 = _degraded_reads(ctx, blocks[:2], "p1 lost")
         launches = {**_scheme_launch_counts(), "rs": rs_cuda.launches}
         for kname in ("be_image", "gather_raw"):
             check(launches[kname] > 0,
@@ -2489,7 +2535,8 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
     t0 = time.perf_counter()
     raw_kernel_phase(dev, errs)
     torch.cuda.empty_cache()
-    blocks = main_path_corpus(args.seed, args.requests, args.block_mib)
+    blocks = main_path_corpus(args.seed, min(args.requests, SCHEME_BLOCKS),
+                              args.block_mib)
     want = [oracle(b, cdc) for b in blocks]
     payloads: dict = {}
     with tempfile.TemporaryDirectory(prefix="smoke_scheme_") as root:
@@ -2504,7 +2551,7 @@ def scheme_phase(args, dev, cdc: CdcConfig, errs: dict,
             for kname in SCHEME_READ_KERNELS:
                 check(rd_launches[kname] > 0,
                       f"SCHEME read never launched the {kname} kernel")
-            second = scheme_read_pass(ctx, blocks)
+            second = scheme_read_pass(ctx, blocks[:2])
             check(second["image_hits"] > 0,
                   "SCHEME read: no image hits within a block")
             ranged = scheme_ranged(ctx, blocks)
@@ -3019,7 +3066,7 @@ def datanode_phase(args) -> dict:
 # -------------------------------------------------------------- namenode
 
 NN_DATANODES = 4
-NN_META_PAIRS = 2000     # NNThroughputBenchmark-style create + complete
+NN_META_PAIRS = 1000     # NNThroughputBenchmark-style create + complete
 NN_META_THREADS = 8
 NN_WAIT_S = 180.0
 NN_WATCH = ("repair", "demot", "stripe", "replicat", "dead", "fail",
@@ -3134,6 +3181,47 @@ NN_COMMAND_COUNTERS = {
                  "replicate_source_missing"),
     "block_receiver": ("replicas_already_held",),
     "ec": ("demotes_already_striped", "demote_open_sealed")}
+
+
+def _stripe_counts(dns: dict) -> dict:
+    """Each stripe group, by its owner and container: its stripes a
+    DataNode (the owner's manifest holders)."""
+    out: dict = {}
+    for d, dn in sorted(dns.items()):
+        for cid, man in sorted(dn.index.stripe_manifests().items()):
+            held: dict = {}
+            for h in man["holders"]:
+                held[h[0]] = held.get(h[0], 0) + 1
+            out[f"{d}/{cid}"] = held
+    return out
+
+
+def _check_spread(nn, dns: dict, when: str, over_m: int = 0) -> dict:
+    """No DataNode holds more than m stripes of a group, so that any one
+    loss leaves k; prints each group's stripes a DataNode.  ``over_m``:
+    the repairs the NameNode placed past m because its live pool had no
+    room (``stripe_repairs_over_m``), each of which may leave one group
+    so."""
+    counts = _stripe_counts(dns)
+    m = nn.config.ec_parity_shards
+    print(f"NAMENODE stripes {when} " + json.dumps(
+        {"groups": counts, "repairs_over_m": over_m,
+         "vetoed": _vetoed(nn)}), flush=True)
+    over = [g for g, v in counts.items() if max(v.values()) > m]
+    check(counts and len(over) <= over_m,
+          f"NAMENODE (d) {when}: groups {over} hold more than {m} stripes "
+          f"on one DataNode ({over_m} repairs had no room): {counts}")
+    return counts
+
+
+def _vetoed(nn) -> dict:
+    """What the NameNode's health report leaves out of the stripes'
+    placement pool."""
+    with nn._lock:
+        h = nn._health_report()
+    return {"slow_peers": sorted(h["slow_peers"]),
+            "degraded_nodes": h["degraded_nodes"],
+            "slow_volumes": sorted(h["slow_volumes"])}
 
 
 def _command_counts() -> dict:
@@ -3261,7 +3349,9 @@ def namenode_phase(args, after_demotion=None) -> dict:
     addr = ("127.0.0.1", port)
     nn_ref = SimpleNamespace(addr=addr)
     corpus = main_path_corpus(args.seed, 3, args.block_mib)
-    files = {"/nn/f2": corpus[:2], "/nn/f1": corpus[2:3]}
+    # one block a writer: a second block of one file only repeated the
+    # write path (the smoke's time budget, PERF.md section 5)
+    files = {"/nn/f0": corpus[:1], "/nn/f1": corpus[2:3]}
     out: dict = {"launches": {}}
     nn = _nn_start(meta, port, args.block_mib)
     dns: dict = {}
@@ -3339,7 +3429,7 @@ def namenode_phase(args, after_demotion=None) -> dict:
         faults0 = _dn_faults()
         cmds0 = _command_counts()
         repl0 = _nn_counter("replications_scheduled")
-        victim = where[wrote["/nn/f2"]["block_ids"][0]][0]
+        victim = where[wrote["/nn/f0"]["block_ids"][0]][0]
         dns[victim].stop()
         dead_s = _wait_for(lambda: victim not in nn._datanodes,
                            f"{victim} declared dead")
@@ -3369,7 +3459,11 @@ def namenode_phase(args, after_demotion=None) -> dict:
                             > excess0 and pruned(),
                             "excess replicas pruned by invalidate")
         where = pruned()
-        _read_back(dns, where, data, "NAMENODE (c) after pruning")
+        # every other replica listed was read in (a) or as a new one: the
+        # restarted holder's kept replicas are the ones left to read
+        _read_back(dns, {b: [victim] for b, h in where.items()
+                         if victim in h}, data,
+                   "NAMENODE (c) after pruning")
         check_faults(faults0, "NAMENODE re-replication")
         out["c"] = {"seconds": time.perf_counter() - t0, "victim": victim,
                     "dead_after_s": dead_s, "rereplicated_s": repl_s,
@@ -3418,9 +3512,13 @@ def namenode_phase(args, after_demotion=None) -> dict:
         demote_s = _wait_for(
             lambda: nn.rpc_ec_status()["demoted_blocks"] == len(data),
             "stripe_demote of every block and its stripe_complete",
-            detail=containers_of_blocks)
+            detail=lambda: {
+                "ec_demotions_deferred": _nn_counter("ec_demotions_deferred"),
+                "vetoed": _vetoed(nn),
+                "containers": containers_of_blocks()})
         print("NAMENODE containers after demotion "
               + json.dumps(containers_of_blocks()), flush=True)
+        demoted = _check_spread(nn, dns, "after demotion")
         _wait_for(lambda: nn.rpc_ec_status()["striped_containers"] > 0,
                   "the striped-container census")
         _wait_for(lambda: all(len(h) == 1 for p in files
@@ -3436,8 +3534,7 @@ def namenode_phase(args, after_demotion=None) -> dict:
         holders = {h[0] for dn in dns.values()
                    for m in dn.index.stripe_manifests().values()
                    for h in m["holders"]}
-        with nn._lock:
-            slow = sorted(nn._health_report()["slow_peers"])
+        slow = _vetoed(nn)["slow_peers"]
         # the stripes' placement pool leaves out the DataNodes the health
         # report vetoes (a slow peer of the write): the holder stopped is
         # one that holds a stripe and owns no block
@@ -3449,6 +3546,7 @@ def namenode_phase(args, after_demotion=None) -> dict:
         _nn_zero()
         rep0 = ec.counter("stripes_repaired")
         sched0 = _nn_counter("stripe_repairs_scheduled")
+        over0 = _nn_counter("stripe_repairs_over_m")
         t1 = time.perf_counter()
         dns[lost].stop()
         del dns[lost]
@@ -3465,12 +3563,24 @@ def namenode_phase(args, after_demotion=None) -> dict:
         check(_nn_counter("stripe_repairs_scheduled") > sched0,
               "NAMENODE: no stripe_repair scheduled")
         check(dec["rs"] > 0, "NAMENODE repair launched no rs kernel")
+        repaired = _check_spread(
+            nn, dns, "after repair",
+            _nn_counter("stripe_repairs_over_m") - over0)
+        unrecoverable = nn.rpc_ec_status()["stripe_groups_unrecoverable"]
+        check(unrecoverable == 0,
+              f"NAMENODE (d): {unrecoverable} stripe groups unrecoverable")
         _read_back(dns, {b: [o] for b, o in owners.items()}, data,
                    "NAMENODE (d) repaired")
         check_faults(faults0, "NAMENODE demote and repair")
         out["d"] = {"seconds": time.perf_counter() - t0,
                     "demote_s": demote_s, "ec_status": status,
                     "stripe_holders": sorted(holders), "slow_peers": slow,
+                    "stripes_demoted": demoted, "stripes_repaired_to":
+                    repaired, "demotions_deferred":
+                    _nn_counter("ec_demotions_deferred"),
+                    "repairs_over_m":
+                    _nn_counter("stripe_repairs_over_m") - over0,
+                    "groups_unrecoverable": unrecoverable,
                     "lost_holder": lost, "repair_s": repair_s,
                     "repair_wall_s": time.perf_counter() - t1,
                     "stripes_repaired": ec.counter("stripes_repaired")
@@ -3713,13 +3823,12 @@ def client_phase(args) -> dict:
         sc_ms, wire_ms = [], []
         with HdrfClient(mc.nn_addrs()[0], name="smoke-wire",
                         config=ClientConfig(short_circuit=False)) as wc:
-            for _ in range(2):
-                for reader, lat in ((c, sc_ms), (wc, wire_ms)):
-                    t1 = time.perf_counter()
-                    check(reader.read("/c/d") == d_bytes,
-                          "CLIENT (b): /c/d != written")
-                    lat.append((time.perf_counter() - t1) * 1e3)
-        check(_counter_of("client", "short_circuit_reads") - sc0 == 2,
+            for reader, lat in ((c, sc_ms), (wc, wire_ms)):
+                t1 = time.perf_counter()
+                check(reader.read("/c/d") == d_bytes,
+                      "CLIENT (b): /c/d != written")
+                lat.append((time.perf_counter() - t1) * 1e3)
+        check(_counter_of("client", "short_circuit_reads") - sc0 == 1,
               "CLIENT (b): the reads did not take the short circuit")
         loc = c._call("get_block_locations", path="/c/d")["blocks"][0]
         old = loc["block_id"]
@@ -4108,6 +4217,13 @@ def _wait_until(want, seconds: float) -> None:
     t_end = time.monotonic() + seconds
     while time.monotonic() < t_end and not want():
         time.sleep(0.1)
+
+
+def planes_cluster_child(args) -> dict:
+    """``planes_cluster`` in a ``child_pool`` process: its cluster, its
+    worker process and its client on ``cuda:0``, its counters its own."""
+    torch.cuda.set_device(torch.device("cuda", 0))
+    return planes_cluster(args)
 
 
 def planes_cluster(args) -> dict:
@@ -4655,6 +4771,13 @@ def resilience_scheme(args, corpus, root) -> dict:
             "chunks": len(after[1]), "launches": launches}
 
 
+def resilience_child(args) -> dict:
+    """``resilience_phase`` in a ``child_pool`` process: its launch
+    counts (the worker's and (c)'s in-process ones) are its own."""
+    torch.cuda.set_device(torch.device("cuda", 0))
+    return resilience_phase(args)
+
+
 def resilience_phase(args) -> dict:
     """RESILIENCE: federation, lazy persist and the crash points on the
     card; (a) and (b) share one worker process."""
@@ -4730,11 +4853,12 @@ BENCH_RUNS = (
     ("multichip", ["multichip", "--device", "cuda"], 1),
     ("dfs", ["dfs", "--mb", "16", "--device", "cuda"], 3),   # a scheme each
     ("dfs --pipeline-ab", ["dfs", "--pipeline-ab", "--rounds", "1",
-                           "--backend", "cuda"], 1),
-    ("nn", ["nn", "--ops", "500", "--device", "cuda"], 1),
+                           "--mb", "16", "--backend", "cuda"], 1),
+    ("nn", ["nn", "--ops", "200", "--device", "cuda"], 1),
     ("nn --observer-ab", ["nn", "--observer-ab", "--rounds", "1", "--ops",
-                          "500", "--device", "cuda"], 1),
-    ("nn --kill-active", ["nn", "--kill-active", "--device", "cuda"], 1),
+                          "200", "--device", "cuda"], 1),
+    ("nn --kill-active", ["nn", "--kill-active", "--duration", "3",
+                          "--device", "cuda"], 1),
     ("churn", ["churn", "--device", "cuda"], 1),
 )
 
@@ -4959,23 +5083,39 @@ def run(args) -> int:
     records = seal_kernel_phase(corpora, dev, errs, seal_timing)
     print_timing(seal_timing)
     timing.update(seal_timing)
-    sp = seal_main_path(corpora, records)
-    ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
-    torch.cuda.empty_cache()
-    sc = scheme_phase(args, dev, cdc, errs, timing)
-    torch.cuda.empty_cache()
+    with child_pool() as pool:
+        sp = seal_main_path(corpora, records, pool)
+        ms = mesh_phase(args, dev, cdc, corpora, errs, timing)
+        torch.cuda.empty_cache()
+        sc = scheme_phase(args, dev, cdc, errs, timing)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bad = sp.pop("twin").result()
+        print(f"SEAL twin: {len(bad)} of {len(SEAL_SINGLES)} singles, "
+              f"{len(SEAL_BATCHES)} batches and {len(SEAL_PROFILED)} "
+              f"profiled seals differ from the CPU engine's streams "
+              f"(waited {time.perf_counter() - t0:.1f}s)", flush=True)
+    check(not bad, f"card streams != CPU engine streams: {bad}")
     datanode_phase(args)
     with DnCommandLog():
         nm = namenode_phase(args, after_demotion=planes_scrub)
-    cl = client_phase(args)
-    sw = planes_sweep(args, dev)
-    pc = planes_cluster(args)
-    scrub_s = nm["after_demotion"]["seconds"]
-    print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}s "
-          f"(scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
-          f"{pc['seconds']:.1f})", flush=True)
-    res = resilience_phase(args)
-    bn = bench_phase(dev)
+    # PLANES (b) and (d) run on a cluster of their own in a child
+    # process, beside CLIENT here
+    with child_pool() as pool:
+        pc = pool.submit(planes_cluster_child, args)
+        cl = client_phase(args)
+        pc = pc.result()
+    # RESILIENCE's clusters, worker and scheme in a child process, beside
+    # the sweep and BENCH here
+    with child_pool() as pool:
+        res = pool.submit(resilience_child, args)
+        sw = planes_sweep(args, dev)
+        scrub_s = nm["after_demotion"]["seconds"]
+        print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}"
+              f"s (scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
+              f"{pc['seconds']:.1f})", flush=True)
+        bn = bench_phase(dev)
+        res = res.result()
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],

@@ -372,6 +372,12 @@ class NameNode:
         self._stripe_groups: dict[tuple[str, int], dict] = {}
         self._pending_demote: dict[int, float] = {}       # bid -> deadline
         self._pending_stripe_repair: dict[tuple[str, int], float] = {}
+        # blocks whose demotion waits for a placement pool wide enough to
+        # hold no more than m stripes of a group on one DataNode, and the
+        # stripe groups left with fewer than k stripes (no repair can
+        # decode them; rebuilt by every stripe-repair pass)
+        self._demote_deferred: set[int] = set()
+        self._unrecoverable_groups: set[tuple[str, int]] = set()
         # scrub-confirmed corrupt stripes on LIVE holders (rpc_bad_stripe):
         # (owner, cid) -> stripe indices needing re-decode.  The stripe-
         # repair monitor unions these into its dead-holder `missing` set so
@@ -3078,6 +3084,9 @@ class NameNode:
                 "pending_demotions": len(self._pending_demote),
                 "pending_stripe_repairs": len(self._pending_stripe_repair),
                 "stripe_groups": len(self._stripe_groups),
+                "demotions_deferred": len(self._demote_deferred),
+                "stripe_groups_unrecoverable":
+                    len(self._unrecoverable_groups),
                 "striped_containers": striped,
                 "replicated_containers": max(0, sealed - striped),
                 "stripe_logical_bytes": logical,
@@ -4300,14 +4309,19 @@ class NameNode:
                     now + self.config.pending_replication_timeout_s)
                 _M.incr("ec_reconstructions_scheduled")
 
-    def _ec_placement_pool(self, now: float) -> list["DatanodeInfo"]:
+    def _ec_placement_pool(self, now: float,
+                           vetoes: bool = True) -> list["DatanodeInfo"]:
         """Stripe-target pool: live, non-decommissioning DNs minus the
         health report's veto set — slow peers, reduction-degraded nodes,
         and any DN with a flagged slow volume (the health detectors gating
-        cold-tier placement).  Caller holds self._lock."""
-        health = self._health_report()
-        vetoed = set(health["slow_peers"]) | set(health["degraded_nodes"])
-        vetoed |= {v.split(":", 1)[0] for v in health["slow_volumes"]}
+        cold-tier placement); with ``vetoes=False``, every live,
+        non-decommissioning DN.  Caller holds self._lock."""
+        vetoed: set[str] = set()
+        if vetoes:
+            health = self._health_report()
+            vetoed = (set(health["slow_peers"])
+                      | set(health["degraded_nodes"])
+                      | {v.split(":", 1)[0] for v in health["slow_volumes"]})
         pool = [d for d in self._datanodes.values()
                 if now - d.last_heartbeat < self.config.dead_node_interval_s
                 and d.dn_id not in self._decommissioning
@@ -4323,7 +4337,14 @@ class NameNode:
         becomes durable when that DN reports ``stripe_complete`` back —
         until then the block stays fully replicated.  Stripe i lands on
         pool[i % len(pool)], so a cluster smaller than k+m still places
-        every stripe (with spread returning as the cluster grows)."""
+        every stripe (with spread returning as the cluster grows).
+
+        A pool of fewer than ceil((k+m)/m) DataNodes would put more than
+        m stripes of a group on one of them, so that its loss alone
+        leaves fewer than k: the demotion is deferred (the block keeps
+        its full replicas, ``ec_demotions_deferred`` counts it once a
+        spell) until the pool is wide enough.  The reference places them
+        anyway (``hdrf_tpu/server/namenode.py:4341``)."""
         cfg = self.config
         if cfg.ec_demote_after_s <= 0:
             return
@@ -4334,9 +4355,10 @@ class NameNode:
             self._pending_demote = {
                 b: t for b, t in self._pending_demote.items()
                 if t > now or b in self._blocks}
+            self._demote_deferred = {b for b in self._demote_deferred
+                                     if b in self._blocks}
             pool = self._ec_placement_pool(now)
-            if not pool:
-                return
+            wide = len(pool) >= -(-(k + m) // max(m, 1))
             ec_bids = {b for g in self._groups.values() for b in g.bids}
             for info in list(self._blocks.values()):
                 bid = info.block_id
@@ -4356,6 +4378,18 @@ class NameNode:
                 # redundancy is already degraded — re-replicate first
                 if len(live) < node.replication:
                     continue
+                if not wide:
+                    if bid not in self._demote_deferred:
+                        self._demote_deferred.add(bid)
+                        _M.incr("ec_demotions_deferred")
+                        self._logger.warning(
+                            "ec demotion deferred", block_id=bid,
+                            pool=[d.dn_id for d in pool],
+                            left_out=sorted(set(self._datanodes)
+                                            - {d.dn_id for d in pool}),
+                            k=k, m=m)
+                    continue
+                self._demote_deferred.discard(bid)
                 owner = self._datanodes[live[0]]
                 targets = [pool[i % len(pool)] for i in range(k + m)]
                 owner.commands.append({
@@ -4375,17 +4409,25 @@ class NameNode:
         ``ec_demote`` edits journal each group's full manifest: a surviving
         holder is deputized as the repair agent and hands the NN's durable
         manifest copy down with the ``stripe_repair`` command
-        (_schedule_owner_loss_repair)."""
+        (_schedule_owner_loss_repair).
+
+        A group with fewer than k surviving stripes gets no command: no
+        decode can rebuild it.  It is counted in the
+        ``stripe_groups_unrecoverable`` gauge (and ``rpc_ec_status``) and
+        logged once when it becomes so.  The reference re-commands it at
+        every pending timeout (``hdrf_tpu/server/namenode.py:4351``)."""
         with self._lock:
             now = time.monotonic()
             dead_after = self.config.dead_node_interval_s
+            dead: set[tuple[str, int]] = set()
             for (owner_id, cid), grp in list(self._stripe_groups.items()):
                 owner = self._datanodes.get(owner_id)
                 if (owner is None
                         or now - owner.last_heartbeat >= dead_after):
                     # owner (and its WAL manifest) is gone: fall back to
                     # the editlog-durable manifest via a surviving holder
-                    self._schedule_owner_loss_repair(owner_id, cid, grp, now)
+                    self._schedule_owner_loss_repair(owner_id, cid, grp, now,
+                                                     dead)
                     continue
                 missing = []
                 for idx, h in enumerate(grp["holders"]):
@@ -4403,21 +4445,14 @@ class NameNode:
                     self._pending_stripe_repair.pop(key, None)
                     self._corrupt_stripes.pop(key, None)
                     continue
+                if self._lost_group(key, grp["holders"], missing, dead):
+                    continue
                 if self._pending_stripe_repair.get(key, 0.0) > now:
                     continue
-                survivors = {h[0] for i, h in enumerate(grp["holders"])
-                             if i not in missing}
-                base = self._ec_placement_pool(now)
-                # small clusters: if every healthy DN already holds a
-                # surviving stripe, double up on survivors (distinct
-                # (owner,cid,idx) filenames make that safe) rather than
-                # leaving the group degraded forever
-                pool = ([d for d in base if d.dn_id not in survivors]
-                        or base)
-                if not pool:
+                targets = self._repair_targets(key, grp["holders"], missing,
+                                               now)
+                if not targets:
                     continue
-                targets = [pool[i % len(pool)]
-                           for i in range(len(missing))]
                 owner.commands.append({
                     "cmd": "stripe_repair", "cid": cid,
                     "block_id": grp.get("block_id"),
@@ -4440,23 +4475,95 @@ class NameNode:
                 self._schedule_owner_loss_repair(
                     owner_id, cid,
                     {"holders": [list(h) for h in man["holders"]],
-                     "block_id": None}, now)
+                     "block_id": None}, now, dead)
+            self._unrecoverable_groups = dead
+            _M.gauge("stripe_groups_unrecoverable", len(dead))
+
+    def _group_k(self, key: tuple[str, int]) -> int:
+        """k of a stripe group: its journaled manifest's, else the
+        configured policy's."""
+        man = self._stripe_manifests.get(key) or {}
+        return int(man.get("k", self.config.ec_data_shards))
+
+    def _lost_group(self, key: tuple[str, int], holders: list,
+                    missing: list[int], dead: set) -> bool:
+        """True (and ``key`` added to ``dead``) when fewer than k of the
+        group's stripes survive ``missing``; logs the group the first
+        pass it is found so.  Caller holds self._lock."""
+        k = self._group_k(key)
+        left = len(holders) - len(missing)
+        if left >= k:
+            return False
+        if key not in self._unrecoverable_groups:
+            self._logger.warning(
+                "stripe group unrecoverable", owner=key[0], cid=key[1],
+                surviving=left, k=k,
+                lost=sorted({holders[i][0] for i in missing}))
+        dead.add(key)
+        return True
+
+    def _repair_targets(self, key: tuple[str, int], holders: list,
+                        missing: list[int],
+                        now: float) -> list["DatanodeInfo"]:
+        """Targets for a group's ``missing`` stripes.  First the
+        reference's: round-robin over the healthy DataNodes that hold no
+        surviving stripe of the group, or, when every one holds some, over
+        all of them (distinct (owner, cid, idx) filenames make doubling up
+        safe).  Kept whenever it leaves no target above m stripes of the
+        group.  Otherwise the reference's could put m+1 on one survivor,
+        so that its next loss alone leaves fewer than k: where the pool
+        has room for every missing stripe at no more than m a DataNode,
+        each goes to the DataNode holding the fewest stripes of the group
+        (pool order breaks ties), and where it has none, the live
+        DataNodes the health report vetoes join it (a slow DataNode
+        holding a stripe loses nothing; one holding m+1 takes the group
+        with it).  Where no live DataNode gives that room, the reference's
+        stays (counted, ``stripe_repairs_over_m``): against no repair it
+        loses nothing.  Caller holds self._lock."""
+        base = self._ec_placement_pool(now)
+        survivors = {h[0] for i, h in enumerate(holders) if i not in missing}
+        pool = [d for d in base if d.dn_id not in survivors] or base
+        if not pool:
+            return []
+        targets = [pool[i % len(pool)] for i in range(len(missing))]
+        m = len(holders) - self._group_k(key)
+        held: dict[str, int] = {}
+        for i, h in enumerate(holders):
+            if i not in missing:
+                held[h[0]] = held.get(h[0], 0) + 1
+        after = dict(held)
+        for t in targets:
+            after[t.dn_id] = after.get(t.dn_id, 0) + 1
+        if max(after[t.dn_id] for t in targets) <= m:
+            return targets
+        for cand in (base, self._ec_placement_pool(now, vetoes=False)):
+            if sum(max(0, m - held.get(d.dn_id, 0))
+                   for d in cand) >= len(missing):
+                targets = []
+                for _ in missing:
+                    t = min((d for d in cand if held.get(d.dn_id, 0) < m),
+                            key=lambda d: held.get(d.dn_id, 0))
+                    held[t.dn_id] = held.get(t.dn_id, 0) + 1
+                    targets.append(t)
+                return targets
+        _M.incr("stripe_repairs_over_m")
+        return targets
 
     def _schedule_owner_loss_repair(self, owner_id: str, cid: int,
-                                    grp: dict, now: float) -> None:
+                                    grp: dict, now: float,
+                                    dead: set) -> None:
         """Repair a stripe group whose OWNER (and therefore the WAL-durable
         manifest) is gone: deputize the first surviving holder as the
         repair agent and hand it the NN's journaled manifest copy with the
         ``stripe_repair`` command.  Repaired stripes keep the dead owner's
         name (ec_tier._place owner=), so the group stays addressable; the
         NN's editlog manifest remains the orphan group's durable home.
-        Caller holds self._lock."""
+        A group with fewer than k surviving stripes joins ``dead``
+        (``_lost_group``) and gets no command.  Caller holds self._lock."""
         man = self._stripe_manifests.get((owner_id, cid))
         if man is None:
             return   # pre-durability residual: nothing to repair from
         key = (owner_id, cid)
-        if self._pending_stripe_repair.get(key, 0.0) > now:
-            return
         dead_after = self.config.dead_node_interval_s
         missing, agent = [], None
         for idx, h in enumerate(grp["holders"]):
@@ -4465,18 +4572,16 @@ class NameNode:
                 missing.append(idx)
             elif agent is None:
                 agent = d
-        if agent is None:
-            return   # no surviving holder left to deputize: data loss
+        if self._lost_group(key, grp["holders"], missing, dead):
+            return   # no k stripes left to decode from: data loss
+        if self._pending_stripe_repair.get(key, 0.0) > now:
+            return
         if not missing:
             self._pending_stripe_repair.pop(key, None)
             return   # every stripe survives; group is merely owner-less
-        survivors = {h[0] for i, h in enumerate(grp["holders"])
-                     if i not in missing}
-        base = self._ec_placement_pool(now)
-        pool = [d for d in base if d.dn_id not in survivors] or base
-        if not pool:
+        targets = self._repair_targets(key, grp["holders"], missing, now)
+        if not targets:
             return
-        targets = [pool[i % len(pool)] for i in range(len(missing))]
         agent.commands.append({
             "cmd": "stripe_repair", "cid": cid,
             "block_id": grp.get("block_id"),

@@ -9,14 +9,17 @@ pass is ``chip_smoke.namenode_phase`` at its defaults: the port's
 NameNode at ``NameNodeConfig()`` defaults, four port DataNodes on
 ``cuda:0``, the ``reduce`` corpus in 128 MiB blocks, and its steps (a)
 write and read, (b) NameNode restart, (c) re-replication and excess
-pruning, (d) demotion and stripe repair, (e) metadata ops, each holding
-``DN_FAULTS`` to no change.  ``chip_smoke.DnCommandLog`` prints every
+pruning, (d) demotion and stripe repair (no DataNode above m stripes of
+a group after either, unless a repair had no room), (e) metadata ops,
+each holding ``DN_FAULTS`` to no change.  ``chip_smoke.DnCommandLog`` prints every
 ``replicate``'s outcome, every command that raises and every OSError an
 xceiver op swallows (``NAMENODE log`` lines).
 
 Each pass prints one ``NNRUN`` JSON line: its index, ``ok`` or the
 failure, its seconds, each step's seconds, the re-replication and
-demotion waits, and the command counters of steps (b), (c) and (d).  The last
+demotion waits, the command counters of steps (b), (c) and (d), and
+(d)'s slow peers, lost holder, most stripes of a group on one DataNode
+after the demotion and after the repair, and repairs placed past m.  The last
 lines are one ``NNRUNS`` JSON object (passes, failures, the seconds of
 each step over the passes) and the card's name and power limit.  Exits
 1 if any pass failed, 2 without a card.
@@ -51,6 +54,13 @@ def one_pass(i: int, args) -> dict:
             "commands_b": nm["b"]["commands"],
             "commands_c": nm["c"]["commands"],
             "commands_d": nm["d"]["commands"],
+            "slow_peers": nm["d"]["slow_peers"],
+            "lost_holder": nm["d"]["lost_holder"],
+            "most_stripes_a_datanode": {
+                w: max(max(g.values()) for g in nm["d"][key].values())
+                for w, key in (("demoted", "stripes_demoted"),
+                               ("repaired", "stripes_repaired_to"))},
+            "repairs_over_m": nm["d"]["repairs_over_m"],
             "log_entries": len(log.entries)}
 
 

@@ -333,3 +333,31 @@ def data_files(root: str, skip=("sc.sock",)) -> dict[str, bytes]:
                                 if not ln.startswith(b"ctime="))
             out[os.path.relpath(p, root)] = body
     return out
+
+
+class _OneTick:
+    """A DataNode's ``_stop`` event that lets the calling thread through
+    its heartbeat loop once; every other thread sees the real event."""
+
+    def __init__(self, real: threading.Event) -> None:
+        self.real, self.me, self.waits = real, threading.get_ident(), 0
+
+    def wait(self, timeout=None):
+        if threading.get_ident() != self.me:
+            return self.real.wait(timeout)
+        self.waits += 1
+        return self.waits > 1
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def one_heartbeat(dn) -> None:
+    """One pass of ``dn``'s heartbeat loop in this thread: the heartbeat,
+    every command of its reply, and the periodic full block report."""
+    real = dn._stop
+    dn._stop = _OneTick(real)
+    try:
+        dn._heartbeat_loop()
+    finally:
+        dn._stop = real

@@ -130,7 +130,9 @@ def test_port_tree_is_clean():
     names = port_lint.declared_metrics(PORT_ROOT)
     port_only = {"demotes_already_striped", "emits", "demote_open_sealed",
                  "replicate_source_missing", "replicas_already_held",
-                 "lease_renewals", "lease_renew_failures"}
+                 "lease_renewals", "lease_renew_failures",
+                 "ec_demotions_deferred", "stripe_groups_unrecoverable",
+                 "stripe_repairs_over_m"}
     assert port_only <= set(names)
     assert port_lint.port_only_metrics(os.path.join(REPO, "README.md")) \
         == port_only

@@ -49,8 +49,9 @@ import time
 import numpy as np
 import pytest
 
-from _dn_standin import (StandInNN, guard_reference_stat_race, port_dn,
-                         ref_dn, target, write_block, write_ok)
+from _dn_standin import (StandInNN, guard_reference_stat_race,
+                         one_heartbeat, port_dn, ref_dn, target, write_block,
+                         write_ok)
 
 HOUR = 3600.0
 
@@ -58,34 +59,6 @@ HOUR = 3600.0
 @pytest.fixture(autouse=True)
 def _reference_stat_race(monkeypatch):
     guard_reference_stat_race(monkeypatch)
-
-
-class _OneTick:
-    """A DataNode's ``_stop`` event that lets the calling thread through
-    its heartbeat loop once; every other thread sees the real event."""
-
-    def __init__(self, real: threading.Event) -> None:
-        self.real, self.me, self.waits = real, threading.get_ident(), 0
-
-    def wait(self, timeout=None):
-        if threading.get_ident() != self.me:
-            return self.real.wait(timeout)
-        self.waits += 1
-        return self.waits > 1
-
-    def __getattr__(self, name):
-        return getattr(self.real, name)
-
-
-def one_heartbeat(dn) -> None:
-    """One pass of ``dn``'s heartbeat loop in this thread: the heartbeat,
-    every command of its reply, and the periodic full block report."""
-    real = dn._stop
-    dn._stop = _OneTick(real)
-    try:
-        dn._heartbeat_loop()
-    finally:
-        dn._stop = real
 
 
 def _metrics(pkg: str):
