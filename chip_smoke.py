@@ -161,12 +161,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sealed file gone, the stripes' bytes 1.5x the logical up to padding,
    one report per container, ``rs`` launches > 0 (``EC demote``).  (c)
    Holder p1 loses every stripe (data 1 and 4, parity 7); the caches
-   dropped, blocks 0-1 read whole and at odd ranged offsets,
-   bit-identical, with ``degraded_reads``, ``be_image`` and
-   ``gather_raw`` launches > 0 (``EC read p1_lost``).  (d) Every lost
-   stripe repaired by the coded exchange (partial sums chained through
-   the peers); then the owner's stripes 0, 3 and 6 lost, two blocks read,
-   and repaired by the classic full gather (``ec_coded_repair=False``):
+   dropped, block 0 (random) and the last block (text) read whole and
+   at odd ranged offsets, bit-identical, with ``degraded_reads``,
+   ``be_image`` and ``gather_raw`` launches > 0 and an lz4 container
+   among the sealed files the stripes rebuilt (``EC read p1_lost``).
+   (d) Every lost stripe repaired by the coded exchange (partial sums
+   chained through the peers); then the owner's stripes 0, 3 and 6
+   lost, the same two blocks read, and repaired by the classic full
+   gather (``ec_coded_repair=False``):
    each rebuilt file equals the original and its CRC the manifest's
    (``EC repair coded`` / ``classic``).  (e) The index closed and
    reopened: manifests equal.  (f) ``TIMING rs`` for an encode of a 32
@@ -283,8 +285,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``short_circuit_reads`` does not), ``get_file_checksum`` equal to
    ``native.crc32c`` (``CLIENT write``: client ms a block, MiB/s, the
    duplicate's ms and dedup).  (b) Block 2 as ``/c/d`` (direct): read
-   through the short-circuit fd and with
-   ``ClientConfig(short_circuit=False)``, equal; deleted, its replicas
+   through the short-circuit fd (twice: the second read through the
+   cached fd) and once with ``ClientConfig(short_circuit=False)``, equal
+   (``wire_ms`` is one cold read); deleted, its replicas
    invalidated, the cached fd revoked (a read of the old block through
    the cache returns nothing), re-created with one MiB of other bytes
    and read back (``CLIENT read``).  (c) ``/c/a``'s bytes as ``/c/ec`` with
@@ -315,8 +318,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``bad_block`` and re-replicated, the stripe is decoded back on the
    card, each decode equal to the plain version, and every block reads
    back equal; the NameNode's ``/prom`` and ``/contention`` (``PLANES
-   scrub``).  (b) In a spawned process that runs while CLIENT runs here
-   (``planes_cluster_child``): a port MiniCluster of three DataNodes
+   scrub``).  (b) In a spawned process that runs while CLIENT and the
+   sweep run here (``child_pool``): a port MiniCluster of three DataNodes
    (replication 3, ``cdc_adaptive``, a status port,
    ``provided_mount_root``) with
    ``tpu_worker=True`` and the port's HdrfClient on ``cuda``: fresh
@@ -333,8 +336,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    region under the mount root read back with ``READ_BLOCK`` (``PLANES
    surface``).  Every step holds ``DN_FAULTS``.
 15. RESILIENCE, federation, lazy persist and the crash points on the
-   card, in a spawned process that runs while PLANES (a) and BENCH run
-   here (``resilience_child``).  (a) A port ``MiniCluster`` with two nameservices (two
+   card, in a spawned process that starts when PLANES (b)/(d) end and
+   runs while CLIENT and PLANES (a) run here; BENCH waits for it.  (a)
+   A port ``MiniCluster`` with two nameservices (two
    NameNodes, pools 0 and 1) over three DataNodes (replication 1,
    ``--block-mib`` blocks, 32 MiB containers, 1 s heartbeats) and
    ``tpu_worker=True``: one ``dedup_lz4`` block of the ``reduce`` corpus
@@ -1421,15 +1425,20 @@ def _branch(c0: dict, c1: dict) -> dict:
             if c1.get(k, 0) != c0.get(k, 0)}
 
 
-def child_pool():
-    """One spawned process for work that needs none of this process's
+def child_pool(card: bool = False):
+    """Spawned processes for work that needs none of this process's
     state: a phase on its own cluster, or a CPU oracle, beside the card
-    work here.  Leaving the ``with`` block waits for it."""
+    work here.  The tasks run one at a time, each in a process of its
+    own (its counters its own), on ``cuda:0`` when ``card``.  Leaving
+    the ``with`` block waits for them."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
-        "spawn"))
+    return ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        max_tasks_per_child=1,
+        initializer=torch.cuda.set_device if card else None,
+        initargs=(0,) if card else ())
 
 
 def seal_twin(corpora: dict, reqs: list, outs: list,
@@ -1938,11 +1947,13 @@ def _recon_counts() -> dict:
                                      "chunks_gathered")}
 
 
-def scheme_read_pass(ctx, blocks: list) -> dict:
+def scheme_read_pass(ctx, blocks: list, bids=None) -> dict:
+    """Every block whole, bit-identical; ``bids`` are the blocks' ids
+    (their positions in ``blocks`` by default)."""
     s = ops_scheme.get("dedup_lz4")
     c0 = _recon_counts()
     lat, phases = [], {}
-    for bid, blk in enumerate(blocks):
+    for bid, blk in zip(bids or range(len(blocks)), blocks):
         t0 = time.perf_counter()
         m0 = profiler.mark()
         got = s.reconstruct(bid, b"", blk.size, ctx)
@@ -1958,15 +1969,15 @@ def scheme_read_pass(ctx, blocks: list) -> dict:
             **{k: c1[k] - c0[k] for k in c1}}
 
 
-def scheme_ranged(ctx, blocks: list) -> dict:
+def scheme_ranged(ctx, blocks: list, bids=None) -> dict:
     """Ranged reads at odd offsets, above DEVICE_RECON_MIN (the
     reconstructor) and below it (the read plane); each equals its
-    slice."""
+    slice.  ``bids`` as in ``scheme_read_pass``."""
     from hdrf_tpu_torch.reduction.dedup import DEVICE_RECON_MIN
 
     s = ops_scheme.get("dedup_lz4")
     n_dev = n_plane = 0
-    for bid, blk in enumerate(blocks):
+    for bid, blk in zip(bids or range(len(blocks)), blocks):
         for off, ln in ((12_345 + 7_777 * bid, DEVICE_RECON_MIN + 4_099),
                         (blk.size - DEVICE_RECON_MIN - 3 - bid, -1),
                         (99_999 + bid, 65_537),
@@ -2374,13 +2385,41 @@ def _repair(owner, holder, lost: dict) -> dict:
 
 
 def _degraded_reads(ctx, blocks: list, tag: str) -> dict:
+    """Block 0 (random) and the last block (text, the only one whose
+    containers seal as lz4 frames) read whole and ranged with the caches
+    dropped; the sealed files the stripes rebuilt, by codec, must hold
+    an lz4 one."""
+    from hdrf_tpu_torch.storage import container_store as cs
+    from hdrf_tpu_torch.utils import codec as codecs
+
+    store = ctx.containers
+    fallback, rebuilt = store._stripe_fallback, {}
+
+    def counted(cid):
+        blob = fallback(cid)
+        if blob is not None:
+            name = codecs.CODEC_NAMES[cs._SEAL_HDR.unpack(
+                blob[:cs._SEAL_HDR.size])[2]]
+            rebuilt[name] = rebuilt.get(name, 0) + 1
+        return blob
+
+    bids = [0, len(blocks) - 1]
+    picked = [blocks[b] for b in bids]
     c0 = _ec_counts()
     _drop_caches(ctx)
-    first = scheme_read_pass(ctx, blocks)
-    ranged = scheme_ranged(ctx, blocks)
+    store._stripe_fallback = counted
+    try:
+        first = scheme_read_pass(ctx, picked, bids)
+        ranged = scheme_ranged(ctx, picked, bids)
+    finally:
+        store._stripe_fallback = fallback
     d = _ec_delta(c0)
     check(d["degraded_reads"] > 0, f"EC read {tag}: no degraded read")
-    return {"pass": first, **ranged, "ec": d}
+    check(rebuilt.get("lz4", 0) > 0,
+          f"EC read {tag}: no lz4 container rebuilt from stripes "
+          f"({rebuilt})")
+    return {"blocks": bids, "pass": first, **ranged,
+            "rebuilt_by_codec": rebuilt, "ec": d}
 
 
 def ec_phase(ctx, root: str, blocks: list, extra, errs: dict,
@@ -2458,7 +2497,7 @@ def ec_phase(ctx, root: str, blocks: list, extra, errs: dict,
         # (c) degraded reads: holder p1 lost whole (data 1, 4; parity 7)
         lost1 = _lose(owner, peers[0], P1_SLOTS)
         _zero_launch_counts()
-        r1 = _degraded_reads(ctx, blocks[:2], "p1 lost")
+        r1 = _degraded_reads(ctx, blocks, "p1 lost")
         launches = {**_scheme_launch_counts(), "rs": rs_cuda.launches}
         for kname in ("be_image", "gather_raw"):
             check(launches[kname] > 0,
@@ -2480,7 +2519,7 @@ def ec_phase(ctx, root: str, blocks: list, extra, errs: dict,
         by_call["partial_sums"] = rs_cuda.launches - sum(by_call.values())
         retry.reset_breakers()   # holder p1 is back
         lost2 = _lose(owner, owner, OWNER_SLOTS)
-        r2 = _degraded_reads(ctx, blocks[:2], "owner lost")
+        r2 = _degraded_reads(ctx, blocks, "owner lost")
         print("EC read owner_lost " + json.dumps(r2), flush=True)
         red.ec_coded_repair = False
         try:
@@ -3823,12 +3862,13 @@ def client_phase(args) -> dict:
         sc_ms, wire_ms = [], []
         with HdrfClient(mc.nn_addrs()[0], name="smoke-wire",
                         config=ClientConfig(short_circuit=False)) as wc:
-            for reader, lat in ((c, sc_ms), (wc, wire_ms)):
+            # the second short-circuit read is served by the cached fd
+            for reader, lat in ((c, sc_ms), (wc, wire_ms), (c, sc_ms)):
                 t1 = time.perf_counter()
                 check(reader.read("/c/d") == d_bytes,
                       "CLIENT (b): /c/d != written")
                 lat.append((time.perf_counter() - t1) * 1e3)
-        check(_counter_of("client", "short_circuit_reads") - sc0 == 1,
+        check(_counter_of("client", "short_circuit_reads") - sc0 == 2,
               "CLIENT (b): the reads did not take the short circuit")
         loc = c._call("get_block_locations", path="/c/d")["blocks"][0]
         old = loc["block_id"]
@@ -4217,13 +4257,6 @@ def _wait_until(want, seconds: float) -> None:
     t_end = time.monotonic() + seconds
     while time.monotonic() < t_end and not want():
         time.sleep(0.1)
-
-
-def planes_cluster_child(args) -> dict:
-    """``planes_cluster`` in a ``child_pool`` process: its cluster, its
-    worker process and its client on ``cuda:0``, its counters its own."""
-    torch.cuda.set_device(torch.device("cuda", 0))
-    return planes_cluster(args)
 
 
 def planes_cluster(args) -> dict:
@@ -4771,13 +4804,6 @@ def resilience_scheme(args, corpus, root) -> dict:
             "chunks": len(after[1]), "launches": launches}
 
 
-def resilience_child(args) -> dict:
-    """``resilience_phase`` in a ``child_pool`` process: its launch
-    counts (the worker's and (c)'s in-process ones) are its own."""
-    torch.cuda.set_device(torch.device("cuda", 0))
-    return resilience_phase(args)
-
-
 def resilience_phase(args) -> dict:
     """RESILIENCE: federation, lazy persist and the crash points on the
     card; (a) and (b) share one worker process."""
@@ -5099,23 +5125,25 @@ def run(args) -> int:
     datanode_phase(args)
     with DnCommandLog():
         nm = namenode_phase(args, after_demotion=planes_scrub)
-    # PLANES (b) and (d) run on a cluster of their own in a child
-    # process, beside CLIENT here
-    with child_pool() as pool:
-        pc = pool.submit(planes_cluster_child, args)
+    # PLANES (b)/(d), then RESILIENCE, each on clusters of its own in a
+    # child process, beside CLIENT and the sweep here; BENCH runs alone
+    print("CLIENT and the PLANES sweep run beside PLANES (b)/(d) and then "
+          "RESILIENCE in a child process: their times are taken under "
+          "that load", flush=True)
+    with child_pool(card=True) as pool:
+        pc = pool.submit(planes_cluster, args)
+        res = pool.submit(resilience_phase, args)
         cl = client_phase(args)
-        pc = pc.result()
-    # RESILIENCE's clusters, worker and scheme in a child process, beside
-    # the sweep and BENCH here
-    with child_pool() as pool:
-        res = pool.submit(resilience_child, args)
         sw = planes_sweep(args, dev)
-        scrub_s = nm["after_demotion"]["seconds"]
-        print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}"
-              f"s (scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
-              f"{pc['seconds']:.1f})", flush=True)
-        bn = bench_phase(dev)
-        res = res.result()
+        t0 = time.perf_counter()
+        pc, res = pc.result(), res.result()
+        print(f"waited {time.perf_counter() - t0:.1f}s for the child "
+              f"process's phases", flush=True)
+    scrub_s = nm["after_demotion"]["seconds"]
+    print(f"PLANES done in {scrub_s + sw['seconds'] + pc['seconds']:.1f}"
+          f"s (scrub {scrub_s:.1f}, sweep {sw['seconds']:.1f}, cluster "
+          f"{pc['seconds']:.1f})", flush=True)
+    bn = bench_phase(dev)
     warmup_probe(t_start)
     launches = {**mp["launches"], **sp["launches"],
                 "shard_scan": ms["reduce"]["launches"]["shard_scan"],
